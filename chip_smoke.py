@@ -12,14 +12,23 @@ imports no jax.  Phases, any failure of which exits non-zero:
      past the split bound; open / dense / sparse gates; 3 carried blocks);
   4. EqThree kernel vs its twin (S = 8,192, 44,100 and one past the split
      bound; 3 carried blocks);
-  5. the main path: the flagship 16-module graph written to a .mixlab file
-     and rendered by ``mixlab_tpu_torch.render_cli`` for 10 s at its
-     defaults (44.1 kHz, 60-tick blocks, cuda); both kernels must launch
-     there; the audio is held against the float64 oracle (first 2 s) and
-     the port's own CPU render (all 10 s);
-  6. timing, for information: each kernel vs its twin at S = 44,100, the
-     render of 60 s of audio as a realtime factor (5 runs), and a profile
-     of 5 render blocks.
+  5. region kernel vs its twin on the card, launch by launch on the same
+     inputs: the flagship at 48 kHz in blocks of 48,000 samples (one part)
+     and of 240,000 (two parts), and the sink zoo with StreamInput feeds,
+     each over 3 carried blocks; and the region program vs the regular one;
+  6. the main paths, each with the launch counts set to 0 just before and
+     read just after: the flagship 16-module graph written to a .mixlab
+     file and rendered by ``mixlab_tpu_torch.render_cli`` for 10 s (a) at
+     its defaults (44.1 kHz, 60-tick blocks, cuda: the envelope and eq
+     kernels must launch) and (b) at ``--sample-rate 48000`` (the region
+     kernel once per block, the envelope kernel in the prelude); the audio
+     is held against the float64 oracle (first 2 s) and the port's own CPU
+     render (all 10 s);
+  7. timing, for information: each kernel vs its twin at the main path's
+     shapes (and the region kernel on one part of a two-part block), the
+     region program vs the regular one per 48 kHz block, the
+     render of 60 s of audio as a realtime factor at both rates, and a
+     profile of 5 render blocks at each.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -41,7 +50,11 @@ ENV_ATOL = 2e-5          # tests/test_envelope_pallas.py
 EQ_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_eq_pallas.py:110
 ORACLE_ATOL = 3e-3       # tests/test_whole_graph_oracle.py:55
 CPU_RENDER_ATOL = 1e-4
+REGION_ATOL = 2e-5       # tests/test_pallas_graph.py:85
 MS_PER_SAMPLE = 1000.0 / 44_100
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def log(*args):
@@ -139,6 +152,150 @@ def check_eq(torch, np, dev):
 
 
 # --------------------------------------------------------------------------
+# region kernel vs twin
+
+
+def sink_zoo():
+    """tests/test_pallas_graph.py:_sink_zoo, built with the port: an
+    eq-seeded graph with every sink kind and a StreamInput feed."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.graph import Workspace
+    from mixlab_tpu_torch.protocol import InputId, OutputId
+
+    ws = Workspace()
+
+    def add(kind, params):
+        return ws.create_module(p.ModuleParams(kind, params))
+
+    osc = add("Oscillator", p.OscillatorParams(220.0, p.Waveform.SAW))
+    si = add("StreamInput", p.StreamInputParams())
+    eq = add("EqThree", p.EqThreeParams(p.Decibel(3.0), p.Decibel(-2.0), p.Decibel(1.0)))
+    mix = add("Mixer", p.MixerParams.with_channels(2))
+    out = add("OutputDevice", None)
+    plot = add("Plotter", None)
+    so = add("StreamOutput", p.StreamOutputParams())
+    pan = add("StereoPanner", None)
+    for i, o in ((InputId(eq, 0), OutputId(osc, 0)), (InputId(mix, 0), OutputId(si, 1)),
+                 (InputId(pan, 0), OutputId(eq, 0)), (InputId(pan, 1), OutputId(eq, 0)),
+                 (InputId(mix, 1), OutputId(pan, 0)), (InputId(out, 0), OutputId(mix, 0)),
+                 (InputId(plot, 0), OutputId(mix, 0)), (InputId(so, 1), OutputId(mix, 1))):
+        ws.connect(i, o)
+    return ws, si
+
+
+class HoldRegion:
+    """Inside ``with``: every launch of the region kernel is followed by its
+    twin on the same inputs (plan, operands, params, state), and the
+    outputs (taps, scalar taps, exits) are compared.  The twin's result is
+    dropped, so the kernel's exits carry on to the next part and block."""
+
+    def __init__(self, torch, atol=REGION_ATOL):
+        self.torch, self.atol = torch, atol
+        self.worst, self.launches, self.captured = 0.0, 0, []
+
+    def __enter__(self):
+        from mixlab_tpu_torch.engine import region_cuda
+
+        self.mod, self.kernel = region_cuda, region_cuda.region_part_cuda
+
+        def both(plan, operands, pf, sf, S):
+            got = self.kernel(plan, operands, pf, sf, S)
+            want = region_cuda.region_part_torch(plan, operands, pf, sf, S)
+            self.torch.cuda.synchronize()
+            for name, g, w in zip(("taps", "stap", "ef"), got, want):
+                err = (g - w).abs().max().item() if g.numel() else 0.0
+                if not err <= self.atol:
+                    raise AssertionError(f"region kernel vs twin ({name}, S={S}): "
+                                         f"max abs err {err} > {self.atol}")
+                self.worst = max(self.worst, err)
+            self.launches += 1
+            self.captured.append((plan, list(operands), pf, sf, S))
+            return got
+
+        # the wrapper counts into whatever the module's name points at: these
+        # launches go to ``both.launches``, not to the main path's count
+        both.launches = self.kernel.launches
+        region_cuda.region_part_cuda = both
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.region_part_cuda = self.kernel
+
+
+def _run_blocks(patch, ws, n_blocks, feeds=None):
+    aux, state = patch.prepare_aux(ws), patch.init_state(ws)
+    spb = patch.block.n_samples(patch.cfg)
+    per_block = []
+    for i in range(n_blocks):
+        state, taps = patch.run(aux, patch.host_aux(i * spb, (feeds or {}).get(i)), state)
+        per_block.append(taps)
+    return state, per_block
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, tree
+
+
+def _tree_err(a, b, what):
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        raise AssertionError(f"{what}: tree structure differs")
+    worst = 0.0
+    for (k, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what} {k}: {x.dtype} {tuple(x.shape)} vs "
+                                 f"{y.dtype} {tuple(y.shape)}")
+        worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
+
+
+def check_region(torch, np, dev):
+    """Region kernel vs twin (every launch, 3 carried blocks per graph) and
+    the region program vs the regular one on the card."""
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+
+    cfg = EngineConfig(sample_rate=48_000)
+    zoo, si = sink_zoo()
+    rng = np.random.default_rng(7)
+    zoo_feeds = {i: {str(si.value): {"pcm": rng.integers(
+        -32768, 32767, (2, 48_000)).astype(np.int16)}} for i in range(3)}
+    worst = 0.0
+    for name, ws, ticks, feeds, parts in (
+        ("flagship", build_16_module_graph()[0], 60, None, 1),
+        ("flagship", build_16_module_graph()[0], 300, None, 2),
+        ("sink zoo", zoo, 60, zoo_feeds, 1),
+    ):
+        block = BlockSpec(ticks)
+        pm = compile_patch(ws, cfg, block, dev)
+        if not pm._mega:
+            raise AssertionError(f"{name}: the region program did not engage")
+        with HoldRegion(torch) as hold:
+            sm, tm = _run_blocks(pm, ws, 3, feeds)
+        if hold.launches != 3 * parts:
+            raise AssertionError(f"{name}: {hold.launches} region launches, want {3 * parts}")
+        pr = compile_patch(ws, cfg, block, dev, mega=False)
+        sr, tr = _run_blocks(pr, ws, 3, feeds)
+        prog_err = max(_tree_err(sm, sr, "state"),
+                       *(_tree_err(a, b, "taps") for a, b in zip(tm, tr)))
+        if not prog_err <= REGION_ATOL:
+            raise AssertionError(f"{name}: region vs regular program err {prog_err}")
+        worst = max(worst, hold.worst)
+        log(f"region kernel vs twin, {name}, S={block.n_samples(cfg)} ({parts} part(s)/block), "
+            f"3 blocks: max abs err {hold.worst:.3e}; region vs regular program "
+            f"{prog_err:.3e} (atol {REGION_ATOL})")
+    return worst
+
+
+# --------------------------------------------------------------------------
 # main path
 
 
@@ -163,35 +320,40 @@ def oracle_flagship(n: int, sr: int):
     return master
 
 
-def main_path(torch, np, tmp: Path):
+def main_path(torch, np, proj: Path, tmp: Path, sample_rate: int):
+    """``render_cli`` for 10 s at ``sample_rate`` on the card, with the launch
+    counts set to 0 just before and read just after."""
     import wave
 
     from mixlab_tpu_torch import render_cli
     from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
     from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
-    from mixlab_tpu_torch.engine.project import ProjectBase
-    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
 
-    ws, _ = build_16_module_graph()
-    proj = tmp / "flagship.mixlab"
-    with ProjectBase(proj) as base:
-        base.write_workspace(ws.to_persist())
-
-    out_wav = tmp / "flagship.wav"
-    envelope_block_cuda.launches = 0
-    eq_cascade_cuda.launches = 0
+    counters = {"envelope": envelope_block_cuda, "eq_cascade": eq_cascade_cuda,
+                "region": region_part_cuda}
+    out_wav = tmp / f"flagship_{sample_rate}.wav"
+    for fn in counters.values():
+        fn.launches = 0
     t = time.perf_counter()
-    audio = render_cli.main([str(proj), str(out_wav), "--seconds", "10"])
+    audio = render_cli.main([str(proj), str(out_wav), "--seconds", "10",
+                             "--sample-rate", str(sample_rate)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = {"envelope": envelope_block_cuda.launches,
-                "eq_cascade": eq_cascade_cuda.launches}
-    log(f"main path: render_cli 10 s on cuda in {wall:.3f} s, launches {launches}")
-    for name, n in launches.items():
-        if n < 10:
-            raise AssertionError(f"main path launched the {name} kernel {n} times (< 10)")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"main path {sample_rate} Hz: render_cli 10 s on cuda in {wall:.3f} s, "
+        f"launches {launches}")
+    if sample_rate % 128 == 0:  # 60-tick blocks are whole chunks: the region
+        want = {"envelope": (10, None), "region": (10, 10)}
+    else:
+        want = {"envelope": (10, None), "eq_cascade": (10, None)}
+    for name, (lo, hi) in want.items():
+        n = launches[name]
+        if n < lo or (hi is not None and n != hi):
+            raise AssertionError(f"main path {sample_rate} Hz launched the {name} kernel "
+                                 f"{n} times (want {'exactly ' if hi else '>= '}{lo})")
 
-    sr = 44_100
+    sr = sample_rate
     if audio.shape != (10 * sr, 2) or not np.isfinite(audio).all():
         raise AssertionError(f"render output {audio.shape}, finite={np.isfinite(audio).all()}")
     with wave.open(str(out_wav), "rb") as w:
@@ -203,23 +365,23 @@ def main_path(torch, np, tmp: Path):
     if not pcm_err <= 2.0 / 32767:
         raise AssertionError(f"wav samples disagree with the returned audio: {pcm_err}")
 
-    want = oracle_flagship(2 * sr, sr)
-    err_oracle = float(np.abs(audio[:2 * sr] - want).max())
-    log(f"main path vs float64 oracle (first 2 s): max abs err {err_oracle:.3e} "
+    want_audio = oracle_flagship(2 * sr, sr)
+    err_oracle = float(np.abs(audio[:2 * sr] - want_audio).max())
+    log(f"main path {sr} Hz vs float64 oracle (first 2 s): max abs err {err_oracle:.3e} "
         f"(atol {ORACLE_ATOL})")
     if not err_oracle <= ORACLE_ATOL:
         raise AssertionError("render disagrees with the oracle")
     if not np.abs(audio).max() > 0.5:
         raise AssertionError("render is near silent")
 
-    cpu_audio = render_cli.main([str(proj), str(tmp / "cpu.wav"), "--seconds", "10",
-                                 "--device", "cpu"])
+    cpu_audio = render_cli.main([str(proj), str(tmp / f"cpu_{sr}.wav"), "--seconds", "10",
+                                 "--sample-rate", str(sr), "--device", "cpu"])
     err_cpu = float(np.abs(audio - cpu_audio).max())
-    log(f"main path cuda vs cpu render (10 s): max abs err {err_cpu:.3e} "
+    log(f"main path {sr} Hz cuda vs cpu render (10 s): max abs err {err_cpu:.3e} "
         f"(atol {CPU_RENDER_ATOL})")
     if not err_cpu <= CPU_RENDER_ATOL:
         raise AssertionError("cuda render disagrees with the cpu render")
-    return launches, proj
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -240,11 +402,50 @@ def time_ms(torch, fn, n=200, warmup=20):
     return start.elapsed_time(end) / n
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def eq_flops(S: int) -> int:
+    """The EqThree recurrence's work, not that of the kernels' Toeplitz form
+    (64x more): per stage and band y = a*y + b and the next drive f*y (3,
+    8 stage-bands), the first drive f*x + vsa (2 per band), the band mix (5)."""
+    return (8 * 3 + 2 * 2 + 5) * S
+
+
+def region_work(plan, operands, S: int):
+    """(bytes, flops) of one part: every distinct operand read once, the
+    taps written once, the scalar rows; the elementwise ops per sample and
+    the eq's recurrence."""
+    from mixlab_tpu_torch.dsp import base
+
+    nbytes = sum(v.numel() * v.element_size() for v in operands)
+    nbytes += 4 * (plan.n_taps * S + plan.n_stap + plan.n_pf + plan.n_consts + 2 * plan.n_ef)
+    per_sample = {base.OP_AMP: 1, base.OP_AMP_MOD: 4, base.OP_I16: 1, base.OP_PEAK: 3}
+    flops = 0
+    for code, a in plan.ops():
+        if code == base.OP_MIX:
+            flops += 2 * a[1] * S
+        elif code == base.OP_EQ:
+            flops += eq_flops(S)
+        else:
+            flops += per_sample.get(code, 0) * S
+    return nbytes, flops
+
+
 def timing(torch, np, dev, card, proj: Path):
     from mixlab_tpu_torch.dsp import envelope_cuda as envc
     from mixlab_tpu_torch.dsp import eq_cuda as eqc
     from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
-    from mixlab_tpu_torch.render_cli import render_project
+    from mixlab_tpu_torch.engine import region_cuda
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.engine.graph import Workspace
+    from mixlab_tpu_torch.engine.project import ProjectBase
+    from mixlab_tpu_torch.engine.scan_render import scan_blocks
 
     S = 44_100
     x = torch.ones(S, device=dev)  # the flagship's gate
@@ -260,59 +461,123 @@ def timing(torch, np, dev, card, proj: Path):
     gains = torch.tensor([1.5849, 1.0, 1.5849], device=dev)
     f_lo, f_hi = _filter_coeff(FREQ_LO, 44_100), _filter_coeff(FREQ_HI, 44_100)
 
+    # one 48 kHz flagship block's region launch, captured from the program
+    with ProjectBase(proj) as base:
+        ws = Workspace.from_persist(base.read_workspace())
+    cfg48 = EngineConfig(sample_rate=48_000)
+    patches = {mega: compile_patch(ws, cfg48, BlockSpec(60), dev, mega=mega)
+               for mega in (True, False)}
+    with HoldRegion(torch) as hold:
+        _run_blocks(patches[True], ws, 1)
+    plan, operands, pf, sf, S48 = hold.captured[0]
+    # and the first part of a 300-tick block (two parts per block)
+    with HoldRegion(torch) as hold:
+        _run_blocks(compile_patch(ws, cfg48, BlockSpec(300), dev), ws, 1)
+    plan2, operands2, pf2, sf2, S2 = hold.captured[0]
+
     res = {}
     # plain, kernel, kernel, plain: the order spreads drift over both
-    for name, kern, plain in (
-        ("envelope", lambda: envc.envelope_block_cuda(x, st, prm, MS_PER_SAMPLE),
-         lambda: envc.envelope_block_torch(x, st, prm, MS_PER_SAMPLE)),
-        ("eq_cascade", lambda: eqc.eq_cascade_cuda(xe, xd, poles, gains, f_lo, f_hi, VSA),
-         lambda: eqc.eq_cascade_torch(xe, xd, poles, gains, f_lo, f_hi, VSA)),
+    for name, shape, kern, plain, work in (
+        ("envelope", f"S={S}", lambda: envc.envelope_block_cuda(x, st, prm, MS_PER_SAMPLE),
+         lambda: envc.envelope_block_torch(x, st, prm, MS_PER_SAMPLE),
+         (8 * S + 4 * 4 + 2 * 13, 12 * S)),
+        ("eq_cascade", f"S={S}",
+         lambda: eqc.eq_cascade_cuda(xe, xd, poles, gains, f_lo, f_hi, VSA),
+         lambda: eqc.eq_cascade_torch(xe, xd, poles, gains, f_lo, f_hi, VSA),
+         (12 * S + 4 * (8 + 8 + 3), eq_flops(S))),
+        ("region", f"flagship 48 kHz block, S={S48}",
+         lambda: region_cuda.region_part_cuda(plan, operands, pf, sf, S48),
+         lambda: region_cuda.region_part_torch(plan, operands, pf, sf, S48),
+         region_work(plan, operands, S48)),
+        ("region_part_of_2", f"first part of a 300-tick 48 kHz block, S={S2}",
+         lambda: region_cuda.region_part_cuda(plan2, operands2, pf2, sf2, S2),
+         lambda: region_cuda.region_part_torch(plan2, operands2, pf2, sf2, S2),
+         region_work(plan2, operands2, S2)),
     ):
         p1 = time_ms(torch, plain)
         k1 = time_ms(torch, kern)
         k2 = time_ms(torch, kern)
         p2 = time_ms(torch, plain)
-        res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-        log(f"timing {name} at S={S} [{card}]: kernel {k1:.4f}/{k2:.4f} ms, "
-            f"plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 calls)")
+        b_ms, b_by = bound(*work)
+        res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "bound_ms": b_ms, "bound_by": b_by}
+        log(f"timing {name} at {shape} [{card}]: kernel {k1:.4f}/{k2:.4f} ms, "
+            f"plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 calls); "
+            f"bound {b_ms * 1e3:.3f} us by {b_by} ({work[0]} B, {work[1]} flop)")
 
-    # render of 60 s of audio (3600 ticks, 60 blocks) at the CLI's defaults,
-    # project read included
-    render_project(str(proj), 2.0, 44_100, 60, dev)  # warm up
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(5):
-        t = time.perf_counter()
-        render_project(str(proj), 60.0, 44_100, 60, dev)
+    # one whole 48 kHz block: the region program vs the regular program
+    blk = {}
+    for mega in (False, True, True, False):
+        patch = patches[mega]
+        aux, state = patch.prepare_aux(ws), patch.init_state(ws)
+        host = patch.host_aux(0)
+        blk.setdefault(mega, []).append(
+            time_ms(torch, lambda: patch.run(aux, host, state), n=50, warmup=5))
+    log(f"timing one 48 kHz flagship block [{card}]: region program "
+        f"{blk[True][0]:.4f}/{blk[True][1]:.4f} ms, regular program (mega=False) "
+        f"{blk[False][0]:.4f}/{blk[False][1]:.4f} ms per block (CUDA events, 50 blocks)")
+    res["block_48k"] = blk
+
+    # 60 s of audio (60 blocks) at each rate; at 48 kHz with and without
+    # the region, in turns
+    def render_60s(sr, mega):
+        patch = compile_patch(ws, EngineConfig(sample_rate=sr), BlockSpec(60), dev, mega=mega)
+        aux, state = patch.prepare_aux(ws), patch.init_state(ws)
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    log(f"timing render 60 s of audio [{card}]: wall {[round(w, 4) for w in walls]} s, "
-        f"realtime factor {[round(60.0 / w, 1) for w in walls]} x")
+        t = time.perf_counter()
+        scan_blocks(patch, aux, state, 0, 60)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
 
-    # one render block under the profiler: device busy time and top kernels
+    for sr, mega in ((44_100, None), (48_000, None), (48_000, False)):
+        render_60s(sr, mega)  # warm-up
+    walls = {}
+    for _ in range(3):
+        for key in ((44_100, None), (48_000, None), (48_000, False), (48_000, False),
+                    (48_000, None)):
+            walls.setdefault(key, []).append(render_60s(*key))
+    for (sr, mega), w in walls.items():
+        label = {None: "default", False: "mega=False"}[mega]
+        log(f"timing render 60 s of audio at {sr} Hz ({label}) [{card}]: wall "
+            f"{[round(x, 4) for x in w]} s, realtime factor {[round(60.0 / x, 1) for x in w]} x")
+
+    for sr in (44_100, 48_000):
+        profile_blocks(torch, ws, dev, card, sr)
+    return res
+
+
+def profile_blocks(torch, ws, dev, card, sr):
+    """Five render blocks under the profiler: device busy time, top kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.engine.scan_render import scan_blocks
+
+    patch = compile_patch(ws, EngineConfig(sample_rate=sr), BlockSpec(60), dev)
+    aux, state = patch.prepare_aux(ws), patch.init_state(ws)
+    scan_blocks(patch, aux, state, 0, 1)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        render_project(str(proj), 5.0, 44_100, 60, dev)
+        scan_blocks(patch, aux, state, 0, 5)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # device-side entries only (kernels, copies): the host ops that
     # launched them report the same time again
-    from torch.autograd import DeviceType
-
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us > 0:
-        log(f"profile 5 render blocks [{card}]: wall {wall * 1e3:.2f} ms, device busy "
-            f"{busy_us / 1e3:.3f} ms ({100 * busy_us / (wall * 1e6):.1f}% of wall), "
+        log(f"profile 5 render blocks at {sr} Hz (region {patch._mega}) [{card}]: wall "
+            f"{wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms "
+            f"({100 * busy_us / (wall * 1e6):.1f}% of wall), "
             f"{sum(e.count for e in events)} kernels and copies")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     else:
         log("profile: no device time recorded (not measured)")
-    return res
 
 
 # --------------------------------------------------------------------------
@@ -331,6 +596,8 @@ def main() -> int:
 
     from mixlab_tpu_torch import kernels
     from mixlab_tpu_torch.device import resolve_device
+    from mixlab_tpu_torch.engine.project import ProjectBase
+    from mixlab_tpu_torch.flagship import build_16_module_graph
 
     card = card_line()
     log(card)
@@ -347,27 +614,38 @@ def main() -> int:
     build_log = kernels.library_path().with_suffix(".log")
     if build_log.exists():
         for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas:", line.strip())
 
-    env_err = check_envelope(torch, np, dev)
-    eq_err = check_eq(torch, np, dev)
+    errs = {"envelope": check_envelope(torch, np, dev), "eq_cascade": check_eq(torch, np, dev),
+            "region": check_region(torch, np, dev)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, proj = main_path(torch, np, Path(tmp))
+        tmp = Path(tmp)
+        proj = tmp / "flagship.mixlab"
+        with ProjectBase(proj) as base:
+            base.write_workspace(build_16_module_graph()[0].to_persist())
+        paths = {sr: main_path(torch, np, proj, tmp, sr) for sr in (44_100, 48_000)}
         times = timing(torch, np, dev, card, proj)
 
+    # each kernel's launches on the main path that carries it
+    launches = {"envelope": paths[44_100]["envelope"], "eq_cascade": paths[44_100]["eq_cascade"],
+                "region": paths[48_000]["region"]}
+    rows = (("envelope", "envelope_block", "mixlab_tpu_torch/csrc/envelope.cu",
+             "mixlab_tpu/dsp/envelope_pallas.py:347"),
+            ("eq_cascade", "eq_cascade", "mixlab_tpu_torch/csrc/eq_cascade.cu",
+             "mixlab_tpu/dsp/eq_pallas.py:261"),
+            ("region", "region_part", "mixlab_tpu_torch/csrc/region.cu",
+             "mixlab_tpu/engine/pallas_graph.py:377"))
     kernels_line = {"kernels": [
-        {"name": "envelope_block", "route": "cuda",
-         "source": "mixlab_tpu_torch/csrc/envelope.cu",
-         "replaces": "mixlab_tpu/dsp/envelope_pallas.py:347",
-         "launches": launches["envelope"], "max_abs_err": env_err,
-         "ms": times["envelope"]["ms"], "plain_ms": times["envelope"]["plain_ms"]},
-        {"name": "eq_cascade", "route": "cuda",
-         "source": "mixlab_tpu_torch/csrc/eq_cascade.cu",
-         "replaces": "mixlab_tpu/dsp/eq_pallas.py:261",
-         "launches": launches["eq_cascade"], "max_abs_err": eq_err,
-         "ms": times["eq_cascade"]["ms"], "plain_ms": times["eq_cascade"]["plain_ms"]},
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[key], "max_abs_err": errs[key],
+         "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+         "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
+         "library_ms": None,
+         "launches_by_path": {str(sr): paths[sr][key] for sr in paths}}
+        for key, name, source, replaces in rows
     ]}
+    log(card)
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

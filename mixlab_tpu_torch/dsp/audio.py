@@ -14,6 +14,11 @@ oscillators keep its precision scheme: the host computes the phase at each
 tick start in float64 (numpy, ``host_prepare``) and the device only adds the
 small in-tick ramp ``i * delta``, so precision does not degrade with
 absolute time.
+
+Amplifier, Mixer, StereoPanner, StereoSplitter and Trigger also run inside
+the region program (``mega_spec``, ``mixlab_tpu/dsp/audio.py:223-370``);
+Oscillator and FmSine have no spec on purpose, as in the JAX package: their
+phase math stays outside the region, whose operands they produce.
 """
 
 from __future__ import annotations
@@ -21,8 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
-from mixlab_tpu.protocol import (
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch.protocol import (
     AmplifierParams,
     FmSineParams,
     GateState,
@@ -31,7 +36,16 @@ from mixlab_tpu.protocol import (
     OscillatorParams,
     Waveform,
 )
-from mixlab_tpu_torch.dsp.base import ModuleDef, expect_mono, expect_stereo
+from mixlab_tpu_torch.dsp.base import (
+    OP_AMP,
+    OP_AMP_MOD,
+    OP_FILL,
+    OP_MIX,
+    MegaSpec,
+    ModuleDef,
+    expect_mono,
+    expect_stereo,
+)
 
 _TWO_PI = 2.0 * np.pi
 
@@ -171,6 +185,24 @@ class AmplifierDef(ModuleDef):
             scale = (1.0 - md + md * inputs[1]) * aux["amplitude"]
         return state, [(l * scale, r * scale)], {}
 
+    def mega_spec(self, params, cfg, block, connected):
+        def emit(ctx, ins):
+            l, r = ctx.expect_stereo(ins[0])
+            amp, md = ctx.pf
+
+            def scaled(src):
+                if ins[1] is None:
+                    return ctx.op(OP_AMP, src, amp)
+                return ctx.op(OP_AMP_MOD, src, ins[1], amp, md)
+
+            lo = scaled(l)
+            return [(lo, lo if r == l else scaled(r))], {}
+
+        return MegaSpec(
+            emit=emit,
+            param_scalars=lambda aux, h: ([aux["amplitude"], aux["mod_depth"]], []),
+        )
+
 
 class MixerDef(ModuleDef):
     kind = "Mixer"
@@ -207,6 +239,30 @@ class MixerDef(ModuleDef):
 
         return state, [mix(aux["gains"]), mix(aux["cues"])], {}
 
+    def mega_spec(self, params, cfg, block, connected):
+        n = len(params.channels)
+
+        def emit(ctx, ins):
+            if n == 0:
+                z = ctx.zeros()
+                return [(z, z), (z, z)], {}
+            chans = [ctx.expect_stereo(x) for x in ins]
+            lefts = [ch[0] for ch in chans]
+            rights = [ch[1] for ch in chans]
+
+            def mix(w):
+                lo = ctx.op(OP_MIX, n, *lefts, *w)
+                return (lo, lo if rights == lefts else ctx.op(OP_MIX, n, *rights, *w))
+
+            # an output nothing reads is not computed (the JAX emit's zeros)
+            return [mix(ctx.pf[:n]) if ctx.used[0] else None,
+                    mix(ctx.pf[n:]) if ctx.used[1] else None], {}
+
+        return MegaSpec(
+            emit=emit,
+            param_scalars=lambda aux, h: ([aux["gains"], aux["cues"]], []),
+        )
+
 
 class StereoPannerDef(ModuleDef):
     kind = "StereoPanner"
@@ -223,6 +279,10 @@ class StereoPannerDef(ModuleDef):
         right = expect_mono(inputs[1], S, device)
         return state, [(left, right)], {}  # channel routing = tuple plumbing
 
+    def mega_spec(self, params, cfg, block, connected):
+        return MegaSpec(emit=lambda ctx, ins: (
+            [(ctx.expect_mono(ins[0]), ctx.expect_mono(ins[1]))], {}))
+
 
 class StereoSplitterDef(ModuleDef):
     kind = "StereoSplitter"
@@ -236,6 +296,9 @@ class StereoSplitterDef(ModuleDef):
     def run_block(self, params, aux, host_aux, state, inputs, cfg, block, device):
         l, r = expect_stereo(inputs[0], block.n_samples(cfg), device)
         return state, [l, r], {}  # no device work
+
+    def mega_spec(self, params, cfg, block, connected):
+        return MegaSpec(emit=lambda ctx, ins: (list(ctx.expect_stereo(ins[0])), {}))
 
 
 class TriggerDef(ModuleDef):
@@ -252,3 +315,9 @@ class TriggerDef(ModuleDef):
         # contiguous input
         S = block.n_samples(cfg)
         return state, [aux["value"].expand(S).contiguous()], {}
+
+    def mega_spec(self, params, cfg, block, connected):
+        return MegaSpec(
+            emit=lambda ctx, ins: ([ctx.op(OP_FILL, ctx.pf[0])], {}),
+            param_scalars=lambda aux, h: ([aux["value"]], []),
+        )

@@ -22,21 +22,208 @@ Stereo stays the channel-major pair of the JAX package: channel routing
 (panner, splitter, an oscillator's L == R) is tuple plumbing with no device
 work, and stereo taps cross to the host as ``[2, ...]`` channel-major data.
 
-``MegaSpec`` / ``EmitCtx`` (the whole-graph region kernel's contract) are
-not ported yet: that kernel is the next item of the roadmap.
+The whole-graph region program (:mod:`mixlab_tpu_torch.engine.region_graph`)
+runs part of a graph as ONE kernel launch per part.  A module takes part in
+it through a :class:`MegaSpec` (the counterpart of the JAX package's
+``MegaSpec`` / ``EmitCtx``, ``mixlab_tpu/dsp/base.py:62-151``).  Where the
+JAX emit produces traced values inside a Pallas kernel, the port's emit
+appends ops to a :class:`RegionPlan`: a flat op list over buffer slots.  The
+same plan is executed by the CUDA kernel (``csrc/region.cu``) and by its
+plain twin (``engine/region_cuda.py:region_part_torch``), so the CPU tests
+check the plan as well as the math.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
-from mixlab_tpu.protocol import Terminal
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch.protocol import Terminal
 
 Pytree = Any
+
+# ---------------------------------------------------------------------------
+# the region plan: op codes (the kernel's ``enum Op``, csrc/region.cu)
+# ---------------------------------------------------------------------------
+#
+# Every op is ``[code, length, args...]`` in one int32 stream.  Slot ids name
+# [S_part] buffers: the first ``n_operands`` are the part's operands (f32,
+# or i16 for StreamInput), the rest f32 scratch.  ``p`` ids index the f32
+# parameter row (the param scalars, then the plan's constants), ``sf`` the
+# state row and ``ef`` the exit row.  Elementwise ops round as the JAX emit
+# does, in its order.
+OP_SYNC = 0      # []                          grid-wide barrier
+OP_FILL = 1      # [dst, p]                    dst = 0 + pf[p]
+OP_AMP = 2       # [dst, src, p_amp]           dst = src * amp
+OP_AMP_MOD = 3   # [dst, src, mod, p_amp, p_md]
+#                  dst = src * (((1 - md) + md * mod) * amp)
+OP_MIX = 4       # [dst, n, src_0.., p_0..]    dst = ((0 + w0*s0) + w1*s1) + ...
+OP_I16 = 5       # [dst, src]                  dst = f32(src_i16) * 2^-15
+OP_TAP = 6       # [tap, src]                  taps[tap] = src
+OP_PEAK = 7      # [stap, l, r]                stap[stap] = max(max|l|, max|r|)
+OP_EQ = 8        # [dst, x, z_lo, z_hi, zl, sf, p_gains, p_tab, ef, sample_rate]
+#                  EqThree over the part: the 3-sample delay from
+#                  sf[sf+8..sf+10], both 4-pole cascades from the poles
+#                  sf[sf..sf+7] (stage-major), the band mix with gains
+#                  pf[p_gains..+2]; exits ef[ef..ef+7] = the poles at the
+#                  part's last sample, ef[ef+8..ef+10] = its last 3 inputs.
+#                  z_lo, z_hi, zl are scratch slots; pf[p_tab..] holds
+#                  ``eq_cuda.kernel_tables`` then f_lo, f_hi, vsa.
+OP_NAMES = ("SYNC", "FILL", "AMP", "AMP_MOD", "MIX", "I16", "TAP", "PEAK", "EQ")
+
+
+class RegionPlan:
+    """A region's op list over buffer slots, built by the modules' ``emit``.
+
+    ``n_operands`` slots are the operands; ``new_slot`` hands out f32 scratch
+    slots after them.  The ``n_pf`` param scalars come first in the
+    parameter row; ``const`` appends constants after them."""
+
+    def __init__(self, n_operands: int, n_pf: int, n_ef: int):
+        self.words: List[int] = []
+        self.n_operands = n_operands
+        self.n_slots = n_operands
+        self.n_pf = n_pf
+        self.n_ef = n_ef
+        self.consts: List[np.ndarray] = []
+        self.n_consts = 0
+        self.n_taps = 0
+        self.n_stap = 0
+        self._zero: Optional[int] = None
+        self._synced = False
+
+    def new_slot(self) -> int:
+        self.n_slots += 1
+        return self.n_slots - 1
+
+    def add(self, code: int, *args: int) -> None:
+        # the barriers are the plan's business, not the modules': an EQ's
+        # delay reads the previous chunk (another CTA's), and the kernel
+        # zeroes the scalar taps before its first barrier
+        if code == OP_EQ or (code == OP_PEAK and not self._synced):
+            self.add(OP_SYNC)
+        self._synced |= code == OP_SYNC
+        self.words += [code, 2 + len(args), *(int(a) for a in args)]
+
+    def const(self, values) -> int:
+        """Append f32 constants; returns the parameter index of the first."""
+        arr = np.asarray(values, np.float32).reshape(-1)
+        ix = self.n_pf + self.n_consts
+        self.consts.append(arr)
+        self.n_consts += arr.size
+        return ix
+
+    def zero_slot(self) -> int:
+        """One shared all-zeros slot (what an unconnected input reads)."""
+        if self._zero is None:
+            self._zero = self.new_slot()
+            self.add(OP_FILL, self._zero, self.const([0.0]))
+        return self._zero
+
+    def const_row(self) -> np.ndarray:
+        if not self.consts:
+            return np.zeros(0, np.float32)
+        return np.concatenate(self.consts)
+
+    def ops(self):
+        """Yields ``(code, args)`` in order."""
+        pc = 0
+        while pc < len(self.words):
+            code, n = self.words[pc], self.words[pc + 1]
+            yield code, self.words[pc + 2:pc + n]
+            pc += n
+
+
+@dataclass
+class Peak:
+    """A scalar tap: ``max(max |l|, max |r|)`` over the block (scalar taps
+    combine across parts with max; NaN wins, as ``jnp.max`` gives it)."""
+
+    l: int
+    r: int
+
+
+class EmitCtx:
+    """Per-module view of the plan handed to :meth:`MegaSpec.emit`.
+
+    ``pf`` / ``sf`` / ``ef`` are the absolute indices of the module's param
+    scalars, state scalars and exits; ``operands`` maps the module's operand
+    names to slots; ``used`` says per output terminal whether anything reads
+    it."""
+
+    def __init__(self, plan: RegionPlan, cfg: EngineConfig, block: BlockSpec,
+                 pf: List[int], sf: List[int], ef: List[int],
+                 operands: Dict[str, int], used: Tuple[bool, ...]):
+        self.plan = plan
+        self.cfg = cfg
+        self.block = block
+        self.pf = pf
+        self.sf = sf
+        self.ef = ef
+        self.operands = operands
+        self.used = used
+
+    def zeros(self) -> int:
+        return self.plan.zero_slot()
+
+    def expect_mono(self, x: Optional[int]) -> int:
+        return self.zeros() if x is None else x
+
+    def expect_stereo(self, x: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+        if x is None:
+            z = self.zeros()
+            return (z, z)
+        return x
+
+    def op(self, code: int, *args: int) -> int:
+        """Append ``code`` writing a new slot (its first argument); returns
+        that slot."""
+        dst = self.plan.new_slot()
+        self.plan.add(code, dst, *args)
+        return dst
+
+
+@dataclass
+class MegaSpec:
+    """How one module takes part in the whole-graph region program.
+
+    Fields:
+      emit(ctx, ins) -> (outs, taps)
+          Appends the module's ops to ``ctx.plan``.  ``ins[i]`` is a slot,
+          an ``(L, R)`` pair of slots, or None (unconnected: zero semantics
+          via ``ctx.expect_*``).  ``outs`` mirrors ``run_block``'s outputs
+          with slots; ``taps`` maps declared tap names to a pair of slots,
+          a slot, or a :class:`Peak` (scalar tap).
+      declare: {"taps": [(name, chans)], "exit_f": n, "exit_i": n}
+          ``chans`` 2 = stereo pair, 1 = mono, 0 = scalar.  LAYOUT LAW: the
+          module's exits are its state scalars, element for element — part
+          N's exit row is part N+1's state row.
+      param_scalars(aux, host_aux) -> (f32 items, i32 items)
+          Part-invariant scalars (0-d or 1-d tensors, flattened in order).
+      state_scalars(state) -> (f32 items, i32 items)
+          The carried state flattened (layout == exits).
+      operands(aux, host_aux) -> {name: [S] tensor}
+          Per-sample arrays the region reads (external feeds).  Any dtype.
+      unpack(f_exits, i_exits, old_state) -> new state
+          The last part's exits -> the module's state.
+      tap_post(taps) -> taps
+          Fix-up after the taps are reassembled to ``[T, spt]`` (the output
+          device's peak -> its clip bool).
+    """
+
+    emit: Callable
+    declare: Dict[str, Any] = field(
+        default_factory=lambda: {"taps": [], "exit_f": 0, "exit_i": 0}
+    )
+    param_scalars: Callable = lambda aux, host_aux: ([], [])
+    state_scalars: Callable = lambda state: ([], [])
+    operands: Callable = lambda aux, host_aux: {}
+    unpack: Callable = lambda f, i, old: old
+    tap_post: Optional[Callable] = None
 
 
 class ModuleDef:
@@ -82,6 +269,16 @@ class ModuleDef:
         (or a cycle back-edge): ``expect_mono`` / ``expect_stereo`` below
         give it the reference's zero-buffer semantics."""
         raise NotImplementedError
+
+    def mega_spec(
+        self, params, cfg: EngineConfig, block: BlockSpec,
+        connected: Sequence[bool],
+    ) -> Optional[MegaSpec]:
+        """How this module runs inside the region program, or None if it
+        can only run through ``run_block`` (a region reaching it then keeps
+        the regular program).  ``connected[i]`` says whether input i is
+        wired."""
+        return None
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from mixlab_tpu.engine.config import EngineConfig
-from mixlab_tpu.protocol import EnvelopeParams, LineType
+from mixlab_tpu_torch.engine.config import EngineConfig
+from mixlab_tpu_torch.protocol import EnvelopeParams, LineType
 from mixlab_tpu_torch.dsp.base import ModuleDef, expect_mono
 from mixlab_tpu_torch.dsp.envelope_cuda import (
     POS_FLOOR,

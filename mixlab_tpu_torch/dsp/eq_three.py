@@ -18,18 +18,29 @@ products plus a carry scan over the chunks, as the JAX package's plain path
 (``_linrec_blocked``) computes them.  State: 8 poles ``[4, 2]`` (stage, band)
 and the 3-sample delay history.  Products stay IEEE f32 (the JAX package
 uses ``Precision.HIGHEST``); on a card, TF32 must be off for ``torch.matmul``.
+
+Inside the region program (``mega_spec``, the counterpart of
+``eq_three.py:208-227`` and ``eq_pallas.make_mega_emit``) the whole module
+is one ``OP_EQ``: delay, cascades and band mix over the part, with the
+poles and the delay history as the part's state scalars and exits.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from mixlab_tpu.engine.config import EngineConfig
-from mixlab_tpu.protocol import EqThreeParams, LineType
-from mixlab_tpu_torch.dsp.base import ModuleDef, expect_mono
-from mixlab_tpu_torch.dsp.eq_cuda import PALLAS_THRESHOLD, eq_cascade_cuda, eq_cascade_torch
+from mixlab_tpu_torch.engine.config import EngineConfig
+from mixlab_tpu_torch.protocol import EqThreeParams, LineType
+from mixlab_tpu_torch.dsp.base import OP_EQ, MegaSpec, ModuleDef, expect_mono
+from mixlab_tpu_torch.dsp.eq_cuda import (
+    PALLAS_THRESHOLD,
+    eq_cascade_cuda,
+    eq_cascade_torch,
+    kernel_tables,
+)
 
 FREQ_LO = 420.0  # eq_three.rs:8
 FREQ_HI = 2700.0  # eq_three.rs:9
@@ -73,3 +84,26 @@ class EqThreeDef(ModuleDef):
         run = eq_cascade_cuda if S >= PALLAS_THRESHOLD else eq_cascade_torch
         out, poles_out = run(x, xd, state["poles"], aux["gains"], f_lo, f_hi, VSA)
         return {"poles": poles_out, "hist": new_hist}, [out], {}
+
+    def mega_spec(self, params, cfg, block, connected):
+        f_lo = _filter_coeff(FREQ_LO, cfg.sample_rate)
+        f_hi = _filter_coeff(FREQ_HI, cfg.sample_rate)
+        tables = np.concatenate([kernel_tables(1.0 - f_lo, 1.0 - f_hi),
+                                 np.array([f_lo, f_hi, VSA], np.float32)])
+
+        def emit(ctx, ins):
+            x = ctx.expect_mono(ins[0])
+            scratch = [ctx.plan.new_slot() for _ in range(3)]  # z_lo, z_hi, zl
+            out = ctx.op(OP_EQ, x, *scratch, ctx.sf[0], ctx.pf[0],
+                         ctx.plan.const(tables), ctx.ef[0], cfg.sample_rate)
+            return [out], {}
+
+        # state scalars and exits: 8 poles (stage-major), then the 3
+        # delay-history samples (oldest first)
+        return MegaSpec(
+            emit=emit,
+            declare={"taps": [], "exit_f": 11, "exit_i": 0},
+            param_scalars=lambda aux, h: ([aux["gains"]], []),
+            state_scalars=lambda st: ([st["poles"].reshape(-1), st["hist"]], []),
+            unpack=lambda f, i, old: {"poles": f[:8].reshape(4, 2), "hist": f[8:11]},
+        )

@@ -1,9 +1,9 @@
 """Module registry: kind tag -> ModuleDef singleton
 (port of ``mixlab_tpu/dsp/registry.py``).
 
-Holds the ten kinds of the offline render slice.  Every other kind the JAX
-package knows raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+Holds every audio kind of the JAX package.  ``VideoMixer``, the one kind
+not ported yet, raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
@@ -22,7 +22,14 @@ from mixlab_tpu_torch.dsp.audio import (
 from mixlab_tpu_torch.dsp.base import ModuleDef
 from mixlab_tpu_torch.dsp.envelope import EnvelopeDef
 from mixlab_tpu_torch.dsp.eq_three import EqThreeDef
-from mixlab_tpu_torch.dsp.sinks import MonitorDef
+from mixlab_tpu_torch.dsp.sinks import (
+    MediaSourceDef,
+    MonitorDef,
+    OutputDeviceDef,
+    PlotterDef,
+    StreamInputDef,
+    StreamOutputDef,
+)
 
 _REGISTRY: Dict[str, ModuleDef] = {
     d.kind: d
@@ -31,22 +38,22 @@ _REGISTRY: Dict[str, ModuleDef] = {
         EnvelopeDef(),
         EqThreeDef(),
         FmSineDef(),
+        MediaSourceDef(),
         MixerDef(),
         MonitorDef(),
         OscillatorDef(),
+        OutputDeviceDef(),
+        PlotterDef(),
         StereoPannerDef(),
         StereoSplitterDef(),
+        StreamInputDef(),
+        StreamOutputDef(),
         TriggerDef(),
     )
 }
 
 # kinds of the JAX package not ported yet -> the ROADMAP.md item that ports them
 NOT_PORTED = {
-    "MediaSource": "queue 1 item 3 (sinks and feeds)",
-    "OutputDevice": "queue 1 item 3 (sinks and feeds)",
-    "Plotter": "queue 1 item 3 (sinks and feeds)",
-    "StreamInput": "queue 1 item 3 (sinks and feeds)",
-    "StreamOutput": "queue 1 item 3 (sinks and feeds)",
     "VideoMixer": "queue 1 item 9 (video path)",
 }
 

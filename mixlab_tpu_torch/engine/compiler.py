@@ -1,10 +1,9 @@
 """Graph compiler: workspace patch -> one block program
-(port of the regular program of ``mixlab_tpu/engine/compiler.py:158-189``).
+(port of ``mixlab_tpu/engine/compiler.py``).
 
 The patch is frozen once per render into a ``CompiledPatch`` whose
-``run(aux, host_aux, state)`` calls every module's ``run_block`` in run
-order.  PyTorch runs eagerly, so there is no jit and nothing to recompile:
-a param edit only swaps ``aux``.
+``run(aux, host_aux, state)`` renders one block.  PyTorch runs eagerly, so
+there is no jit and nothing to recompile: a param edit only swaps ``aux``.
 
 Reference semantics preserved:
   * run order = terminal-module DFS (engine.rs:408-457)
@@ -16,22 +15,26 @@ Reference semantics preserved:
     is an exact Python int on the host and reaches the device only through
     per-module ``host_prepare`` arrays
 
-The whole-graph region kernel (``mixlab_tpu/engine/pallas_graph.py``) is not
-ported yet: ``mega=True`` raises ``NotImplementedError``.
+Two programs, as in the JAX package: the regular one calls every module's
+``run_block`` in run order; the region program
+(:mod:`mixlab_tpu_torch.engine.region_graph`) runs the EqThree and
+everything downstream of it as one kernel launch per part.  ``mega=None``
+takes the region program where the graph and block qualify, ``mega=True``
+requires it (``ValueError`` otherwise), ``mega=False`` keeps the regular one.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
-from mixlab_tpu.protocol import InputId, LineType, ModuleId, OutputId
 from mixlab_tpu_torch.dsp.registry import get_def
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import ModuleEntry, Workspace
+from mixlab_tpu_torch.protocol import InputId, LineType, ModuleId, OutputId
 
 
 def _mid_key(mid: ModuleId) -> str:
@@ -56,6 +59,9 @@ class CompiledPatch:
     order: List[ModuleId]
     entries: Dict[ModuleId, ModuleEntry]
     connections: Dict[InputId, OutputId]
+    _fn: Callable  # (aux, host_aux (numpy), state) -> (state, taps)
+    _ext_specs: Dict[str, Dict[str, Tuple[tuple, Any]]]
+    _mega: bool  # the region program was chosen
 
     # -- per-edit / per-block data ----------------------------------------
 
@@ -73,44 +79,70 @@ class CompiledPatch:
             for mid in self.order
         }
 
-    def host_aux(self, t0: int) -> Dict[str, Optional[Dict[str, np.ndarray]]]:
+    def host_aux(
+        self, t0: int, ext_feeds: Optional[Dict[str, Dict[str, np.ndarray]]] = None
+    ) -> Dict[str, Optional[Dict[str, np.ndarray]]]:
         """Per-block host-prepared numpy arrays for the block starting at
-        absolute sample ``t0``, keyed by module id key."""
-        return {
-            _mid_key(mid): get_def(e.params.kind).host_prepare(
-                e.params.params, t0, self.block, self.cfg)
-            for mid, e in self.entries.items()
-        }
+        absolute sample ``t0``, keyed by module id key.  ``ext_feeds``
+        carries host-originated audio (StreamInput / MediaSource PCM) keyed
+        by module id key; missing feeds are zero-filled."""
+        out = {}
+        for mid, e in self.entries.items():
+            k = _mid_key(mid)
+            h = get_def(e.params.kind).host_prepare(
+                e.params.params, t0, self.block, self.cfg) or {}
+            feeds = (ext_feeds or {}).get(k, {})
+            for name, (shape, dtype) in self._ext_specs.get(k, {}).items():
+                arr = feeds.get(name)
+                h = {**h, name: np.zeros(shape, dtype) if arr is None else arr}
+            out[k] = h or None
+        return out
 
     # -- the program ------------------------------------------------------
 
     def run(self, aux, host_aux, state):
         """Render one block: ``(aux, host_aux (numpy), state) -> (state',
         taps)``; taps map module id key -> tap name -> tensor(s)."""
-        buffers: Dict[OutputId, Any] = {}
-        new_state = {}
-        taps = {}
-        for mid in self.order:
-            entry = self.entries[mid]
-            k = _mid_key(mid)
-            ins: List[Optional[Any]] = []
-            for i, term in enumerate(entry.inputs):
-                if term.line_type == LineType.VIDEO:
-                    ins.append(None)  # video flows through the host video engine
-                    continue
-                out_id = self.connections.get(InputId(mid, i))
-                ins.append(buffers.get(out_id) if out_id is not None else None)
-            st, outs, tp = get_def(entry.params.kind).run_block(
-                entry.params.params, aux[k], upload(host_aux[k], self.device),
-                state[k], ins, self.cfg, self.block, self.device,
-            )
-            new_state[k] = st
-            if tp:
-                taps[k] = tp
-            for i, buf in enumerate(outs):
-                if buf is not None:
-                    buffers[OutputId(mid, i)] = buf
+        return self._fn(aux, host_aux, state)
+
+
+def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, device):
+    """``run_block`` of each module of ``mids`` in order; an input reads the
+    buffer an earlier module of ``mids`` wrote, else None (unconnected, or
+    a cycle's back-edge: zeros).  ``dev_aux`` is ``host_aux`` uploaded.
+    Returns ``(buffers, new_state, taps)``."""
+    buffers: Dict[OutputId, Any] = {}
+    new_state = {}
+    taps = {}
+    for mid in mids:
+        entry = entries[mid]
+        k = _mid_key(mid)
+        ins: List[Optional[Any]] = []
+        for i, term in enumerate(entry.inputs):
+            if term.line_type == LineType.VIDEO:
+                ins.append(None)  # video flows through the host video engine
+                continue
+            out_id = connections.get(InputId(mid, i))
+            ins.append(buffers.get(out_id) if out_id is not None else None)
+        st, outs, tp = get_def(entry.params.kind).run_block(
+            entry.params.params, aux[k], dev_aux[k], state[k], ins, cfg, block, device)
+        new_state[k] = st
+        if tp:
+            taps[k] = tp
+        for i, buf in enumerate(outs):
+            if buf is not None:
+                buffers[OutputId(mid, i)] = buf
+    return buffers, new_state, taps
+
+
+def _regular_program(order, entries, connections, cfg, block, device):
+    def program(aux, host_aux, state):
+        dev_aux = {k: upload(h, device) for k, h in host_aux.items()}
+        _, new_state, taps = run_modules(order, entries, connections, aux, dev_aux,
+                                         state, cfg, block, device)
         return new_state, taps
+
+    return program
 
 
 def compile_patch(
@@ -120,11 +152,6 @@ def compile_patch(
     device: torch.device,
     mega: Optional[bool] = None,
 ) -> CompiledPatch:
-    if mega:
-        raise NotImplementedError(
-            "the whole-graph region kernel (mixlab_tpu/engine/pallas_graph.py) "
-            "is not ported yet: ROADMAP.md queue 2 item 3"
-        )
     order = ws.run_order()
     # freeze structure (entries are copied: a later edit of ws does not
     # change this program)
@@ -133,11 +160,31 @@ def compile_patch(
                          list(ws.modules[mid].outputs))
         for mid in order
     }
+    connections = dict(ws.connections)
+    ext_specs = {}
+    for mid, e in entries.items():
+        d = get_def(e.params.kind)
+        if hasattr(d, "ext_spec"):
+            spec = d.ext_spec(e.params.params, cfg, block)
+            if spec:
+                ext_specs[_mid_key(mid)] = spec
+
+    fn = None
+    if mega is not False:
+        from mixlab_tpu_torch.engine.region_graph import build_mega_program
+
+        fn = build_mega_program(ws, cfg, block, device)
+        if fn is None and mega is True:
+            raise ValueError("region program requested but the graph / block "
+                             "does not qualify")
     return CompiledPatch(
         cfg=cfg,
         block=block,
         device=device,
         order=order,
         entries=entries,
-        connections=dict(ws.connections),
+        connections=connections,
+        _fn=fn or _regular_program(order, entries, connections, cfg, block, device),
+        _ext_specs=ext_specs,
+        _mega=fn is not None,
     )

@@ -16,7 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from mixlab_tpu.protocol import (
+from mixlab_tpu_torch.protocol import (
     InputId,
     LineType,
     ModuleId,

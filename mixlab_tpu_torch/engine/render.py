@@ -12,9 +12,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch.device import resolve_device
 from mixlab_tpu_torch.dsp.base import interleave_tap
 from mixlab_tpu_torch.engine.compiler import compile_patch
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 
 
@@ -43,10 +44,12 @@ def render(
     block_ticks: int = 60,
     t0: int = 0,
     collect: bool = True,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[torch.device] = None,
 ) -> RenderResult:
-    """Render ``n_ticks`` ticks offline on ``device``; a short tail block
-    renders with its own block size."""
+    """Render ``n_ticks`` ticks offline on ``device`` (the card unless the
+    CPU is asked for by name); a short tail block renders with its own block
+    size."""
+    device = resolve_device("cuda") if device is None else device
     block = BlockSpec(min(block_ticks, n_ticks))
     patch = compile_patch(ws, cfg, block, device)
     aux = patch.prepare_aux(ws)

@@ -11,10 +11,13 @@ tensors).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch.device import resolve_device
 from mixlab_tpu_torch.engine.compiler import CompiledPatch, compile_patch
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 
 
@@ -46,10 +49,12 @@ def render_scanned(
     cfg: EngineConfig = EngineConfig(),
     block_ticks: int = 60,
     t0: int = 0,
-    device: torch.device = torch.device("cpu"),
+    device: Optional[torch.device] = None,
 ):
-    """Offline render on ``device``; returns ``(patch, (state, taps))`` with
-    taps carrying a leading ``[n_blocks]`` axis."""
+    """Offline render on ``device`` (the card unless the CPU is asked for by
+    name); returns ``(patch, (state, taps))`` with taps carrying a leading
+    ``[n_blocks]`` axis."""
+    device = resolve_device("cuda") if device is None else device
     if n_ticks <= 0 or n_ticks % block_ticks != 0:
         raise ValueError(f"n_ticks {n_ticks} must be a positive multiple of "
                          f"block_ticks {block_ticks}")

@@ -8,8 +8,8 @@ oscillator/amplifier chains + fm_sine -> splitter -> eq_three -> panner ->
 
 from __future__ import annotations
 
-from mixlab_tpu import protocol as p
-from mixlab_tpu.protocol import InputId, OutputId
+from mixlab_tpu_torch import protocol as p
+from mixlab_tpu_torch.protocol import InputId, OutputId
 from mixlab_tpu_torch.engine.graph import Workspace
 
 

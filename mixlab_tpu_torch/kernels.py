@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
-built at first use into ``mixlab_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the sources and flags, so
-a changed source is rebuilt and a fresh checkout builds on its own.  A
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library is built at first
+use into ``mixlab_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+name that carries a hash of the sources and flags, so a changed source is
+rebuilt and a fresh checkout builds on its own.  A
 missing ``nvcc`` or a failed build raises; nothing falls back to the plain
 PyTorch versions.
 
@@ -27,9 +28,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # no contraction of a*b + c into one FMA unless the source says fmaf:
     # each operation rounds as the plain PyTorch twins' separate ops do, so
     # the envelope matches its twin bit for bit on the flagship's gate
@@ -54,6 +56,11 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # x, xd, S, poles0, gains, tables
         _c_float, _c_float, _c_float,                    # f_lo, f_hi, vsa
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # scratch, out, poles_out, stream
+    ],
+    "mixlab_region_part": [
+        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # ops, n_words, slots, pf, sf
+        _c_ptr, _c_ptr, _c_int, _c_ptr,          # taps, stap, n_stap, ef
+        _c_int, _c_ptr,                          # S, stream
     ],
 }
 
@@ -87,22 +94,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/`` unless a library for the current sources exists.
-    The compiler's messages (``-Xptxas -v``) go to ``<library>.log``."""
+    """Compile ``csrc/`` unless a library for the current sources exists:
+    one ``nvcc -c`` per source in parallel, then one link.  The compiler's
+    messages (``-Xptxas -v``) go to ``<library>.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = find_nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        results = [(c, p.communicate(timeout=900)[0], p.returncode)
+                   for c, p in zip(cmds, procs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if all(rc == 0 for _, _, rc in results):
+        link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=300)
+        results.append((link, proc.stdout + proc.stderr, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(f"$ {' '.join(c)}\n{out}rc={rc}\n" for c, out, rc in results)
     path.with_suffix(".log").write_text(
-        log + f"\nrc={proc.returncode} seconds={time.perf_counter() - t:.2f}\n")
-    if proc.returncode != 0:
+        log + f"seconds={time.perf_counter() - t:.2f}\n")
+    if any(rc != 0 for _, _, rc in results):  # a failed compile skips the link
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 

@@ -7,8 +7,13 @@ module offline on ``--device`` (``cuda`` by default; ``cpu`` only when
 asked for).  The output format follows the extension:
 
   * ``.wav``  — 16-bit PCM.
-  * ``.flac`` — the same render, written losslessly via the pure FLAC
-    encoder (``mixlab_tpu/av/flacenc.py``).
+  * ``.flac`` — the same render, written losslessly by the port's pure FLAC
+    encoder (``av/flacenc.py``).
+
+``--sample-rate 48000`` renders 60-tick blocks of 48,000 samples, a whole
+number of 128-sample chunks, so ``compile_patch`` engages the whole-graph
+region kernel there, as the JAX package does; the CLI's 44.1 kHz default
+runs the regular program.
 
 ``.mp4`` export drives the realtime engine, which is not ported yet.
 """
@@ -24,8 +29,8 @@ def render_project(project: str, seconds: float, sample_rate: int,
                    block_ticks: int, device):
     """Render the project's first Monitor; returns ``(cfg, audio)`` with
     audio a float32 ``[frames, 2]`` array."""
-    from mixlab_tpu.engine.config import EngineConfig
     from mixlab_tpu_torch.dsp.base import interleave_tap
+    from mixlab_tpu_torch.engine.config import EngineConfig
     from mixlab_tpu_torch.engine.graph import Workspace
     from mixlab_tpu_torch.engine.project import ProjectBase
     from mixlab_tpu_torch.engine.scan_render import render_scanned
@@ -55,19 +60,18 @@ def render_project(project: str, seconds: float, sample_rate: int,
 
 def write_audio(path: str, sample_rate: int, audio: np.ndarray) -> None:
     if path.lower().endswith(".flac"):
-        from mixlab_tpu.av.flacenc import PureFlacStream
-        from mixlab_tpu.native import pcm_f32_to_i16
+        from mixlab_tpu_torch.av.flacenc import FlacEncoder
+        from mixlab_tpu_torch.io_host.wav import pcm_f32_to_i16
 
-        st = PureFlacStream(sample_rate, 2, block_size=4096)
-        st.feed(pcm_f32_to_i16(audio))
+        block = 4096  # the last frame may be shorter (spec-legal)
+        enc = FlacEncoder(sample_rate, 2, block_size=block)
+        pcm = pcm_f32_to_i16(audio)
         with open(path, "wb") as f:
-            f.write(st._enc.stream_header())
-            for frame in st.poll_frames():
-                f.write(frame)
-            if len(st._buf):  # final partial block (spec-legal short last)
-                f.write(st._enc.encode_frame(st._buf))
+            f.write(enc.stream_header())
+            for i in range(0, len(pcm), block):
+                f.write(enc.encode_frame(pcm[i:i + block]))
     else:
-        from mixlab_tpu.io_host.wav import write_wav
+        from mixlab_tpu_torch.io_host.wav import write_wav
 
         write_wav(path, sample_rate, audio)
 

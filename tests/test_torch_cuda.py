@@ -102,3 +102,66 @@ def test_launch_counters_count_launches(dev):
                         torch.ones(3, device=dev), 0.1, 0.2, 0.0)
     assert envc.envelope_block_cuda.launches == n_env + 2
     assert eqc.eq_cascade_cuda.launches == n_eq + 2
+
+
+REGION_CASES = [("flagship", 60, 1), ("flagship", 300, 2), ("flagship", 152, 1),
+                ("sink_zoo", 60, 1)]
+
+
+@pytest.mark.parametrize("graph,ticks,parts", REGION_CASES,
+                         ids=[f"{g}-{t}" for g, t, _ in REGION_CASES])
+def test_region_kernel_matches_twin(dev, graph, ticks, parts):
+    """Every launch of the region program, 3 carried blocks at 48 kHz, held
+    against the twin on the same inputs (chip_smoke.HoldRegion raises past
+    2e-5); then the whole program against the regular one."""
+    import chip_smoke
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+
+    cfg = EngineConfig(sample_rate=48_000)
+    feeds = None
+    if graph == "flagship":
+        ws = build_16_module_graph()[0]
+    else:
+        ws, si = chip_smoke.sink_zoo()
+        rng = np.random.default_rng(7)
+        feeds = {i: {str(si.value): {"pcm": rng.integers(
+            -32768, 32767, (2, ticks * 800)).astype(np.int16)}} for i in range(3)}
+    pm = compile_patch(ws, cfg, BlockSpec(ticks), dev)
+    assert pm._mega
+    with chip_smoke.HoldRegion(torch) as hold:
+        sm, tm = chip_smoke._run_blocks(pm, ws, 3, feeds)
+    assert hold.launches == 3 * parts and hold.worst <= chip_smoke.REGION_ATOL
+    sr, tr = chip_smoke._run_blocks(compile_patch(ws, cfg, BlockSpec(ticks), dev, mega=False),
+                                    ws, 3, feeds)
+    assert chip_smoke._tree_err(sm, sr, "state") <= chip_smoke.REGION_ATOL
+    for a, b in zip(tm, tr):
+        assert chip_smoke._tree_err(a, b, "taps") <= chip_smoke.REGION_ATOL
+
+
+def _region_case(dev):
+    """A one-op plan (a tap of the first operand) and its inputs."""
+    from mixlab_tpu_torch.dsp.base import OP_TAP, RegionPlan
+
+    plan = RegionPlan(n_operands=1, n_pf=0, n_ef=0)
+    plan.add(OP_TAP, 0, 0)
+    plan.n_taps = 1
+    x = torch.arange(4096, dtype=torch.float32, device=dev)
+    return plan, x, torch.zeros(0, device=dev), torch.zeros(0, device=dev)
+
+
+def test_region_wrapper_rejects_bad_tensors_and_counts_launches(dev):
+    from mixlab_tpu_torch.engine import region_cuda
+
+    plan, x, pf, sf = _region_case(dev)
+    n = region_cuda.region_part_cuda.launches
+    taps, _, _ = region_cuda.region_part_cuda(plan, [x], pf, sf, 4096)
+    torch.cuda.synchronize()
+    assert torch.equal(taps[0], x) and region_cuda.region_part_cuda.launches == n + 1
+    for bad in ([x.double()], [x.cpu()], [x[::2]], [x[:4000]]):
+        with pytest.raises(ValueError):
+            region_cuda.region_part_cuda(plan, bad, pf, sf, 4096)
+    with pytest.raises(ValueError):
+        region_cuda.region_part_cuda(plan, [x[:4000]], pf, sf, 4000)  # not whole chunks
+    assert region_cuda.region_part_cuda.launches == n + 1

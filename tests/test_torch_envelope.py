@@ -11,12 +11,15 @@ from mixlab_tpu import protocol as p
 from mixlab_tpu.dsp.envelope import EnvelopeDef as JaxEnvelope
 from mixlab_tpu.dsp.envelope_pallas import envelope_block_pallas
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch import protocol as tp
 from mixlab_tpu_torch.convert import to_numpy, to_torch
 from mixlab_tpu_torch.dsp.envelope import EnvelopeDef
 from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
+from mixlab_tpu_torch.engine import config as tc
 
 CPU = torch.device("cpu")
 CFG = EngineConfig(sample_rate=44_100)
+T_CFG = tc.EngineConfig(sample_rate=44_100)  # the port's own config
 MS = 1000.0 / CFG.sample_rate
 ATOL = 2e-5  # tests/test_envelope_pallas.py
 
@@ -52,6 +55,12 @@ _PALLAS = jax.jit(lambda x, st, aux: envelope_block_pallas(x, st, aux, MS,
                                                            interpret=True))
 
 
+def _port(params):
+    """The same envelope params as the port's protocol object."""
+    return tp.EnvelopeParams(params.attack_ms, params.decay_ms,
+                             params.sustain_amplitude, params.release_ms)
+
+
 def _check_state(jax_state, torch_state):
     j = {k: np.asarray(v) for k, v in jax_state.items()}
     t = to_numpy(torch_state)
@@ -74,10 +83,10 @@ def test_twin_matches_pallas_and_flat_scans(kind, params):
     S = 44_100
     jd, td = JaxEnvelope(), EnvelopeDef()
     aux_j = jd.prepare(params, CFG)
-    aux_t = td.prepare(params, CFG, CPU)
+    aux_t = td.prepare(_port(params), T_CFG, CPU)
     st_flat = jd.init_state(params, CFG)
     st_pl = jd.init_state(params, CFG)
-    st_t = td.init_state(params, CFG, CPU)
+    st_t = td.init_state(_port(params), T_CFG, CPU)
     x_all = gates(kind, S, 3, seed=7)
     for blk in range(3):
         x = x_all[blk * S:(blk + 1) * S]
@@ -109,7 +118,8 @@ def test_module_below_gate_matches_flat_scans(kind):
     for blk in range(3):
         x = x_all[blk * S:(blk + 1) * S]
         st_j, (want,) = _FLAT_3(aux_j, st_j, jnp.asarray(x))
-        st_t, (got,), _ = td.run_block(params, aux_t, None, st_t,
-                                       [torch.from_numpy(x)], CFG, block, CPU)
+        st_t, (got,), _ = td.run_block(_port(params), aux_t, None, st_t,
+                                       [torch.from_numpy(x)], T_CFG,
+                                       tc.BlockSpec(block.n_ticks), CPU)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
         _check_state(st_j, st_t)

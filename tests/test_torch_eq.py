@@ -12,12 +12,15 @@ from mixlab_tpu import protocol as p
 from mixlab_tpu.dsp import eq_pallas as jax_eq_pallas
 from mixlab_tpu.dsp import eq_three as jax_eq_three
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch import protocol as tp
 from mixlab_tpu_torch.convert import to_numpy, to_torch
 from mixlab_tpu_torch.dsp import eq_cuda, eq_three
+from mixlab_tpu_torch.engine import config as tc
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_eq_pallas.py:110
 PARAMS = p.EqThreeParams(p.Decibel(4.0), p.Decibel(-2.0), p.Decibel(3.0))
+T_PARAMS = tp.EqThreeParams(tp.Decibel(4.0), tp.Decibel(-2.0), tp.Decibel(3.0))
 
 
 @pytest.mark.parametrize("sample_rate", [44_100, 48_000])
@@ -87,13 +90,14 @@ def test_module_plain_path_matches_linrec_blocked(sample_rate, n_ticks):
     converted from JAX."""
     cfg = EngineConfig(sample_rate=sample_rate)
     block = BlockSpec(n_ticks)
+    t_cfg, t_block = tc.EngineConfig(sample_rate=sample_rate), tc.BlockSpec(n_ticks)
     S = block.n_samples(cfg)
     jd = jax_eq_three.EqThreeDef()
     td = eq_three.EqThreeDef()
     run_jax = jax.jit(lambda aux, st, x: jd.run_block(
         PARAMS, aux, None, st, [x], cfg, block)[:2])
     aux_j = jd.prepare(PARAMS, cfg)
-    aux_t = td.prepare(PARAMS, cfg, CPU)
+    aux_t = td.prepare(T_PARAMS, t_cfg, CPU)
     x0, poles, hist = _inputs(S, 3)
     st_j = {"poles": jnp.asarray(poles), "hist": jnp.asarray(hist)}
     st_t = to_torch({"poles": poles, "hist": hist}, CPU)
@@ -101,8 +105,8 @@ def test_module_plain_path_matches_linrec_blocked(sample_rate, n_ticks):
     for blk in range(3):
         x = x_all[blk * S:(blk + 1) * S]
         st_j, (want,) = run_jax(aux_j, st_j, jnp.asarray(x))
-        st_t, (got,), _ = td.run_block(PARAMS, aux_t, None, st_t,
-                                       [torch.from_numpy(x)], cfg, block, CPU)
+        st_t, (got,), _ = td.run_block(T_PARAMS, aux_t, None, st_t,
+                                       [torch.from_numpy(x)], t_cfg, t_block, CPU)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         got_state = to_numpy(st_t)
         np.testing.assert_allclose(got_state["poles"], np.asarray(st_j["poles"]), **TOL)

@@ -2,6 +2,8 @@
 the port against the float64 oracle and against the JAX package, the graph
 and project files shared by both packages, and the render CLI."""
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -9,13 +11,15 @@ import torch
 
 from bench import build_16_module_graph as jax_flagship
 from mixlab_tpu.av.flacdec import decode_flac_file
-from mixlab_tpu.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu.engine.config import EngineConfig as JaxEngineConfig
 from mixlab_tpu.engine.project import ProjectBase as JaxProjectBase
 from mixlab_tpu.engine.scan_render import render_scanned as jax_render_scanned
 from mixlab_tpu.io_host.wav import decode_frames, parse_header
 from mixlab_tpu_torch import render_cli
 from mixlab_tpu_torch.convert import to_numpy, to_torch
+from mixlab_tpu_torch.engine import scan_render
 from mixlab_tpu_torch.engine.compiler import compile_patch
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.engine.project import ProjectBase
 from mixlab_tpu_torch.engine.render import render
@@ -25,6 +29,7 @@ from test_whole_graph_oracle import oracle_16_module
 
 CPU = torch.device("cpu")
 CFG44 = EngineConfig(sample_rate=44_100)
+CFG44_J = JaxEngineConfig(sample_rate=44_100)
 # Monitor taps vs the JAX package's jitted render: one ulp of FmSine's f32
 # phase argument n*2pi below 4096 rad (t < 2.9 s).  XLA's fused evaluation
 # of n = carrier + f_amp*x*t rounds differently from op-by-op evaluation (the
@@ -34,12 +39,18 @@ TAP_ATOL = 2.0 ** -11
 STATE_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+def _wire(saved) -> str:
+    """A saved workspace as its JSON text: the two packages' protocol types
+    are distinct classes, their encodings must be identical."""
+    return json.dumps(saved, sort_keys=True)
+
+
 def test_flagship_graph_matches_bench():
     ws, mon = build_16_module_graph()
     ws_j, mon_j = jax_flagship()
-    assert ws.to_persist() == ws_j.to_persist()
-    assert ws.run_order() == ws_j.run_order()
-    assert mon == mon_j
+    assert _wire(ws.to_persist()) == _wire(ws_j.to_persist())
+    assert [m.value for m in ws.run_order()] == [m.value for m in ws_j.run_order()]
+    assert mon.value == mon_j.value
 
 
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
@@ -58,8 +69,8 @@ def test_project_files_interchange(tmp_path, direction):
         version = r._conn.execute("SELECT version FROM schema_migrations").fetchone()[0]
     finally:
         r.close()
-    assert back == saved and version == 20200805
-    assert Workspace.from_persist(back).to_persist() == saved
+    assert _wire(back) == _wire(saved) and version == 20200805
+    assert _wire(Workspace.from_persist(back).to_persist()) == _wire(saved)
 
 
 def test_flagship_48k_matches_oracle():
@@ -99,7 +110,7 @@ def test_flagship_scanned_matches_jax_and_continues_from_jax_state():
     key = str(mon.value)
 
     _, (state, taps) = render_scanned(ws, 120, CFG44, block_ticks=60, device=CPU)
-    _, (state_j, taps_j) = jax_render_scanned(ws_j, 120, CFG44, block_ticks=60)
+    _, (state_j, taps_j) = jax_render_scanned(ws_j, 120, CFG44_J, block_ticks=60)
     for got, want in zip(taps[key]["audio"], taps_j[key]["audio"]):
         assert tuple(got.shape) == np.asarray(want).shape == (2, 60, 735)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TAP_ATOL)
@@ -107,7 +118,7 @@ def test_flagship_scanned_matches_jax_and_continues_from_jax_state():
     assert float(taps[key]["audio"][0].abs().max()) > 0.5
 
     # JAX block 1 -> convert -> port block 2
-    _, (state_j1, _) = jax_render_scanned(ws_j, 60, CFG44, block_ticks=60)
+    _, (state_j1, _) = jax_render_scanned(ws_j, 60, CFG44_J, block_ticks=60)
     patch = compile_patch(ws, CFG44, BlockSpec(60), CPU)
     state1 = to_torch(jax.tree.map(np.asarray, state_j1), CPU)
     state2, taps2 = scan_blocks(patch, patch.prepare_aux(ws), state1,
@@ -146,3 +157,42 @@ def test_render_cli_refuses_mp4(tmp_path):
     with pytest.raises(SystemExit, match="mp4"):
         render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.mp4"),
                          "--device", "cpu"])
+
+
+def test_render_cli_48k_runs_the_region_and_matches_oracle(tmp_path, monkeypatch):
+    """The slice's entry point at 48 kHz on the CPU: 60-tick blocks of
+    48,000 samples are whole 128-sample chunks, so the default
+    ``compile_patch`` takes the region program (its plain twin here)."""
+    ws, _ = build_16_module_graph()
+    proj = tmp_path / "flagship.mixlab"
+    with ProjectBase(proj) as base:
+        base.write_workspace(ws.to_persist())
+    patches = []
+    real = scan_render.render_scanned
+
+    def spy(*args, **kwargs):
+        patch, out = real(*args, **kwargs)
+        patches.append(patch)
+        return patch, out
+
+    monkeypatch.setattr(scan_render, "render_scanned", spy)
+    audio = render_cli.main([str(proj), str(tmp_path / "out.wav"), "--seconds", "2",
+                             "--sample-rate", "48000", "--device", "cpu"])
+    assert len(patches) == 1 and patches[0]._mega
+    assert patches[0].block.n_samples(patches[0].cfg) == 48_000
+    want = oracle_16_module(2 * 48_000)
+    assert audio.shape == want.shape == (96_000, 2)
+    np.testing.assert_allclose(audio, want, atol=3e-3)
+    assert np.abs(audio).max() > 0.5
+
+
+@pytest.mark.parametrize("entry", ["render", "render_scanned"])
+def test_library_entry_points_default_to_the_card(entry):
+    """Without ``device`` the render entry points ask for the card; on a
+    machine without one that raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    ws, _ = build_16_module_graph()
+    fn = render if entry == "render" else render_scanned
+    with pytest.raises(RuntimeError, match="cuda"):
+        fn(ws, 3, EngineConfig(sample_rate=48_000), block_ticks=3)

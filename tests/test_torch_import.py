@@ -1,5 +1,5 @@
-"""The PyTorch port imports without jax, picks devices explicitly and raises
-where a kernel cannot run."""
+"""The PyTorch port imports neither jax nor the JAX package, picks devices
+explicitly and raises where a kernel cannot run."""
 
 import subprocess
 import sys
@@ -10,41 +10,50 @@ import pytest
 import torch
 
 from mixlab_tpu_torch import kernels
+from mixlab_tpu_torch.dsp.base import OP_TAP, RegionPlan
 from mixlab_tpu_torch.device import resolve_device
 from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
 from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
 from mixlab_tpu_torch.dsp.registry import get_def
+from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
 
 ROOT = Path(__file__).resolve().parents[1]
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-class BlockJax(importlib.abc.MetaPathFinder):
+BLOCKED = ("jax", "jaxlib", "mixlab_tpu")
+
+class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax is blocked: {name}")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import mixlab_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mixlab_tpu_torch.__path__,
                                                "mixlab_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke  # the chip script imports no jax either
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
-print(len(names))
+import chip_smoke  # the chip script imports neither
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("\n".join(names))
 """
 
 
-def test_port_imports_with_jax_blocked():
+def test_port_imports_with_jax_and_the_jax_package_blocked():
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15  # every module of the slice
+    names = set(proc.stdout.split())
+    assert len(names) >= 29  # every module of both slices
+    # the port's own copies of the host code it once took from mixlab_tpu
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "protocol", "protocol.wire", "engine.config", "io_host.wav", "av.flacenc",
+        "engine.region_graph", "engine.region_cuda")} <= names
 
 
 def test_resolve_device():
@@ -58,8 +67,8 @@ def test_resolve_device():
 
 
 def test_unported_kind_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        get_def("Plotter")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
+        get_def("VideoMixer")
     with pytest.raises(KeyError):
         get_def("NoSuchKind")
 
@@ -73,7 +82,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         kernels.find_nvcc()
 
 
-@pytest.mark.parametrize("wrapper", ["envelope", "eq"])
+@pytest.mark.parametrize("wrapper", ["envelope", "eq", "region"])
 def test_wrappers_refuse_other_devices(wrapper):
     """Only CPU tensors take the plain twin; any other device launches the
     kernel or raises — here a meta tensor must raise, not fall back."""
@@ -83,15 +92,23 @@ def test_wrappers_refuse_other_devices(wrapper):
                  "off_pos": torch.tensor(0), "off_amp": torch.tensor(0.0)}
         with pytest.raises(ValueError, match="unsupported device"):
             envelope_block_cuda(x, state, {}, 1.0)
-    else:
+    elif wrapper == "eq":
         with pytest.raises(ValueError, match="unsupported device"):
             eq_cascade_cuda(x, x, torch.zeros(4, 2), torch.ones(3), 0.1, 0.2, 0.0)
+    else:
+        plan = RegionPlan(n_operands=1, n_pf=0, n_ef=0)
+        plan.add(OP_TAP, 0, 0)
+        plan.n_taps = 1
+        with pytest.raises(ValueError, match="unsupported device"):
+            region_part_cuda(plan, [x], torch.empty(0, device="meta"),
+                             torch.empty(0, device="meta"), 4096)
 
 
 def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
-    assert {p.name for p in kernels.sources()} == {"envelope.cu", "eq_cascade.cu"}
+    assert {p.name for p in kernels.sources()} == {"envelope.cu", "eq_cascade.cu", "region.cu"}
+    assert "mixlab_region_part" in kernels._SIGNATURES
     # nothing in the flags may trade IEEE f32 for speed
     assert not any("fast_math" in f or "fast-math" in f for f in kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
