@@ -28,7 +28,26 @@ imports no jax.  Phases, any failure of which exits non-zero:
      shapes (and the region kernel on one part of a two-part block), the
      region program vs the regular one per 48 kHz block, the
      render of 60 s of audio as a realtime factor at both rates, and a
-     profile of 5 render blocks at each.
+     profile of 5 render blocks at each;
+  8. crossfade kernel vs its twin on the card, exact (planes 1920x1080,
+     960x540, 36x100, 1x1, 7x13 and one at an odd byte offset; fades 0, 1,
+     127, 128, 254, 255; single- and three-plane launches), and
+     ``scale_picture`` 1280x720 -> 1920x1080 on the card vs the CPU
+     (``"int8"`` exact, ``"f32"`` within 1 LSB); run with phases 3-5;
+  9. the realtime main path, with the launch counts set to 0 just before and
+     read just after: the port's ``Engine`` (44.1 kHz, ``block_ticks=1``,
+     cuda) built by client ops (the flagship, two StreamInputs on RTMP
+     mountpoints, a VideoMixer at fader 0.6 into the Monitor), 120 ticks in
+     direct drive, each publishing a new 1080p bars and 720p gradient frame
+     and 735 samples; the crossfade kernel must launch exactly 120 times,
+     every composite equal the twin on the same stored pictures, and the
+     first 10 ticks agree with a CPU ``Engine`` (composites within 1 LSB,
+     monitor audio within 1e-4); run after phase 6;
+ 10. realtime timing, for information, after phase 7: the crossfade vs its
+     twin at 1080p, ``scale_picture`` by method, ``tick_once`` over 300 ticks
+     with and without the video chain, a profile of 10 ticks, the edit path
+     (``compile_patch`` and the first block; a client op), and a 5 s
+     threaded run (``Engine.start()`` with a 60 fps feeder thread).
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -39,9 +58,11 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import queue
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -55,6 +76,16 @@ MS_PER_SAMPLE = 1000.0 / 44_100
 # the card's peaks for the bound (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the realtime path: 44.1 kHz, 60 ticks/s; cam1 1080p bars, cam2 720p gradient
+# (letterboxed into the 1080p composite), VideoMixer fader 0.6 (fade 153)
+RT_RATE = 44_100
+RT_SPT = 735
+RT_FADER = 0.6
+CAM_SIZES = ((1920, 1080), (1280, 720))
+RT_AUDIO_ATOL = 1e-4     # the port's CUDA-vs-CPU tolerance, as CPU_RENDER_ATOL
+COMPOSITE_LSB = 1        # tests/test_video.py:197
+FADES = (0, 1, 127, 128, 254, 255)
+CROSSFADE_SHAPES = ((1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13))
 
 
 def log(*args):
@@ -326,12 +357,8 @@ def main_path(torch, np, proj: Path, tmp: Path, sample_rate: int):
     import wave
 
     from mixlab_tpu_torch import render_cli
-    from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
-    from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
-    from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
 
-    counters = {"envelope": envelope_block_cuda, "eq_cascade": eq_cascade_cuda,
-                "region": region_part_cuda}
+    counters = launch_counters()
     out_wav = tmp / f"flagship_{sample_rate}.wav"
     for fn in counters.values():
         fn.launches = 0
@@ -581,6 +608,395 @@ def profile_blocks(torch, ws, dev, card, sr):
 
 
 # --------------------------------------------------------------------------
+# the realtime engine tick with live video
+
+
+def check_crossfade(torch, np, dev):
+    """Crossfade kernel vs its twin on the card, exact: each plane alone at
+    every fade, a 1080p picture's three planes and three odd planes each in
+    one launch against three single-plane twins, and a plane at an odd byte
+    offset (the kernel's scalar path)."""
+    from mixlab_tpu_torch.video import blend
+
+    rng = np.random.default_rng(5)
+
+    def u8(n):
+        return torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
+
+    pairs = [(u8(s), u8(s)) for s in CROSSFADE_SHAPES]
+    buf = u8(2 * 1920 * 1080 + 2)
+    odd = (buf[1:1 + 1920 * 1080].view(1080, 1920), buf[-1920 * 1080 - 1:-1].view(1080, 1920))
+    triples = [[pairs[0], pairs[1], (u8((540, 960)), u8((540, 960)))], pairs[2:]]
+    worst = 0
+    for fade in FADES:
+        for a, b in pairs + [odd]:
+            (got,) = blend.crossfade_cuda([a], [b], fade)
+            worst = max(worst, _lsb(torch, got, blend.crossfade_torch(a, b, fade)))
+        for triple in triples:
+            got = blend.crossfade_cuda([a for a, _ in triple], [b for _, b in triple], fade)
+            for g, (a, b) in zip(got, triple):
+                worst = max(worst, _lsb(torch, g, blend.crossfade_torch(a, b, fade)))
+    torch.cuda.synchronize()
+    log(f"crossfade kernel vs twin: planes {list(CROSSFADE_SHAPES)} and one at byte offset 1, "
+        f"fades {list(FADES)}, single- and three-plane launches: max abs err {worst}")
+    if worst != 0:
+        raise AssertionError("the crossfade kernel disagrees with its twin")
+    return float(worst)
+
+
+def check_scale(torch, np, dev):
+    """``scale_picture`` 1280x720 -> 1920x1080 on the card against the CPU:
+    ``"int8"`` exact (an exact integer product, then the same f32 epilogue),
+    ``"f32"`` within 1 LSB (the products sum in another order)."""
+    from mixlab_tpu_torch.video import scale
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+
+    rng = np.random.default_rng(9)
+    (w, h), out = CAM_SIZES[1], PictureSettings(*CAM_SIZES[0])
+    planes = {"y": rng.integers(0, 256, (h, w), dtype=np.uint8),
+              "u": rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+              "v": rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8)}
+    pic = Picture(PictureSettings(w, h), planes)
+    for method, limit in (("int8", 0), ("f32", COMPOSITE_LSB)):
+        got = scale.scale_picture(pic.to(dev), out, method)
+        want = scale.scale_picture(pic.to("cpu"), out, method)
+        err = max(_lsb(torch, got.planes[k].cpu(), want.planes[k]) for k in planes)
+        log(f"scale_picture {w}x{h} -> {out.width}x{out.height} ({method}) cuda vs cpu: "
+            f"max abs err {err} LSB (limit {limit})")
+        if err > limit:
+            raise AssertionError(f"scale_picture {method} on the card disagrees with the CPU")
+
+
+def _lsb(torch, got, want) -> int:
+    return int((got.to(torch.int16) - want.to(torch.int16)).abs().max().item())
+
+
+def cam_frames(torch, np, dev, tick, sizes=CAM_SIZES):
+    """Tick ``tick``'s ingest as numpy, the form ingest hands it in: a bars
+    frame (phase = tick) for cam1 and a gradient frame (t = tick) for cam2,
+    made on the card and fetched, and 735 samples of i16 stereo."""
+    from mixlab_tpu_torch.video.pattern import pattern_picture
+
+    pics = [pattern_picture(kind, w, h, tick, device=dev).to_numpy()
+            for kind, (w, h) in zip(("bars", "gradient"), sizes)]
+    pcm = np.random.default_rng(tick).integers(-3000, 3000, (RT_SPT, 2), dtype=np.int16)
+    return pics, pcm
+
+
+class Cameras:
+    """Publishers on RTMP mountpoints, writing as an ingest thread does: per
+    tick one video frame of a 1-tick duration and 735 samples per camera."""
+
+    def __init__(self, names, sizes=CAM_SIZES):
+        from mixlab_tpu_torch.io_host import source
+
+        self.sizes = sizes
+        self.sends = [source.RTMP_MOUNTPOINTS.connect(name) for name in names]
+
+    def publish(self, tick, frames) -> bool:
+        from mixlab_tpu_torch.utils.mtime import MediaDuration, MediaTime
+        from mixlab_tpu_torch.video.frame import Picture, PictureSettings, VideoFrame
+
+        planes, pcm = frames
+        t = MediaTime.new(tick * RT_SPT, RT_RATE)
+        ok = True
+        for send, size, pl in zip(self.sends, self.sizes, planes):
+            vf = VideoFrame(Picture(PictureSettings(*size), pl),
+                            duration_hint=MediaDuration.new(1, 60))
+            ok = send.write_audio(t, pcm) and send.write_video(t, vf) and ok
+        return ok
+
+    def close(self):
+        for send in self.sends:
+            send.close()
+
+
+def realtime_engine(device, cams):
+    """The port's ``Engine`` at 44.1 kHz, ``block_ticks=1``, built by one
+    session's client ops: the flagship graph and, with ``cams``, two
+    StreamInputs on those RTMP mountpoints and a VideoMixer(a=0, b=1,
+    fader=0.6) feeding the Monitor's video input.  Returns (engine, ids,
+    session id)."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.engine import Engine
+    from mixlab_tpu_torch.flagship import realtime_video_ops
+
+    eng = Engine(cfg=EngineConfig(sample_rate=RT_RATE), block_ticks=1, device=device)
+    sid, _, events = eng.connect_session()
+    ops, ids = realtime_video_ops(p, cams)
+    for seq, op in enumerate(ops, 1):
+        eng.update(sid, p.WorkspaceMessage(seq, op))
+        while not events.empty():  # read the broadcast, as a browser does
+            events.get_nowait()
+    n_links = sum(isinstance(op, p.CreateConnection) for op in ops)
+    if (len(eng.ws.modules), len(eng.ws.connections)) != (len(ops) - n_links, n_links):
+        raise AssertionError(f"the client ops built {len(eng.ws.modules)} modules and "
+                             f"{len(eng.ws.connections)} connections")
+    return eng, ids, sid
+
+
+def launch_counters():
+    from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
+    from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
+    from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
+    from mixlab_tpu_torch.video.blend import crossfade_cuda
+
+    return {"envelope": envelope_block_cuda, "eq_cascade": eq_cascade_cuda,
+            "region": region_part_cuda, "crossfade": crossfade_cuda}
+
+
+def realtime_path(torch, np, dev, n_ticks=120, n_cpu=10):
+    """The realtime main path: the port's Engine on the card in direct drive
+    for ``n_ticks`` ticks, each publishing a new 1080p and 720p frame; the
+    launch counts set to 0 just before and read just after.  Each tick's
+    composite is held against the twin on the same stored pictures
+    (exact), and the first ``n_cpu`` ticks against a CPU Engine fed the
+    same ingest (composites within 1 LSB, monitor audio within 1e-4)."""
+    from mixlab_tpu_torch.video.blend import crossfade_torch
+
+    eng, ids, _ = realtime_engine(str(dev), ("cam1", "cam2"))
+    ref, ref_ids, _ = realtime_engine("cpu", ("cpu-cam1", "cpu-cam2"))
+    cams, ref_cams = Cameras(("cam1", "cam2")), Cameras(("cpu-cam1", "cpu-cam2"))
+    pipe, ref_pipe = eng.monitor_pipe(ids["monitor"]), ref.monitor_pipe(ref_ids["monitor"])
+    mixer = eng._video_mixers[ids["mixer"]]
+    fade = int(RT_FADER * 255.0)  # the engine's truncating cast
+    w, h = CAM_SIZES[0]
+    shapes = {"y": (h, w), "u": (h // 2, w // 2), "v": (h // 2, w // 2)}
+    audio_err, lsb, peak = 0.0, 0, 0.0
+    counters = launch_counters()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        for tick in range(n_ticks):
+            frames = cam_frames(torch, np, dev, tick)
+            if not cams.publish(tick, frames):
+                raise AssertionError(f"ingest refused tick {tick}'s frames")
+            eng.tick_once()
+            t0, audio, video = pipe.q.get(timeout=10)
+            if t0 != tick * RT_SPT or audio.shape != (RT_SPT, 2) or not np.isfinite(audio).all():
+                raise AssertionError(f"tick {tick}: monitor audio t0={t0} {audio.shape}")
+            peak = max(peak, float(np.abs(audio).max()))
+            got = video.picture.planes if video is not None else {}
+            if {k: tuple(v.shape) for k, v in got.items()} != shapes:
+                raise AssertionError(f"tick {tick}: no 1920x1080 composite in the monitor pipe")
+            a_pic, b_pic = (mixer.channels[i].stored for i in (0, 1))
+            for k in shapes:
+                if not torch.equal(got[k], crossfade_torch(a_pic.planes[k], b_pic.planes[k],
+                                                           fade)):
+                    raise AssertionError(f"tick {tick}: composite plane {k} != the twin")
+            if tick < n_cpu:
+                if not ref_cams.publish(tick, frames):
+                    raise AssertionError(f"cpu ingest refused tick {tick}'s frames")
+                ref.tick_once()
+                _, ref_audio, ref_video = ref_pipe.q.get(timeout=60)
+                audio_err = max(audio_err, float(np.abs(audio - ref_audio).max()))
+                lsb = max(lsb, *(_lsb(torch, got[k].cpu(), ref_video.picture.planes[k])
+                                 for k in shapes))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        cams.close()
+        ref_cams.close()
+        eng.stop()
+        ref.stop()
+    log(f"realtime main path: Engine(device={dev}) {n_ticks} ticks with 1080p + 720p ingest "
+        f"in {wall:.3f} s (frame making included), launches {launches}; every composite "
+        f"equals the twin; first {n_cpu} ticks vs the cpu Engine: audio max abs err "
+        f"{audio_err:.3e} (atol {RT_AUDIO_ATOL}), composites max {lsb} LSB "
+        f"(limit {COMPOSITE_LSB}); monitor peak {peak:.3f}")
+    if launches["crossfade"] != n_ticks:
+        raise AssertionError(f"the crossfade kernel launched {launches['crossfade']} times "
+                             f"in {n_ticks} ticks")
+    if not (audio_err <= RT_AUDIO_ATOL and lsb <= COMPOSITE_LSB and peak > 0.1):
+        raise AssertionError("the cuda Engine disagrees with the cpu Engine (or is silent)")
+    return launches
+
+
+def _tick_walls(torch, eng, cams, pipe, pool, n):
+    """Host wall of ``n`` ticks, each ``tick_once`` then a synchronize; the
+    publish before it and the monitor read after it are not timed."""
+    walls = []
+    for _ in range(n):
+        tick = eng.tick
+        if cams is not None and not cams.publish(tick, pool[tick % len(pool)]):
+            raise AssertionError(f"ingest refused tick {tick}'s frames")
+        t = time.perf_counter()
+        eng.tick_once()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        pipe.q.get_nowait()
+    return walls
+
+
+def realtime_timing(torch, np, dev, card):
+    """For information: the crossfade kernel vs its twin at 1080p, the
+    letterbox scale by method, ``tick_once`` with and without the video
+    chain, a profile of 10 ticks, the edit path, and a threaded run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec
+    from mixlab_tpu_torch.video import blend, scale
+    from mixlab_tpu_torch.video.frame import PictureSettings
+    from mixlab_tpu_torch.video.pattern import pattern_picture
+
+    res = {}
+    out = PictureSettings(*CAM_SIZES[0])
+    a_pic = pattern_picture("bars", *CAM_SIZES[0], 3, device=dev)
+    src = pattern_picture("gradient", *CAM_SIZES[1], 3, device=dev)
+    b_pic = scale.scale_picture(src, out)
+    al, bl = [a_pic.planes[k] for k in "yuv"], [b_pic.planes[k] for k in "yuv"]
+    n_px = sum(t.numel() for t in al)
+    # read a and b, write out; per pixel two products, a sum, a product and a shift
+    nbytes, ops = 3 * n_px, 5 * n_px
+    p1 = time_ms(torch, lambda: [blend.crossfade_torch(a, b, 153) for a, b in zip(al, bl)])
+    k1 = time_ms(torch, lambda: blend.crossfade_cuda(al, bl, 153))
+    k2 = time_ms(torch, lambda: blend.crossfade_cuda(al, bl, 153))
+    p2 = time_ms(torch, lambda: [blend.crossfade_torch(a, b, 153) for a, b in zip(al, bl)])
+    b_ms, b_by = bound(nbytes, ops)
+    res["crossfade"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                        "bound_ms": b_ms, "bound_by": b_by}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            blend.crossfade_cuda(al, bl, 153)
+        torch.cuda.synchronize()
+    dev_us = [e.self_device_time_total / e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "crossfade" in e.key
+              and e.self_device_time_total > 0]
+    log(f"timing crossfade of a 1920x1080 yuv420p picture [{card}]: kernel {k1:.4f}/{k2:.4f} "
+        f"ms, plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 calls); device time "
+        f"{'/'.join(f'{u:.3f}' for u in dev_us) or 'not measured'} us per launch (profiler, "
+        f"50 launches); bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} B, {ops} integer ops); "
+        f"library call: none")
+
+    sc = {}
+    for method in ("f32", "int8", "int8", "f32"):
+        sc.setdefault(method, []).append(
+            time_ms(torch, lambda: scale.scale_picture(src, out, method), n=100, warmup=10))
+    log(f"timing scale_picture {CAM_SIZES[1][0]}x{CAM_SIZES[1][1]} -> "
+        f"{out.width}x{out.height} letterboxed [{card}]: f32 {sc['f32'][0]:.4f}/"
+        f"{sc['f32'][1]:.4f} ms, int8 {sc['int8'][0]:.4f}/{sc['int8'][1]:.4f} ms per picture "
+        f"(CUDA events, 100 calls)")
+
+    # tick_once with and without the video chain, in turns
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    rigs = {}
+    try:
+        for video in (True, False):
+            names = ("t-cam1", "t-cam2") if video else ()
+            eng, ids, sid = realtime_engine(str(dev), names)
+            rigs[video] = (eng, Cameras(names) if video else None,
+                           eng.monitor_pipe(ids["monitor"]), ids, sid)
+        for video in (True, False):
+            _tick_walls(torch, *rigs[video][:3], pool, 20)  # warm-up
+        walls = {}
+        for video in (True, False, False, True):
+            walls.setdefault(video, []).extend(_tick_walls(torch, *rigs[video][:3], pool, 150))
+        budget = 1.0 / 60
+        for video, w in walls.items():
+            w = np.asarray(w)
+            label = "flagship + video" if video else "flagship only"
+            log(f"timing tick_once ({label}, 300 ticks) [{card}]: median {np.median(w) * 1e3:.3f} "
+                f"ms, p99 {np.percentile(w, 99) * 1e3:.3f} ms, max {w.max() * 1e3:.3f} ms, "
+                f"{100 * float((w > budget).mean()):.1f}% over the 16.667 ms budget")
+            res[f"tick_{'video' if video else 'audio'}"] = w
+
+        eng, cams, pipe, ids, sid = rigs[True]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = sum(_tick_walls(torch, eng, cams, pipe, pool, 10))
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_us = sum(e.self_device_time_total for e in events)
+        if busy_us > 0:
+            log(f"profile 10 ticks (flagship + video) [{card}]: tick wall {wall * 1e3:.2f} ms, "
+                f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / (wall * 1e6):.1f}% of "
+                f"the wall), {sum(e.count for e in events)} kernels and copies")
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+                log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+            for e in events:
+                if "crossfade" in e.key:
+                    log(f"  crossfade kernel: {e.self_device_time_total / e.count:.3f} us "
+                        f"device time per launch in the tick ({e.count} launches)")
+        else:
+            log("profile: no device time recorded (not measured)")
+
+        # the edit path: compile_patch and the first block, then a client op
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            patch = compile_patch(eng.ws, eng.cfg, BlockSpec(1), dev)
+            aux, state = patch.prepare_aux(eng.ws), patch.init_state(eng.ws)
+            patch.run(aux, patch.host_aux(0), state)
+            torch.cuda.synchronize()
+            c_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            eng.update(sid, p.WorkspaceMessage(1000 + i, p.UpdateModuleParams(
+                ids["mixer"], p.ModuleParams("VideoMixer", p.VideoMixerParams(
+                    a=0, b=1, fader=RT_FADER)))))
+            u_ms = (time.perf_counter() - t) * 1e3
+            log(f"timing edit path {i} (flagship + video) [{card}]: compile_patch + first block "
+                f"{c_ms:.3f} ms; a client op (VideoMixer params, rebuild included) {u_ms:.3f} ms")
+    finally:
+        for eng, cams, *_ in rigs.values():
+            if cams is not None:
+                cams.close()
+            eng.stop()
+    threaded_run(torch, np, dev, card, pool)
+    return res
+
+
+def threaded_run(torch, np, dev, card, pool, seconds=5.0):
+    """``Engine.start()`` for ``seconds``, a feeder thread publishing both
+    cameras at 60 fps; the monitor pipe read as a codec thread would."""
+    eng, ids, _ = realtime_engine(str(dev), ("th-cam1", "th-cam2"))
+    cams = Cameras(("th-cam1", "th-cam2"))
+    pipe = eng.monitor_pipe(ids["monitor"])
+    stop = threading.Event()
+    fed = {"frames": 0, "refused": 0}
+
+    def feeder():
+        start = time.monotonic()
+        k = 0
+        while not stop.is_set():
+            fed["refused"] += not cams.publish(k, pool[k % len(pool)])
+            k += 1
+            fed["frames"] = k
+            stop.wait(max(0.0, start + k / 60 - time.monotonic()))
+
+    th = threading.Thread(target=feeder, name="feeder")
+    items = composites = 0
+    try:
+        eng.start()
+        th.start()
+        t_end = time.monotonic() + seconds
+        while time.monotonic() < t_end:
+            try:
+                composites += pipe.q.get(timeout=0.5)[2] is not None
+                items += 1
+            except queue.Empty:
+                pass
+        ticks, stat, info = eng.tick, eng._stat, eng.performance_info()
+    finally:
+        stop.set()
+        th.join(timeout=5)
+        eng.stop()
+        cams.close()
+    log(f"threaded run {seconds:.0f} s (flagship + video) [{card}]: {ticks} ticks "
+        f"({ticks / seconds:.2f}/s), {fed['frames']} frames fed per camera ({fed['refused']} "
+        f"refused), {items} monitor items read ({composites} with a composite, {pipe.dropped} "
+        f"dropped); EngineStat: on-schedule {100 * stat.realtime_fraction_total:.1f}% of "
+        f"{stat.total_ticks} ticks, max late {stat.total_max_late_s * 1e3:.3f} ms; last "
+        f"report {info}")
+    if ticks < 10 or composites < 1:
+        raise AssertionError("the threaded engine did not run")
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -618,31 +1034,36 @@ def main() -> int:
                 log("  ptxas:", line.strip())
 
     errs = {"envelope": check_envelope(torch, np, dev), "eq_cascade": check_eq(torch, np, dev),
-            "region": check_region(torch, np, dev)}
+            "region": check_region(torch, np, dev), "crossfade": check_crossfade(torch, np, dev)}
+    check_scale(torch, np, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         proj = tmp / "flagship.mixlab"
         with ProjectBase(proj) as base:
             base.write_workspace(build_16_module_graph()[0].to_persist())
-        paths = {sr: main_path(torch, np, proj, tmp, sr) for sr in (44_100, 48_000)}
+        paths = {str(sr): main_path(torch, np, proj, tmp, sr) for sr in (44_100, 48_000)}
+        paths["realtime"] = realtime_path(torch, np, dev)
         times = timing(torch, np, dev, card, proj)
+        times.update(realtime_timing(torch, np, dev, card))
 
     # each kernel's launches on the main path that carries it
-    launches = {"envelope": paths[44_100]["envelope"], "eq_cascade": paths[44_100]["eq_cascade"],
-                "region": paths[48_000]["region"]}
+    launches = {"envelope": paths["44100"]["envelope"], "eq_cascade": paths["44100"]["eq_cascade"],
+                "region": paths["48000"]["region"], "crossfade": paths["realtime"]["crossfade"]}
     rows = (("envelope", "envelope_block", "mixlab_tpu_torch/csrc/envelope.cu",
              "mixlab_tpu/dsp/envelope_pallas.py:347"),
             ("eq_cascade", "eq_cascade", "mixlab_tpu_torch/csrc/eq_cascade.cu",
              "mixlab_tpu/dsp/eq_pallas.py:261"),
             ("region", "region_part", "mixlab_tpu_torch/csrc/region.cu",
-             "mixlab_tpu/engine/pallas_graph.py:377"))
+             "mixlab_tpu/engine/pallas_graph.py:377"),
+            ("crossfade", "crossfade", "mixlab_tpu_torch/csrc/crossfade.cu",
+             "mixlab_tpu/video/blend.py:86"))
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], "max_abs_err": errs[key],
          "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
          "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
          "library_ms": None,
-         "launches_by_path": {str(sr): paths[sr][key] for sr in paths}}
+         "launches_by_path": {name: counts[key] for name, counts in paths.items()}}
         for key, name, source, replaces in rows
     ]}
     log(card)

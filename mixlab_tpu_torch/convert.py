@@ -1,4 +1,5 @@
-"""Carry ``aux`` (weights) and DSP state between the two packages.
+"""Carry ``aux`` (weights), DSP state and engine checkpoints between the two
+packages.
 
 The JAX package keeps per-module ``aux`` and state as pytrees of arrays
 (dicts keyed by module id key, then by leaf name).  Convert them with
@@ -47,3 +48,67 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# engine checkpoints (``Engine.checkpoint`` / ``restore_dsp_state``)
+# ---------------------------------------------------------------------------
+#
+# Both engines' checkpoints are ``{"workspace": persist dict, "tick": int,
+# "dsp_state": [numpy leaves]}``, the leaves in ``jax.tree.flatten`` order
+# of the state pytree: dict keys sorted, tuples and lists in order, ``None``
+# holding no leaf.  Listing the port's leaves in that order makes a
+# checkpoint restore into either engine.
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a pytree in ``jax.tree.flatten`` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """``template`` with its leaves replaced, in ``tree_leaves`` order, by
+    ``leaves`` (as many as ``tree_leaves(template)`` holds)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(template)
+
+
+def state_leaves_to_numpy(state) -> list:
+    """A DSP state pytree (tensor or numpy leaves) -> a checkpoint's
+    ``dsp_state`` list."""
+    return [leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf) for leaf in tree_leaves(state)]
+
+
+def state_from_leaves(template, leaves, device: torch.device):
+    """A checkpoint's ``dsp_state`` (numpy leaves from either engine) -> the
+    port's state with ``template``'s structure, dtypes and device, or None
+    if the leaves do not fit the template (count or shapes)."""
+    slots = tree_leaves(template)
+    if len(slots) != len(leaves):
+        return None
+    new = []
+    for slot, leaf in zip(slots, leaves):
+        a = np.asarray(leaf)
+        if tuple(a.shape) != tuple(slot.shape):
+            return None
+        dtype = torch.empty(0, dtype=slot.dtype).numpy().dtype
+        new.append(torch.from_numpy(a.astype(dtype)).to(device))
+    return tree_unflatten(template, new)

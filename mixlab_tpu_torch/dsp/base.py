@@ -241,6 +241,12 @@ class ModuleDef:
         """Initial carried DSP state (or None)."""
         return None
 
+    def carry_state(self, old_state: Pytree, params, cfg: EngineConfig) -> Pytree:
+        """State carried across an edit that rebuilds the program.  Default:
+        keep (eq_three keeps its filter poles on a gain change,
+        eq_three.rs:53-56).  Modules that reset on edit override this."""
+        return old_state
+
     # -- param lowering ----------------------------------------------------
     def prepare(self, params, cfg: EngineConfig, device: torch.device) -> Pytree:
         """Device tensors derived from params (recomputed per edit)."""

@@ -1,9 +1,9 @@
 """Module registry: kind tag -> ModuleDef singleton
 (port of ``mixlab_tpu/dsp/registry.py``).
 
-Holds every audio kind of the JAX package.  ``VideoMixer``, the one kind
-not ported yet, raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+Holds every kind of the JAX package.  A kind listed in ``NOT_PORTED``
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
+(none is left since the video mixer came with the realtime engine).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from mixlab_tpu_torch.dsp.sinks import (
     StreamInputDef,
     StreamOutputDef,
 )
+from mixlab_tpu_torch.dsp.video_mixer import VideoMixerDef
 
 _REGISTRY: Dict[str, ModuleDef] = {
     d.kind: d
@@ -49,13 +50,12 @@ _REGISTRY: Dict[str, ModuleDef] = {
         StreamInputDef(),
         StreamOutputDef(),
         TriggerDef(),
+        VideoMixerDef(),
     )
 }
 
 # kinds of the JAX package not ported yet -> the ROADMAP.md item that ports them
-NOT_PORTED = {
-    "VideoMixer": "queue 1 item 9 (video path)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def get_def(kind: str) -> ModuleDef:

@@ -62,6 +62,10 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_int, _c_ptr,          # taps, stap, n_stap, ef
         _c_int, _c_ptr,                          # S, stream
     ],
+    "mixlab_crossfade": [
+        *[_c_ptr, _c_ptr, _c_ptr, _c_int] * 3,  # (a, b, out, n) per plane
+        _c_int, _c_int, _c_ptr,                  # count, fade, stream
+    ],
 }
 
 

@@ -89,8 +89,8 @@ def main(argv=None) -> np.ndarray:
 
     if not args.output.lower().endswith((".wav", ".flac")):
         raise SystemExit(
-            "only .wav and .flac are supported: .mp4 export needs the realtime "
-            "engine (ROADMAP.md queue 1 item 8)")
+            "only .wav and .flac are supported: .mp4 export needs the Monitor's "
+            "fMP4 pipeline (ROADMAP.md queue 1 item 14)")
 
     from mixlab_tpu_torch.device import resolve_device
 

@@ -165,3 +165,77 @@ def test_region_wrapper_rejects_bad_tensors_and_counts_launches(dev):
     with pytest.raises(ValueError):
         region_cuda.region_part_cuda(plan, [x[:4000]], pf, sf, 4000)  # not whole chunks
     assert region_cuda.region_part_cuda.launches == n + 1
+
+
+CROSSFADE_SHAPES = [(1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13)]
+
+
+@pytest.mark.parametrize("shape", CROSSFADE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_crossfade_kernel_matches_twin(dev, shape):
+    """Exact, at every fade, alone and as the first plane of a three-plane
+    launch; also at an odd byte offset (the scalar path)."""
+    from mixlab_tpu_torch.video import blend
+
+    rng = np.random.default_rng(shape[0] + shape[1])
+    n = shape[0] * shape[1]
+    buf = torch.from_numpy(rng.integers(0, 256, 4 * n + 1, dtype=np.uint8)).to(dev)
+    a, b = buf[:n].view(shape), buf[n:2 * n].view(shape)
+    odd_a, odd_b = buf[2 * n + 1:3 * n + 1].view(shape), buf[3 * n + 1:].view(shape)
+    small = torch.from_numpy(rng.integers(0, 256, (7, 13), dtype=np.uint8)).to(dev)
+    for fade in (0, 1, 127, 128, 254, 255):
+        (got,) = blend.crossfade_cuda([a], [b], fade)
+        assert torch.equal(got, blend.crossfade_torch(a, b, fade)), fade
+        (got,) = blend.crossfade_cuda([odd_a], [odd_b], fade)
+        assert torch.equal(got, blend.crossfade_torch(odd_a, odd_b, fade)), fade
+        got = blend.crossfade_cuda([a, small, odd_b], [b, small.flip(0), odd_a], fade)
+        for g, x, y in zip(got, (a, small, odd_b), (b, small.flip(0), odd_a)):
+            assert torch.equal(g, blend.crossfade_torch(x, y, fade)), fade
+
+
+def test_crossfade_wrapper_rejects_bad_planes(dev):
+    from mixlab_tpu_torch.video import blend
+
+    y = torch.zeros((48, 64), dtype=torch.uint8, device=dev)
+    n = blend.crossfade_cuda.launches
+    for a, b in (([y], [y.cpu()]),                     # a mix of devices
+                 ([y[:, ::2]], [y[:, ::2]]),           # not contiguous
+                 ([y], [y[:24]]),                      # shapes differ
+                 ([y.float()], [y.float()]),           # not uint8
+                 ([y] * 4, [y] * 4)):                  # more than three planes
+        with pytest.raises(ValueError):
+            blend.crossfade_cuda(a, b, 128)
+    with pytest.raises(ValueError, match="fade"):
+        blend.crossfade_cuda([y], [y], 256)
+    with pytest.raises(ValueError):
+        blend.crossfade_picture({"y": y}, {"y": y.cpu()}, 128)
+    assert blend.crossfade_cuda.launches == n
+
+
+def test_cuda_engine_ticks_launch_the_crossfade_once_each(dev):
+    """Three ticks of the port's Engine on the card with live video (small
+    frames): one crossfade launch per tick, and each composite equal to the
+    twin on the stored pictures."""
+    import chip_smoke
+    from mixlab_tpu_torch.video.blend import crossfade_cuda, crossfade_torch
+
+    sizes = ((96, 54), (64, 48))
+    eng, ids, _ = chip_smoke.realtime_engine("cuda", ("cuda-cam1", "cuda-cam2"))
+    cams = chip_smoke.Cameras(("cuda-cam1", "cuda-cam2"), sizes)
+    pipe = eng.monitor_pipe(ids["monitor"])
+    mixer = eng._video_mixers[ids["mixer"]]
+    try:
+        n = crossfade_cuda.launches
+        for tick in range(3):
+            assert cams.publish(tick, chip_smoke.cam_frames(torch, np, dev, tick, sizes))
+            eng.tick_once()
+            _, audio, video = pipe.q.get(timeout=10)
+            assert audio.shape == (735, 2) and video is not None
+            assert video.picture.planes["y"].shape == (54, 96)
+            a_pic, b_pic = (mixer.channels[i].stored for i in (0, 1))
+            for k in ("y", "u", "v"):
+                assert torch.equal(video.picture.planes[k],
+                                   crossfade_torch(a_pic.planes[k], b_pic.planes[k], 153))
+        assert crossfade_cuda.launches == n + 3
+    finally:
+        cams.close()
+        eng.stop()

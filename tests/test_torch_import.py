@@ -16,6 +16,7 @@ from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
 from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
 from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
+from mixlab_tpu_torch.video.blend import crossfade_cuda, crossfade_picture
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -49,11 +50,17 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 29  # every module of both slices
+    assert len(names) >= 45  # every module of the three slices
     # the port's own copies of the host code it once took from mixlab_tpu
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "protocol", "protocol.wire", "engine.config", "io_host.wav", "av.flacenc",
         "engine.region_graph", "engine.region_cuda")} <= names
+    # the realtime engine and its video path
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "engine.engine", "engine.feeds", "engine.timing", "io_host.source",
+        "io_host.audio_out", "io_host.alsa_out", "utils.mtime", "dsp.video_mixer",
+        "video.frame", "video.colorspace", "video.pattern", "video.scale", "video.blend",
+        "video.engine")} <= names
 
 
 def test_resolve_device():
@@ -66,9 +73,18 @@ def test_resolve_device():
         resolve_device("cuda")
 
 
-def test_unported_kind_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        get_def("VideoMixer")
+def test_unported_kind_names_its_roadmap_item(monkeypatch):
+    """Every kind of the JAX package is ported (the video mixer last); a kind
+    listed in ``NOT_PORTED`` would raise naming its ROADMAP.md item."""
+    from mixlab_tpu import protocol as jp
+    from mixlab_tpu_torch.dsp import registry
+
+    assert registry.NOT_PORTED == {}
+    assert set(registry.all_kinds()) == set(jp.ModuleParams.KINDS)
+    assert get_def("VideoMixer").kind == "VideoMixer"
+    monkeypatch.setitem(registry.NOT_PORTED, "Vocoder", "queue 9 item 9")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 9 item 9"):
+        get_def("Vocoder")
     with pytest.raises(KeyError):
         get_def("NoSuchKind")
 
@@ -82,7 +98,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         kernels.find_nvcc()
 
 
-@pytest.mark.parametrize("wrapper", ["envelope", "eq", "region"])
+@pytest.mark.parametrize("wrapper", ["envelope", "eq", "region", "crossfade"])
 def test_wrappers_refuse_other_devices(wrapper):
     """Only CPU tensors take the plain twin; any other device launches the
     kernel or raises — here a meta tensor must raise, not fall back."""
@@ -95,6 +111,12 @@ def test_wrappers_refuse_other_devices(wrapper):
     elif wrapper == "eq":
         with pytest.raises(ValueError, match="unsupported device"):
             eq_cascade_cuda(x, x, torch.zeros(4, 2), torch.ones(3), 0.1, 0.2, 0.0)
+    elif wrapper == "crossfade":
+        y = torch.empty((4, 4), dtype=torch.uint8, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            crossfade_cuda([y], [y], 128)
+        with pytest.raises(ValueError, match="unsupported device"):
+            crossfade_picture({"y": y}, {"y": y}, 128)
     else:
         plan = RegionPlan(n_operands=1, n_pf=0, n_ef=0)
         plan.add(OP_TAP, 0, 0)
@@ -107,8 +129,9 @@ def test_wrappers_refuse_other_devices(wrapper):
 def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
-    assert {p.name for p in kernels.sources()} == {"envelope.cu", "eq_cascade.cu", "region.cu"}
-    assert "mixlab_region_part" in kernels._SIGNATURES
+    assert {p.name for p in kernels.sources()} == {"crossfade.cu", "envelope.cu",
+                                                   "eq_cascade.cu", "region.cu"}
+    assert {"mixlab_region_part", "mixlab_crossfade"} <= set(kernels._SIGNATURES)
     # nothing in the flags may trade IEEE f32 for speed
     assert not any("fast_math" in f or "fast-math" in f for f in kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
