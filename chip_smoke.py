@@ -397,18 +397,45 @@ def main_path(torch, np, proj: Path, tmp: Path, sample_rate: int):
     log(f"main path {sr} Hz vs float64 oracle (first 2 s): max abs err {err_oracle:.3e} "
         f"(atol {ORACLE_ATOL})")
     if not err_oracle <= ORACLE_ATOL:
-        raise AssertionError("render disagrees with the oracle")
+        raise AssertionError(f"{sr} Hz render disagrees with the oracle: max abs err "
+                             f"{err_oracle:.3e} > {ORACLE_ATOL}")
     if not np.abs(audio).max() > 0.5:
-        raise AssertionError("render is near silent")
+        raise AssertionError(f"{sr} Hz render is near silent: peak {np.abs(audio).max():.3e}")
 
-    cpu_audio = render_cli.main([str(proj), str(tmp / f"cpu_{sr}.wav"), "--seconds", "10",
-                                 "--sample-rate", str(sr), "--device", "cpu"])
+    def render(device, name):
+        return render_cli.main([str(proj), str(tmp / name), "--seconds", "10",
+                                "--sample-rate", str(sr), "--device", device])
+
+    cpu_audio = render("cpu", f"cpu_{sr}.wav")
     err_cpu = float(np.abs(audio - cpu_audio).max())
     log(f"main path {sr} Hz cuda vs cpu render (10 s): max abs err {err_cpu:.3e} "
         f"(atol {CPU_RENDER_ATOL})")
     if not err_cpu <= CPU_RENDER_ATOL:
-        raise AssertionError("cuda render disagrees with the cpu render")
+        raise AssertionError(f"{sr} Hz cuda render disagrees with the cpu render: " + mismatch_report(
+            np, audio, cpu_audio, want_audio, sr,
+            render("cuda", f"again_cuda_{sr}.wav"), render("cpu", f"again_cpu_{sr}.wav")))
     return launches
+
+
+def mismatch_report(np, cuda, cpu, oracle_2s, sr, cuda_again, cpu_again) -> str:
+    """Where and how two renders of the same project disagree, each side's
+    distance from the float64 oracle, and whether a second render of each
+    reproduces the first: what tells a wrong card result from a wrong CPU
+    result and a fault that comes and goes from one that stays."""
+    diff = np.abs(cuda - cpu)
+    frame, ch = np.unravel_index(int(diff.argmax()), diff.shape)
+    over = np.flatnonzero((diff > CPU_RENDER_ATOL).any(axis=-1))
+    n = oracle_2s.shape[0]
+    return (f"max abs err {diff.max():.3e} > {CPU_RENDER_ATOL} at frame {frame} channel {ch} "
+            f"({frame / sr:.4f} s: cuda {float(cuda[frame, ch])!r}, "
+            f"cpu {float(cpu[frame, ch])!r}); "
+            f"{over.size} frames over, the first at {over[0] if over.size else None}; "
+            f"vs the oracle over the first 2 s: cuda {np.abs(cuda[:n] - oracle_2s).max():.3e}, "
+            f"cpu {np.abs(cpu[:n] - oracle_2s).max():.3e}; a second render equals the first: "
+            f"cuda {np.array_equal(cuda, cuda_again)} (max abs diff "
+            f"{np.abs(cuda - cuda_again).max():.3e}), cpu {np.array_equal(cpu, cpu_again)} "
+            f"(max abs diff {np.abs(cpu - cpu_again).max():.3e}); second cuda vs first cpu "
+            f"{np.abs(cuda_again - cpu).max():.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -811,7 +838,10 @@ def realtime_path(torch, np, dev, n_ticks=120, n_cpu=10):
         raise AssertionError(f"the crossfade kernel launched {launches['crossfade']} times "
                              f"in {n_ticks} ticks")
     if not (audio_err <= RT_AUDIO_ATOL and lsb <= COMPOSITE_LSB and peak > 0.1):
-        raise AssertionError("the cuda Engine disagrees with the cpu Engine (or is silent)")
+        raise AssertionError(
+            f"the cuda Engine disagrees with the cpu Engine (or is silent): audio max abs err "
+            f"{audio_err:.3e} (atol {RT_AUDIO_ATOL}), composites {lsb} LSB (limit "
+            f"{COMPOSITE_LSB}), monitor peak {peak:.3e} (want > 0.1)")
     return launches
 
 
