@@ -47,7 +47,34 @@ imports no jax.  Phases, any failure of which exits non-zero:
      twin at 1080p, ``scale_picture`` by method, ``tick_once`` over 300 ticks
      with and without the video chain, a profile of 10 ticks, the edit path
      (``compile_patch`` and the first block; a client op), and a 5 s
-     threaded run (``Engine.start()`` with a 60 fps feeder thread).
+     threaded run (``Engine.start()`` with a 60 fps feeder thread);
+ 11. the polyphase resize kernel vs its twin on the card, exact, pass by
+     pass (rows u8 -> bf16, columns bf16 -> u8, each axis alone into u8) on
+     720p -> 1080p (all three planes), 540p -> 1080p, 1080p -> 720p,
+     1080 -> 540, 240 -> 256 (16 phases) and ragged widths, and each plane
+     through ``resize_plane_polyphase`` within 1 LSB of the dense f32
+     resize; the passthrough kernel vs its twin, exact, at S = 384,000 and a
+     ragged S; run with phases 3-5 and 8;
+ 12. the composite main path, with the launch counts set to 0 just before
+     and read just after: config 5's video half (``bench.py:474-496``) at
+     1080p30 for 60 frames, each a 960x540 gradient to yuv420p, its planes
+     to 1080p through ``resize_plane_polyphase`` (6 resize launches), the
+     luma crossfaded with its 1-row roll at fade 128 (1 crossfade launch);
+     then beside it the same frames on the dense f32 resize (within 1 LSB)
+     and the folded ``resize_crossfade_roll`` (luma within 2 LSB), one frame
+     through the banded int8 products (equal to the dense int8), and the
+     realtime path's 1280x720 camera through the polyphase resize (within
+     1 LSB of the f32 letterbox's content box);
+ 13. the profiling tool's path, with the launch counts set to 0 just before
+     and read just after: ``mixlab_tpu_torch.tools.profile_env_eq``'s nine
+     rows at 48 kHz, S = 384,000, on a slope of 2 and 10 blocks, one round;
+     the passthrough kernel must launch once per block of ``full_dummy_eq``
+     and in no other row;
+ 14. video and passthrough timing, for information: per 720p -> 1080p
+     picture and per config-5 frame, the resize kernel, its twin, the dense
+     f32 and int8 resizes and the banded int8 (CUDA events, the forms in
+     turns), device time per resize launch (profiler); the passthrough vs
+     its twin and ``torch.mul`` at S = 384,000.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -83,9 +110,28 @@ RT_SPT = 735
 RT_FADER = 0.6
 CAM_SIZES = ((1920, 1080), (1280, 720))
 RT_AUDIO_ATOL = 1e-4     # the port's CUDA-vs-CPU tolerance, as CPU_RENDER_ATOL
-COMPOSITE_LSB = 1        # tests/test_video.py:197
+COMPOSITE_LSB = 1        # tests/test_video.py:197 and :215
+FOLD_LSB = 2             # tests/test_video.py:318, smooth content
 FADES = (0, 1, 127, 128, 254, 255)
 CROSSFADE_SHAPES = ((1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13))
+# (what, (in_h, in_w), (out_h, out_w)) for the resize kernel vs its twin
+RESIZE_CASES = (
+    ("720p->1080p luma", (720, 1280), (1080, 1920)),
+    ("720p->1080p chroma u", (360, 640), (540, 960)),
+    ("720p->1080p chroma v", (360, 640), (540, 960)),
+    ("540p->1080p luma", (540, 960), (1080, 1920)),
+    ("540p->1080p chroma", (270, 480), (540, 960)),
+    ("1080p->720p", (1080, 1920), (720, 1280)),
+    ("1080->540", (1080, 1920), (540, 960)),
+    ("240->256, 16 phases", (240, 240), (256, 256)),
+    ("ragged widths", (98, 174), (147, 261)),
+    ("ragged widths, rows halved", (100, 90), (50, 135)),
+)
+PASSTHROUGH_S = (384_000, 384_001)
+# the composite path: config 5's video half (bench.py:474-496), 1080p30
+COMPOSITE_FRAMES = 60
+COMPOSITE_SRC = (540, 960)  # gradient_rgb(960, 540, t); out is twice each side
+COMPOSITE_FADE = 128
 
 
 def log(*args):
@@ -767,10 +813,13 @@ def launch_counters():
     from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
     from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
     from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
+    from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
     from mixlab_tpu_torch.video.blend import crossfade_cuda
+    from mixlab_tpu_torch.video.resize_cuda import resize_axis_cuda
 
     return {"envelope": envelope_block_cuda, "eq_cascade": eq_cascade_cuda,
-            "region": region_part_cuda, "crossfade": crossfade_cuda}
+            "region": region_part_cuda, "crossfade": crossfade_cuda,
+            "resize": resize_axis_cuda, "passthrough": passthrough_cuda}
 
 
 def realtime_path(torch, np, dev, n_ticks=120, n_cpu=10):
@@ -1026,6 +1075,303 @@ def threaded_run(torch, np, dev, card, pool, seconds=5.0):
         raise AssertionError("the threaded engine did not run")
 
 
+
+# --------------------------------------------------------------------------
+# the video scale family and the profiling tool
+
+
+def check_resize(torch, np, dev):
+    """The resize kernel vs its twin on the card, exact, pass by pass; each
+    plane through ``resize_plane_polyphase`` within 1 LSB of the dense f32
+    resize; the passthrough kernel vs its twin, exact."""
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+    from mixlab_tpu_torch.video import resize_cuda as rc
+    from mixlab_tpu_torch.video import scale
+
+    rng = np.random.default_rng(13)
+    worst_dense = 0
+    for what, src, dst in RESIZE_CASES:
+        x = torch.from_numpy(rng.integers(0, 256, src, dtype=np.uint8)).to(dev)
+        rows = rc.resize_axis_cuda(x, dst[0], 0)
+        cols = rc.resize_axis_cuda(rows, dst[1], 1, torch.uint8)
+        pairs = [("rows u8->bf16", rows, rc.resize_axis_torch(x, dst[0], 0)),
+                 ("columns bf16->u8", cols, rc.resize_axis_torch(rows, dst[1], 1, torch.uint8))]
+        for axis, n_out in ((0, dst[0]), (1, dst[1])):
+            pairs.append((f"axis {axis} alone u8->u8", rc.resize_axis_cuda(x, n_out, axis, torch.uint8),
+                          rc.resize_axis_torch(x, n_out, axis, torch.uint8)))
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(
+                    f"resize kernel vs twin, {what} {src}->{dst}, {name}: "
+                    f"{int((got.float() != want.float()).sum())} of {want.numel()} differ, max abs "
+                    f"err {(got.float() - want.float()).abs().max().item()}")
+        plane = rc.resize_plane_polyphase(x, *dst)
+        lsb = _lsb(torch, plane, scale.resize_plane(x, *dst, "f32"))
+        worst_dense = max(worst_dense, lsb)
+        plans = [rc._phase_plan(a, b)[:3] for a, b in zip(src, dst)]
+        log(f"resize kernel vs twin, {what} {src[0]}x{src[1]} -> {dst[0]}x{dst[1]} "
+            f"(L, M, J: rows {plans[0]}, columns {plans[1]}): exact in all four passes; plane vs "
+            f"dense f32 "
+            f"{lsb} LSB (limit {COMPOSITE_LSB})")
+        if lsb > COMPOSITE_LSB:
+            raise AssertionError(f"resize_plane_polyphase {what} disagrees with the dense resize")
+    for S in PASSTHROUGH_S:
+        x = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(dev)
+        got, want = tool.passthrough_cuda(x), tool.passthrough_torch(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"passthrough kernel vs twin S={S}: max abs err "
+                                 f"{(got - want).abs().max().item()}")
+        log(f"passthrough kernel vs twin S={S}: bit-exact")
+    return 0.0
+
+
+def composite_frame(torch, t, dev, resize, fold=False):
+    """Config 5's video frame ``t``: a 960x540 gradient to yuv420p, each
+    plane to 1080p through ``resize``, the luma crossfaded with its 1-row
+    roll at fade 128 (the crossfade kernel), or with ``fold`` the luma
+    through the folded ``resize_crossfade_roll`` (f32) instead."""
+    from mixlab_tpu_torch.video import blend, fused
+    from mixlab_tpu_torch.video.colorspace import rgb_to_yuv420
+    from mixlab_tpu_torch.video.pattern import gradient_rgb
+
+    h, w = COMPOSITE_SRC
+    y, u, v = rgb_to_yuv420(gradient_rgb(w, h, t, device=dev))
+    if fold:
+        y2 = fused.resize_crossfade_roll(y, 2 * h, 2 * w, COMPOSITE_FADE)
+    else:
+        y1 = resize(y, 2 * h, 2 * w)
+        (y2,) = blend.crossfade_cuda([y1], [torch.roll(y1, 1, 0)], COMPOSITE_FADE)
+    return y2, resize(u, h, w), resize(v, h, w)
+
+
+def _with_banded(flag: str, fn):
+    """``fn()`` with ``MIXLAB_RESIZE_BANDED`` set to ``flag`` (restored)."""
+    import os
+
+    old = os.environ.get("MIXLAB_RESIZE_BANDED")
+    os.environ["MIXLAB_RESIZE_BANDED"] = flag
+    try:
+        return fn()
+    finally:
+        if old is None:
+            del os.environ["MIXLAB_RESIZE_BANDED"]
+        else:
+            os.environ["MIXLAB_RESIZE_BANDED"] = old
+
+
+def composite_path(torch, np, dev, card, n_frames=COMPOSITE_FRAMES):
+    """The composite main path through the polyphase kernel and the
+    crossfade kernel, the launch counts set to 0 just before and read just
+    after; then the dense and folded forms beside it, banded int8 against
+    dense int8 on one frame, and the realtime camera through the kernel."""
+    from mixlab_tpu_torch.video import scale
+    from mixlab_tpu_torch.video.frame import PictureSettings
+    from mixlab_tpu_torch.video.pattern import pattern_picture
+    from mixlab_tpu_torch.video.resize_cuda import resize_plane_polyphase
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    frames = [composite_frame(torch, i, dev, resize_plane_polyphase) for i in range(n_frames)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in counters.items()}
+    h, w = COMPOSITE_SRC
+    log(f"composite main path: {n_frames} config-5 frames ({w}x{h} -> {2 * w}x{2 * h}, "
+        f"polyphase resize, roll, crossfade at {COMPOSITE_FADE}) on {dev} in {wall:.3f} s [{card}], "
+        f"launches {launches}")
+    for name, want in (("resize", 6 * n_frames), ("crossfade", n_frames)):
+        if launches[name] != want:
+            raise AssertionError(f"the composite path launched the {name} kernel "
+                                 f"{launches[name]} times in {n_frames} frames (want {want})")
+
+    def dense(p, h, w):
+        return scale.resize_plane(p, h, w, "f32")
+
+    shapes = [(2 * COMPOSITE_SRC[0], 2 * COMPOSITE_SRC[1]), COMPOSITE_SRC, COMPOSITE_SRC]
+    lsb = fold_lsb = 0
+    for i, got in enumerate(frames):
+        if [tuple(g.shape) for g in got] != shapes or any(g.dtype != torch.uint8 for g in got):
+            raise AssertionError(f"composite frame {i}: planes {[tuple(g.shape) for g in got]}")
+        want = composite_frame(torch, i, dev, dense)
+        lsb = max(lsb, *(_lsb(torch, g, w) for g, w in zip(got, want)))
+        fold_lsb = max(fold_lsb, _lsb(torch, composite_frame(torch, i, dev, dense, True)[0],
+                                      want[0]))
+    mean = float(frames[-1][0].float().mean())
+    log(f"composite path vs the dense f32 pipeline ({n_frames} frames): max {lsb} LSB (limit "
+        f"{COMPOSITE_LSB}); folded luma vs the dense sequential: max {fold_lsb} LSB (limit "
+        f"{FOLD_LSB}); last luma mean {mean:.2f}")
+    if lsb > COMPOSITE_LSB or fold_lsb > FOLD_LSB or not 16.0 < mean < 240.0:
+        raise AssertionError("the composite path disagrees with its dense or folded form")
+
+    from mixlab_tpu_torch.video.colorspace import rgb_to_yuv420
+    from mixlab_tpu_torch.video.pattern import gradient_rgb
+
+    planes = rgb_to_yuv420(gradient_rgb(COMPOSITE_SRC[1], COMPOSITE_SRC[0], 0, device=dev))
+    by_flag = {flag: _with_banded(flag, lambda: [
+        scale.resize_plane(p, 2 * p.shape[0], 2 * p.shape[1], "int8") for p in planes])
+        for flag in ("0", "1")}
+    if not all(torch.equal(a, b) for a, b in zip(by_flag["0"], by_flag["1"])):
+        raise AssertionError("banded int8 resize differs from the dense int8 on the card")
+    log("banded int8 vs dense int8 on the card, one config-5 frame's planes: bit-identical")
+
+    src = pattern_picture("gradient", *CAM_SIZES[1], 5, device=dev)
+    out = PictureSettings(*CAM_SIZES[0])
+    x, y, sw, sh = scale.letterbox_geometry(src.settings, out)
+    boxed = scale.scale_picture(src, out, "f32")
+    cam_lsb = 0
+    for k, sub in (("y", 0), ("u", 1), ("v", 1)):
+        ph, pw, py, px = sh >> sub, sw >> sub, y >> sub, x >> sub
+        got = resize_plane_polyphase(src.planes[k], ph, pw)
+        cam_lsb = max(cam_lsb, _lsb(torch, got, boxed.planes[k][py:py + ph, px:px + pw]))
+    log(f"realtime camera {CAM_SIZES[1][0]}x{CAM_SIZES[1][1]} through the polyphase resize vs "
+        f"scale_picture(f32)'s content box {sw}x{sh}: max {cam_lsb} LSB (limit {COMPOSITE_LSB})")
+    if cam_lsb > COMPOSITE_LSB:
+        raise AssertionError("the polyphase resize disagrees with the letterbox's f32 scale")
+    return launches
+
+
+def profile_path(torch, dev, card):
+    """The profiling tool's nine rows at 48 kHz (S = 384,000) on a short
+    slope, the launch counts set to 0 just before and read just after."""
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+
+    S = BlockSpec(tool.BLOCK_TICKS).n_samples(EngineConfig(sample_rate=tool.SAMPLE_RATE))
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    rows = tool.profile_rows(str(dev), reps=1, n1=2, n2=10,
+                             log=lambda line: log(f"profile tool {line}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"profile tool path: {len(rows)} rows in {wall:.3f} s, launches {launches}")
+    regions = {"chain", "full", "full_noosc", "no_env"}
+    for r in rows:
+        log(f"profile tool row {r['name']} [{card}]: {r['us_per_s']:.2f} us per second of audio "
+            f"(slope 2 -> 10 blocks of {S} samples, one round), {r['program']} program, "
+            f"{r['blocks']} blocks, launches {r['launches']}")
+        want_pass = r["blocks"] if r["name"] == "full_dummy_eq" else 0
+        if r["launches"]["passthrough"] != want_pass:
+            raise AssertionError(f"profile row {r['name']}: passthrough launched "
+                                 f"{r['launches']['passthrough']} times in {r['blocks']} blocks")
+        if (r["program"] == "region") != (r["name"] in regions):
+            raise AssertionError(f"profile row {r['name']} took the {r['program']} program")
+        if not (0.0 < r["us_per_s"] < float("inf")):
+            raise AssertionError(f"profile row {r['name']}: {r['us_per_s']} us/s")
+    dummy = next(r for r in rows if r["name"] == "full_dummy_eq")
+    if launches["passthrough"] != dummy["blocks"] or launches["region"] == 0:
+        raise AssertionError(f"profile path launches {launches}")
+    return launches
+
+
+def resize_work(np, src_planes, dst_planes):
+    """(bytes, flops) of resizing u8 planes: each input read once, each
+    output written once; a multiply and an add per nonzero tap per output
+    of each pass."""
+    from mixlab_tpu_torch.video.resize_cuda import _phase_plan
+
+    nbytes = sum(h * w for h, w in src_planes) + sum(h * w for h, w in dst_planes)
+    flops = 0
+    for (ih, iw), (oh, ow) in zip(src_planes, dst_planes):
+        for n_in, n_out, outputs in ((ih, oh, oh * iw), (iw, ow, oh * ow)):
+            if n_in != n_out:
+                L, _, _, _, W = _phase_plan(n_in, n_out)[:5]
+                flops += 2 * outputs * np.count_nonzero(W) / L
+    return nbytes, int(flops)
+
+
+def _device_us(torch, fn, name, n=20):
+    """Device time per launch of the kernels whose name holds ``name``,
+    from the profiler over ``n`` calls of ``fn``: [(kernel, us, count)]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / e.count, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key and e.self_device_time_total > 0]
+
+
+def video_timing(torch, np, dev, card):
+    """For information: per 720p->1080p picture and per config-5 frame, the
+    resize kernel, its twin, the dense f32, int8 and banded int8 resizes
+    (CUDA events, the forms in turns, twice); device time per resize
+    launch; the passthrough vs its twin and torch.mul at S = 384,000."""
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+    from mixlab_tpu_torch.video import resize_cuda as rc
+    from mixlab_tpu_torch.video import scale
+
+    def twin(p, h, w):
+        return rc.resize_axis_torch(rc.resize_axis_torch(p, h, 0), w, 1, torch.uint8)
+
+    forms = {  # name -> (resize, MIXLAB_RESIZE_BANDED)
+        "kernel": (rc.resize_plane_polyphase, "0"), "twin": (twin, "0"),
+        "dense f32": (lambda p, h, w: scale.resize_plane(p, h, w, "f32"), "0"),
+        "int8": (lambda p, h, w: scale.resize_plane(p, h, w, "int8"), "0"),
+        "banded int8": (lambda p, h, w: scale.resize_plane(p, h, w, "int8"), "1")}
+    rng = np.random.default_rng(17)
+    res = {}
+    for label, src, dst in (
+            ("720p->1080p yuv420p picture", [(720, 1280), (360, 640), (360, 640)],
+             [(1080, 1920), (540, 960), (540, 960)]),
+            ("config-5 frame, 540p->1080p", [(540, 960), (270, 480), (270, 480)],
+             [(1080, 1920), (540, 960), (540, 960)])):
+        planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev) for s in src]
+
+        def run(resize):
+            return lambda: [resize(p, *d) for p, d in zip(planes, dst)]
+
+        ms = {}
+        for order in (list(forms), list(forms)[::-1]):
+            for name in order:
+                fn, flag = forms[name]
+                ms.setdefault(name, []).append(_with_banded(
+                    flag, lambda: time_ms(torch, run(fn), n=50, warmup=5)))
+        nbytes, flops = resize_work(np, src, dst)
+        b_ms, b_by = bound(nbytes, flops)
+        dev_us = _device_us(torch, run(rc.resize_plane_polyphase), "resize_kernel")
+        log(f"timing resize, {label} [{card}]: " + ", ".join(
+            f"{name} {a:.4f}/{b:.4f}" for name, (a, b) in ms.items())
+            + f" ms per picture (CUDA events, 50 calls, forms in turns); bound "
+            f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} B, {flops} flop); library call: none "
+            f"(F.interpolate's bicubic is another filter; dense f32 above)")
+        for key, us, count in dev_us:
+            log(f"  device time per launch {us:.3f} us ({count} launches in 20 pictures)  "
+                f"{key[:100]}")
+        per_picture = sum(us * round(c / 20) for _, us, c in dev_us)
+        log(f"  device time per picture {per_picture:.3f} us (6 launches)")
+        res[label] = {"ms": sum(ms["kernel"]) / 2, "plain_ms": sum(ms["twin"]) / 2,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    out = {"resize": res["config-5 frame, 540p->1080p"]}
+
+    S = 384_000
+    x = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(dev)
+    gain = float(tool.GAIN)
+    p1 = time_ms(torch, lambda: tool.passthrough_torch(x))
+    k1 = time_ms(torch, lambda: tool.passthrough_cuda(x))
+    lib = time_ms(torch, lambda: torch.mul(x, gain))
+    k2 = time_ms(torch, lambda: tool.passthrough_cuda(x))
+    p2 = time_ms(torch, lambda: tool.passthrough_torch(x))
+    b_ms, b_by = bound(8 * S, S)
+    dev_us = _device_us(torch, lambda: tool.passthrough_cuda(x), "passthrough_kernel", n=50)
+    log(f"timing passthrough S={S} [{card}]: kernel {k1:.4f}/{k2:.4f} ms, plain twin "
+        f"{p1:.4f}/{p2:.4f} ms, torch.mul {lib:.4f} ms per call (CUDA events, 200 calls); "
+        f"device time {'/'.join(f'{us:.3f}' for _, us, _ in dev_us) or 'not measured'} us per "
+        f"launch (profiler, 50 launches); bound {b_ms * 1e3:.3f} us by {b_by} ({8 * S} B)")
+    out["passthrough"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
+                          "bound_by": b_by, "library_ms": lib}
+    return out
+
 # --------------------------------------------------------------------------
 
 
@@ -1065,6 +1411,7 @@ def main() -> int:
 
     errs = {"envelope": check_envelope(torch, np, dev), "eq_cascade": check_eq(torch, np, dev),
             "region": check_region(torch, np, dev), "crossfade": check_crossfade(torch, np, dev)}
+    errs["resize"] = errs["passthrough"] = check_resize(torch, np, dev)
     check_scale(torch, np, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -1073,12 +1420,17 @@ def main() -> int:
             base.write_workspace(build_16_module_graph()[0].to_persist())
         paths = {str(sr): main_path(torch, np, proj, tmp, sr) for sr in (44_100, 48_000)}
         paths["realtime"] = realtime_path(torch, np, dev)
+        paths["composite"] = composite_path(torch, np, dev, card)
+        paths["profile"] = profile_path(torch, dev, card)
         times = timing(torch, np, dev, card, proj)
         times.update(realtime_timing(torch, np, dev, card))
+        times.update(video_timing(torch, np, dev, card))
 
     # each kernel's launches on the main path that carries it
     launches = {"envelope": paths["44100"]["envelope"], "eq_cascade": paths["44100"]["eq_cascade"],
-                "region": paths["48000"]["region"], "crossfade": paths["realtime"]["crossfade"]}
+                "region": paths["48000"]["region"], "crossfade": paths["realtime"]["crossfade"],
+                "resize": paths["composite"]["resize"],
+                "passthrough": paths["profile"]["passthrough"]}
     rows = (("envelope", "envelope_block", "mixlab_tpu_torch/csrc/envelope.cu",
              "mixlab_tpu/dsp/envelope_pallas.py:347"),
             ("eq_cascade", "eq_cascade", "mixlab_tpu_torch/csrc/eq_cascade.cu",
@@ -1086,13 +1438,17 @@ def main() -> int:
             ("region", "region_part", "mixlab_tpu_torch/csrc/region.cu",
              "mixlab_tpu/engine/pallas_graph.py:377"),
             ("crossfade", "crossfade", "mixlab_tpu_torch/csrc/crossfade.cu",
-             "mixlab_tpu/video/blend.py:86"))
+             "mixlab_tpu/video/blend.py:86"),
+            ("resize", "resize_axis", "mixlab_tpu_torch/csrc/resize.cu",
+             "mixlab_tpu/video/resize_pallas.py:143"),
+            ("passthrough", "passthrough", "mixlab_tpu_torch/csrc/passthrough.cu",
+             "tools/profile_env_eq.py:221"))
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[key], "max_abs_err": errs[key],
          "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
          "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
-         "library_ms": None,
+         "library_ms": times[key].get("library_ms"),
          "launches_by_path": {name: counts[key] for name, counts in paths.items()}}
         for key, name, source, replaces in rows
     ]}

@@ -4,11 +4,16 @@
 Holds every kind of the JAX package.  A kind listed in ``NOT_PORTED``
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it
 (none is left since the video mixer came with the realtime engine).
+
+``registered`` adds a kind for the length of a ``with`` block only (the
+profiling tool's ``EqDummy``), where the JAX package's ``register`` adds it
+for the rest of the process.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 from mixlab_tpu_torch.dsp.audio import (
     AmplifierDef,
@@ -31,6 +36,7 @@ from mixlab_tpu_torch.dsp.sinks import (
     StreamOutputDef,
 )
 from mixlab_tpu_torch.dsp.video_mixer import VideoMixerDef
+from mixlab_tpu_torch.protocol import ModuleParams
 
 _REGISTRY: Dict[str, ModuleDef] = {
     d.kind: d
@@ -72,3 +78,21 @@ def get_def(kind: str) -> ModuleDef:
 
 def all_kinds():
     return sorted(_REGISTRY)
+
+
+@contextlib.contextmanager
+def registered(defn: ModuleDef, params_cls: type = type(None)) -> Iterator[ModuleDef]:
+    """Inside the block, ``defn``'s kind is in the registry and in
+    ``ModuleParams.KINDS`` (with ``params_cls``); on exit it leaves both.
+    A kind that is already known raises ``ValueError``."""
+    kind = defn.kind
+    if kind in _REGISTRY or kind in ModuleParams.KINDS:
+        raise ValueError(f"module kind {kind!r} is already registered")
+    kinds = ModuleParams.KINDS
+    _REGISTRY[kind] = defn
+    ModuleParams.KINDS = {**kinds, kind: params_cls}
+    try:
+        yield defn
+    finally:
+        del _REGISTRY[kind]
+        ModuleParams.KINDS = kinds

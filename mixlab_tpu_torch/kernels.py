@@ -66,6 +66,12 @@ _SIGNATURES = {
         *[_c_ptr, _c_ptr, _c_ptr, _c_int] * 3,  # (a, b, out, n) per plane
         _c_int, _c_int, _c_ptr,                  # count, fade, stream
     ],
+    "mixlab_resize_axis": [
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,  # x, out, rows, cols, n_out, axis
+        _c_int, _c_int, _c_int, _c_int, _c_int,          # in_u8, out_u8, L, M, J
+        _c_ptr, _c_ptr, _c_ptr,                          # weights, bases, stream
+    ],
+    "mixlab_passthrough": [_c_ptr, _c_ptr, _c_int, _c_ptr],  # x, out, n, stream
 }
 
 

@@ -9,8 +9,9 @@ bicubic (B=0, C=0.6) written as a dense separable product
     out = clip(round(W_h @ in @ W_w^T))
 
 with W_h [H_out, H_in] and W_w [W_out, W_in] built on the host in float64 by
-the JAX package's own code (so the tables are bit-identical), cached per
-(in, out) size pair and kept on the device per device.
+this module's copy of the JAX package's table code (``_mitchell``,
+``resize_matrix``: the tables are bit-identical), cached per (in, out) size
+pair and kept on the device per device.
 
 Two methods:
   * ``"f32"``: two f32 matrix products (``torch.matmul``; on the card they
@@ -22,23 +23,27 @@ Two methods:
     product (int32 on the CPU, ``torch._int_mm`` on the card, the
     contraction and output widths zero-padded to the multiples of 8 that
     ``_int_mm`` demands — the padding adds exact zeros), then the same f32
-    epilogue in the same order.
+    epilogue in the same order.  With ``MIXLAB_RESIZE_BANDED=1`` (off by
+    default, a measured negative result in the JAX package) each product
+    runs block-banded (``_banded_blocks_i8``): one exact integer product per
+    output block against its input window, bit-identical to the dense one.
 ``"auto"`` is ``"f32"`` on every device (the JAX package's int8 default is
-for the TPU's double-rate s8 MXU; the card's int8 rate is not measured
-against f32 for this shape yet).
+for the TPU's double-rate s8 MXU; on the card int8 measured 3.6-3.9x slower
+than f32 per 720p→1080p picture, PERF.md).
+
+Also here, as in the JAX package: the polyphase integer-ratio upscale
+``_upscale_axis`` (shifted multiply-adds, no product).  The polyphase resize
+through a hand-written kernel is ``video/resize_cuda.py``.
 
 Letterbox geometry matches encode.rs:354-396: integer scale ratio
 min(w_ratio, h_ratio) (exact rational compare), chroma-aligned scaled size
 and offsets, surrounding pixels black/0x80.
-
-Not ported (off the path, ROADMAP.md): the banded int8 opt-in
-(``MIXLAB_RESIZE_BANDED``, a measured negative result) and the polyphase
-``_upscale_axis``.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from fractions import Fraction
 from typing import Tuple
 
@@ -90,11 +95,58 @@ def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
+def _phase_taps(n_in: int, n_out: int):
+    """For exact integer upscales (n_out = r*n_in) the dense resize matrix is
+    r shifted copies of per-phase tap vectors.  Returns (r, lo, taps[r, J])
+    or None when not an integer upscale.  Edge clamping in the dense matrix
+    equals replicate padding here, so results match."""
+    if n_out % n_in != 0 or n_out == n_in:
+        return None
+    r = n_out // n_in
+    scale = n_in / n_out
+    pos0 = (np.arange(r, dtype=np.float64) + 0.5) * scale - 0.5  # phase offsets
+    lo = int(np.floor(pos0.min())) - 1
+    hi = int(np.ceil(pos0.max())) + 2
+    offsets = np.arange(lo, hi + 1)
+    taps = _mitchell(offsets[None, :] - pos0[:, None])
+    taps /= taps.sum(axis=1, keepdims=True)
+    return r, lo, taps.astype(np.float32)
+
+
+def _upscale_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
+    """Polyphase integer-ratio upscale of an f32 tensor along ``axis``: per
+    phase, J shifted multiply-adds in f32 in the JAX package's order (edge
+    rows repeated past the ends), the phases interleaved."""
+    n_in = x.shape[axis]
+    r, lo, taps = _phase_taps(n_in, n_out)
+    J = taps.shape[1]
+    src = torch.arange(n_in, device=x.device)
+    phases = []
+    for p in range(r):
+        acc = None
+        for j in range(J):
+            rows = x.index_select(axis, torch.clamp(src + (lo + j), 0, n_in - 1))
+            term = float(taps[p, j]) * rows
+            acc = term if acc is None else acc + term
+        phases.append(acc)
+    stacked = torch.stack(phases, dim=axis + 1)  # n_in then r on that axis
+    new_shape = list(x.shape)
+    new_shape[axis] = n_out
+    return stacked.reshape(new_shape)
+
+
+@functools.lru_cache(maxsize=256)
 def _resize_matrix_i8(n_in: int, n_out: int):
     """int8 quantization of the bicubic resample matrix with per-row scales:
     (Wq int8 [n_out, n_in], dequant f32 [n_out], offset f32 [n_out], bound)
     such that W @ x ≈ (Wq @ (x - 128)) * dequant + offset."""
-    W = np.asarray(resize_matrix(n_in, n_out), dtype=np.float64)
+    return _resize_matrix_i8_from(resize_matrix(n_in, n_out))
+
+
+def _resize_matrix_i8_from(W: np.ndarray):
+    """Quantize any resample-style matrix (rows summing ~1) for the exact
+    int8 path; also used for the folded matrices of ``video/fused.py``."""
+    W = np.asarray(W, dtype=np.float64)
     s = 127.0 / np.maximum(np.abs(W).max(axis=1, keepdims=True), 1e-12)
     Wq = np.clip(np.round(W * s), -127, 127).astype(np.int8)
     dequant = (1.0 / s[:, 0]).astype(np.float32)
@@ -109,12 +161,56 @@ def _resize_matrix_i8(n_in: int, n_out: int):
     return Wq, dequant, offset, bound
 
 
+@functools.lru_cache(maxsize=256)
+def _banded_blocks_i8(n_in: int, n_out: int, block: int = 0):
+    """Block-banded form of the quantized resize matrix (the JAX package's
+    ``_banded_blocks_i8``): an output block of ``block`` rows reads only a
+    window of K inputs, and the window's zero columns add exact zeros, so
+    the banded products are bit-identical to the dense one.
+
+    Returns (Wb int8 [nb, block, K], starts tuple, K) or None when the band
+    is too wide to save meaningful work (e.g. heavy minification)."""
+    Wq, _, _, _ = _resize_matrix_i8(n_in, n_out)
+    if block == 0:  # small outputs waste less on last-block padding at 128
+        block = 256 if n_out >= 1024 else 128
+    nb = -(-n_out // block)
+    starts = []
+    K = 0
+    for b in range(nb):
+        rows = Wq[b * block : min((b + 1) * block, n_out)]
+        nz = np.nonzero((rows != 0).any(axis=0))[0]
+        lo, hi = (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 1)
+        starts.append(lo)
+        K = max(K, hi - lo)
+    K = min(n_in, -(-K // 8) * 8)  # a multiple of 8, as the int8 product wants
+    if nb * block * K >= 0.6 * n_out * n_in:
+        return None  # band too wide: dense is at least as good
+    starts = [min(s, n_in - K) for s in starts]
+    Wb = np.zeros((nb, block, K), np.int8)
+    for b, s in enumerate(starts):
+        rows = Wq[b * block : min((b + 1) * block, n_out)]
+        Wb[b, : rows.shape[0]] = rows[:, s : s + K]
+    return Wb, tuple(starts), K
+
+
+def _banded_enabled() -> bool:
+    # default OFF, as in the JAX package (measured 6x slower than dense on
+    # its TPU); opt-in for re-measurement
+    return os.environ.get("MIXLAB_RESIZE_BANDED", "0") == "1"
+
+
 @functools.lru_cache(maxsize=64)
 def _device_table(kind: str, n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """One (in, out) pair's table on ``device``, uploaded once: ``"f32"`` the
     resample matrix W, ``"i8"`` its quantization Wq, both [n_out, n_in]
-    (the column pass multiplies by the transposed view)."""
-    W = resize_matrix(n_in, n_out) if kind == "f32" else _resize_matrix_i8(n_in, n_out)[0]
+    (the column pass multiplies by the transposed view), ``"i8_banded"``
+    the banded blocks Wb [nb, block, K]."""
+    if kind == "f32":
+        W = resize_matrix(n_in, n_out)
+    elif kind == "i8":
+        W = _resize_matrix_i8(n_in, n_out)[0]
+    else:
+        W = _banded_blocks_i8(n_in, n_out)[0]
     return torch.from_numpy(W).to(device)
 
 
@@ -143,6 +239,38 @@ def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b.t().contiguous().t())[:M, :N]
 
 
+def _int8_rows_matmul(xc: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Row-pass accumulator [n_out, W] int32 of the centered int8 plane:
+    banded when enabled and profitable.  The banded form is one exact
+    ``int_matmul`` per output block against its window: ``torch._int_mm``
+    is 2-D only and the card has no integer batched product, and a loop of
+    exact integer products stays bit-identical to the dense one at any
+    window width (an f32 batched product would be exact only while every
+    sum stays under 2^24)."""
+    n_in = xc.shape[0]
+    banded = _banded_blocks_i8(n_in, n_out) if _banded_enabled() else None
+    if banded is None:
+        return int_matmul(_device_table("i8", n_in, n_out, xc.device), xc)
+    _, starts, K = banded
+    Wb = _device_table("i8_banded", n_in, n_out, xc.device)
+    acc = torch.cat([int_matmul(Wb[b], xc[s : s + K]) for b, s in enumerate(starts)])
+    return acc[:n_out]
+
+
+def _int8_cols_matmul(xc: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Column-pass accumulator [H, n_out] int32: banded when enabled and
+    profitable (one exact product per output block, as the row pass)."""
+    n_in = xc.shape[1]
+    banded = _banded_blocks_i8(n_in, n_out) if _banded_enabled() else None
+    if banded is None:
+        return int_matmul(xc, _device_table("i8", n_in, n_out, xc.device).t())
+    _, starts, K = banded
+    Wb = _device_table("i8_banded", n_in, n_out, xc.device)
+    acc = torch.cat([int_matmul(xc[:, s : s + K], Wb[b].t()) for b, s in enumerate(starts)],
+                    dim=1)
+    return acc[:, :n_out]
+
+
 def _resize_plane_int8(plane: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """The JAX package's ``_resize_plane_int8``: centered int8 plane, exact
     integer products, requantized centered intermediate between passes."""
@@ -152,7 +280,7 @@ def _resize_plane_int8(plane: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
     mid_scale = 1.0  # intermediate units per original pixel unit
     if in_h != out_h:
         _, dq, off, bound = _resize_matrix_i8(in_h, out_h)
-        acc = int_matmul(_device_table("i8", in_h, out_h, dev), xc)
+        acc = _int8_rows_matmul(xc, out_h)
         dq_t = torch.from_numpy(dq[:, None]).to(dev)
         off_t = torch.from_numpy(off[:, None] - np.float32(128.0)).to(dev)
         y = acc.to(torch.float32) * dq_t + off_t
@@ -163,7 +291,7 @@ def _resize_plane_int8(plane: torch.Tensor, out_h: int, out_w: int) -> torch.Ten
         mid_scale = 127.0 / bound
         xc = torch.clamp(torch.round(y * float(np.float32(mid_scale))), -127, 127).to(torch.int8)
     _, dq, off, _ = _resize_matrix_i8(in_w, out_w)
-    acc = int_matmul(xc, _device_table("i8", in_w, out_w, dev).t())
+    acc = _int8_cols_matmul(xc, out_w)
     scale = torch.from_numpy(dq[None, :] / np.float32(mid_scale)).to(dev)
     y = acc.to(torch.float32) * scale + torch.from_numpy(off[None, :]).to(dev)
     return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)

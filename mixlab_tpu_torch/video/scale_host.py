@@ -1,0 +1,93 @@
+"""Host-rate scale + letterbox in numpy (port of
+``mixlab_tpu/video/scale_host.py``).
+
+The dense resize is the right form on a device, but ~99% of its matrix is
+zeros, which a host CPU pays for.  This module applies the SAME weights
+(``scale.resize_matrix`` stays the single source of truth) as two banded
+separable passes: per output sample, only its K nonzero source taps.
+
+The JAX package's first choice here is a C++ twin
+(``mixlab_tpu/native``, ``scale_plane_banded``), with this numpy path as
+its fallback.  The port imports nothing of that package and runs the numpy
+path only; its copy of the C++ twin comes with ``StreamOutputController``
+(ROADMAP.md queue 1 item 15), the only caller of the host scale
+(``mixlab_tpu/server/stream_output.py:344-360``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from mixlab_tpu_torch.video.frame import YUV420P, Picture, PictureSettings
+from mixlab_tpu_torch.video.scale import letterbox_geometry, resize_matrix
+
+
+@functools.lru_cache(maxsize=256)
+def banded_weights(n_in: int, n_out: int):
+    """(idx [n_out, K] int32, w [n_out, K] f32) banded form of
+    resize_matrix — per output sample, the nonzero source taps (padded
+    with weight-0 index-0 entries to the max bandwidth K)."""
+    W = resize_matrix(n_in, n_out)
+    nz = [np.nonzero(W[o])[0] for o in range(n_out)]
+    K = max(len(z) for z in nz)
+    idx = np.zeros((n_out, K), dtype=np.int32)
+    w = np.zeros((n_out, K), dtype=np.float32)
+    for o, z in enumerate(nz):
+        idx[o, : len(z)] = z
+        w[o, : len(z)] = W[o, z]
+    return idx, w
+
+
+def resize_plane_host(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """[H, W] u8 -> [out_h, out_w] u8 on the host CPU (banded bicubic, K
+    gather-multiply-add passes per axis in f32)."""
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    in_h, in_w = plane.shape
+    if (in_h, in_w) == (out_h, out_w):
+        return plane
+    yidx, yw = banded_weights(in_h, out_h)
+    xidx, xw = banded_weights(in_w, out_w)
+    tmp = np.zeros((out_h, in_w), dtype=np.float32)
+    for k in range(yidx.shape[1]):
+        tmp += yw[:, k:k + 1] * plane[yidx[:, k], :]
+    acc = np.zeros((out_h, out_w), dtype=np.float32)
+    for k in range(xidx.shape[1]):
+        acc += xw[None, :, k] * tmp[:, xidx[:, k]]
+    return np.clip(np.round(acc), 0, 255).astype(np.uint8)
+
+
+_BLANK = {}
+
+
+def _host(plane) -> np.ndarray:
+    if isinstance(plane, torch.Tensor):
+        return plane.detach().cpu().numpy()
+    return np.asarray(plane)
+
+
+def scale_picture_host(pic: Picture, out: PictureSettings) -> Picture:
+    """Scale + letterbox on the host CPU; same geometry as scale_picture
+    (aspect-preserving, chroma-aligned content box, 0x80-chroma bars).
+    Planes may be numpy arrays or tensors; the result's are numpy."""
+    if pic.settings == out:
+        return pic
+    assert pic.settings.pixel_format == YUV420P == out.pixel_format
+    x, y, sw, sh = letterbox_geometry(pic.settings, out)
+    blank = _BLANK.get(out)
+    if blank is None:
+        blank = _BLANK[out] = {
+            "y": np.zeros((out.height, out.width), np.uint8),
+            "u": np.full((out.height // 2, out.width // 2), 0x80, np.uint8),
+            "v": np.full((out.height // 2, out.width // 2), 0x80, np.uint8),
+        }
+    planes = {}
+    for name, (sub_x, sub_y) in (("y", (0, 0)), ("u", (1, 1)), ("v", (1, 1))):
+        ph, pw = sh >> sub_y, sw >> sub_x
+        canvas = blank[name].copy()
+        canvas[y >> sub_y: (y >> sub_y) + ph,
+               x >> sub_x: (x >> sub_x) + pw] = resize_plane_host(_host(pic.planes[name]), ph, pw)
+        planes[name] = canvas
+    return Picture(out, planes)

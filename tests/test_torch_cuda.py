@@ -239,3 +239,61 @@ def test_cuda_engine_ticks_launch_the_crossfade_once_each(dev):
     finally:
         cams.close()
         eng.stop()
+
+
+RESIZE_CASES = [((720, 1280), (1080, 1920)), ((240, 250), (256, 125))]
+
+
+@pytest.mark.parametrize("src,dst", RESIZE_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_resize_kernel_matches_twin(dev, src, dst):
+    """Exact, pass by pass (u8 -> bf16 rows, bf16 -> u8 columns, and each
+    axis alone into u8), one launch per pass; the plane within 1 LSB of the
+    dense f32 resize."""
+    from mixlab_tpu_torch.video import resize_cuda as rc
+    from mixlab_tpu_torch.video import scale
+
+    rng = np.random.default_rng(src[0] + dst[1])
+    x = torch.from_numpy(rng.integers(0, 256, src, dtype=np.uint8)).to(dev)
+    n = rc.resize_axis_cuda.launches
+    rows = rc.resize_axis_cuda(x, dst[0], 0)
+    assert torch.equal(rows, rc.resize_axis_torch(x, dst[0], 0))
+    cols = rc.resize_axis_cuda(rows, dst[1], 1, torch.uint8)
+    assert torch.equal(cols, rc.resize_axis_torch(rows, dst[1], 1, torch.uint8))
+    for axis, n_out in ((0, dst[0]), (1, dst[1])):
+        got = rc.resize_axis_cuda(x, n_out, axis, torch.uint8)
+        assert torch.equal(got, rc.resize_axis_torch(x, n_out, axis, torch.uint8)), axis
+    plane = rc.resize_plane_polyphase(x, *dst)
+    torch.cuda.synchronize()
+    assert torch.equal(plane, cols) and rc.resize_axis_cuda.launches == n + 6
+    dense = scale.resize_plane(x, *dst, method="f32")
+    assert int((plane.to(torch.int16) - dense.to(torch.int16)).abs().max()) <= 1
+
+
+def test_resize_wrapper_rejects_bad_tensors(dev):
+    from mixlab_tpu_torch.video import resize_cuda as rc
+
+    x = torch.zeros((48, 64), dtype=torch.uint8, device=dev)
+    n = rc.resize_axis_cuda.launches
+    for bad, n_out, axis in ((x[:, ::2], 72, 0), (x.float(), 72, 0), (x, 72, 2),
+                             (x[None], 72, 0), (x, 71 * 97, 0)):
+        with pytest.raises(ValueError):
+            rc.resize_axis_cuda(bad, n_out, axis)
+    with pytest.raises(ValueError, match="out_dtype"):
+        rc.resize_axis_cuda(x, 72, 0, torch.float32)
+    assert rc.resize_axis_cuda.launches == n
+
+
+@pytest.mark.parametrize("S", [384_000, 1_000_003])
+def test_passthrough_kernel_matches_twin(dev, S):
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(dev)
+    n = tool.passthrough_cuda.launches
+    got = tool.passthrough_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tool.passthrough_torch(x)) and tool.passthrough_cuda.launches == n + 1
+    for bad in (x[::2], x.double(), x.reshape(-1, 1)):
+        with pytest.raises(ValueError):
+            tool.passthrough_cuda(bad)
+    assert tool.passthrough_cuda.launches == n + 1

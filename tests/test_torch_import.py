@@ -16,7 +16,9 @@ from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
 from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
 from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
+from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
 from mixlab_tpu_torch.video.blend import crossfade_cuda, crossfade_picture
+from mixlab_tpu_torch.video.resize_cuda import resize_axis_cuda, resize_plane_polyphase
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -50,7 +52,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
-    assert len(names) >= 45  # every module of the three slices
+    assert len(names) >= 50  # every module of the four slices
     # the port's own copies of the host code it once took from mixlab_tpu
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "protocol", "protocol.wire", "engine.config", "io_host.wav", "av.flacenc",
@@ -61,6 +63,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "io_host.audio_out", "io_host.alsa_out", "utils.mtime", "dsp.video_mixer",
         "video.frame", "video.colorspace", "video.pattern", "video.scale", "video.blend",
         "video.engine")} <= names
+    # the video scale family and the profiling tool
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "video.resize_cuda", "video.fused", "video.scale_host", "tools",
+        "tools.profile_env_eq")} <= names
 
 
 def test_resolve_device():
@@ -98,7 +104,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         kernels.find_nvcc()
 
 
-@pytest.mark.parametrize("wrapper", ["envelope", "eq", "region", "crossfade"])
+@pytest.mark.parametrize("wrapper", ["envelope", "eq", "region", "crossfade", "resize",
+                                     "passthrough"])
 def test_wrappers_refuse_other_devices(wrapper):
     """Only CPU tensors take the plain twin; any other device launches the
     kernel or raises — here a meta tensor must raise, not fall back."""
@@ -111,6 +118,15 @@ def test_wrappers_refuse_other_devices(wrapper):
     elif wrapper == "eq":
         with pytest.raises(ValueError, match="unsupported device"):
             eq_cascade_cuda(x, x, torch.zeros(4, 2), torch.ones(3), 0.1, 0.2, 0.0)
+    elif wrapper == "resize":
+        y = torch.empty((48, 64), dtype=torch.uint8, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            resize_axis_cuda(y, 72, 0)
+        with pytest.raises(ValueError, match="unsupported device"):
+            resize_plane_polyphase(y, 72, 96)
+    elif wrapper == "passthrough":
+        with pytest.raises(ValueError, match="unsupported device"):
+            passthrough_cuda(x)
     elif wrapper == "crossfade":
         y = torch.empty((4, 4), dtype=torch.uint8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
@@ -130,8 +146,15 @@ def test_kernel_library_name_tracks_sources():
     path = kernels.library_path()
     assert path.parent == kernels.BUILD_DIR
     assert {p.name for p in kernels.sources()} == {"crossfade.cu", "envelope.cu",
-                                                   "eq_cascade.cu", "region.cu"}
-    assert {"mixlab_region_part", "mixlab_crossfade"} <= set(kernels._SIGNATURES)
+                                                   "eq_cascade.cu", "region.cu", "resize.cu",
+                                                   "passthrough.cu"}
+    assert set(kernels._SIGNATURES) == {
+        "mixlab_envelope_block", "mixlab_eq_cascade", "mixlab_region_part",
+        "mixlab_crossfade", "mixlab_resize_axis", "mixlab_passthrough"}
+    # every C entry point is defined in a source
+    text = "".join(src.read_text() for src in kernels.sources())
+    for name in kernels._SIGNATURES:
+        assert f"int {name}(" in text, name
     # nothing in the flags may trade IEEE f32 for speed
     assert not any("fast_math" in f or "fast-math" in f for f in kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
