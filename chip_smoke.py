@@ -48,17 +48,20 @@ imports no jax.  Phases, any failure of which exits non-zero:
      with and without the video chain, a profile of 10 ticks, the edit path
      (``compile_patch`` and the first block; a client op), and a 5 s
      threaded run (``Engine.start()`` with a 60 fps feeder thread);
- 11. the polyphase resize kernel vs its twin on the card, exact, pass by
-     pass (rows u8 -> bf16, columns bf16 -> u8, each axis alone into u8) on
-     720p -> 1080p (all three planes), 540p -> 1080p, 1080p -> 720p,
-     1080 -> 540, 240 -> 256 (16 phases) and ragged widths, and each plane
-     through ``resize_plane_polyphase`` within 1 LSB of the dense f32
-     resize; the passthrough kernel vs its twin, exact, at S = 384,000 and a
-     ragged S; run with phases 3-5 and 8;
+ 11. the polyphase resize kernel vs its twin on the card, exact: every
+     ``RESIZE_CASES`` geometry (720p -> 1080p planes, 540p -> 1080p,
+     1080p -> 720p, 1080 -> 540, 240 -> 256 with 16 phases, ragged widths,
+     the steepest 2.75:1 downscale, whose window needs over 48 KB of shared
+     memory, ratios with zero weights between nonzero taps) as a single plane on both axes and on each axis alone; the
+     720p -> 1080p and 540p -> 1080p pictures as three-plane launches (one
+     launch each), a picture with an unchanged plane and one with a plane
+     of one resized axis; each plane within 1 LSB of the dense f32 resize;
+     the passthrough kernel vs its twin, exact, at S = 384,000 and a ragged
+     S; run with phases 3-5 and 8;
  12. the composite main path, with the launch counts set to 0 just before
      and read just after: config 5's video half (``bench.py:474-496``) at
-     1080p30 for 60 frames, each a 960x540 gradient to yuv420p, its planes
-     to 1080p through ``resize_plane_polyphase`` (6 resize launches), the
+     1080p30 for 60 frames, each a 960x540 gradient to yuv420p, its three
+     planes to 1080p through ONE ``resize_picture_polyphase`` launch, the
      luma crossfaded with its 1-row roll at fade 128 (1 crossfade launch);
      then beside it the same frames on the dense f32 resize (within 1 LSB)
      and the folded ``resize_crossfade_roll`` (luma within 2 LSB), one frame
@@ -71,10 +74,14 @@ imports no jax.  Phases, any failure of which exits non-zero:
      the passthrough kernel must launch once per block of ``full_dummy_eq``
      and in no other row;
  14. video and passthrough timing, for information: per 720p -> 1080p
-     picture and per config-5 frame, the resize kernel, its twin, the dense
-     f32 and int8 resizes and the banded int8 (CUDA events, the forms in
-     turns), device time per resize launch (profiler); the passthrough vs
-     its twin and ``torch.mul`` at S = 384,000.
+     picture and per config-5 frame, the resize kernel (one launch), its
+     twin, the dense f32 and int8 resizes and the banded int8 (CUDA events,
+     the forms in turns), the kernel's device time per picture (profiler);
+     the passthrough vs its twin and ``torch.mul`` at S = 384,000 (CUDA
+     events in turns, both kernels' device time by the profiler), and the
+     host time of each piece of a wrapper's launch path, the guarded path's
+     (a device guard, a ``Stream`` object, messages formatted up front) and
+     the lean path's (``kernels.launch``).
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -126,6 +133,20 @@ RESIZE_CASES = (
     ("240->256, 16 phases", (240, 240), (256, 256)),
     ("ragged widths", (98, 174), (147, 261)),
     ("ragged widths, rows halved", (100, 90), (50, 135)),
+    ("2.75:1 down, 12 taps", (110, 330), (40, 120)),
+    ("zero weights inside the taps", (26, 26), (18, 22)),
+)
+# (what, [(in_h, in_w) per plane], [(out_h, out_w) per plane]): pictures in
+# one resize launch each
+RESIZE_PICTURES = (
+    ("720p->1080p yuv420p", [(720, 1280), (360, 640), (360, 640)],
+     [(1080, 1920), (540, 960), (540, 960)]),
+    ("540p->1080p yuv420p", [(540, 960), (270, 480), (270, 480)],
+     [(1080, 1920), (540, 960), (540, 960)]),
+    ("an unchanged plane", [(720, 1280), (360, 640), (360, 640)],
+     [(1080, 1920), (360, 640), (540, 960)]),
+    ("one resized axis per plane", [(720, 1280), (360, 640), (98, 174)],
+     [(720, 1920), (540, 640), (147, 174)]),
 )
 PASSTHROUGH_S = (384_000, 384_001)
 # the composite path: config 5's video half (bench.py:474-496), 1080p30
@@ -815,11 +836,11 @@ def launch_counters():
     from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
     from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
     from mixlab_tpu_torch.video.blend import crossfade_cuda
-    from mixlab_tpu_torch.video.resize_cuda import resize_axis_cuda
+    from mixlab_tpu_torch.video.resize_cuda import resize_picture_polyphase
 
     return {"envelope": envelope_block_cuda, "eq_cascade": eq_cascade_cuda,
             "region": region_part_cuda, "crossfade": crossfade_cuda,
-            "resize": resize_axis_cuda, "passthrough": passthrough_cuda}
+            "resize": resize_picture_polyphase, "passthrough": passthrough_cuda}
 
 
 def realtime_path(torch, np, dev, n_ticks=120, n_cpu=10):
@@ -1081,41 +1102,59 @@ def threaded_run(torch, np, dev, card, pool, seconds=5.0):
 
 
 def check_resize(torch, np, dev):
-    """The resize kernel vs its twin on the card, exact, pass by pass; each
-    plane through ``resize_plane_polyphase`` within 1 LSB of the dense f32
-    resize; the passthrough kernel vs its twin, exact."""
+    """The resize kernel vs its twin on the card, exact: each geometry as
+    one plane on both axes and on each axis alone, and whole pictures in one
+    launch each; each plane within 1 LSB of the dense f32 resize; the
+    passthrough kernel vs its twin, exact."""
     from mixlab_tpu_torch.tools import profile_env_eq as tool
     from mixlab_tpu_torch.video import resize_cuda as rc
     from mixlab_tpu_torch.video import scale
 
     rng = np.random.default_rng(13)
+
+    def u8(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    def exact(what, planes, sizes):
+        n = rc.resize_picture_polyphase.launches
+        got = rc.resize_picture_polyphase(planes, sizes)
+        want = rc.resize_picture_torch(planes, sizes)
+        torch.cuda.synchronize()
+        launched = rc.resize_picture_polyphase.launches - n
+        resized = sum(tuple(x.shape) != tuple(s) for x, s in zip(planes, sizes))
+        if launched != (1 if resized else 0):
+            raise AssertionError(f"resize {what}: {launched} launches for one picture")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(
+                    f"resize kernel vs twin, {what}, plane {i}: "
+                    f"{int((g.float() != w.float()).sum())} of {w.numel()} differ, max abs "
+                    f"err {(g.float() - w.float()).abs().max().item()}")
+        return got
+
     worst_dense = 0
     for what, src, dst in RESIZE_CASES:
-        x = torch.from_numpy(rng.integers(0, 256, src, dtype=np.uint8)).to(dev)
-        rows = rc.resize_axis_cuda(x, dst[0], 0)
-        cols = rc.resize_axis_cuda(rows, dst[1], 1, torch.uint8)
-        pairs = [("rows u8->bf16", rows, rc.resize_axis_torch(x, dst[0], 0)),
-                 ("columns bf16->u8", cols, rc.resize_axis_torch(rows, dst[1], 1, torch.uint8))]
-        for axis, n_out in ((0, dst[0]), (1, dst[1])):
-            pairs.append((f"axis {axis} alone u8->u8", rc.resize_axis_cuda(x, n_out, axis, torch.uint8),
-                          rc.resize_axis_torch(x, n_out, axis, torch.uint8)))
-        torch.cuda.synchronize()
-        for name, got, want in pairs:
-            if got.dtype != want.dtype or not torch.equal(got, want):
-                raise AssertionError(
-                    f"resize kernel vs twin, {what} {src}->{dst}, {name}: "
-                    f"{int((got.float() != want.float()).sum())} of {want.numel()} differ, max abs "
-                    f"err {(got.float() - want.float()).abs().max().item()}")
-        plane = rc.resize_plane_polyphase(x, *dst)
-        lsb = _lsb(torch, plane, scale.resize_plane(x, *dst, "f32"))
-        worst_dense = max(worst_dense, lsb)
+        x = u8(src)
+        for label, size in (("both axes", dst), ("rows alone", (dst[0], src[1])),
+                            ("columns alone", (src[0], dst[1]))):
+            (plane,) = exact(f"{what} {src}->{size} {label}", [x], [size])
+            lsb = _lsb(torch, plane, scale.resize_plane(x, *size, "f32"))
+            worst_dense = max(worst_dense, lsb)
+            if lsb > COMPOSITE_LSB:
+                raise AssertionError(f"resize_picture_polyphase {what} {label} disagrees with the "
+                                     f"dense resize by {lsb} LSB")
         plans = [rc._phase_plan(a, b)[:3] for a, b in zip(src, dst)]
         log(f"resize kernel vs twin, {what} {src[0]}x{src[1]} -> {dst[0]}x{dst[1]} "
-            f"(L, M, J: rows {plans[0]}, columns {plans[1]}): exact in all four passes; plane vs "
-            f"dense f32 "
-            f"{lsb} LSB (limit {COMPOSITE_LSB})")
-        if lsb > COMPOSITE_LSB:
-            raise AssertionError(f"resize_plane_polyphase {what} disagrees with the dense resize")
+            f"(L, M, J: rows {plans[0]}, columns {plans[1]}): exact on both axes and on each "
+            f"alone, one launch each; vs dense f32 within {COMPOSITE_LSB} LSB")
+    for what, src, dst in RESIZE_PICTURES:
+        planes = [u8(s) for s in src]
+        exact(what, planes, dst)
+        # a strided view of the first plane (made contiguous by the wrapper)
+        wide = u8((src[0][0], 2 * src[0][1]))
+        exact(f"{what}, strided luma", [wide[:, ::2]] + planes[1:], dst)
+        log(f"resize kernel vs twin, picture {what} {src} -> {dst}: exact, one launch")
+    log(f"resize planes vs dense f32: max {worst_dense} LSB (limit {COMPOSITE_LSB})")
     for S in PASSTHROUGH_S:
         x = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(dev)
         got, want = tool.passthrough_cuda(x), tool.passthrough_torch(x)
@@ -1128,10 +1167,11 @@ def check_resize(torch, np, dev):
 
 
 def composite_frame(torch, t, dev, resize, fold=False):
-    """Config 5's video frame ``t``: a 960x540 gradient to yuv420p, each
-    plane to 1080p through ``resize``, the luma crossfaded with its 1-row
-    roll at fade 128 (the crossfade kernel), or with ``fold`` the luma
-    through the folded ``resize_crossfade_roll`` (f32) instead."""
+    """Config 5's video frame ``t``: a 960x540 gradient to yuv420p, its
+    planes to 1080p through ``resize(planes, sizes)`` (one picture), the
+    luma crossfaded with its 1-row roll at fade 128 (the crossfade kernel),
+    or with ``fold`` the luma through the folded ``resize_crossfade_roll``
+    (f32) instead."""
     from mixlab_tpu_torch.video import blend, fused
     from mixlab_tpu_torch.video.colorspace import rgb_to_yuv420
     from mixlab_tpu_torch.video.pattern import gradient_rgb
@@ -1140,10 +1180,11 @@ def composite_frame(torch, t, dev, resize, fold=False):
     y, u, v = rgb_to_yuv420(gradient_rgb(w, h, t, device=dev))
     if fold:
         y2 = fused.resize_crossfade_roll(y, 2 * h, 2 * w, COMPOSITE_FADE)
-    else:
-        y1 = resize(y, 2 * h, 2 * w)
-        (y2,) = blend.crossfade_cuda([y1], [torch.roll(y1, 1, 0)], COMPOSITE_FADE)
-    return y2, resize(u, h, w), resize(v, h, w)
+        u2, v2 = resize([u, v], [(h, w)] * 2)
+        return y2, u2, v2
+    y1, u2, v2 = resize([y, u, v], [(2 * h, 2 * w), (h, w), (h, w)])
+    (y2,) = blend.crossfade_cuda([y1], [torch.roll(y1, 1, 0)], COMPOSITE_FADE)
+    return y2, u2, v2
 
 
 def _with_banded(flag: str, fn):
@@ -1169,13 +1210,13 @@ def composite_path(torch, np, dev, card, n_frames=COMPOSITE_FRAMES):
     from mixlab_tpu_torch.video import scale
     from mixlab_tpu_torch.video.frame import PictureSettings
     from mixlab_tpu_torch.video.pattern import pattern_picture
-    from mixlab_tpu_torch.video.resize_cuda import resize_plane_polyphase
+    from mixlab_tpu_torch.video.resize_cuda import resize_picture_polyphase
 
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
     t = time.perf_counter()
-    frames = [composite_frame(torch, i, dev, resize_plane_polyphase) for i in range(n_frames)]
+    frames = [composite_frame(torch, i, dev, resize_picture_polyphase) for i in range(n_frames)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1183,13 +1224,13 @@ def composite_path(torch, np, dev, card, n_frames=COMPOSITE_FRAMES):
     log(f"composite main path: {n_frames} config-5 frames ({w}x{h} -> {2 * w}x{2 * h}, "
         f"polyphase resize, roll, crossfade at {COMPOSITE_FADE}) on {dev} in {wall:.3f} s [{card}], "
         f"launches {launches}")
-    for name, want in (("resize", 6 * n_frames), ("crossfade", n_frames)):
+    for name, want in (("resize", n_frames), ("crossfade", n_frames)):
         if launches[name] != want:
             raise AssertionError(f"the composite path launched the {name} kernel "
                                  f"{launches[name]} times in {n_frames} frames (want {want})")
 
-    def dense(p, h, w):
-        return scale.resize_plane(p, h, w, "f32")
+    def dense(planes, sizes):
+        return [scale.resize_plane(p, h, w, "f32") for p, (h, w) in zip(planes, sizes)]
 
     shapes = [(2 * COMPOSITE_SRC[0], 2 * COMPOSITE_SRC[1]), COMPOSITE_SRC, COMPOSITE_SRC]
     lsb = fold_lsb = 0
@@ -1223,10 +1264,12 @@ def composite_path(torch, np, dev, card, n_frames=COMPOSITE_FRAMES):
     x, y, sw, sh = scale.letterbox_geometry(src.settings, out)
     boxed = scale.scale_picture(src, out, "f32")
     cam_lsb = 0
-    for k, sub in (("y", 0), ("u", 1), ("v", 1)):
+    subs = (("y", 0), ("u", 1), ("v", 1))
+    got = resize_picture_polyphase([src.planes[k] for k, _ in subs],
+                                   [(sh >> sub, sw >> sub) for _, sub in subs])
+    for (k, sub), g in zip(subs, got):
         ph, pw, py, px = sh >> sub, sw >> sub, y >> sub, x >> sub
-        got = resize_plane_polyphase(src.planes[k], ph, pw)
-        cam_lsb = max(cam_lsb, _lsb(torch, got, boxed.planes[k][py:py + ph, px:px + pw]))
+        cam_lsb = max(cam_lsb, _lsb(torch, g, boxed.planes[k][py:py + ph, px:px + pw]))
     log(f"realtime camera {CAM_SIZES[1][0]}x{CAM_SIZES[1][1]} through the polyphase resize vs "
         f"scale_picture(f32)'s content box {sw}x{sh}: max {cam_lsb} LSB (limit {COMPOSITE_LSB})")
     if cam_lsb > COMPOSITE_LSB:
@@ -1304,21 +1347,22 @@ def _device_us(torch, fn, name, n=20):
 
 def video_timing(torch, np, dev, card):
     """For information: per 720p->1080p picture and per config-5 frame, the
-    resize kernel, its twin, the dense f32, int8 and banded int8 resizes
-    (CUDA events, the forms in turns, twice); device time per resize
-    launch; the passthrough vs its twin and torch.mul at S = 384,000."""
+    resize kernel (one launch per picture), its twin, the dense f32, int8
+    and banded int8 resizes (CUDA events, the forms in turns, twice); the
+    kernel's device time per picture; the passthrough vs its twin and
+    torch.mul at S = 384,000, and the launch path's pieces."""
     from mixlab_tpu_torch.tools import profile_env_eq as tool
     from mixlab_tpu_torch.video import resize_cuda as rc
     from mixlab_tpu_torch.video import scale
 
-    def twin(p, h, w):
-        return rc.resize_axis_torch(rc.resize_axis_torch(p, h, 0), w, 1, torch.uint8)
+    def per_plane(method):
+        return lambda planes, sizes: [scale.resize_plane(p, h, w, method)
+                                      for p, (h, w) in zip(planes, sizes)]
 
-    forms = {  # name -> (resize, MIXLAB_RESIZE_BANDED)
-        "kernel": (rc.resize_plane_polyphase, "0"), "twin": (twin, "0"),
-        "dense f32": (lambda p, h, w: scale.resize_plane(p, h, w, "f32"), "0"),
-        "int8": (lambda p, h, w: scale.resize_plane(p, h, w, "int8"), "0"),
-        "banded int8": (lambda p, h, w: scale.resize_plane(p, h, w, "int8"), "1")}
+    forms = {  # name -> (resize(planes, sizes), MIXLAB_RESIZE_BANDED)
+        "kernel": (rc.resize_picture_polyphase, "0"), "twin": (rc.resize_picture_torch, "0"),
+        "dense f32": (per_plane("f32"), "0"), "int8": (per_plane("int8"), "0"),
+        "banded int8": (per_plane("int8"), "1")}
     rng = np.random.default_rng(17)
     res = {}
     for label, src, dst in (
@@ -1327,29 +1371,29 @@ def video_timing(torch, np, dev, card):
             ("config-5 frame, 540p->1080p", [(540, 960), (270, 480), (270, 480)],
              [(1080, 1920), (540, 960), (540, 960)])):
         planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev) for s in src]
-
-        def run(resize):
-            return lambda: [resize(p, *d) for p, d in zip(planes, dst)]
-
         ms = {}
         for order in (list(forms), list(forms)[::-1]):
             for name in order:
                 fn, flag = forms[name]
                 ms.setdefault(name, []).append(_with_banded(
-                    flag, lambda: time_ms(torch, run(fn), n=50, warmup=5)))
+                    flag, lambda: time_ms(torch, lambda: fn(planes, dst), n=50, warmup=5)))
         nbytes, flops = resize_work(np, src, dst)
         b_ms, b_by = bound(nbytes, flops)
-        dev_us = _device_us(torch, run(rc.resize_plane_polyphase), "resize_kernel")
+        dev_us = _device_us(torch, lambda: rc.resize_picture_polyphase(planes, dst),
+                            "resize_picture_kernel")
         log(f"timing resize, {label} [{card}]: " + ", ".join(
             f"{name} {a:.4f}/{b:.4f}" for name, (a, b) in ms.items())
             + f" ms per picture (CUDA events, 50 calls, forms in turns); bound "
             f"{b_ms * 1e3:.3f} us by {b_by} ({nbytes} B, {flops} flop); library call: none "
             f"(F.interpolate's bicubic is another filter; dense f32 above)")
         for key, us, count in dev_us:
-            log(f"  device time per launch {us:.3f} us ({count} launches in 20 pictures)  "
+            log(f"  device time per launch {us:.3f} us ({count} launches traced in 20 pictures)  "
                 f"{key[:100]}")
-        per_picture = sum(us * round(c / 20) for _, us, c in dev_us)
-        log(f"  device time per picture {per_picture:.3f} us (6 launches)")
+        # one launch per picture: the mean over the launches the trace holds
+        traced = sum(count for _, _, count in dev_us)
+        per_picture = sum(us * count for _, us, count in dev_us) / traced if traced else 0.0
+        share = f"{100 * b_ms * 1e3 / per_picture:.1f}%" if per_picture else "not measured"
+        log(f"  device time per picture {per_picture:.3f} us (one launch), {share} of the bound")
         res[label] = {"ms": sum(ms["kernel"]) / 2, "plain_ms": sum(ms["twin"]) / 2,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     out = {"resize": res["config-5 frame, 540p->1080p"]}
@@ -1359,18 +1403,135 @@ def video_timing(torch, np, dev, card):
     gain = float(tool.GAIN)
     p1 = time_ms(torch, lambda: tool.passthrough_torch(x))
     k1 = time_ms(torch, lambda: tool.passthrough_cuda(x))
-    lib = time_ms(torch, lambda: torch.mul(x, gain))
+    m1 = time_ms(torch, lambda: torch.mul(x, gain))
+    m2 = time_ms(torch, lambda: torch.mul(x, gain))
     k2 = time_ms(torch, lambda: tool.passthrough_cuda(x))
     p2 = time_ms(torch, lambda: tool.passthrough_torch(x))
     b_ms, b_by = bound(8 * S, S)
     dev_us = _device_us(torch, lambda: tool.passthrough_cuda(x), "passthrough_kernel", n=50)
-    log(f"timing passthrough S={S} [{card}]: kernel {k1:.4f}/{k2:.4f} ms, plain twin "
-        f"{p1:.4f}/{p2:.4f} ms, torch.mul {lib:.4f} ms per call (CUDA events, 200 calls); "
-        f"device time {'/'.join(f'{us:.3f}' for _, us, _ in dev_us) or 'not measured'} us per "
-        f"launch (profiler, 50 launches); bound {b_ms * 1e3:.3f} us by {b_by} ({8 * S} B)")
+    mul_us = _device_us(torch, lambda: torch.mul(x, gain), "", n=50)
+
+    def us_text(found):
+        return "/".join(f"{us:.3f}" for _, us, _ in found) or "not measured"
+
+    log(f"timing passthrough S={S} [{card}]: kernel {k1:.4f}/{k2:.4f} ms, torch.mul "
+        f"{m1:.4f}/{m2:.4f} ms, plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 "
+        f"calls, in turns); device time per launch (profiler, 50 launches): kernel "
+        f"{us_text(dev_us)} us, torch.mul {us_text(mul_us)} us "
+        f"({', '.join(k[:80] for k, _, _ in mul_us)}); bound {b_ms * 1e3:.3f} us by {b_by} "
+        f"({8 * S} B)")
     out["passthrough"] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": lib}
+                          "bound_by": b_by, "library_ms": (m1 + m2) / 2}
+    launch_path_pieces(torch, dev, card, x)
     return out
+
+
+def launch_path_pieces(torch, dev, card, x, n=2000):
+    """For information: the host time of each piece of a wrapper's launch
+    path, the guarded path's beside the lean path's (``kernels.launch``), and
+    the floor of any ctypes wrapper (its output's allocation and the bare
+    call) beside ``torch.mul``; per call by the host clock over ``n`` calls,
+    the best of 3 rounds; the card is synchronised before each round, not
+    inside it."""
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+
+    import ctypes
+
+    index = x.get_device()
+    one, one_out = torch.zeros(1, device=dev), torch.zeros(1, device=dev)
+    C = torch._C
+    fn = kernels.load().mixlab_passthrough  # CDLL, as every wrapper calls it
+    pydll_fn = ctypes.PyDLL(str(kernels.library_path())).mixlab_passthrough  # keeps the GIL
+    pydll_fn.argtypes, pydll_fn.restype = fn.argtypes, fn.restype
+    device = x.device
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    def require(cond, msg):  # a check whose message was built before it ran
+        if not cond:
+            raise ValueError(msg)
+
+    def guarded_path(x):  # device guard, Stream object, eager messages; the same kernel
+        require(isinstance(x, torch.Tensor) and x.device.type == "cuda",
+                f"passthrough: unsupported device {getattr(x, 'device', type(x))}")
+        require(x.dtype == torch.float32 and x.dim() == 1 and x.is_contiguous()
+                and 0 < x.numel() < 2 ** 31,
+                f"passthrough: want a contiguous non-empty 1-D float32 tensor, got "
+                f"{x.dtype} {tuple(x.shape)}")
+        out = torch.empty_like(x)
+        lib = kernels.load()
+        with torch.cuda.device(x.device):
+            rc = lib.mixlab_passthrough(x.data_ptr(), out.data_ptr(), x.numel(), index,
+                                        torch.cuda.current_stream(x.device).cuda_stream)
+        kernels.check(lib, rc, "passthrough kernel launch")
+        return out
+
+    def allocate_and_launch(x):  # the least a wrapper can do: its output and the bare call
+        out = torch.empty_like(x)
+        fn(x.data_ptr(), out.data_ptr(), x.numel(), index, C._cuda_getCurrentRawStream(index))
+        return out
+
+    gain = float(tool.GAIN)
+    floor = "allocate and launch: torch.empty_like and the bare CDLL call, S = 384,000"
+    lean = "the lean path (passthrough_cuda), S = 384,000"
+    mul = "torch.mul(x, gain), S = 384,000"
+    pieces = (
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("torch.empty(S, dtype=torch.float32, device=device)",
+         lambda: torch.empty(384_000, dtype=torch.float32, device=device)),
+        ("x.new_empty(S)", lambda: x.new_empty(384_000)),
+        ("x.data_ptr()", lambda: x.data_ptr()),
+        ("x.is_contiguous()", lambda: x.is_contiguous()),
+        ("ctypes call that returns at once (n = 0), CDLL",
+         lambda: fn(one.data_ptr(), one_out.data_ptr(), 0, index, None)),
+        ("ctypes call that returns at once (n = 0), PyDLL",
+         lambda: pydll_fn(one.data_ptr(), one_out.data_ptr(), 0, index, None)),
+        ("bare CDLL call of the kernel at S = 1 (its launch included)",
+         lambda: fn(one.data_ptr(), one_out.data_ptr(), 1, index,
+                    C._cuda_getCurrentRawStream(index))),
+        ("stream as an object: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        ("raw stream: torch._C._cuda_getCurrentRawStream(index)",
+         lambda: C._cuda_getCurrentRawStream(index)),
+        ("device guard: with torch.cuda.device(x.device)", guard),
+        ("device check: torch._C._cuda_getDevice() == index",
+         lambda: C._cuda_getDevice() == index),
+        ("entry point through kernels.load()", lambda: kernels.load().mixlab_passthrough),
+        ("kept entry point", lambda: kernels._entries.get("mixlab_passthrough")),
+        ("the guarded path's two messages, formatted", lambda: (
+            f"passthrough: unsupported device {getattr(x, 'device', type(x))}",
+            f"passthrough: want a contiguous non-empty 1-D float32 tensor, got "
+            f"{x.dtype} {tuple(x.shape)}")),
+        ("the lean checks, inline", lambda: (
+            isinstance(x, torch.Tensor) and x.is_cuda and x.dtype is torch.float32
+            and x.dim() == 1 and 0 < x.numel() < 2 ** 31 and x.is_contiguous())),
+        ("bare PyDLL call of the kernel at S = 1 (its launch included)",
+         lambda: pydll_fn(one.data_ptr(), one_out.data_ptr(), 1, index,
+                          C._cuda_getCurrentRawStream(index))),
+        ("the guarded path, S = 384,000", lambda: guarded_path(x)),
+        (floor, lambda: allocate_and_launch(x)),
+        (lean, lambda: tool.passthrough_cuda(x)),
+        (mul, lambda: torch.mul(x, gain)),
+    )
+    us = {}
+    for name, f in pieces:
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                f()
+            best = min(best, time.perf_counter() - t)
+        us[name] = best / n * 1e6
+        log(f"timing launch path piece [{card}]: {us[name]:.3f} us per call  {name}")
+    torch.cuda.synchronize()
+    log(f"timing launch path floor [{card}]: allocate and launch {us[floor]:.3f} us, the lean "
+        f"path {us[lean]:.3f} us, torch.mul {us[mul]:.3f} us per call (host clock, the best "
+        f"of 3 rounds of {n}); the floor is {us[floor] / us[mul]:.2f}x torch.mul's call")
+
 
 # --------------------------------------------------------------------------
 
@@ -1439,7 +1600,7 @@ def main() -> int:
              "mixlab_tpu/engine/pallas_graph.py:377"),
             ("crossfade", "crossfade", "mixlab_tpu_torch/csrc/crossfade.cu",
              "mixlab_tpu/video/blend.py:86"),
-            ("resize", "resize_axis", "mixlab_tpu_torch/csrc/resize.cu",
+            ("resize", "resize_picture", "mixlab_tpu_torch/csrc/resize.cu",
              "mixlab_tpu/video/resize_pallas.py:143"),
             ("passthrough", "passthrough", "mixlab_tpu_torch/csrc/passthrough.cu",
              "tools/profile_env_eq.py:221"))

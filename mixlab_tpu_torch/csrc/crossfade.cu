@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -91,16 +93,19 @@ extern "C" {
 
 // Blend `count` (1..3) planes of u8 pixels in one launch: out_q = blend(a_q,
 // b_q) over n_q bytes each, with 0 <= fade <= 255.  All pointers are device
-// pointers; the planes are contiguous.  Returns cudaGetLastError() after the
+// pointers; the planes are contiguous; the launch goes to card `device`.
+// Returns cudaGetLastError() after the
 // launch (0 = cudaSuccess); invalid arguments return cudaErrorInvalidValue
 // and launch nothing.
 int mixlab_crossfade(const void* a0, const void* b0, void* o0, int n0,
                      const void* a1, const void* b1, void* o1, int n1,
                      const void* a2, const void* b2, void* o2, int n2,
-                     int count, int fade, void* stream_ptr) {
+                     int count, int fade, int device, void* stream_ptr) {
   if (count < 1 || count > kMaxPlanes || fade < 0 || fade > 255) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   const void* as[kMaxPlanes] = {a0, a1, a2};
   const void* bs[kMaxPlanes] = {b0, b1, b2};
   void* os[kMaxPlanes] = {o0, o1, o2};

@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kLanes = 1024;
@@ -290,14 +292,16 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
 extern "C" {
 
 // One envelope block of S samples (1 <= S).  All pointers are device
-// pointers; the state and params are 0-d tensors.  Returns cudaGetLastError()
-// after the launch (0 = cudaSuccess).
+// pointers; the state and params are 0-d tensors; the launch goes to card
+// `device`.  Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 int mixlab_envelope_block(const float* x, float* out, int S,
                           const float* attack, const float* decay,
                           const float* sustain, const float* release, float msps,
                           const uint8_t* mode_in, const int* on_in, const int* off_in,
                           const float* amp_in, uint8_t* mode_out, int* on_out,
-                          int* off_out, float* amp_out, void* stream) {
+                          int* off_out, float* amp_out, int device, void* stream) {
+  OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   const int C = (S + kLanes - 1) / kLanes;
   envelope_kernel<<<1, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
       x, out, S, C, attack, decay, sustain, release, msps, mode_in, on_in, off_in,

@@ -32,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "on_device.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;        // samples per chunk = threads per block
@@ -151,15 +153,17 @@ extern "C" {
 // [4][2] (stage-major, band-minor), gains [3] and tables [4*128 + 2] (see
 // kTcol/kRowp/kAc) are device pointers; out [S] and poles_out [4][2] are
 // written.  `scratch` is a device buffer of 2 * 2 * (K*128 + K) floats,
-// K = ceil(S / 128) <= 3072.  Returns cudaGetLastError() after the launches
-// (0 = cudaSuccess).
+// K = ceil(S / 128) <= 3072.  The launches go to card `device`.  Returns
+// cudaGetLastError() after the launches (0 = cudaSuccess).
 int mixlab_eq_cascade(const float* x, const float* xd, int S, const float* poles0,
                       const float* gains, const float* tables, float f_lo, float f_hi,
                       float vsa, float* scratch, float* out, float* poles_out,
-                      void* stream_ptr) {
+                      int device, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int K = (S + kChunk - 1) / kChunk;
   if (S < 1 || K > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+  OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   const size_t slot = 2 * (static_cast<size_t>(K) * kChunk + K);
   Scratch buf[2];
   for (int q = 0; q < 2; ++q) {

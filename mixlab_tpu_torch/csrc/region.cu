@@ -56,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "on_device.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -298,19 +300,20 @@ extern "C" {
 // One part of S samples (a positive multiple of 128, at most kMaxChunks
 // chunks).  Every pointer is a device pointer: ops [n_words] int32 (the
 // plan), slots [n_slots] int64 (one buffer of S elements each), pf, sf,
-// taps [n_taps][S], stap [n_stap], ef [n_ef].  Returns the launch's
-// cudaError_t (0 = cudaSuccess).
+// taps [n_taps][S], stap [n_stap], ef [n_ef].  The launch goes to card
+// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess).
 int mixlab_region_part(const int* ops, int n_words, const long long* slots, const float* pf,
                        const float* sf, float* taps, float* stap, int n_stap, float* ef,
-                       int S, void* stream_ptr) {
+                       int S, int device, void* stream_ptr) {
   if (S <= 0 || S % kChunk != 0 || S / kChunk > kMaxChunks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  OnDevice on(device);
+  if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   Part p{ops, n_words, slots, pf, sf, taps, stap, n_stap, ef, S, S / kChunk};
   const size_t smem = 2 * static_cast<size_t>(p.K) * sizeof(float);
-  int dev = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  int n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, region_kernel, kChunk, smem);
   }

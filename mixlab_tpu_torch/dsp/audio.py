@@ -58,11 +58,27 @@ def _ramp(spt: int, device) -> torch.Tensor:
     return torch.arange(spt, dtype=torch.float32, device=device)
 
 
+_sin_warm = False
+
+
+def _sin(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sin``.  On the CPU, PyTorch's first sine call in a process that
+    runs on several threads at once now and then returns one thread's share
+    of the tensor with errors near 1e-4; one call on a single element first,
+    on the calling thread alone, prevents it.  ``tools/first_sine.py`` counts
+    both in fresh processes."""
+    global _sin_warm
+    if not _sin_warm and x.is_cpu:
+        torch.sin(torch.zeros(1))
+        _sin_warm = True
+    return torch.sin(x)
+
+
 # waveform primitives (oscillator.rs:15-37), period-1 functions of phase n
 
 
 def _sine(n):
-    return torch.sin(n * _TWO_PI)
+    return _sin(n * _TWO_PI)
 
 
 def _square(n):
@@ -155,7 +171,7 @@ class FmSineDef(ModuleDef):
         inv_sr = float(np.float32(1.0 / cfg.sample_rate))
         tsec = host_aux["tsec"][:, None] + i[None, :] * inv_sr
         n = carrier + aux["freq_amp"] * x * tsec
-        s = torch.sin(n * _TWO_PI).reshape(-1)
+        s = _sin(n * _TWO_PI).reshape(-1)
         return state, [(s, s)], {}
 
 

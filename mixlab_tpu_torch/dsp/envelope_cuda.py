@@ -99,17 +99,16 @@ def envelope_block_torch(
     return out, new_state
 
 
-def _check_scalar(t, dtype, device, name):
-    kernels.require(
-        isinstance(t, torch.Tensor) and t.dtype == dtype and t.device == device
-        and t.numel() == 1,
-        f"envelope {name}: expected a one-element {dtype} tensor on {device}, "
-        f"got {getattr(t, 'dtype', type(t))} on {getattr(t, 'device', None)}",
-    )
+def _check_scalar(t, dtype, index, name):
+    if not (isinstance(t, torch.Tensor) and t.dtype == dtype and t.is_cuda
+            and t.get_device() == index and t.numel() == 1):
+        raise ValueError(
+            f"envelope {name}: expected a one-element {dtype} tensor on "
+            f"{torch.device('cuda', index)}, got {getattr(t, 'dtype', type(t))} on "
+            f"{getattr(t, 'device', None)}")
 
 
-def _launch(x, state, params, ms_per_sample):
-    lib = kernels.load()
+def _launch(x, index, state, params, ms_per_sample):
     dev = x.device
     S = x.shape[0]
     out = torch.empty_like(x)
@@ -119,17 +118,15 @@ def _launch(x, state, params, ms_per_sample):
         "off_pos": torch.empty((), dtype=torch.int32, device=dev),
         "off_amp": torch.empty((), dtype=torch.float32, device=dev),
     }
-    with torch.cuda.device(dev):  # the launch goes to x's card
-        rc = lib.mixlab_envelope_block(
-            x.data_ptr(), out.data_ptr(), S,
-            *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
-            state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
-            state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
-            new_state["mode_on"].data_ptr(), new_state["on_pos"].data_ptr(),
-            new_state["off_pos"].data_ptr(), new_state["off_amp"].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check(lib, rc, "envelope kernel launch")
+    kernels.launch(
+        "mixlab_envelope_block", "envelope kernel launch", index,
+        x.data_ptr(), out.data_ptr(), S,
+        *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
+        state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
+        state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
+        new_state["mode_on"].data_ptr(), new_state["on_pos"].data_ptr(),
+        new_state["off_pos"].data_ptr(), new_state["off_amp"].data_ptr(),
+    )
     envelope_block_cuda.launches += 1
     return out, new_state
 
@@ -140,30 +137,29 @@ def envelope_block_cuda(
     """Envelope over ``x`` [S]: the CUDA kernel for a CUDA tensor, the plain
     twin for a CPU tensor.  Blocks over ``MAX_KERNEL_S`` run as sequential
     launches with the state carried on the device."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return envelope_block_torch(x, state, params, ms_per_sample)
-    kernels.require(x.device.type == "cuda", f"envelope: unsupported device {x.device}")
-    kernels.require(
-        x.dim() == 1 and x.dtype == torch.float32 and x.is_contiguous()
-        and 0 < x.shape[0] < 2**30,
-        f"envelope: x must be a contiguous 1-D float32 tensor of 1..2**30 "
-        f"samples, got {tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}",
-    )
-    _check_scalar(state["mode_on"], torch.bool, x.device, "mode_on")
-    _check_scalar(state["on_pos"], torch.int32, x.device, "on_pos")
-    _check_scalar(state["off_pos"], torch.int32, x.device, "off_pos")
-    _check_scalar(state["off_amp"], torch.float32, x.device, "off_amp")
+    index = kernels.cuda_index(x, "envelope")
+    if not (x.dim() == 1 and x.dtype is torch.float32 and x.is_contiguous()
+            and 0 < x.shape[0] < 2**30):
+        raise ValueError(
+            "envelope: x must be a contiguous 1-D float32 tensor of 1..2**30 "
+            f"samples, got {tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    _check_scalar(state["mode_on"], torch.bool, index, "mode_on")
+    _check_scalar(state["on_pos"], torch.int32, index, "on_pos")
+    _check_scalar(state["off_pos"], torch.int32, index, "off_pos")
+    _check_scalar(state["off_amp"], torch.float32, index, "off_amp")
     for k in _PARAMS:
-        _check_scalar(params[k], torch.float32, x.device, k)
+        _check_scalar(params[k], torch.float32, index, k)
 
     S = x.shape[0]
     if S <= MAX_KERNEL_S:
-        return _launch(x, state, params, ms_per_sample)
+        return _launch(x, index, state, params, ms_per_sample)
     n_parts = -(-S // MAX_KERNEL_S)
     part = -(-S // n_parts)
     outs = []
     for i in range(n_parts):
-        o, state = _launch(x[i * part : min((i + 1) * part, S)], state, params,
+        o, state = _launch(x[i * part : min((i + 1) * part, S)], index, state, params,
                            ms_per_sample)
         outs.append(o)
     return torch.cat(outs), state

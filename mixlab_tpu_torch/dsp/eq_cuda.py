@@ -145,18 +145,17 @@ def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float)
     return out, torch.stack([torch.stack(p) for p in poles])
 
 
-def _check(t, shape, name, device):
-    kernels.require(
-        isinstance(t, torch.Tensor) and t.dtype == torch.float32
-        and tuple(t.shape) == shape and t.is_contiguous() and t.device == device,
-        f"eq_cascade {name}: expected a contiguous float32 tensor of shape "
-        f"{shape} on {device}, got {getattr(t, 'dtype', type(t))} "
-        f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}",
-    )
+def _check(t, shape, name, index):
+    if not (isinstance(t, torch.Tensor) and t.dtype == torch.float32
+            and t.shape == shape and t.is_contiguous() and t.is_cuda
+            and t.get_device() == index):
+        raise ValueError(
+            f"eq_cascade {name}: expected a contiguous float32 tensor of shape "
+            f"{shape} on {torch.device('cuda', index)}, got {getattr(t, 'dtype', type(t))} "
+            f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
 
 
-def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa):
-    lib = kernels.load()
+def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index):
     dev = x.device
     S = x.shape[0]
     _, K, _ = _plan(S)
@@ -164,14 +163,12 @@ def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa):
     scratch = torch.empty(2 * 2 * (K * _CHUNK + K), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     poles_out = torch.empty((4, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):  # the launches go to x's card
-        rc = lib.mixlab_eq_cascade(
-            x.data_ptr(), xd.data_ptr(), S, poles0.data_ptr(), gains.data_ptr(),
-            tables.data_ptr(), float(f_lo), float(f_hi), float(vsa),
-            scratch.data_ptr(), out.data_ptr(), poles_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check(lib, rc, "eq_cascade kernel launch")
+    kernels.launch(
+        "mixlab_eq_cascade", "eq_cascade kernel launch", index,
+        x.data_ptr(), xd.data_ptr(), S, poles0.data_ptr(), gains.data_ptr(),
+        tables.data_ptr(), float(f_lo), float(f_hi), float(vsa),
+        scratch.data_ptr(), out.data_ptr(), poles_out.data_ptr(),
+    )
     eq_cascade_cuda.launches += 1
     return out, poles_out
 
@@ -182,23 +179,24 @@ def eq_cascade_cuda(
     """Full EqThree block: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors.  Blocks over ``MAX_KERNEL_S`` run as sequential
     launches with the poles carried on the device."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return eq_cascade_torch(x, xd, poles0, gains, f_lo, f_hi, vsa)
-    kernels.require(x.device.type == "cuda", f"eq_cascade: unsupported device {x.device}")
+    index = kernels.cuda_index(x, "eq_cascade")
     S = x.shape[0] if x.dim() == 1 else -1
-    kernels.require(S > 0, f"eq_cascade: x must be a non-empty 1-D tensor, got {tuple(x.shape)}")
-    _check(x, (S,), "x", x.device)
-    _check(xd, (S,), "xd", x.device)
-    _check(poles0, (4, 2), "poles0", x.device)
-    _check(gains, (3,), "gains", x.device)
+    if S <= 0:
+        raise ValueError(f"eq_cascade: x must be a non-empty 1-D tensor, got {tuple(x.shape)}")
+    _check(x, (S,), "x", index)
+    _check(xd, (S,), "xd", index)
+    _check(poles0, (4, 2), "poles0", index)
+    _check(gains, (3,), "gains", index)
     if S <= MAX_KERNEL_S:
-        return _launch(x, xd, poles0, gains, f_lo, f_hi, vsa)
+        return _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index)
     n_parts = -(-S // MAX_KERNEL_S)
     part = -(-S // n_parts)
     outs = []
     for i in range(n_parts):
         sl = slice(i * part, min((i + 1) * part, S))
-        o, poles0 = _launch(x[sl], xd[sl], poles0, gains, f_lo, f_hi, vsa)
+        o, poles0 = _launch(x[sl], xd[sl], poles0, gains, f_lo, f_hi, vsa, index)
         outs.append(o)
     return torch.cat(outs), poles0
 

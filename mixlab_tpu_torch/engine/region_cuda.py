@@ -114,36 +114,34 @@ def _device_ops(words: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int32).to(device)
 
 
-def _check(cond: bool, msg: str) -> None:
-    kernels.require(cond, f"region_part: {msg}")
+def _check_tensor(t, what, dtype, dtype_text, n, index) -> None:
+    if not (isinstance(t, torch.Tensor) and t.is_cuda and t.get_device() == index
+            and t.dtype == dtype and t.shape == (n,) and t.is_contiguous()):
+        raise ValueError(
+            f"region_part: {what}: expected a contiguous {dtype_text} tensor of shape ({n},) on "
+            f"{torch.device('cuda', index)}, got {getattr(t, 'dtype', type(t))} "
+            f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
 
 
 def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
                      pf: torch.Tensor, sf: torch.Tensor, S: int) -> Result:
     """One part of the region: the CUDA kernel for CUDA tensors, the plain
     twin for CPU tensors."""
-    dev = pf.device
-    if dev.type == "cpu":
+    if pf.is_cpu:
         return region_part_torch(plan, operands, pf, sf, S)
-    _check(dev.type == "cuda", f"unsupported device {dev}")
-    _check(S > 0 and S % CHUNK == 0 and S // CHUNK <= MAX_CHUNKS,
-           f"S = {S} must be a positive multiple of {CHUNK} of at most "
-           f"{MAX_CHUNKS} chunks")
-    _check(len(operands) == plan.n_operands,
-           f"{len(operands)} operands for a plan of {plan.n_operands}")
+    index = kernels.cuda_index(pf, "region_part")
+    if not (S > 0 and S % CHUNK == 0 and S // CHUNK <= MAX_CHUNKS):
+        raise ValueError(f"region_part: S = {S} must be a positive multiple of {CHUNK} of at "
+                         f"most {MAX_CHUNKS} chunks")
+    if len(operands) != plan.n_operands:
+        raise ValueError(f"region_part: {len(operands)} operands for a plan of "
+                         f"{plan.n_operands}")
     for i, (v, dt) in enumerate(zip(operands, operand_dtypes(plan))):
-        _check(isinstance(v, torch.Tensor) and v.device == dev and v.dtype == dt
-               and tuple(v.shape) == (S,) and v.is_contiguous(),
-               f"operand {i}: expected a contiguous {dt} tensor of shape ({S},) on "
-               f"{dev}, got {getattr(v, 'dtype', type(v))} "
-               f"{tuple(getattr(v, 'shape', ()))} on {getattr(v, 'device', None)}")
-    for name, t, n in (("pf", pf, plan.n_pf + plan.n_consts), ("sf", sf, plan.n_ef)):
-        _check(t.device == dev and t.dtype == torch.float32 and tuple(t.shape) == (n,)
-               and t.is_contiguous(),
-               f"{name}: expected a contiguous float32 tensor of shape ({n},) on "
-               f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _check_tensor(v, f"operand {i}", dt, dt, S, index)
+    _check_tensor(pf, "pf", torch.float32, "float32", plan.n_pf + plan.n_consts, index)
+    _check_tensor(sf, "sf", torch.float32, "float32", plan.n_ef, index)
 
-    lib = kernels.load()
+    dev = pf.device
     ops = _device_ops(tuple(plan.words), dev)
     scratch = torch.empty((plan.n_slots - plan.n_operands, S), dtype=torch.float32,
                           device=dev)
@@ -154,13 +152,12 @@ def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
     taps = torch.empty((plan.n_taps, S), dtype=torch.float32, device=dev)
     stap = torch.empty((plan.n_stap,), dtype=torch.float32, device=dev)
     ef = torch.empty((plan.n_ef,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):  # the launch goes to the tensors' card
-        rc = lib.mixlab_region_part(
-            ops.data_ptr(), ops.numel(), ptrs.data_ptr(), pf.data_ptr(),
-            sf.data_ptr(), taps.data_ptr(), stap.data_ptr(), plan.n_stap,
-            ef.data_ptr(), S, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check(lib, rc, "region kernel launch")
+    kernels.launch(
+        "mixlab_region_part", "region kernel launch", index,
+        ops.data_ptr(), ops.numel(), ptrs.data_ptr(), pf.data_ptr(),
+        sf.data_ptr(), taps.data_ptr(), stap.data_ptr(), plan.n_stap,
+        ef.data_ptr(), S,
+    )
     region_part_cuda.launches += 1
     return taps, stap, ef
 

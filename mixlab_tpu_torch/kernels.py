@@ -2,12 +2,23 @@
 
 The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process per
 source, all started together, and linked into one shared library with a
-plain C interface, loaded with ``ctypes``.  The library is built at first
-use into ``mixlab_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+plain C interface, loaded with ``ctypes.CDLL``: a call releases the GIL
+while the C entry point runs, as PyTorch's own bindings do, so a launch that
+blocks in the driver (a full launch queue, a module's first load) does not
+hold up the process's other Python threads, the realtime engine's tick and
+feeder among them (``ctypes.PyDLL`` keeps the GIL; ``PERF.md`` compares the
+two calls' host time).  The library is built at first use into ``mixlab_tpu_torch/_build/`` (listed in ``.gitignore``) under a
 name that carries a hash of the sources and flags, so a changed source is
 rebuilt and a fresh checkout builds on its own.  A
 missing ``nvcc`` or a failed build raises; nothing falls back to the plain
 PyTorch versions.
+
+Every wrapper launches through ``launch``, the port's one host path to a
+kernel: the C entry point is looked up once and kept, the stream is the raw
+handle of PyTorch's current stream (no ``Stream`` object), and the C side
+(``csrc/on_device.cuh``) makes the tensors' card current only when it is not
+already.  The wrappers write their checks inline, ``if not ...: raise
+ValueError(f"...")``, so a message is built only when its check fails.
 
 Deliberately absent flags: ``--use_fast_math`` (the envelope relies on IEEE
 division by zero and NaN propagation, the eq on IEEE f32 rounding).
@@ -23,6 +34,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -43,35 +56,38 @@ _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
 
-# C entry points: name -> argtypes (every function returns a cudaError_t int)
+# C entry points: name -> argtypes (every function returns a cudaError_t int);
+# each ends with the card's index and the stream, which ``launch`` appends
 _SIGNATURES = {
     "mixlab_envelope_block": [
         _c_ptr, _c_ptr, _c_int,                  # x, out, S
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_float,  # attack..release, msps
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state in
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state out
-        _c_ptr,                                  # stream
+        _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_eq_cascade": [
         _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # x, xd, S, poles0, gains, tables
         _c_float, _c_float, _c_float,                    # f_lo, f_hi, vsa
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr,                  # scratch, out, poles_out, stream
+        _c_ptr, _c_ptr, _c_ptr,                          # scratch, out, poles_out
+        _c_int, _c_ptr,                                  # device, stream
     ],
     "mixlab_region_part": [
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # ops, n_words, slots, pf, sf
         _c_ptr, _c_ptr, _c_int, _c_ptr,          # taps, stap, n_stap, ef
-        _c_int, _c_ptr,                          # S, stream
+        _c_int, _c_int, _c_ptr,                  # S, device, stream
     ],
     "mixlab_crossfade": [
         *[_c_ptr, _c_ptr, _c_ptr, _c_int] * 3,  # (a, b, out, n) per plane
-        _c_int, _c_int, _c_ptr,                  # count, fade, stream
+        _c_int, _c_int, _c_int, _c_ptr,          # count, fade, device, stream
     ],
-    "mixlab_resize_axis": [
-        _c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_int,  # x, out, rows, cols, n_out, axis
-        _c_int, _c_int, _c_int, _c_int, _c_int,          # in_u8, out_u8, L, M, J
-        _c_ptr, _c_ptr, _c_ptr,                          # weights, bases, stream
+    "mixlab_resize_picture": [
+        *[_c_ptr, _c_ptr] * 3,            # (x, out) per plane
+        _c_int, _c_ptr, _c_ptr,           # planes, host table, device table
+        _c_int, _c_int, _c_int, _c_int,   # tiles, plane 1's and 2's first, shared bytes
+        _c_int, _c_ptr,                   # device, stream
     ],
-    "mixlab_passthrough": [_c_ptr, _c_ptr, _c_int, _c_ptr],  # x, out, n, stream
+    "mixlab_passthrough": [_c_ptr, _c_ptr, _c_int, _c_int, _c_ptr],  # x, out, n, device, stream
 }
 
 
@@ -96,7 +112,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the header they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -165,6 +181,32 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
+def cuda_index(t, what: str) -> int:
+    """The card index of the CUDA tensor ``t``; for anything else a
+    ``ValueError`` "<what>: unsupported device ..." (no fallback)."""
+    if isinstance(t, torch.Tensor) and t.is_cuda:
+        return t.get_device()
+    raise ValueError(f"{what}: unsupported device {getattr(t, 'device', type(t))}")
+
+
+_entries: dict = {}  # C entry point name -> ctypes function, kept after the first call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream, bound at the first launch
+
+
+def _entry(name: str):
+    """Look up the C entry point ``name`` and keep it; bind the stream
+    getter, which exists only in a CUDA build of PyTorch."""
+    global _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    fn = _entries[name] = getattr(load(), name)
+    return fn
+
+
+def launch(name: str, what: str, index: int, *args) -> None:
+    """Call the C entry point ``name`` with ``args``, card ``index`` and the
+    raw handle of that card's current stream (the C side launches there);
+    raise ``RuntimeError`` naming ``what`` if it returns a CUDA error."""
+    fn = _entries.get(name) or _entry(name)
+    rc = fn(*args, index, _raw_stream(index))
+    if rc:
+        check(load(), rc, what)

@@ -58,20 +58,18 @@ def passthrough_cuda(x: torch.Tensor) -> torch.Tensor:
     """``x * 1.0000001`` over a contiguous 1-D f32 tensor: ONE launch of the
     CUDA kernel on the current stream for a CUDA tensor, the plain twin for
     a CPU tensor."""
-    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
-        return passthrough_torch(x)
-    kernels.require(isinstance(x, torch.Tensor) and x.device.type == "cuda",
-                    f"passthrough: unsupported device {getattr(x, 'device', type(x))}")
-    kernels.require(x.dtype == torch.float32 and x.dim() == 1 and x.is_contiguous()
-                    and 0 < x.numel() < 2 ** 31,
-                    f"passthrough: want a contiguous non-empty 1-D float32 tensor, got "
-                    f"{x.dtype} {tuple(x.shape)}")
+    if not (isinstance(x, torch.Tensor) and x.is_cuda):
+        if isinstance(x, torch.Tensor) and x.is_cpu:
+            return passthrough_torch(x)
+        kernels.cuda_index(x, "passthrough")  # raises: any other device
+    n = x.numel()
+    if not (x.dtype is torch.float32 and x.dim() == 1 and 0 < n < 2 ** 31
+            and x.is_contiguous()):
+        raise ValueError("passthrough: want a contiguous non-empty 1-D float32 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
     out = torch.empty_like(x)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        rc = lib.mixlab_passthrough(x.data_ptr(), out.data_ptr(), x.numel(),
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, rc, "passthrough kernel launch")
+    kernels.launch("mixlab_passthrough", "passthrough kernel launch", x.get_device(),
+                   x.data_ptr(), out.data_ptr(), n)
     passthrough_cuda.launches += 1
     return out
 

@@ -36,35 +36,37 @@ def crossfade_torch(a: torch.Tensor, b: torch.Tensor, fade: int) -> torch.Tensor
     return ((acc * 32897) >> 23).to(torch.uint8)
 
 
-def _check_planes(a_planes, b_planes, fade) -> torch.device:
-    kernels.require(
-        0 < len(a_planes) == len(b_planes) <= MAX_PLANES,
-        f"crossfade: 1 to {MAX_PLANES} plane pairs, got {len(a_planes)} and {len(b_planes)}")
-    kernels.require(isinstance(fade, int) and 0 <= fade <= 255,
-                    f"crossfade: fade must be an int in 0..255, got {fade!r}")
-    dev = a_planes[0].device
-    kernels.require(dev.type == "cuda", f"crossfade: unsupported device {dev}")
+def _check_planes(a_planes, b_planes, fade) -> int:
+    """The planes' card index; raises ``ValueError`` on anything the kernel
+    does not take."""
+    if not 0 < len(a_planes) == len(b_planes) <= MAX_PLANES:
+        raise ValueError(f"crossfade: 1 to {MAX_PLANES} plane pairs, got {len(a_planes)} and "
+                         f"{len(b_planes)}")
+    if not (isinstance(fade, int) and 0 <= fade <= 255):
+        raise ValueError(f"crossfade: fade must be an int in 0..255, got {fade!r}")
+    index = kernels.cuda_index(a_planes[0], "crossfade")
     for i, (a, b) in enumerate(zip(a_planes, b_planes)):
         for name, t in (("a", a), ("b", b)):
-            kernels.require(
-                isinstance(t, torch.Tensor) and t.device == dev,
-                f"crossfade plane {i} {name}: on {getattr(t, 'device', type(t))}, "
-                f"the others on {dev}")
-            kernels.require(t.dtype == torch.uint8,
-                            f"crossfade plane {i} {name}: dtype {t.dtype}, want uint8")
-            kernels.require(t.is_contiguous(),
-                            f"crossfade plane {i} {name}: not contiguous")
-        kernels.require(a.shape == b.shape,
-                        f"crossfade plane {i}: shapes {tuple(a.shape)} != {tuple(b.shape)}")
-        kernels.require(a.numel() < 2 ** 31, f"crossfade plane {i}: too large")
-    return dev
+            if not (isinstance(t, torch.Tensor) and t.is_cuda and t.get_device() == index):
+                raise ValueError(f"crossfade plane {i} {name}: on "
+                                 f"{getattr(t, 'device', type(t))}, the others on "
+                                 f"{a_planes[0].device}")
+            if t.dtype is not torch.uint8:
+                raise ValueError(f"crossfade plane {i} {name}: dtype {t.dtype}, want uint8")
+            if not t.is_contiguous():
+                raise ValueError(f"crossfade plane {i} {name}: not contiguous")
+        if a.shape != b.shape:
+            raise ValueError(f"crossfade plane {i}: shapes {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.numel() >= 2 ** 31:
+            raise ValueError(f"crossfade plane {i}: too large")
+    return index
 
 
 def crossfade_cuda(a_planes: Sequence[torch.Tensor], b_planes: Sequence[torch.Tensor],
                    fade: int) -> List[torch.Tensor]:
     """Blend plane pairs ``(a_planes[i], b_planes[i])`` in ONE launch of the
     CUDA kernel on the current stream; returns the new planes."""
-    dev = _check_planes(a_planes, b_planes, fade)
+    index = _check_planes(a_planes, b_planes, fade)
     outs = [torch.empty_like(a) for a in a_planes]
     args = []
     for q in range(MAX_PLANES):
@@ -73,11 +75,8 @@ def crossfade_cuda(a_planes: Sequence[torch.Tensor], b_planes: Sequence[torch.Te
                      outs[q].numel()]
         else:
             args += [None, None, None, 0]
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        rc = lib.mixlab_crossfade(*args, len(outs), fade,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(lib, rc, "crossfade kernel launch")
+    kernels.launch("mixlab_crossfade", "crossfade kernel launch", index,
+                   *args, len(outs), fade)
     crossfade_cuda.launches += 1
     return outs
 
@@ -90,10 +89,10 @@ def crossfade_picture(a_planes: Dict[str, torch.Tensor], b_planes: Dict[str, tor
     """Blend all planes of two same-format pictures (one kernel launch on
     the card; the plain twin for CPU tensors)."""
     keys = tuple(sorted(a_planes))
-    kernels.require(tuple(sorted(b_planes)) == keys,
-                    f"crossfade: planes {keys} vs {tuple(sorted(b_planes))}")
+    if tuple(sorted(b_planes)) != keys:
+        raise ValueError(f"crossfade: planes {keys} vs {tuple(sorted(b_planes))}")
     a_list = [a_planes[k] for k in keys]
     b_list = [b_planes[k] for k in keys]
-    if all(t.device.type == "cpu" for t in a_list + b_list):
+    if all(t.is_cpu for t in a_list + b_list):
         return {k: crossfade_torch(a, b, fade) for k, a, b in zip(keys, a_list, b_list)}
     return dict(zip(keys, crossfade_cuda(a_list, b_list, fade)))

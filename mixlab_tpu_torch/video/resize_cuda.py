@@ -15,15 +15,16 @@ Mitchell weights, antialias support and edge clamping as
 1 LSB).  Ratios with L > ``MAX_PHASES`` phases or more than ``MAX_TAPS``
 taps have no plan (``can_resize_polyphase``).
 
-  * ``resize_axis_cuda`` — one axis of a plane: the kernel
-    (``csrc/resize.cu``) for CUDA tensors, which replaces the TPU kernel
+  * ``resize_picture_polyphase`` — up to three [H, W] u8 planes of one
+    picture, each to its own size: ONE launch of the kernel
+    (``csrc/resize.cu``) for CUDA planes, which replaces the TPU kernel
     ``_axis0_kernel`` / ``_resize_axis0``
-    (``mixlab_tpu/video/resize_pallas.py:143``); the plain twin for CPU
-    tensors; any other device raises.
-  * ``resize_axis_torch`` — its plain twin.
-  * ``resize_plane_polyphase`` — a [H, W] u8 plane, rows then columns, as
-    ``resize_plane_pallas``: u8 → bf16 → u8, two launches when both axes
-    change.
+    (``mixlab_tpu/video/resize_pallas.py:143``) and runs both passes of
+    every plane; the plain twin for CPU planes; any other device raises.
+  * ``resize_picture_torch`` — its plain twin: per plane the row pass
+    (u8 → bf16) then the column pass (bf16 → u8), as ``resize_plane_pallas``.
+  * ``resize_axis_torch`` — one pass of the twin.
+  * ``resize_plane_polyphase`` — one plane, a one-plane picture.
 
 Rounding, as the JAX package's kernel computes on the CPU (interpret mode):
 sums in f32 in tap order, the first term a plain product and each later one
@@ -45,6 +46,7 @@ from __future__ import annotations
 import functools
 import math
 from fractions import Fraction
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +56,15 @@ from mixlab_tpu_torch.video.scale import _mitchell
 
 MAX_PHASES = 16  # csrc/resize.cu kMaxPhases
 MAX_TAPS = 12    # csrc/resize.cu kMaxTaps
+MAX_PLANES = 3   # planes per launch, csrc/resize.cu kMaxPlanes
+TILE_ROWS, TILE_COLS = 32, 128  # output tile of one CTA, csrc/resize.cu
+# a plane's table in int32 words: a header, then per axis the bases, the
+# nonzero-tap counts, the tap offsets and the weights of every phase
+# (csrc/resize.cu PlaneTable)
+_HEADER = 16
+_AXIS_WORDS = 2 * MAX_PHASES + 2 * MAX_PHASES * MAX_TAPS
+PLANE_WORDS = _HEADER + 2 * _AXIS_WORDS
+_RESIZE_ROWS, _RESIZE_COLS = 1, 2
 _OUT_TYPES = (torch.bfloat16, torch.uint8)
 
 
@@ -111,9 +122,9 @@ def can_resize_polyphase(in_h: int, in_w: int, out_h: int, out_w: int) -> bool:
 
 def _plan(n_in: int, n_out: int):
     plan = _phase_plan(n_in, n_out)
-    kernels.require(plan is not None,
-                    f"resize: no polyphase plan for {n_in} -> {n_out} "
-                    f"(at most {MAX_PHASES} phases and {MAX_TAPS} taps)")
+    if plan is None:
+        raise ValueError(f"resize: no polyphase plan for {n_in} -> {n_out} (at most "
+                         f"{MAX_PHASES} phases and {MAX_TAPS} taps)")
     return plan
 
 
@@ -157,7 +168,8 @@ def resize_axis_torch(x: torch.Tensor, n_out: int, axis: int,
     """Plain twin of the kernel: resize ``axis`` of a [A, B] u8 or bf16
     tensor to ``n_out`` in the kernel's (and the JAX package's) rounding, on
     ``x``'s device; ``out_dtype`` bf16, or u8 for the last pass."""
-    kernels.require(out_dtype in _OUT_TYPES, f"resize: out_dtype {out_dtype}")
+    if out_dtype not in _OUT_TYPES:
+        raise ValueError(f"resize: out_dtype {out_dtype}")
     n_in = x.shape[axis]
     idx, w = _row_taps(n_in, n_out)
     rows = x if axis == 0 else x.t()
@@ -175,62 +187,163 @@ def resize_axis_torch(x: torch.Tensor, n_out: int, axis: int,
     return out if axis == 0 else out.t().contiguous()
 
 
-@functools.lru_cache(maxsize=64)
-def _device_plan(n_in: int, n_out: int, device: torch.device):
-    """The plan's weights [L, J] f32 and bases [L] int32 on ``device``,
-    uploaded once (the kernel stages them into shared memory)."""
-    _, _, _, bases, W, _, _, _ = _plan(n_in, n_out)
-    return (torch.from_numpy(np.ascontiguousarray(W)).to(device),
-            torch.tensor(bases, dtype=torch.int32, device=device))
-
-
-def resize_axis_cuda(x: torch.Tensor, n_out: int, axis: int,
-                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Resize ``axis`` (0: rows, 1: columns) of a contiguous [A, B] u8 or
-    bf16 tensor to ``n_out``: ONE launch of the CUDA kernel on the current
-    stream for a CUDA tensor, the plain twin for a CPU tensor."""
-    if isinstance(x, torch.Tensor) and x.device.type == "cpu":
-        return resize_axis_torch(x, n_out, axis, out_dtype)
-    kernels.require(isinstance(x, torch.Tensor) and x.device.type == "cuda",
-                    f"resize: unsupported device {getattr(x, 'device', type(x))}")
-    kernels.require(x.dim() == 2 and axis in (0, 1),
-                    f"resize: want a 2-D tensor and axis 0 or 1, got {tuple(x.shape)}, {axis}")
-    kernels.require(x.dtype in (torch.uint8, torch.bfloat16),
-                    f"resize: dtype {x.dtype}, want uint8 or bfloat16")
-    kernels.require(out_dtype in _OUT_TYPES, f"resize: out_dtype {out_dtype}")
-    kernels.require(x.is_contiguous(), "resize: input not contiguous")
-    n_in = x.shape[axis]
-    L, M, J, _, _, _, _, _ = _plan(n_in, n_out)
-    shape = (n_out, x.shape[1]) if axis == 0 else (x.shape[0], n_out)
-    kernels.require(0 < shape[0] * shape[1] < 2 ** 31 and x.numel() < 2 ** 31,
-                    f"resize: {tuple(x.shape)} -> {shape} is empty or too large")
-    w, bases = _device_plan(n_in, n_out, x.device)
-    out = torch.empty(shape, dtype=out_dtype, device=x.device)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        rc = lib.mixlab_resize_axis(
-            x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], n_out, axis,
-            int(x.dtype == torch.uint8), int(out_dtype == torch.uint8),
-            L, M, J, w.data_ptr(), bases.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(lib, rc, "resize kernel launch")
-    resize_axis_cuda.launches += 1
-    return out
-
-
-resize_axis_cuda.launches = 0
-
-
-def resize_plane_polyphase(plane: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """[H, W] u8 -> [out_h, out_w] u8, Mitchell bicubic, polyphase: the row
-    pass (u8 -> bf16) then the column pass (bf16 -> u8), on the plane's
-    device; one pass when only one axis changes."""
-    in_h, in_w = plane.shape
-    x = plane.contiguous()
+def _resize_plane_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    in_h, in_w = x.shape
     if (in_h, in_w) == (out_h, out_w):
         return x.clone()
     if in_h != out_h:
-        x = resize_axis_cuda(x, out_h, 0, torch.uint8 if in_w == out_w else torch.bfloat16)
+        x = resize_axis_torch(x, out_h, 0, torch.uint8 if in_w == out_w else torch.bfloat16)
     if in_w != out_w:
-        x = resize_axis_cuda(x, out_w, 1, torch.uint8)
+        x = resize_axis_torch(x, out_w, 1, torch.uint8)
     return x
+
+
+def resize_picture_torch(planes: Sequence[torch.Tensor],
+                         sizes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """Plain twin of one picture's launch, on the planes' device: each
+    [H, W] u8 plane to its (out_h, out_w) by the row pass (u8 -> bf16, or
+    -> u8 when the columns keep their size) then the column pass
+    (-> u8); a plane that keeps its size is cloned."""
+    return [_resize_plane_torch(x, int(h), int(w)) for x, (h, w) in zip(planes, sizes)]
+
+
+def _axis_words(n_in: int, n_out: int):
+    """One axis of a plane's table: (L, M, J, words [_AXIS_WORDS] int32):
+    the bases, the nonzero-tap counts, then per phase the offsets j of its
+    nonzero taps and their f32 weights (as int32 bits), ascending."""
+    L, M, J, bases, W, _, _, _ = _plan(n_in, n_out)
+    count = np.zeros(MAX_PHASES, np.int32)
+    offset = np.zeros((MAX_PHASES, MAX_TAPS), np.int32)
+    weight = np.zeros((MAX_PHASES, MAX_TAPS), np.float32)
+    for p in range(L):
+        nz = np.flatnonzero(W[p])
+        count[p] = len(nz)
+        offset[p, :len(nz)] = nz
+        weight[p, :len(nz)] = W[p, nz]
+    base = np.zeros(MAX_PHASES, np.int32)
+    base[:L] = bases
+    return L, M, J, np.concatenate([base, count, offset.ravel(), weight.ravel().view(np.int32)])
+
+
+def _window(n_in: int, n_out: int, tile: int, align: int) -> int:
+    """The most input indices a tile of ``tile`` outputs reads along a
+    resized axis, its start aligned down to ``align`` and its length up to
+    it (as the kernel sizes each tile's window)."""
+    L, M, J, bases = _plan(n_in, n_out)[:4]
+    base = np.asarray(bases)
+    o0 = np.arange(0, n_out, tile)
+    o1 = np.minimum(o0 + tile, n_out) - 1
+    lo = (o0 // L) * M + base[o0 % L]
+    lo = lo - lo % align  # floor, also below 0
+    span = (o1 // L) * M + base[o1 % L] + J - lo
+    return int((-(-span // align) * align).max())
+
+
+@functools.lru_cache(maxsize=64)
+def _picture_table(geometry: tuple):
+    """The launch's plan for ``geometry`` (one (H, W, out_h, out_w) per
+    resized plane): (table [planes, PLANE_WORDS] int32 in host memory, which
+    the kernel's launch reads its headers from, first tile of each plane and
+    the total, the most shared memory a tile's window and intermediate take,
+    in bytes)."""
+    table = np.zeros((len(geometry), PLANE_WORDS), np.int32)
+    firsts, window_bytes = [0], 0
+    for row, (H, W, OH, OW) in zip(table, geometry):
+        tiles_x = -(-OW // TILE_COLS)
+        mode, nr, nc = 0, TILE_ROWS, TILE_COLS
+        head = [H, W, OH, OW, 0, tiles_x]
+        for axis, (n_in, n_out, flag) in enumerate(((H, OH, _RESIZE_ROWS),
+                                                     (W, OW, _RESIZE_COLS))):
+            if n_in == n_out:
+                head += [0, 0, 0]
+                continue
+            L, M, J, words = _axis_words(n_in, n_out)
+            head += [L, M, J]
+            mode |= flag
+            at = _HEADER + axis * _AXIS_WORDS
+            row[at:at + _AXIS_WORDS] = words
+            if axis == 0:
+                nr = _window(n_in, n_out, TILE_ROWS, 1)
+            else:
+                nc = _window(n_in, n_out, TILE_COLS, 16)
+        head[4] = mode
+        row[:len(head)] = head
+        # the u8 window, its bf16 copy for a row pass, the f32 rows a
+        # column pass reads (csrc/resize.cu resize_tile)
+        window_bytes = max(window_bytes, nr * nc * (3 if mode & _RESIZE_ROWS else 1)
+                           + (4 * TILE_ROWS * nc if mode & _RESIZE_COLS else 0))
+        firsts.append(firsts[-1] + tiles_x * -(-OH // TILE_ROWS))
+    return table, tuple(firsts), window_bytes
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(geometry: tuple, device: torch.device) -> torch.Tensor:
+    """``_picture_table``'s table on ``device``, uploaded once."""
+    return torch.from_numpy(_picture_table(geometry)[0]).to(device)
+
+
+def resize_picture_polyphase(planes: Sequence[torch.Tensor],
+                             sizes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """Resize 1-3 [H, W] u8 planes of one picture, plane i to ``sizes[i]``
+    = (out_h, out_w), Mitchell bicubic, polyphase: ONE launch of the CUDA
+    kernel on the current stream for CUDA planes (a plane that keeps its
+    size is cloned and takes no part; no launch when none changes), the
+    plain twin for CPU planes."""
+    if not 0 < len(planes) == len(sizes) <= MAX_PLANES:
+        raise ValueError(f"resize: 1 to {MAX_PLANES} planes with one size each, got "
+                         f"{len(planes)} and {len(sizes)}")
+    xs = []
+    for i, (x, (out_h, out_w)) in enumerate(zip(planes, sizes)):
+        if not (isinstance(x, torch.Tensor) and x.dim() == 2):
+            raise ValueError(f"resize plane {i}: want a 2-D tensor, got "
+                             f"{tuple(getattr(x, 'shape', ())) or type(x)}")
+        in_h, in_w = x.shape
+        if in_h != out_h:
+            _plan(in_h, out_h)
+        if in_w != out_w:
+            _plan(in_w, out_w)
+        xs.append(x.contiguous())
+    if xs[0].is_cpu:
+        for i, x in enumerate(xs):
+            if not x.is_cpu:
+                raise ValueError(f"resize plane {i}: on {x.device}, the others on cpu")
+        return resize_picture_torch(xs, sizes)
+    index = kernels.cuda_index(xs[0], "resize")
+    outs, args, geometry = [], [], []
+    for i, (x, (out_h, out_w)) in enumerate(zip(xs, sizes)):
+        if not (x.is_cuda and x.get_device() == index):
+            raise ValueError(f"resize plane {i}: on {x.device}, the others on {xs[0].device}")
+        if x.dtype is not torch.uint8:
+            raise ValueError(f"resize plane {i}: dtype {x.dtype}, want uint8")
+        if not (0 < out_h * out_w < 2 ** 31 and 0 < x.numel() < 2 ** 31):
+            raise ValueError(f"resize plane {i}: {tuple(x.shape)} -> {(out_h, out_w)} is empty "
+                             "or too large")
+        if x.shape == (out_h, out_w):
+            outs.append(x.clone())
+            continue
+        out = torch.empty((out_h, out_w), dtype=torch.uint8, device=x.device)
+        outs.append(out)
+        args += [x.data_ptr(), out.data_ptr()]
+        geometry.append((x.shape[0], x.shape[1], int(out_h), int(out_w)))
+    if not geometry:
+        return outs
+    geometry = tuple(geometry)
+    host_table, firsts, window_bytes = _picture_table(geometry)
+    table = _device_table(geometry, xs[0].device)
+    args += [None] * (2 * MAX_PLANES - len(args))
+    tile_1 = firsts[1]
+    tile_2 = firsts[2] if len(geometry) > 2 else firsts[-1]
+    kernels.launch("mixlab_resize_picture", "resize kernel launch", index,
+                   *args, len(geometry), host_table.ctypes.data, table.data_ptr(), firsts[-1],
+                   tile_1, tile_2, window_bytes)
+    resize_picture_polyphase.launches += 1
+    return outs
+
+
+resize_picture_polyphase.launches = 0
+
+
+def resize_plane_polyphase(plane: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[H, W] u8 -> [out_h, out_w] u8, Mitchell bicubic, polyphase, on the
+    plane's device: a one-plane ``resize_picture_polyphase``."""
+    return resize_picture_polyphase([plane], [(out_h, out_w)])[0]

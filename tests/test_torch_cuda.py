@@ -241,46 +241,81 @@ def test_cuda_engine_ticks_launch_the_crossfade_once_each(dev):
         eng.stop()
 
 
-RESIZE_CASES = [((720, 1280), (1080, 1920)), ((240, 250), (256, 125))]
+RESIZE_CASES = [
+    ([(720, 1280), (360, 640), (360, 640)], [(1080, 1920), (540, 960), (540, 960)]),
+    ([(240, 250)], [(256, 125)]),
+    ([(110, 330), (64, 96), (98, 174)], [(40, 120), (64, 96), (147, 174)]),
+    ([(26, 26), (52, 260)], [(18, 22), (36, 220)]),
+]
 
 
-@pytest.mark.parametrize("src,dst", RESIZE_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("src,dst", RESIZE_CASES, ids=lambda s: f"{len(s)}x{s[0][0]}x{s[0][1]}")
 def test_resize_kernel_matches_twin(dev, src, dst):
-    """Exact, pass by pass (u8 -> bf16 rows, bf16 -> u8 columns, and each
-    axis alone into u8), one launch per pass; the plane within 1 LSB of the
-    dense f32 resize."""
+    """Exact against the twin, one launch per picture (a 720p -> 1080p
+    yuv420p picture; a 16-phase plane; the steepest downscale beside an
+    unchanged plane and a rows-only plane; ratios with zero weights between
+    nonzero taps); each resized plane within 1 LSB of the dense f32
+    resize."""
     from mixlab_tpu_torch.video import resize_cuda as rc
     from mixlab_tpu_torch.video import scale
 
-    rng = np.random.default_rng(src[0] + dst[1])
-    x = torch.from_numpy(rng.integers(0, 256, src, dtype=np.uint8)).to(dev)
-    n = rc.resize_axis_cuda.launches
-    rows = rc.resize_axis_cuda(x, dst[0], 0)
-    assert torch.equal(rows, rc.resize_axis_torch(x, dst[0], 0))
-    cols = rc.resize_axis_cuda(rows, dst[1], 1, torch.uint8)
-    assert torch.equal(cols, rc.resize_axis_torch(rows, dst[1], 1, torch.uint8))
-    for axis, n_out in ((0, dst[0]), (1, dst[1])):
-        got = rc.resize_axis_cuda(x, n_out, axis, torch.uint8)
-        assert torch.equal(got, rc.resize_axis_torch(x, n_out, axis, torch.uint8)), axis
-    plane = rc.resize_plane_polyphase(x, *dst)
+    rng = np.random.default_rng(src[0][0] + dst[0][1])
+    planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(dev) for s in src]
+    n = rc.resize_picture_polyphase.launches
+    got = rc.resize_picture_polyphase(planes, dst)
+    want = rc.resize_picture_torch(planes, dst)
     torch.cuda.synchronize()
-    assert torch.equal(plane, cols) and rc.resize_axis_cuda.launches == n + 6
-    dense = scale.resize_plane(x, *dst, method="f32")
-    assert int((plane.to(torch.int16) - dense.to(torch.int16)).abs().max()) <= 1
+    assert rc.resize_picture_polyphase.launches == n + 1
+    for g, w, x, size in zip(got, want, planes, dst):
+        assert g.dtype == torch.uint8 and torch.equal(g, w)
+        dense = scale.resize_plane(x, *size, method="f32")
+        assert int((g.to(torch.int16) - dense.to(torch.int16)).abs().max()) <= 1
+    (plane,) = rc.resize_picture_polyphase(planes[:1], dst[:1])
+    assert torch.equal(plane, rc.resize_plane_polyphase(planes[0], *dst[0]))
+    assert torch.equal(plane, got[0]) and rc.resize_picture_polyphase.launches == n + 3
 
 
 def test_resize_wrapper_rejects_bad_tensors(dev):
     from mixlab_tpu_torch.video import resize_cuda as rc
 
     x = torch.zeros((48, 64), dtype=torch.uint8, device=dev)
-    n = rc.resize_axis_cuda.launches
-    for bad, n_out, axis in ((x[:, ::2], 72, 0), (x.float(), 72, 0), (x, 72, 2),
-                             (x[None], 72, 0), (x, 71 * 97, 0)):
+    n = rc.resize_picture_polyphase.launches
+    for planes, sizes in (([x.float()], [(72, 96)]),               # not uint8
+                          ([x[None]], [(72, 96)]),                 # not 2-D
+                          ([x], [(71 * 97, 96)]),                  # no plan
+                          ([x, x.cpu()], [(72, 96), (72, 96)]),    # a mix of devices
+                          ([x] * 4, [(72, 96)] * 4),               # more than three planes
+                          ([x, x], [(72, 96)])):                   # a size per plane
         with pytest.raises(ValueError):
-            rc.resize_axis_cuda(bad, n_out, axis)
-    with pytest.raises(ValueError, match="out_dtype"):
-        rc.resize_axis_cuda(x, 72, 0, torch.float32)
-    assert rc.resize_axis_cuda.launches == n
+            rc.resize_picture_polyphase(planes, sizes)
+    assert rc.resize_picture_polyphase.launches == n
+    got = rc.resize_picture_polyphase([x, x], [(48, 64), (48, 64)])  # nothing to resize
+    assert all(torch.equal(g, x) for g in got) and rc.resize_picture_polyphase.launches == n
+
+
+def test_lean_path_refuses_other_cards_and_strided_tensors(dev):
+    """Every wrapper launches through ``kernels.launch``: a tensor the
+    kernel cannot take raises before it, and a tensor on another card than
+    the current one launches there (with two cards or more)."""
+    from mixlab_tpu_torch.tools import profile_env_eq as tool
+    from mixlab_tpu_torch.video import blend
+
+    x = torch.arange(4096, dtype=torch.float32, device=dev)
+    n = tool.passthrough_cuda.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tool.passthrough_cuda(x[::2])
+    y = torch.zeros((8, 16), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        blend.crossfade_cuda([y[:, ::2]], [y[:, ::2]], 128)
+    assert tool.passthrough_cuda.launches == n
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        with pytest.raises(ValueError, match="the others on"):
+            blend.crossfade_cuda([y], [y.to(other)], 128)
+        got = tool.passthrough_cuda(x.to(other))
+        torch.cuda.synchronize(other)
+        assert got.device == other and torch.equal(got.cpu(), tool.passthrough_torch(x).cpu())
+        assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.parametrize("S", [384_000, 1_000_003])

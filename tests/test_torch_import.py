@@ -18,7 +18,7 @@ from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
 from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
 from mixlab_tpu_torch.video.blend import crossfade_cuda, crossfade_picture
-from mixlab_tpu_torch.video.resize_cuda import resize_axis_cuda, resize_plane_polyphase
+from mixlab_tpu_torch.video.resize_cuda import resize_picture_polyphase, resize_plane_polyphase
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -121,7 +121,7 @@ def test_wrappers_refuse_other_devices(wrapper):
     elif wrapper == "resize":
         y = torch.empty((48, 64), dtype=torch.uint8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
-            resize_axis_cuda(y, 72, 0)
+            resize_picture_polyphase([y, y], [(72, 96), (48, 96)])
         with pytest.raises(ValueError, match="unsupported device"):
             resize_plane_polyphase(y, 72, 96)
     elif wrapper == "passthrough":
@@ -150,7 +150,7 @@ def test_kernel_library_name_tracks_sources():
                                                    "passthrough.cu"}
     assert set(kernels._SIGNATURES) == {
         "mixlab_envelope_block", "mixlab_eq_cascade", "mixlab_region_part",
-        "mixlab_crossfade", "mixlab_resize_axis", "mixlab_passthrough"}
+        "mixlab_crossfade", "mixlab_resize_picture", "mixlab_passthrough"}
     # every C entry point is defined in a source
     text = "".join(src.read_text() for src in kernels.sources())
     for name in kernels._SIGNATURES:

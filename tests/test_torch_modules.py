@@ -14,6 +14,7 @@ from mixlab_tpu.engine.compiler import compile_patch as jax_compile_patch
 from mixlab_tpu.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu.engine.graph import Workspace as JaxWorkspace
 from mixlab_tpu.protocol import wire as jax_wire
+from mixlab_tpu_torch.dsp import audio
 from mixlab_tpu_torch.dsp.registry import get_def as torch_def
 from mixlab_tpu_torch.engine import config as port_config
 from mixlab_tpu_torch.engine.compiler import compile_patch, upload
@@ -236,3 +237,15 @@ def test_host_aux_zero_fills_missing_feeds(fed):
     _, taps_t = pt.run(pt.prepare_aux(ws_t), ht, pt.init_state(ws_t))
     for cj, ct in zip(taps_j["4"]["audio"], taps_t["4"]["audio"]):
         np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=0, atol=ATOL)
+
+
+def test_cpu_sine_takes_one_element_first(monkeypatch):
+    """The oscillators' sine on the CPU: one element on the calling thread
+    before the process's first real call, then plain ``torch.sin``."""
+    real, sizes = torch.sin, []
+    monkeypatch.setattr(audio, "_sin_warm", False)
+    monkeypatch.setattr(torch, "sin", lambda x: sizes.append(x.numel()) or real(x))
+    x = torch.linspace(0.0, 400.0, 44_100)
+    assert torch.equal(audio._sin(x), real(x))
+    assert torch.equal(audio._sin(x), real(x))
+    assert sizes == [1, 44_100, 44_100]

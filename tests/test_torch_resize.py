@@ -88,9 +88,9 @@ def test_polyphase_twin_bit_exact_vs_pallas_interpret(case):
     h1, w1, h2, w2 = case
     rng = np.random.default_rng(h1 * 31 + w2)
     x = _u8(rng, (h1, w1))
-    n = resize_cuda.resize_axis_cuda.launches
+    n = resize_cuda.resize_picture_polyphase.launches
     got = resize_cuda.resize_plane_polyphase(torch.from_numpy(x), h2, w2)
-    assert resize_cuda.resize_axis_cuda.launches == n  # CPU tensors take the twin
+    assert resize_cuda.resize_picture_polyphase.launches == n  # CPU tensors take the twin
     assert got.dtype == torch.uint8 and tuple(got.shape) == (h2, w2)
     want = np.asarray(jresize.resize_plane_pallas(jnp.asarray(x), h2, w2))
     np.testing.assert_array_equal(got.numpy(), want)
@@ -113,6 +113,90 @@ def test_polyphase_passes_keep_bf16_between_axes():
     assert torch.equal(resize_cuda.resize_plane_polyphase(same, 54, 96), same)
     with pytest.raises(ValueError, match="out_dtype"):
         resize_cuda.resize_axis_torch(same, 108, 0, torch.float32)
+
+
+# one picture's planes (luma and two chroma), each to its own size
+PICTURES = [
+    ("yuv420p up", [(36, 64), (18, 32), (18, 32)], [(54, 96), (27, 48), (27, 48)]),
+    ("yuv420p down", [(54, 96), (27, 48), (27, 48)], [(36, 64), (18, 32), (18, 32)]),
+]
+
+
+@pytest.mark.parametrize("what,src,dst", PICTURES, ids=[p[0] for p in PICTURES])
+def test_picture_equals_plane_twin_and_pallas_interpret(what, src, dst):
+    """``resize_picture_polyphase`` on the CPU: three planes of one picture,
+    equal to the per-plane twin and to the JAX ``resize_plane_pallas`` in
+    interpret mode, with no launch."""
+    rng = np.random.default_rng(len(what))
+    planes = [_u8(rng, s) for s in src]
+    n = resize_cuda.resize_picture_polyphase.launches
+    got = resize_cuda.resize_picture_polyphase([torch.from_numpy(x) for x in planes], dst)
+    assert resize_cuda.resize_picture_polyphase.launches == n
+    for x, (h, w), g in zip(planes, dst, got):
+        assert g.dtype == torch.uint8 and tuple(g.shape) == (h, w)
+        np.testing.assert_array_equal(
+            g.numpy(), resize_cuda.resize_plane_polyphase(torch.from_numpy(x), h, w).numpy())
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jresize.resize_plane_pallas(jnp.asarray(x), h, w)))
+
+
+def test_picture_unchanged_plane_and_one_axis():
+    """A plane that keeps its size comes back as an equal copy; a plane
+    with one resized axis runs that axis's pass alone (the twin's u8
+    epilogue), as the JAX kernel does."""
+    rng = np.random.default_rng(8)
+    y, u, v = _u8(rng, (36, 64)), _u8(rng, (18, 32)), _u8(rng, (30, 48))
+    ts = [torch.from_numpy(a) for a in (y, u, v)]
+    got = resize_cuda.resize_picture_polyphase(ts, [(54, 64), (18, 32), (30, 72)])
+    assert torch.equal(got[1], ts[1]) and got[1].data_ptr() != ts[1].data_ptr()
+    for g, x, (h, w) in ((got[0], y, (54, 64)), (got[2], v, (30, 72))):
+        np.testing.assert_array_equal(
+            g.numpy(), np.asarray(jresize.resize_plane_pallas(jnp.asarray(x), h, w)))
+    # a strided plane is resized as its contiguous copy
+    wide = torch.from_numpy(_u8(rng, (36, 128)))
+    (got,) = resize_cuda.resize_picture_polyphase([wide[:, ::2]], [(54, 96)])
+    assert torch.equal(got, resize_cuda.resize_plane_polyphase(wide[:, ::2].contiguous(), 54, 96))
+
+
+def test_picture_wrapper_raises():
+    y = torch.zeros((36, 64), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="no polyphase plan"):
+        resize_cuda.resize_picture_polyphase([y, torch.zeros((64, 1920), dtype=torch.uint8)],
+                                             [(54, 96), (64, 352)])
+    with pytest.raises(ValueError, match="1 to 3 planes"):
+        resize_cuda.resize_picture_polyphase([y] * 4, [(54, 96)] * 4)
+    with pytest.raises(ValueError, match="1 to 3 planes"):
+        resize_cuda.resize_picture_polyphase([y, y], [(54, 96)])
+    with pytest.raises(ValueError, match="2-D"):
+        resize_cuda.resize_picture_polyphase([y[None]], [(54, 96)])
+    with pytest.raises(ValueError, match="the others on cpu"):
+        resize_cuda.resize_picture_polyphase([y, y.to("meta")], [(54, 96), (54, 96)])
+    with pytest.raises(ValueError, match="unsupported device"):
+        resize_cuda.resize_picture_polyphase([y.to("meta")], [(54, 96)])
+
+
+def test_picture_table_windows_hold_every_tile():
+    """The launch's plan: tiles per plane, and a staged window large enough
+    for the tile that reads the most, as the kernel sizes it; the steepest
+    ratio (2.75:1, 12 taps) needs more than 48 KB of shared memory."""
+    geometry = ((720, 1280, 1080, 1920), (360, 640, 540, 960), (360, 640, 540, 960))
+    table, firsts, window_bytes = resize_cuda._picture_table(geometry)
+    assert table.shape == (3, resize_cuda.PLANE_WORDS) and table.dtype == np.int32
+    assert firsts == (0, 34 * 15, 34 * 15 + 17 * 8, 34 * 15 + 2 * 17 * 8)
+    assert list(table[0, :6]) == [720, 1280, 1080, 1920, 3, 15]
+    assert window_bytes < 32 * 1024
+    _, _, steep = resize_cuda._picture_table(((110, 330, 40, 120),))
+    assert steep > 48 * 1024
+    L, M, J, bases, W = resize_cuda._phase_plan(720, 1080)[:5]
+    words = table[0, resize_cuda._HEADER:resize_cuda._HEADER + resize_cuda._AXIS_WORDS]
+    count = words[16:32]
+    offsets = words[32:32 + 192].reshape(16, 12)
+    weights = words[32 + 192:].view(np.float32).reshape(16, 12)
+    for p in range(L):
+        nz = np.flatnonzero(W[p])
+        assert count[p] == len(nz) and words[p] == bases[p]
+        assert list(offsets[p, :len(nz)]) == list(nz)
+        np.testing.assert_array_equal(weights[p, :len(nz)], W[p, nz])
 
 
 def _f32_round(v: Fraction) -> float:
