@@ -8,8 +8,12 @@ imports no jax.  Phases, any failure of which exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions;
   2. build the hand-written kernels (csrc/*.cu) and print the build time;
-  3. envelope kernel vs its plain twin on the card (S = 735, 44,100 and one
-     past the split bound; open / dense / sparse gates; 3 carried blocks);
+  3. envelope kernel vs its plain twin on the card, 3 carried blocks each:
+     S = 735, T-1, T, T+1 (T the tile, 512 samples), 44,100, 48,000,
+     384,000 and one past the split bound; open / dense / sparse gates, and
+     gates with edges at T-1, T, T+1 of every tile boundary and on the
+     first and last sample, and with one edge in every tile; each S prints
+     its tiles (G) and tile length (T);
   4. EqThree kernel vs its twin (S = 8,192, 44,100 and one past the split
      bound; 3 carried blocks);
   5. region kernel vs its twin on the card, launch by launch on the same
@@ -26,12 +30,16 @@ imports no jax.  Phases, any failure of which exits non-zero:
      render (all 10 s);
   7. timing, for information: each kernel vs its twin at the main path's
      shapes (and the region kernel on one part of a two-part block), the
-     region program vs the regular one per 48 kHz block, the
-     render of 60 s of audio as a realtime factor at both rates, and a
-     profile of 5 render blocks at each;
+     envelope kernel's device time per launch at 44,100 and 48,000 samples
+     for tiles of 256 to 2,048 samples (profiler), the region program vs
+     the regular one per 48 kHz block, the render of 60 s of audio as a
+     realtime factor at both rates, and a profile of 5 render blocks at
+     each: device time per block and its share of the unprofiled wall;
   8. crossfade kernel vs its twin on the card, exact (planes 1920x1080,
-     960x540, 36x100, 1x1, 7x13 and one at an odd byte offset; fades 0, 1,
-     127, 128, 254, 255; single- and three-plane launches), and
+     960x540, 36x100, 1x1, 7x13, 17x31, 5x13 and 1025x16 -- n % 16 of 0, 1,
+     11 and 15, vector counts that leave a ragged last CTA -- and one at an
+     odd byte offset; fades 0, 1, 127, 128, 254, 255; single-plane
+     launches and three-plane launches of mixed sizes), and
      ``scale_picture`` 1280x720 -> 1920x1080 on the card vs the CPU
      (``"int8"`` exact, ``"f32"`` within 1 LSB); run with phases 3-5;
   9. the realtime main path, with the launch counts set to 0 just before and
@@ -44,7 +52,9 @@ imports no jax.  Phases, any failure of which exits non-zero:
      first 10 ticks agree with a CPU ``Engine`` (composites within 1 LSB,
      monitor audio within 1e-4); run after phase 6;
  10. realtime timing, for information, after phase 7: the crossfade vs its
-     twin at 1080p, ``scale_picture`` by method, ``tick_once`` over 300 ticks
+     twin at 1080p, its device time per picture back to back and with the
+     L2 cache flushed between launches (a 128 MB write; profiler),
+     ``scale_picture`` by method, ``tick_once`` over 300 ticks
      with and without the video chain, a profile of 10 ticks, the edit path
      (``compile_patch`` and the first block; a client op), and a 5 s
      threaded run (``Engine.start()`` with a 60 fps feeder thread);
@@ -120,7 +130,9 @@ RT_AUDIO_ATOL = 1e-4     # the port's CUDA-vs-CPU tolerance, as CPU_RENDER_ATOL
 COMPOSITE_LSB = 1        # tests/test_video.py:197 and :215
 FOLD_LSB = 2             # tests/test_video.py:318, smooth content
 FADES = (0, 1, 127, 128, 254, 255)
-CROSSFADE_SHAPES = ((1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13))
+CROSSFADE_SHAPES = ((1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13), (17, 31), (5, 13),
+                    (1025, 16))
+FLUSH_BYTES = 128 * 2**20  # written between launches: more than the 50 MB L2
 # (what, (in_h, in_w), (out_h, out_w)) for the resize kernel vs its twin
 RESIZE_CASES = (
     ("720p->1080p luma", (720, 1280), (1080, 1920)),
@@ -170,6 +182,30 @@ def card_line() -> str:
 # kernel vs twin checks
 
 
+def tile_edge_gates(np, kind, S, T, n_blocks, rng):
+    """Gates for ``n_blocks`` blocks of S samples in tiles of T, with edges
+    alternately rising and falling: ``"tile_edges"`` at T-1, T and T+1 of
+    every tile boundary of each block and on its first and last sample,
+    ``"every_tile"`` at one random sample of every tile."""
+    if kind == "tile_edges":
+        at = {0, S - 1}
+        for b in range(T, S + 1, T):
+            at.update(t for t in (b - 1, b, b + 1) if t < S)
+    else:
+        at = {min(b + int(rng.integers(0, T)), S - 1) for b in range(0, S, T)}
+    x = np.full(n_blocks * S, 0.5, np.float32)
+    edges = sorted(blk * S + t for blk in range(n_blocks) for t in at)
+    x[edges] = np.resize(np.array([1.0, 0.0], np.float32), len(edges))
+    return x
+
+
+def launch_tiles(envc, S):
+    """(G, T) of each launch of an envelope block of S samples on card 0."""
+    part = -(-S // -(-S // envc.MAX_KERNEL_S))
+    lane, tiles = envc.tile_plan(part, envc.resident_tiles(0))
+    return tiles, envc.THREADS * lane
+
+
 def check_envelope(torch, np, dev):
     from mixlab_tpu_torch.dsp import envelope_cuda as envc
 
@@ -182,23 +218,27 @@ def check_envelope(torch, np, dev):
                 "off_pos": torch.tensor(envc.POS_FLOOR, dtype=torch.int32, device=dev),
                 "off_amp": torch.tensor(0.0, device=dev)}
 
-    def gates(kind, n, rng):
+    def gates(kind, S, T, rng):
+        n = 3 * S
         if kind == "open":  # all the flagship's trigger sends
             return np.ones(n, np.float32)
         if kind == "dense":
             return rng.choice([0.0, 1.0, 0.5], size=n).astype(np.float32)
+        if kind != "sparse":
+            return tile_edge_gates(np, kind, S, T, 3, rng)
         x = np.full(n, 0.5, np.float32)  # sparse edges across block ends
-        S = n // 3
         edges = sorted(set(rng.integers(0, n, 10).tolist() + [S - 1, S, 2 * S + 1]))
         for i, e in enumerate(edges):
             x[e] = 1.0 if i % 2 == 0 else 0.0
         return x
 
     worst = 0.0
-    for S in (735, 44_100, envc.MAX_KERNEL_S + 1):
-        for kind in ("open", "dense", "sparse"):
+    T0 = envc.TILE
+    for S in (735, T0 - 1, T0, T0 + 1, 44_100, 48_000, 384_000, envc.MAX_KERNEL_S + 1):
+        G, T = launch_tiles(envc, S)
+        for kind in ("open", "dense", "sparse", "tile_edges", "every_tile"):
             rng = np.random.default_rng(S)
-            x_all = torch.from_numpy(gates(kind, 3 * S, rng)).to(dev)
+            x_all = torch.from_numpy(gates(kind, S, T, rng)).to(dev)
             st_k, st_t = state0(), state0()
             for blk in range(3):
                 x = x_all[blk * S:(blk + 1) * S]
@@ -215,7 +255,8 @@ def check_envelope(torch, np, dev):
                         raise AssertionError(f"envelope S={S} {kind} block {blk}: "
                                              f"{k} {st_k[k].item()} != {st_t[k].item()}")
                 worst = max(worst, err, amp_err)
-            log(f"envelope kernel vs twin S={S} {kind}: ok (3 blocks)")
+            log(f"envelope kernel vs twin S={S} (G={G} tiles of T={T} per launch) {kind}: ok "
+                f"(3 blocks)")
     return worst
 
 
@@ -626,6 +667,20 @@ def timing(torch, np, dev, card, proj: Path):
             f"plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 calls); "
             f"bound {b_ms * 1e3:.3f} us by {b_by} ({work[0]} B, {work[1]} flop)")
 
+    # the envelope's device time per launch by tile length, the flagship's
+    # open gate at both rates (the wrapper's tile is LANE = 2)
+    for n in (44_100, 48_000):
+        xo = torch.ones(n, device=dev)
+        for lane in (1, 2, 4, 8):
+            G, T = envc.tile_plan(n, envc.resident_tiles(0), lane)[1], envc.THREADS * lane
+            found = _device_us(torch, lambda: envc._launch(xo, 0, st, prm, MS_PER_SAMPLE, lane),
+                               "envelope_kernel", n=50)
+            log(f"timing envelope kernel S={n}, G={G} tiles of T={T} [{card}]: device time "
+                f"{'/'.join(f'{us:.3f}' for _, us, _ in found) or 'not measured'} us per "
+                f"launch (profiler, 50 launches)" + (" <- the wrapper's tile" if lane == envc.LANE
+                                                     else ""))
+    envelope_call_pieces(torch, envc, card, x, st, prm)
+
     # one whole 48 kHz block: the region program vs the regular program
     blk = {}
     for mega in (False, True, True, False):
@@ -663,12 +718,17 @@ def timing(torch, np, dev, card, proj: Path):
             f"{[round(x, 4) for x in w]} s, realtime factor {[round(60.0 / x, 1) for x in w]} x")
 
     for sr in (44_100, 48_000):
-        profile_blocks(torch, ws, dev, card, sr)
+        busy_us = profile_blocks(torch, ws, dev, card, sr)
+        wall_us = sorted(walls[(sr, None)])[1] / 60 * 1e6  # the median 60-block render
+        share = f"{100 * busy_us / wall_us:.2f}%" if busy_us else "not measured"
+        log(f"device time per {sr} Hz block {busy_us:.3f} us (profiler) against {wall_us:.3f} us "
+            f"of unprofiled wall per block (the median 60 s render): busy {share} [{card}]")
     return res
 
 
 def profile_blocks(torch, ws, dev, card, sr):
-    """Five render blocks under the profiler: device busy time, top kernels."""
+    """Five render blocks under the profiler: device busy time, top kernels;
+    returns the device time per block in us (0.0 when none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -693,12 +753,13 @@ def profile_blocks(torch, ws, dev, card, sr):
     if busy_us > 0:
         log(f"profile 5 render blocks at {sr} Hz (region {patch._mega}) [{card}]: wall "
             f"{wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms "
-            f"({100 * busy_us / (wall * 1e6):.1f}% of wall), "
+            f"({100 * busy_us / (wall * 1e6):.1f}% of the profiled wall), "
             f"{sum(e.count for e in events)} kernels and copies")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     else:
         log("profile: no device time recorded (not measured)")
+    return busy_us / 5
 
 
 # --------------------------------------------------------------------------
@@ -707,9 +768,11 @@ def profile_blocks(torch, ws, dev, card, sr):
 
 def check_crossfade(torch, np, dev):
     """Crossfade kernel vs its twin on the card, exact: each plane alone at
-    every fade, a 1080p picture's three planes and three odd planes each in
-    one launch against three single-plane twins, and a plane at an odd byte
-    offset (the kernel's scalar path)."""
+    every fade (n % 16 of 0, 1, 11 and 15; vector counts that leave the last
+    CTA ragged), a plane at an odd byte offset (the kernel's ragged range),
+    and three-plane launches of mixed sizes against single-plane twins: a
+    1080p picture, three small planes, and a ragged plane beside the odd
+    one."""
     from mixlab_tpu_torch.video import blend
 
     rng = np.random.default_rng(5)
@@ -720,7 +783,8 @@ def check_crossfade(torch, np, dev):
     pairs = [(u8(s), u8(s)) for s in CROSSFADE_SHAPES]
     buf = u8(2 * 1920 * 1080 + 2)
     odd = (buf[1:1 + 1920 * 1080].view(1080, 1920), buf[-1920 * 1080 - 1:-1].view(1080, 1920))
-    triples = [[pairs[0], pairs[1], (u8((540, 960)), u8((540, 960)))], pairs[2:]]
+    triples = [[pairs[0], pairs[1], (u8((540, 960)), u8((540, 960)))], pairs[2:5],
+               [pairs[7], pairs[5], odd]]
     worst = 0
     for fade in FADES:
         for a, b in pairs + [odd]:
@@ -970,9 +1034,31 @@ def realtime_timing(torch, np, dev, card):
               and e.self_device_time_total > 0]
     log(f"timing crossfade of a 1920x1080 yuv420p picture [{card}]: kernel {k1:.4f}/{k2:.4f} "
         f"ms, plain twin {p1:.4f}/{p2:.4f} ms per call (CUDA events, 200 calls); device time "
-        f"{'/'.join(f'{u:.3f}' for u in dev_us) or 'not measured'} us per launch (profiler, "
-        f"50 launches); bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} B, {ops} integer ops); "
-        f"library call: none")
+        f"{'/'.join(f'{u:.3f}' for u in dev_us) or 'not measured'} us per launch back to back "
+        f"(profiler, 50 launches); bound {b_ms * 1e3:.3f} us by {b_by} ({nbytes} B, {ops} "
+        f"integer ops); library call: none")
+    # for a caller that finds the cache cold: the L2 flushed between launches
+    # by a 128 MB write, which the profiler times apart from the crossfade
+    # (the flush leaves L2 full of dirty lines, which the crossfade's own
+    # lines evict: written back during it); then, for information, by the
+    # write and a 128 MB read after it (clean lines: the crossfade's bytes
+    # alone)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    clean = torch.ones(FLUSH_BYTES // 4, device=dev)
+    flushes = {"a 128 MB write": lambda: flush.fill_(1),
+               "a 128 MB write, again": lambda: flush.fill_(1),
+               "a 128 MB write, then a 128 MB read": lambda: (flush.fill_(1), clean.sum())}
+    for label, flush_l2 in flushes.items():
+        def cold():
+            flush_l2()
+            blend.crossfade_cuda(al, bl, 153)
+
+        found = _device_us(torch, cold, "crossfade_kernel", n=50)
+        log(f"timing crossfade of a 1920x1080 yuv420p picture, L2 flushed between launches by "
+            f"{label} [{card}]: device time " + (", ".join(
+                f"{us:.3f} us per launch, {100 * b_ms * 1e3 / us:.1f}% of the bound"
+                for _, us, _ in found) or "not measured") + " (profiler, 50 launches)")
+    del flush, clean
 
     sc = {}
     for method in ("f32", "int8", "int8", "f32"):
@@ -1426,6 +1512,48 @@ def video_timing(torch, np, dev, card):
     return out
 
 
+def host_us(torch, f, n=2000):
+    """Host time per call of ``f`` in us: the best of 3 rounds of ``n``
+    calls, the card synchronised before each round, not inside it."""
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            f()
+        best = min(best, time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return best / n * 1e6
+
+
+def envelope_call_pieces(torch, envc, card, x, st, prm):
+    """For information: where an envelope call's host time goes, at the
+    main path's S (host clock, ``host_us``)."""
+    from mixlab_tpu_torch import kernels
+
+    S, index = x.shape[0], x.get_device()
+    lane, tiles = envc.tile_plan(S, envc.resident_tiles(index))
+    buf = torch.empty(S + 4 + 16 * tiles, device=x.device)
+    outs = {k: torch.empty_like(v) for k, v in st.items()}
+    fn = kernels.load().mixlab_envelope_block
+    args = (x.data_ptr(), buf.data_ptr(), S, lane, tiles, buf.data_ptr() + 4 * (S + 4),
+            *(prm[k].data_ptr() for k in envc._PARAMS), MS_PER_SAMPLE,
+            *(st[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")),
+            *(outs[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")), index)
+    raw = torch._C._cuda_getCurrentRawStream
+    for name, f in (
+            ("the wrapper, envelope_block_cuda", lambda: envc.envelope_block_cuda(
+                x, st, prm, MS_PER_SAMPLE)),
+            ("its launch path without the checks, _launch", lambda: envc._launch(
+                x, index, st, prm, MS_PER_SAMPLE)),
+            ("the five allocations (output with scratch, four state scalars)", lambda: (
+                torch.empty(S + 4 + 16 * tiles, device=x.device),
+                *(torch.empty((), dtype=v.dtype, device=x.device) for v in st.values()))),
+            ("the bare CDLL call: a cooperative launch", lambda: fn(*args, raw(index)))):
+        log(f"timing envelope call piece S={S} [{card}]: {host_us(torch, f):.3f} us per call  "
+            f"{name}")
+
+
 def launch_path_pieces(torch, dev, card, x, n=2000):
     """For information: the host time of each piece of a wrapper's launch
     path, the guarded path's beside the lean path's (``kernels.launch``), and
@@ -1518,14 +1646,7 @@ def launch_path_pieces(torch, dev, card, x, n=2000):
     )
     us = {}
     for name, f in pieces:
-        best = float("inf")
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(n):
-                f()
-            best = min(best, time.perf_counter() - t)
-        us[name] = best / n * 1e6
+        us[name] = host_us(torch, f, n)
         log(f"timing launch path piece [{card}]: {us[name]:.3f} us per call  {name}")
     torch.cuda.synchronize()
     log(f"timing launch path floor [{card}]: allocate and launch {us[floor]:.3f} us, the lean "

@@ -1,5 +1,5 @@
-// ADSR envelope over one block: one CUDA thread block, hand-written for
-// Hopper (sm_90a).
+// ADSR envelope over one block, spread over the card's SMs: one cooperative
+// launch of G CTAs, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mixlab_tpu/dsp/envelope_pallas.py
 // (envelope_block_pallas / _env_body), which evaluates the reference's
@@ -9,23 +9,36 @@
 //   combine  - an in-order scan composes the lane records;
 //   phase B  - every lane, now knowing its entry state, emits its samples.
 //
-// Layout: K = 1024 lanes = the 1024 threads of one block; lane k owns the
-// samples [k*C, k*C + C), C = ceil(S / K) (44 at S = 44,100).  Samples past S
-// read the pad value 0.5, which is neither a gate-on (1.0) nor a gate-off
-// (0.0) and so leaves every machine unchanged.
+// Layout: a tile of T = 256 * C consecutive samples per CTA, G = ceil(S / T)
+// CTAs; thread k of a CTA owns the tile's samples [k*C, k*C + C).  C is 2
+// (T = 512: G = 87 at S = 44,100, 94 at 48,000) while the G tiles fit on
+// the card at once, else the shortest lane that fits (at most 16; the
+// wrapper's tile_plan).  Samples past S read the pad value 0.5, which is
+// neither a gate-on (1.0) nor a gate-off (0.0) and so leaves every machine
+// unchanged.
 //
-// What bounds it on the card: latency, not bandwidth or FLOPs.  A block of
-// 44,100 samples is 176 KB of input; the work is ~2*C dependent steps per
-// lane plus a log-depth scan, all on ONE SM, so the kernel costs a few tens
-// of microseconds whatever the card's throughput.  The design keeps the
-// dependent chain short rather than spreading the work: both machines'
-// 8-field records live in registers (launch bounds cap them at 64 per
-// thread so 1024 threads fit one SM), the lane composition is a warp-shuffle
-// scan (5 rounds) plus one scan over the 32 warp totals in shared memory,
-// and x is read straight from global memory (a lane's C consecutive samples
-// share cache lines, so phase B re-reads hit L1/L2).  Several envelopes per
-// launch, or an envelope fused into its consumers, would use more SMs; that
-// is later work.
+// What bounds it on the card: latency, not bytes (a 44,100-sample block is
+// 353 KB in and out, 0.105 us at 3.35 TB/s) or operations.  Before, one CTA
+// of 1,024 threads walked 2 x 44 dependent global loads per thread on one
+// of 132 SMs (76 us per launch).  Now every CTA
+//   * stages its tile once, coalesced, in shared memory (lane k's samples
+//     at k*(C|1): an odd stride, so a warp's lanes hit distinct banks), and
+//     walks phase A and B there, 2 x C steps per thread;
+//   * composes its lane records by a warp-shuffle scan and a scan of the 8
+//     warp totals, and publishes the tile's aggregate record to a global
+//     scratch [G] that the wrapper allocates;
+//   * after one grid-wide barrier (the launch is cooperative, so all G
+//     CTAs are resident) scans the aggregates of the tiles before it, in
+//     tile order, to get its entry state;
+//   * writes its outputs into shared memory and stores the tile coalesced.
+// What remains is the launch, one grid barrier and two block scans of the
+// 16-word record pair.  No register cap: 256 threads a CTA leave each
+// thread up to 255 registers, so the record pair and its shuffled copy stay
+// in registers (ptxas reports the spill bytes in the build log).
+//
+// Exactness: composition is associative, and every f32 written is computed
+// from concrete int positions by the same expressions (the library is built
+// with -fmad=false), so regrouping the scan by tiles changes no output bit.
 //
 // Semantics kept from the reference and the TPU kernel:
 //   * exact `== 1.0f` (rising) and `== 0.0f` (falling) gate tests;
@@ -35,6 +48,7 @@
 //   * amp_on follows envelope.rs:37-51 including division by zero
 //     (attack_ms == 0) and NaN propagation through the clip (no fast math).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,8 +56,12 @@
 
 namespace {
 
-constexpr int kLanes = 1024;
-constexpr int kWarps = kLanes / 32;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLane = 16;           // samples per thread (tile 4,096)
+constexpr int kMaxTiles = kThreads;    // one tile aggregate per thread of the tile scan
 constexpr int kPosFloor = -(1 << 30);
 
 // off_amp record kinds (envelope_chunked.py / envelope_pallas.py)
@@ -59,9 +77,10 @@ struct Rec {
   int ampp;
 };
 
-struct Pair {
+struct __align__(16) Pair {
   Rec m[2];  // m[e] = the lane's record when it is entered in mode e
 };
+static_assert(sizeof(Pair) == 64, "the wrapper's tile scratch holds 16 words a tile");
 
 struct Params {
   float attack, decay, sustain, release, msps;
@@ -90,6 +109,7 @@ __device__ __forceinline__ float amp_on_at(int pos, int on, const Params& p) {
 
 __device__ __forceinline__ Pair identity_pair() {
   Pair r;
+#pragma unroll
   for (int e = 0; e < 2; ++e) {
     r.m[e].mode = e;
     r.m[e].on_sym = 1;
@@ -101,6 +121,17 @@ __device__ __forceinline__ Pair identity_pair() {
     r.m[e].ampp = 0;
   }
   return r;
+}
+
+// m[1] if `second`, else m[0], field by field: a select of the record's
+// address would put the pair in local memory
+__device__ __forceinline__ Rec pick_rec(const Pair& r, int second) {
+  const Rec& a = r.m[0];
+  const Rec& b = r.m[1];
+  return Rec{second ? b.mode : a.mode,       second ? b.on_sym : a.on_sym,
+             second ? b.on_pos : a.on_pos,   second ? b.off_sym : a.off_sym,
+             second ? b.off_pos : a.off_pos, second ? b.ampk : a.ampk,
+             second ? b.ampv : a.ampv,       second ? b.ampp : a.ampp};
 }
 
 // g's entry symbols resolved against f's exit (envelope_pallas.substitute)
@@ -135,10 +166,10 @@ __device__ __forceinline__ Rec substitute(const Rec& g, const Rec& f, const Para
 // composition is associative but not commutative: callers keep lane order.
 __device__ __forceinline__ Pair compose(const Pair& f, const Pair& g, const Params& p) {
   Pair r;
+#pragma unroll
   for (int e = 0; e < 2; ++e) {
     const Rec& fe = f.m[e];
-    const Rec& gs = fe.mode ? g.m[1] : g.m[0];
-    r.m[e] = substitute(gs, fe, p);
+    r.m[e] = substitute(pick_rec(g, fe.mode), fe, p);
   }
   return r;
 }
@@ -164,12 +195,45 @@ __device__ __forceinline__ Pair shfl_up_pair(const Pair& r, int delta) {
   return o;
 }
 
-// inclusive in-order scan across the 32 lanes of a warp
+// a record written by another CTA before the grid barrier: four 16-byte
+// loads through L2 (never a line this SM's L1 may hold)
+__device__ __forceinline__ Rec rec_from(int4 a, int4 b) {
+  return Rec{a.x, a.y, a.z, a.w, b.x, b.y, __int_as_float(b.z), b.w};
+}
+
+__device__ __forceinline__ Pair load_pair_cg(const Pair* src) {
+  const int4* v = reinterpret_cast<const int4*>(src);
+  Pair r;
+  r.m[0] = rec_from(__ldcg(v), __ldcg(v + 1));
+  r.m[1] = rec_from(__ldcg(v + 2), __ldcg(v + 3));
+  return r;
+}
+
+// inclusive in-order scan across the first kWidth lanes of a warp
+template <int kWidth>
 __device__ __forceinline__ Pair warp_scan(Pair v, int lane, const Params& p) {
-  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+  for (int d = 1; d < kWidth; d <<= 1) {
     Pair up = shfl_up_pair(v, d);
     if (lane >= d) v = compose(up, v, p);
   }
+  return v;
+}
+
+// inclusive in-order scan across the CTA's threads; every thread calls it
+__device__ __forceinline__ Pair block_scan(Pair v, Pair* warp_tot, const Params& p) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  v = warp_scan<32>(v, lane, p);
+  if (lane == 31) warp_tot[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const Pair w = warp_scan<kWarps>(warp_tot[lane % kWarps], lane, p);
+    if (lane < kWarps) warp_tot[lane] = w;  // inclusive prefix over warps 0..lane
+  }
+  __syncthreads();
+  if (warp > 0) v = compose(warp_tot[warp - 1], v, p);
+  __syncthreads();  // warp_tot is free for the next scan
   return v;
 }
 
@@ -180,7 +244,7 @@ struct Entry {
 
 // the concrete exit state of a lane prefix entered with state E
 __device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, const Params& p) {
-  const Rec& s = E.mode ? pre.m[1] : pre.m[0];
+  const Rec s = pick_rec(pre, E.mode);
   Entry o;
   o.mode = s.mode;
   o.on = s.on_sym ? E.on : s.on_pos;
@@ -190,8 +254,9 @@ __device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, co
   return o;
 }
 
-__global__ void __launch_bounds__(kLanes)
+__global__ void __launch_bounds__(kThreads)
 envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int C,
+                Pair* __restrict__ tiles,
                 const float* __restrict__ attack, const float* __restrict__ decay,
                 const float* __restrict__ sustain, const float* __restrict__ release,
                 float msps,
@@ -199,20 +264,33 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
                 const int* __restrict__ off_in, const float* __restrict__ amp_in,
                 uint8_t* __restrict__ mode_out, int* __restrict__ on_out,
                 int* __restrict__ off_out, float* __restrict__ amp_out) {
+  extern __shared__ float xs[];  // [kThreads][C | 1]: lane k's samples at k * (C | 1)
   __shared__ Pair warp_tot[kWarps];
-  __shared__ Entry exits[kLanes];
+  __shared__ Entry exits[kThreads];
+  __shared__ Entry tile_entry;
 
   const int k = threadIdx.x;
-  const int lane = k & 31;
-  const int warp = k >> 5;
+  const int stride = C | 1;
+  const int T = kThreads * C;
+  const int tile0 = blockIdx.x * T;
   const Params p{*attack, *decay, *sustain, *release, msps};
-  const int base = k * C;
+  const Entry E0{static_cast<int>(*mode_in != 0), *on_in, *off_in, *amp_in};
+
+  // ---- stage the tile, coalesced ------------------------------------------
+  for (int j = k; j < T; j += kThreads) {
+    const int t = tile0 + j;
+    xs[(j / C) * stride + j % C] = t < S ? __ldg(x + t) : 0.5f;
+  }
+  __syncthreads();
+  float* mine = xs + k * stride;
+  const int base = tile0 + k * C;
 
   // ---- phase A: both entry machines, symbolically ------------------------
   Pair rec = identity_pair();
   for (int c = 0; c < C; ++c) {
     const int t = base + c;
-    const float xc = t < S ? x[t] : 0.5f;
+    const float xc = mine[c];
+#pragma unroll
     for (int e = 0; e < 2; ++e) {
       Rec& r = rec.m[e];
       const bool rising = r.mode == 0 && xc == 1.0f;
@@ -236,36 +314,36 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
     }
   }
 
-  // ---- combine: in-order scan over the lanes ------------------------------
-  Pair pre = warp_scan(rec, lane, p);
-  if (lane == 31) warp_tot[warp] = pre;
-  __syncthreads();
-  if (warp == 0) {
-    Pair w = warp_scan(warp_tot[lane], lane, p);
-    warp_tot[lane] = w;  // inclusive prefix over warps 0..lane
+  // ---- combine: lanes within the tile, then the tiles before it ----------
+  const Pair pre = block_scan(rec, warp_tot, p);
+  if (k == kThreads - 1) tiles[blockIdx.x] = pre;  // the tile's aggregate
+  cg::this_grid().sync();
+
+  if (blockIdx.x == 0) {
+    if (k == 0) tile_entry = E0;
+  } else {  // uniform over the CTA: every thread takes the scan's barriers
+    const Pair v = block_scan(
+        k < static_cast<int>(blockIdx.x) ? load_pair_cg(tiles + k) : identity_pair(), warp_tot, p);
+    if (k == static_cast<int>(blockIdx.x) - 1) tile_entry = apply_entry(v, E0, p);
   }
   __syncthreads();
-  if (warp > 0) pre = compose(warp_tot[warp - 1], pre, p);
-
-  // entry of lane k = exit of lane k-1; lane 0 enters with the block state
-  const Entry E0{static_cast<int>(*mode_in != 0), *on_in, *off_in, *amp_in};
-  exits[k] = apply_entry(pre, E0, p);
+  exits[k] = apply_entry(pre, tile_entry, p);
   __syncthreads();
-  Entry st = k == 0 ? E0 : exits[k - 1];
+  Entry st = k == 0 ? tile_entry : exits[k - 1];
 
-  if (k == kLanes - 1) {
-    const Entry& ex = exits[kLanes - 1];
+  if (blockIdx.x == gridDim.x - 1 && k == kThreads - 1) {
+    const Entry& ex = exits[kThreads - 1];  // lanes past S only read pads
     *mode_out = static_cast<uint8_t>(ex.mode != 0);
     *on_out = max(ex.on - S, kPosFloor);
     *off_out = max(ex.off - S, kPosFloor);
     *amp_out = ex.amp;
   }
 
-  // ---- phase B: concrete outputs -----------------------------------------
+  // ---- phase B: concrete outputs, in place of the lane's inputs ----------
   for (int c = 0; c < C; ++c) {
     const int t = base + c;
     if (t >= S) break;  // only pads remain in this lane
-    const float xc = x[t];
+    const float xc = mine[c];
     const bool rising = st.mode == 0 && xc == 1.0f;
     const bool falling = st.mode == 1 && xc == 0.0f;
     if (falling) {
@@ -283,29 +361,65 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
       const float ms_off = static_cast<float>(sub_wrap(t, st.off)) * p.msps;
       y = st.amp * (1.0f - clip01(ms_off / p.release));
     }
-    out[t] = y;
+    mine[c] = y;
+  }
+  __syncthreads();
+  for (int j = k; j < T; j += kThreads) {
+    const int t = tile0 + j;
+    if (t < S) out[t] = xs[(j / C) * stride + j % C];
   }
 }
+
+size_t shared_bytes(int C) { return static_cast<size_t>(kThreads) * (C | 1) * sizeof(float); }
 
 }  // namespace
 
 extern "C" {
 
-// One envelope block of S samples (1 <= S).  All pointers are device
+// CTAs of the envelope kernel that one card holds at once at the longest
+// lane, into *resident; the wrapper sizes its tiles by it.  Returns a
+// cudaError_t (0 = cudaSuccess).
+int mixlab_envelope_resident_tiles(int device, int* resident) {
+  int n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    OnDevice on(device);
+    err = on.error();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, envelope_kernel, kThreads,
+                                                          shared_bytes(kMaxLane));
+    }
+  }
+  *resident = per_sm * n_sm;
+  return static_cast<int>(err);
+}
+
+// One envelope block of S samples (1 <= S) in `tiles` CTAs of 256 * C samples
+// (1 <= C <= 16, 1 <= tiles <= 256, the last tile holding sample S-1); tile
+// scratch holds `tiles` records of 64 bytes.  All pointers are device
 // pointers; the state and params are 0-d tensors; the launch goes to card
-// `device`.  Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-int mixlab_envelope_block(const float* x, float* out, int S,
-                          const float* attack, const float* decay,
+// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess); a grid
+// larger than the card holds at once is refused by the cooperative launch.
+int mixlab_envelope_block(const float* x, float* out, int S, int C, int tiles,
+                          void* scratch, const float* attack, const float* decay,
                           const float* sustain, const float* release, float msps,
                           const uint8_t* mode_in, const int* on_in, const int* off_in,
                           const float* amp_in, uint8_t* mode_out, int* on_out,
                           int* off_out, float* amp_out, int device, void* stream) {
+  if (S < 1 || C < 1 || C > kMaxLane || tiles < 1 || tiles > kMaxTiles ||
+      static_cast<long long>(tiles) * kThreads * C < S ||
+      static_cast<long long>(tiles - 1) * kThreads * C >= S) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   OnDevice on(device);
   if (on.error() != cudaSuccess) return static_cast<int>(on.error());
-  const int C = (S + kLanes - 1) / kLanes;
-  envelope_kernel<<<1, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, S, C, attack, decay, sustain, release, msps, mode_in, on_in, off_in,
-      amp_in, mode_out, on_out, off_out, amp_out);
+  Pair* tile_recs = static_cast<Pair*>(scratch);
+  void* args[] = {&x, &out, &S, &C, &tile_recs, &attack, &decay, &sustain, &release, &msps,
+                  &mode_in, &on_in, &off_in, &amp_in, &mode_out, &on_out, &off_out, &amp_out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(envelope_kernel), dim3(tiles), dim3(kThreads), args,
+      shared_bytes(C), static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,13 @@
 ``envelope_block_cuda`` replaces the TPU kernel
 ``mixlab_tpu/dsp/envelope_pallas.py:envelope_block_pallas`` (same contract:
 ``(x [S], state, params, ms_per_sample) -> (out [S], new_state)``).  The
-kernel is ``csrc/envelope.cu``: one block of 1024 threads, one lane of
-``ceil(S/1024)`` samples per thread, an in-order warp-shuffle scan composing
-the lanes' symbolic records.  It is latency-bound on one SM (~2 x 44
-dependent steps at S = 44,100 plus the scan); see the source's header note.
+kernel is ``csrc/envelope.cu``: one cooperative launch of G CTAs over the
+card's SMs, each a tile of ``TILE`` = 512 consecutive samples (256 threads
+of ``LANE`` = 2 samples) staged in shared memory; the lanes' symbolic
+records compose by warp-shuffle scans within a tile, and each tile composes
+the aggregates of the tiles before it after one grid-wide barrier.  It is
+latency-bound (the launch, the barrier and two block scans); see the
+source's header note.  ``tile_plan`` sizes the grid.
 
 ``envelope_block_torch`` is the plain PyTorch twin: the flat formulation of
 ``mixlab_tpu/dsp/envelope.py`` (running maxima over edge positions and a
@@ -21,6 +24,8 @@ int32 sample offsets relative to the block start (clamped at
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -29,10 +34,20 @@ from mixlab_tpu_torch import kernels
 
 POS_FLOOR = -(2**30)
 _SENTINEL = -(2**31) + 1
-# longest block one launch takes; longer blocks split into sequential
-# launches carrying the state exactly (as envelope_pallas.py does), which
-# bounds a launch's dependent chain at 2 * 512 steps per thread
-MAX_KERNEL_S = 512 * 1024
+# the kernel's tiles (csrc/envelope.cu): THREADS threads a CTA, LANE samples
+# a thread while the tiles of a block fit on the card at once (else the
+# shortest lane that fits, at most MAX_LANE), at most MAX_TILES tiles
+THREADS = 256
+LANE = 2
+TILE = THREADS * LANE
+MAX_LANE = 16
+MAX_TILES = THREADS
+# longest block one launch takes: 128 co-resident tiles (one CTA on each of
+# 128 SMs; an H100 has 132) of the longest lane.  Longer blocks split into
+# sequential launches carrying the state exactly (as envelope_pallas.py
+# does).
+MAX_KERNEL_S = 128 * THREADS * MAX_LANE
+_PAIR_WORDS = 16  # one tile's aggregate record in the scratch (64 bytes)
 
 _PARAMS = ("attack_ms", "decay_ms", "sustain_amplitude", "release_ms")
 
@@ -108,10 +123,38 @@ def _check_scalar(t, dtype, index, name):
             f"{getattr(t, 'device', None)}")
 
 
-def _launch(x, index, state, params, ms_per_sample):
+def tile_plan(S: int, resident: int, lane: int = LANE):
+    """``(lane, tiles)`` for a block of S samples on a card that holds
+    ``resident`` of the kernel's CTAs at once: ``lane`` samples a thread
+    while the ``ceil(S / (THREADS * lane))`` tiles fit, else the shortest
+    lane that fits.  Raises ``ValueError`` past ``MAX_LANE``."""
+    cap = min(resident, MAX_TILES)
+    lane = max(lane, -(-S // (cap * THREADS)))
+    if lane > MAX_LANE:
+        raise ValueError(f"envelope: {S} samples do not fit {cap} tiles of at most "
+                         f"{THREADS * MAX_LANE}")
+    return lane, -(-S // (THREADS * lane))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_tiles(index: int) -> int:
+    """CTAs of the envelope kernel that card ``index`` holds at once."""
+    lib = kernels.load()
+    n = ctypes.c_int(0)
+    kernels.check(lib, lib.mixlab_envelope_resident_tiles(index, ctypes.byref(n)),
+                  "envelope occupancy query")
+    return n.value
+
+
+def _launch(x, index, state, params, ms_per_sample, lane=LANE):
     dev = x.device
     S = x.shape[0]
-    out = torch.empty_like(x)
+    lane, tiles = tile_plan(S, resident_tiles(index), lane)
+    # the output and, past it at a 16-byte boundary, the tiles' scratch:
+    # one allocation
+    at = -(-S // 4) * 4
+    buf = torch.empty(at + tiles * _PAIR_WORDS, dtype=torch.float32, device=dev)
+    out = buf[:S]
     new_state = {
         "mode_on": torch.empty((), dtype=torch.bool, device=dev),
         "on_pos": torch.empty((), dtype=torch.int32, device=dev),
@@ -120,7 +163,7 @@ def _launch(x, index, state, params, ms_per_sample):
     }
     kernels.launch(
         "mixlab_envelope_block", "envelope kernel launch", index,
-        x.data_ptr(), out.data_ptr(), S,
+        x.data_ptr(), out.data_ptr(), S, lane, tiles, buf.data_ptr() + 4 * at,
         *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
         state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
         state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),

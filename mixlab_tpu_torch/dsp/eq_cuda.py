@@ -15,7 +15,9 @@ See the source's header note for what bounds it.
 products and a Hillis-Steele scan of the chunk-end states.  The wrapper
 uses it only for tensors on the CPU; for CUDA tensors it launches the kernel
 or raises.  ``EqThreeDef`` also runs it directly, on either device, for
-blocks below the kernel's gate (where the JAX package runs its plain path).
+blocks below the kernel's gate (where the JAX package runs its plain path);
+it raises while the process asks for TF32 (card) or bf16 (CPU) products
+(``precision.py``).
 
 The tables are computed in float64 and stored as float32 exactly as the JAX
 package builds them (``eq_three._toeplitz_tables``, ``eq_pallas._lane_tables``).
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from mixlab_tpu_torch import kernels
+from mixlab_tpu_torch.precision import require_ieee_f32
 
 # blocks at least this long take the kernel (the JAX package's gate)
 PALLAS_THRESHOLD = 8192
@@ -104,7 +107,9 @@ def _device_tables(a_lo: float, a_hi: float, device: torch.device) -> torch.Tens
 
 
 def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
-    """Plain PyTorch EqThree block (the math of ``eq_pallas._eq_body``)."""
+    """Plain PyTorch EqThree block (the math of ``eq_pallas._eq_body``).
+    Its products refuse to run in less than IEEE f32 (``precision.py``)."""
+    require_ieee_f32(x, "EqThree")
     S = x.shape[0]
     C, K, pad = _plan(S)
     a_lo, a_hi = 1.0 - f_lo, 1.0 - f_hi

@@ -17,7 +17,8 @@ math, ``eq_cuda.eq_cascade_torch``, on either device: chunked Toeplitz
 products plus a carry scan over the chunks, as the JAX package's plain path
 (``_linrec_blocked``) computes them.  State: 8 poles ``[4, 2]`` (stage, band)
 and the 3-sample delay history.  Products stay IEEE f32 (the JAX package
-uses ``Precision.HIGHEST``); on a card, TF32 must be off for ``torch.matmul``.
+uses ``Precision.HIGHEST``); they raise while the process asks for TF32
+on the card or bf16 on the CPU (``precision.require_ieee_f32``).
 
 Inside the region program (``mega_spec``, the counterpart of
 ``eq_three.py:208-227`` and ``eq_pallas.make_mega_emit``) the whole module

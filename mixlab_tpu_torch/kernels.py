@@ -61,6 +61,7 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "mixlab_envelope_block": [
         _c_ptr, _c_ptr, _c_int,                  # x, out, S
+        _c_int, _c_int, _c_ptr,                  # lane, tiles, tile scratch
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_float,  # attack..release, msps
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state in
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state out
@@ -88,6 +89,11 @@ _SIGNATURES = {
         _c_int, _c_ptr,                   # device, stream
     ],
     "mixlab_passthrough": [_c_ptr, _c_ptr, _c_int, _c_int, _c_ptr],  # x, out, n, device, stream
+}
+
+# queries, called directly (no stream): name -> argtypes
+_QUERIES = {
+    "mixlab_envelope_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
 }
 
 
@@ -165,7 +171,7 @@ def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declares every C
     entry point's argument and return types."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _c_int

@@ -4,18 +4,22 @@
 
 Loads the workspace from a project file and renders the first Monitor
 module offline on ``--device`` (``cuda`` by default; ``cpu`` only when
-asked for).  The output format follows the extension:
+asked for).  The output format follows the extension, as in the JAX CLI:
 
-  * ``.wav``  — 16-bit PCM.
-  * ``.flac`` — the same render, written losslessly by the port's pure FLAC
-    encoder (``av/flacenc.py``).
+  * ``.flac`` — 16-bit PCM written losslessly by the port's pure FLAC
+    encoder (``av/flacenc.py``);
+  * ``.mp4``  — refused: the export reads the Monitor's pipe through the
+    fMP4 codec pipeline (``MonitorPipeline``), which the port does not
+    carry yet (ROADMAP.md queue 1 item 6);
+  * any other extension (``.wav``, ``.pcm``, ...) — a 16-bit PCM WAV file.
 
 ``--sample-rate 48000`` renders 60-tick blocks of 48,000 samples, a whole
 number of 128-sample chunks, so ``compile_patch`` engages the whole-graph
 region kernel there, as the JAX package does; the CLI's 44.1 kHz default
 runs the regular program.
 
-``.mp4`` export drives the realtime engine, which is not ported yet.
+The CLI owns its process, so it switches TF32 off before it renders: the
+EqThree's f32 products then run in IEEE f32 (``precision.py``).
 """
 
 from __future__ import annotations
@@ -80,20 +84,23 @@ def main(argv=None) -> np.ndarray:
     """CLI entry point; returns the rendered float32 ``[frames, 2]`` audio."""
     parser = argparse.ArgumentParser(prog="mixlab_tpu_torch.render_cli")
     parser.add_argument("project", help="project file (.mixlab)")
-    parser.add_argument("output", help="output path (.wav / .flac)")
+    parser.add_argument("output", help="output path (.flac; .wav or any other "
+                        "extension writes WAV)")
     parser.add_argument("--seconds", type=float, default=10.0)
     parser.add_argument("--sample-rate", type=int, default=44_100)
     parser.add_argument("--block-ticks", type=int, default=60)
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
 
-    if not args.output.lower().endswith((".wav", ".flac")):
+    if args.output.lower().endswith(".mp4"):
         raise SystemExit(
-            "only .wav and .flac are supported: .mp4 export needs the Monitor's "
-            "fMP4 pipeline (ROADMAP.md queue 1 item 14)")
+            ".mp4 export is not ported: it needs the Monitor's fMP4 codec pipeline "
+            "(MonitorPipeline, ROADMAP.md queue 1 item 6); write .wav or .flac")
 
     from mixlab_tpu_torch.device import resolve_device
+    from mixlab_tpu_torch.precision import switch_tf32_off
 
+    switch_tf32_off()
     device = resolve_device(args.device)
     cfg, audio = render_project(args.project, args.seconds, args.sample_rate,
                                 args.block_ticks, device)

@@ -41,6 +41,7 @@ from mixlab_tpu_torch.engine.compiler import compile_patch
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.flagship import build_16_module_graph
+from mixlab_tpu_torch.precision import switch_tf32_off
 
 ROWS = ("env", "eq", "chain", "full", "full_noosc", "full_dummy_eq", "no_env", "no_eq",
         "no_both")
@@ -323,6 +324,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     ap.add_argument("reps", nargs="?", type=int, default=3)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    switch_tf32_off()  # the tool owns its process: IEEE f32 products
     res = profile_rows(args.device, args.reps)
     print("best us/s:", "  ".join(f"{r['name']} {r['us_per_s']:.2f}" for r in res))
     for r in res:

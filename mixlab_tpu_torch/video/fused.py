@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from mixlab_tpu_torch.precision import require_ieee_f32
 from mixlab_tpu_torch.video.scale import (
     METHODS,
     _device_table,
@@ -76,6 +77,7 @@ def resize_crossfade_roll(plane: torch.Tensor, out_h: int, out_w: int, fade: int
         return _resize_int8_with_rows(plane, _blended_row_matrix(in_h, out_h, fade), fade,
                                       out_w)
     dev = plane.device
+    require_ieee_f32(plane, "resize_crossfade_roll (f32)")
     x = _device_rows("f32", in_h, out_h, fade, dev) @ plane.to(torch.float32)
     if in_w != out_w:
         x = x @ _device_table("f32", in_w, out_w, dev).t()

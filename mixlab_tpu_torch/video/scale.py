@@ -14,9 +14,9 @@ this module's copy of the JAX package's table code (``_mitchell``,
 pair and kept on the device per device.
 
 Two methods:
-  * ``"f32"``: two f32 matrix products (``torch.matmul``; on the card they
-    stay IEEE f32 only while ``torch.backends.cuda.matmul.allow_tf32`` is
-    False, PyTorch's default).  The JAX package leaves these products to
+  * ``"f32"``: two f32 matrix products (``torch.matmul``; they raise while
+    the process asks for TF32 on the card or bf16 on the CPU,
+    ``precision.require_ieee_f32``, so they are IEEE f32 or refused).  The JAX package leaves these products to
     XLA outside any Pallas kernel.
   * ``"int8"``: the JAX package's quantized path (``scale.py:237-263``): the
     centered plane and per-row-scaled int8 tables in an exact integer
@@ -50,6 +50,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mixlab_tpu_torch.precision import require_ieee_f32
 from mixlab_tpu_torch.video.frame import YUV420P, Picture, PictureSettings
 
 METHODS = ("auto", "f32", "int8")
@@ -306,6 +307,8 @@ def resize_plane(plane: torch.Tensor, out_h: int, out_w: int, method: str = "aut
     if method == "int8" and (in_h != out_h or in_w != out_w):
         return _resize_plane_int8(plane, out_h, out_w)
     dev = plane.device
+    if in_h != out_h or in_w != out_w:
+        require_ieee_f32(plane, "resize_plane (f32)")
     x = plane.to(torch.float32)
     if in_h != out_h:
         x = _device_table("f32", in_h, out_h, dev) @ x

@@ -40,18 +40,32 @@ def _env_params(dev, attack=25.0):
         release_ms=200.0).items()}
 
 
-def _gates(S, seed):
+def _gates(kind, S, seed):
+    """Three blocks of S samples: random {0, 1, 0.5}, or edges at the
+    kernel's tile boundaries (T-1, T, T+1, the first and last sample) or one
+    in every tile (chip_smoke phase 3)."""
+    import chip_smoke
+
     rng = np.random.default_rng(seed)
-    return rng.choice([0.0, 1.0, 0.5], size=S).astype(np.float32)
+    if kind == "dense":
+        return rng.choice([0.0, 1.0, 0.5], size=3 * S).astype(np.float32)
+    _, T = chip_smoke.launch_tiles(envc, S)
+    return chip_smoke.tile_edge_gates(np, kind, S, T, 3, rng)
 
 
-@pytest.mark.parametrize("S", [735, 44_100, envc.MAX_KERNEL_S, envc.MAX_KERNEL_S + 1])
+ENV_SIZES = [735, envc.TILE - 1, envc.TILE + 1, 44_100, 48_000, envc.MAX_KERNEL_S,
+             envc.MAX_KERNEL_S + 1]
+
+
+@pytest.mark.parametrize("S", ENV_SIZES)
 @pytest.mark.parametrize("attack", [25.0, 0.0])
-def test_envelope_kernel_matches_twin(dev, S, attack):
+@pytest.mark.parametrize("kind", ["dense", "tile_edges", "every_tile"])
+def test_envelope_kernel_matches_twin(dev, S, attack, kind):
     params = _env_params(dev, attack)
     st_k, st_t = _env_state(dev), _env_state(dev)
+    x_all = torch.from_numpy(_gates(kind, S, S)).to(dev)
     for blk in range(3):
-        x = torch.from_numpy(_gates(S, blk)).to(dev)
+        x = x_all[blk * S:(blk + 1) * S]
         got, st_k = envc.envelope_block_cuda(x, st_k, params, 1000 / 44_100)
         want, st_t = envc.envelope_block_torch(x, st_t, params, 1000 / 44_100)
         torch.cuda.synchronize()
@@ -167,13 +181,16 @@ def test_region_wrapper_rejects_bad_tensors_and_counts_launches(dev):
     assert region_cuda.region_part_cuda.launches == n + 1
 
 
-CROSSFADE_SHAPES = [(1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13)]
+# n % 16 of 0, 1, 11 and 15; 1025x16 and 540x960 leave the last CTA of the
+# vector range ragged (chip_smoke phase 8)
+CROSSFADE_SHAPES = [(1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13), (17, 31), (5, 13),
+                    (1025, 16)]
 
 
 @pytest.mark.parametrize("shape", CROSSFADE_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_crossfade_kernel_matches_twin(dev, shape):
     """Exact, at every fade, alone and as the first plane of a three-plane
-    launch; also at an odd byte offset (the scalar path)."""
+    launch of mixed sizes; also at an odd byte offset (the ragged range)."""
     from mixlab_tpu_torch.video import blend
 
     rng = np.random.default_rng(shape[0] + shape[1])
@@ -332,3 +349,61 @@ def test_passthrough_kernel_matches_twin(dev, S):
         with pytest.raises(ValueError):
             tool.passthrough_cuda(bad)
     assert tool.passthrough_cuda.launches == n + 1
+
+
+# each way a host process may ask for TF32 on the card
+TF32_SWITCHES = {
+    "allow_tf32": lambda: setattr(torch.backends.cuda.matmul, "allow_tf32", True),
+    "matmul_precision_high": lambda: torch.set_float32_matmul_precision("high"),
+    "cuda_fp32_precision": lambda: setattr(torch.backends.cuda.matmul, "fp32_precision", "tf32"),
+    "global_fp32_precision": lambda: (
+        setattr(torch.backends.cuda.matmul, "fp32_precision", "none"),
+        setattr(torch.backends, "fp32_precision", "tf32")),
+}
+
+
+@pytest.mark.parametrize("switch", list(TF32_SWITCHES))
+def test_f32_products_on_the_card_refuse_tf32(dev, switch):
+    """With TF32 switched on, EqThree's products on a 735-sample block (the
+    module's plain path below the kernel's gate), the "f32" resize, the
+    letterbox and the f32 fold raise a RuntimeError naming the setting;
+    with it off again they give the IEEE result.  The flags are restored."""
+    from mixlab_tpu_torch.precision import reduced_precision_setting, switch_tf32_off
+    from mixlab_tpu_torch.video import scale
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+    from mixlab_tpu_torch.video.fused import resize_crossfade_roll
+
+    if "fp32_precision" in switch and not hasattr(torch.backends, "fp32_precision"):
+        pytest.skip("this PyTorch has no fp32_precision API")
+    rng = np.random.default_rng(735)
+    x = torch.from_numpy(rng.uniform(-1, 1, 735).astype(np.float32)).to(dev)
+    xd = torch.cat([torch.zeros(3, device=dev), x])[:735]
+    poles = torch.zeros(4, 2, device=dev)
+    gains = torch.tensor([1.6, 0.8, 1.4], device=dev)
+    f_lo, f_hi = _filter_coeff(FREQ_LO, 44_100), _filter_coeff(FREQ_HI, 44_100)
+    plane = torch.from_numpy(rng.integers(0, 256, (720, 1280), dtype=np.uint8)).to(dev)
+    pic = Picture(PictureSettings(1280, 720), {"y": plane, "u": plane[::2, ::2].contiguous(),
+                                               "v": plane[1::2, 1::2].contiguous()})
+    runs = {"EqThree": lambda: eqc.eq_cascade_torch(x, xd, poles, gains, f_lo, f_hi, VSA),
+            "resize_plane": lambda: scale.resize_plane(plane, 1080, 1920, "f32"),
+            "letterbox": lambda: scale.scale_picture(pic, PictureSettings(1920, 1080), "f32"),
+            "fold": lambda: resize_crossfade_roll(plane, 1080, 1920, 128, "f32")}
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.fp32_precision)
+    try:
+        TF32_SWITCHES[switch]()
+        setting = reduced_precision_setting("cuda")
+        assert setting is not None
+        for what, run in runs.items():
+            with pytest.raises(RuntimeError, match="IEEE f32") as err:
+                run()
+            assert setting in str(err.value), what
+        switch_tf32_off()
+        for what, run in runs.items():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.fp32_precision = saved[1]
+        torch.backends.fp32_precision = saved[2]
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,5 +1,6 @@
 """The port's envelope (plain twin and module) against the JAX package: the
-Pallas kernel run in interpret mode and the flat-scan ``run_block``."""
+Pallas kernel run in interpret mode and the flat-scan ``run_block``; gates
+with edges at the CUDA kernel's tile boundaries; and the kernel's tile plan."""
 
 import jax
 import jax.numpy as jnp
@@ -14,8 +15,10 @@ from mixlab_tpu.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch import protocol as tp
 from mixlab_tpu_torch.convert import to_numpy, to_torch
 from mixlab_tpu_torch.dsp.envelope import EnvelopeDef
+from mixlab_tpu_torch.dsp import envelope_cuda as envc
 from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
 from mixlab_tpu_torch.engine import config as tc
+from chip_smoke import tile_edge_gates
 
 CPU = torch.device("cpu")
 CFG = EngineConfig(sample_rate=44_100)
@@ -32,6 +35,8 @@ def gates(kind, S, n_blocks, seed):
         return np.ones(n, np.float32)
     if kind == "dense":  # random {0, 1, 0.5} every sample
         return rng.choice([0.0, 1.0, 0.5], size=n).astype(np.float32)
+    if kind in ("tile_edges", "every_tile"):  # at the kernel's tile boundaries
+        return tile_edge_gates(np, kind, S, envc.TILE, n_blocks, rng)
     # sparse edges, some placed right at / across block boundaries
     x = np.full(n, 0.5, np.float32)
     edges = sorted(set(rng.integers(0, n, 12).tolist()
@@ -75,11 +80,14 @@ def _check_state(jax_state, torch_state):
     p.EnvelopeParams(attack_ms=0.0, decay_ms=10.0, sustain_amplitude=0.6,
                      release_ms=25.0),
 ], ids=["default", "attack0"])
-@pytest.mark.parametrize("kind", ["open", "dense", "sparse"])
+@pytest.mark.parametrize("kind", ["open", "dense", "sparse", "tile_edges", "every_tile"])
 def test_twin_matches_pallas_and_flat_scans(kind, params):
     """3 carried blocks at the CLI's block size (S = 44,100, the kernel's
     gate) through the port's wrapper (CPU tensor -> twin), the JAX Pallas
-    kernel in interpret mode and the JAX flat-scan module."""
+    kernel in interpret mode and the JAX flat-scan module.  ``tile_edges``
+    puts edges at T-1, T and T+1 of every boundary of the CUDA kernel's
+    tiles (T = ``envelope_cuda.TILE``) and on each block's first and last
+    sample; ``every_tile`` one edge in every tile."""
     S = 44_100
     jd, td = JaxEnvelope(), EnvelopeDef()
     aux_j = jd.prepare(params, CFG)
@@ -123,3 +131,28 @@ def test_module_below_gate_matches_flat_scans(kind):
                                        tc.BlockSpec(block.n_ticks), CPU)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
         _check_state(st_j, st_t)
+
+
+# (S, resident CTAs) -> (lane, tiles): LANE samples a thread while the tiles
+# fit, else the shortest lane that fits in min(resident, MAX_TILES) tiles
+TILE_PLANS = [
+    ((envc.TILE - 1, 264), (envc.LANE, 1)), ((envc.TILE, 264), (envc.LANE, 1)),
+    ((envc.TILE + 1, 264), (envc.LANE, 2)), ((44_100, 264), (2, 87)),
+    ((48_000, 264), (2, 94)), ((384_000, 264), (6, 250)), ((384_000, 132), (12, 125)),
+    ((envc.MAX_KERNEL_S, 132), (envc.MAX_LANE, 128)),
+]
+
+
+@pytest.mark.parametrize("args,want", TILE_PLANS, ids=[f"S{a[0]}-r{a[1]}" for a, _ in TILE_PLANS])
+def test_tile_plan(args, want):
+    lane, tiles = envc.tile_plan(*args)
+    assert (lane, tiles) == want
+    S, resident = args
+    assert tiles <= min(resident, envc.MAX_TILES) and lane <= envc.MAX_LANE
+    assert (tiles - 1) * envc.THREADS * lane < S <= tiles * envc.THREADS * lane
+
+
+def test_tile_plan_refuses_a_block_that_does_not_fit():
+    with pytest.raises(ValueError, match="do not fit"):
+        envc.tile_plan(envc.MAX_KERNEL_S + 1, 128)
+    assert envc.TILE == envc.THREADS * envc.LANE == 512

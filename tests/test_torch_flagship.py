@@ -3,6 +3,7 @@ the port against the float64 oracle and against the JAX package, the graph
 and project files shared by both packages, and the render CLI."""
 
 import json
+import wave
 
 import jax
 import numpy as np
@@ -153,9 +154,29 @@ def test_render_cli_cpu_end_to_end(tmp_path, capsys, ext):
     assert "wrote" in capsys.readouterr().out
 
 
+def test_render_cli_writes_wav_for_any_other_extension(tmp_path):
+    """As the JAX CLI: any extension but ``.flac`` and ``.mp4`` is a WAV
+    file; a ``.pcm`` output has the ``.wav`` output's frames (1 s)."""
+    ws, _ = build_16_module_graph()
+    proj = tmp_path / "flagship.mixlab"
+    with ProjectBase(proj) as base:
+        base.write_workspace(ws.to_persist())
+    frames = {}
+    for name in ("out.wav", "out.pcm", "out.WAVE"):
+        render_cli.main([str(proj), str(tmp_path / name), "--seconds", "1", "--device", "cpu"])
+        with wave.open(str(tmp_path / name), "rb") as w:
+            assert (w.getnchannels(), w.getsampwidth(), w.getframerate()) == (2, 2, 44_100)
+            assert w.getnframes() == 44_100
+            frames[name] = w.readframes(w.getnframes())
+    assert frames["out.pcm"] == frames["out.wav"] == frames["out.WAVE"]
+
+
 def test_render_cli_refuses_mp4(tmp_path):
-    with pytest.raises(SystemExit, match="mp4"):
+    with pytest.raises(SystemExit, match=r"fMP4 codec pipeline.*ROADMAP.md queue 1 item 6"):
         render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.mp4"),
+                         "--device", "cpu"])
+    with pytest.raises(SystemExit, match="MonitorPipeline"):
+        render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.MP4"),
                          "--device", "cpu"])
 
 

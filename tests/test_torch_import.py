@@ -151,9 +151,10 @@ def test_kernel_library_name_tracks_sources():
     assert set(kernels._SIGNATURES) == {
         "mixlab_envelope_block", "mixlab_eq_cascade", "mixlab_region_part",
         "mixlab_crossfade", "mixlab_resize_picture", "mixlab_passthrough"}
+    assert set(kernels._QUERIES) == {"mixlab_envelope_resident_tiles"}
     # every C entry point is defined in a source
     text = "".join(src.read_text() for src in kernels.sources())
-    for name in kernels._SIGNATURES:
+    for name in {**kernels._SIGNATURES, **kernels._QUERIES}:
         assert f"int {name}(" in text, name
     # nothing in the flags may trade IEEE f32 for speed
     assert not any("fast_math" in f or "fast-math" in f for f in kernels.NVCC_FLAGS)
