@@ -7,15 +7,19 @@ Needs one CUDA card, nvcc (CUDA toolkit) and the repository checkout; it
 imports no jax.  Phases, any failure of which exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions;
-  2. build the hand-written kernels (csrc/*.cu) and print the build time;
+  2. build the hand-written kernels (csrc/*.cu) and print the build time
+     and ptxas's lines, and for the eq and region kernels their registers,
+     stack and spill bytes;
   3. envelope kernel vs its plain twin on the card, 3 carried blocks each:
      S = 735, T-1, T, T+1 (T the tile, 512 samples), 44,100, 48,000,
      384,000 and one past the split bound; open / dense / sparse gates, and
      gates with edges at T-1, T, T+1 of every tile boundary and on the
      first and last sample, and with one edge in every tile; each S prints
      its tiles (G) and tile length (T);
-  4. EqThree kernel vs its twin (S = 8,192, 44,100 and one past the split
-     bound; 3 carried blocks);
+  4. EqThree kernel vs its twin, output and poles within 2e-5, 3 carried
+     blocks each: S = 1, L-1, L+1, T-1, T, T+1 (L the run a thread, T the
+     CTA's tile: 8 and 1,024 samples), 8,192, 44,100, 48,000, the split
+     bound and one past it; each S prints its CTAs (G) and run (L);
   5. region kernel vs its twin on the card, launch by launch on the same
      inputs: the flagship at 48 kHz in blocks of 48,000 samples (one part)
      and of 240,000 (two parts), and the sink zoo with StreamInput feeds,
@@ -35,6 +39,12 @@ imports no jax.  Phases, any failure of which exits non-zero:
      the regular one per 48 kHz block, the render of 60 s of audio as a
      realtime factor at both rates, and a profile of 5 render blocks at
      each: device time per block and its share of the unprofiled wall;
+     the eq kernel (S = 44,100) and the region kernel (48 kHz block): device
+     time per launch, device launches per call (the eq kernel must make
+     exactly one), share of the bound, the sweep of the run L and the CTA
+     size T (eq: T = 64-512, L = 2-32 at 44,100 and 48,000 samples, each
+     held to its twin; region: L = 1-16) and the region's breakdown (a
+     one-TAP plan, the plan with its EQ as an AMP, the plan);
   8. crossfade kernel vs its twin on the card, exact (planes 1920x1080,
      960x540, 36x100, 1x1, 7x13, 17x31, 5x13 and 1025x16 -- n % 16 of 0, 1,
      11 and 15, vector counts that leave a ragged last CTA -- and one at an
@@ -268,7 +278,8 @@ def check_eq(torch, np, dev):
     f_hi = _filter_coeff(FREQ_HI, 44_100)
     gains = torch.tensor([1.5849, 1.0, 1.5849], device=dev)
     worst = 0.0
-    for S in (8192, 44_100, eqc.MAX_KERNEL_S + 1):
+    for S in eq_edge_sizes(eqc):
+        run, G = eqc.scan_plan(min(S, eqc.MAX_KERNEL_S), eqc.resident_tiles(dev.index or 0))
         rng = np.random.default_rng(S)
         p_k = torch.from_numpy(rng.uniform(-0.1, 0.1, (4, 2)).astype(np.float32)).to(dev)
         p_t = p_k.clone()
@@ -286,8 +297,18 @@ def check_eq(torch, np, dev):
                     raise AssertionError(f"eq S={S} block {blk} {name}: max err "
                                          f"{err.max().item()}")
                 worst = max(worst, err.max().item())
-        log(f"eq kernel vs twin S={S}: ok (3 blocks)")
+        log(f"eq kernel vs twin S={S} (G={G} CTAs of {eqc.THREADS} threads x L={run} samples "
+            f"per launch): ok (3 blocks)")
     return worst
+
+
+def eq_edge_sizes(eqc):
+    """Block sizes at the eq kernel's edges: one sample, a run and one past
+    it, a CTA's tile and one either side, the gate, both rates' blocks, the
+    split bound and one past it."""
+    L, T = eqc.RUN, eqc.THREADS * eqc.RUN
+    return (1, L - 1, L + 1, T - 1, T, T + 1, eqc.PALLAS_THRESHOLD, 44_100, 48_000,
+            eqc.MAX_KERNEL_S, eqc.MAX_KERNEL_S + 1)
 
 
 # --------------------------------------------------------------------------
@@ -572,9 +593,10 @@ def bound(nbytes: float, flops: float):
 
 
 def eq_flops(S: int) -> int:
-    """The EqThree recurrence's work, not that of the kernels' Toeplitz form
-    (64x more): per stage and band y = a*y + b and the next drive f*y (3,
-    8 stage-bands), the first drive f*x + vsa (2 per band), the band mix (5)."""
+    """The EqThree recurrence's work once through the block (the scan
+    kernels run it twice, the twin's Toeplitz form 64 times): per stage and
+    band y = a*y + b and the next drive f*y (3, 8 stage-bands), the first
+    drive f*x + vsa (2 per band), the band mix (5)."""
     return (8 * 3 + 2 * 2 + 5) * S
 
 
@@ -680,6 +702,8 @@ def timing(torch, np, dev, card, proj: Path):
                 f"launch (profiler, 50 launches)" + (" <- the wrapper's tile" if lane == envc.LANE
                                                      else ""))
     envelope_call_pieces(torch, envc, card, x, st, prm)
+    scan_kernels_device(torch, dev, card, res, (xe, xd, poles, gains, f_lo, f_hi),
+                        (plan, operands, pf, sf, S48))
 
     # one whole 48 kHz block: the region program vs the regular program
     blk = {}
@@ -724,6 +748,103 @@ def timing(torch, np, dev, card, proj: Path):
         log(f"device time per {sr} Hz block {busy_us:.3f} us (profiler) against {wall_us:.3f} us "
             f"of unprofiled wall per block (the median 60 s render): busy {share} [{card}]")
     return res
+
+
+def scan_kernels_device(torch, dev, card, res, eq_args, region_args):
+    """The eq and region kernels' device time per launch (profiler), device
+    launches per call and share of the bound at the main path's shapes, then
+    the sweep of the run L and the CTA size T that chose the wrappers'
+    defaults: eq at 44,100 and 48,000 samples, region at the 48 kHz block."""
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import VSA
+    from mixlab_tpu_torch.engine import region_cuda
+
+    xe, xd, poles, gains, f_lo, f_hi = eq_args
+    plan, operands, pf, sf, S48 = region_args
+    n = 50
+    index = dev.index or 0
+    for key, name, shape, call in (
+        ("eq_cascade", "eq_cascade_kernel", f"S={xe.shape[0]}",
+         lambda: eqc.eq_cascade_cuda(xe, xd, poles, gains, f_lo, f_hi, VSA)),
+        ("region", "region_kernel", f"flagship 48 kHz block, S={S48}",
+         lambda: region_cuda.region_part_cuda(plan, operands, pf, sf, S48)),
+    ):
+        found = _device_us(torch, call, "", n=n)  # every device item of a call
+        mine = [(k, us, c) for k, us, c in found if name in k]
+        if not mine:
+            log(f"timing {key} device time at {shape} [{card}]: not measured")
+            continue
+        us = mine[0][1]
+        kernels_ = [(k, c) for k, _, c in found if not k.startswith(("Memcpy", "Memset"))]
+        copies = [(k, c) for k, _, c in found if k.startswith(("Memcpy", "Memset"))]
+        per_call = sum(c for _, c in kernels_) / n
+        share = res[key]["bound_ms"] * 1e3 / us
+        res[key].update(device_us=us, device_launches_per_call=per_call)
+        log(f"timing {key} kernel at {shape} [{card}]: device time {us:.3f} us per launch, "
+            f"{per_call:g} kernel launches per call ({', '.join(k[:40] for k, _ in kernels_)}; "
+            f"copies per call: {', '.join(f'{k[:30]} {c / n:g}' for k, c in copies) or 'none'}), "
+            f"{100 * share:.1f}% of the bound (profiler, {n} calls)")
+        if key == "eq_cascade" and per_call != 1:
+            raise AssertionError(f"eq_cascade: {per_call} device launches per call, want 1")
+
+    for S in (44_100, 48_000):
+        x = xe[:S] if S <= xe.shape[0] else torch.cat([xe, xe])[:S]
+        xdd = torch.cat([xd[:3], x])[:S]
+        want = eqc.eq_cascade_torch(x, xdd, poles, gains, f_lo, f_hi, VSA)
+        for T in (64, 128, 256, 512):
+            row = []
+            for L in (2, 4, 8, 16, 32):
+                run, G = eqc.scan_plan(S, eqc.resident_tiles(index, T), T, L)
+                if run != L:
+                    continue
+                f = lambda: eqc._launch(x, xdd, poles, gains, f_lo, f_hi, VSA, index, T, L)
+                got = f()
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    if not bool(((g - w).abs() <= EQ_TOL["atol"] + EQ_TOL["rtol"] * w.abs()).all()):
+                        raise AssertionError(f"eq sweep S={S} T={T} L={L}: max err "
+                                             f"{(g - w).abs().max().item()}")
+                found = _device_us(torch, f, "eq_cascade_kernel", n=n)
+                row.append(f"L={L} (G={G}) " + ("/".join(f"{us:.3f}" for _, us, _ in found)
+                                                or "not measured"))
+            log(f"timing eq sweep S={S} T={T} [{card}]: device us per launch: " + "; ".join(row)
+                + (" <- the wrapper's T" if T == eqc.THREADS else ""))
+    row = []
+    for L in (1, 2, 4, 8, 16):
+        f = lambda: region_cuda.region_part_cuda(plan, operands, pf, sf, S48, run=L)
+        found = _device_us(torch, f, "region_kernel", n=n)
+        row.append(f"L={L} (G={-(-S48 // (region_cuda.CHUNK * L))}) "
+                   + ("/".join(f"{us:.3f}" for _, us, _ in found) or "not measured"))
+    log(f"timing region sweep S={S48} [{card}]: device us per launch by run "
+        f"(wrapper L={region_cuda.RUN}): " + "; ".join(row))
+    region_breakdown(torch, card, region_args, n)
+
+
+def region_breakdown(torch, card, region_args, n):
+    """Where the region kernel's time goes at the 48 kHz block: a plan of
+    one TAP (the launch, one op), the flagship's plan with its EQ replaced by
+    an AMP of the same input (the elementwise ops), and the flagship's."""
+    from mixlab_tpu_torch.dsp import base
+    from mixlab_tpu_torch.engine import region_cuda
+
+    plan, operands, pf, sf, S = region_args
+    tap = base.RegionPlan(n_operands=plan.n_operands, n_pf=plan.n_pf, n_ef=plan.n_ef)
+    tap.add(base.OP_TAP, 0, 0)
+    tap.n_taps, tap.n_consts, tap.n_stap = plan.n_taps, plan.n_consts, plan.n_stap
+    no_eq = base.RegionPlan(n_operands=plan.n_operands, n_pf=plan.n_pf, n_ef=plan.n_ef)
+    no_eq.n_slots, no_eq.n_consts = plan.n_slots, plan.n_consts
+    no_eq.n_taps, no_eq.n_stap = plan.n_taps, plan.n_stap
+    for code, a in plan.ops():
+        if code == base.OP_EQ:  # dst = x * gains[0]
+            no_eq.words += [base.OP_AMP, 5, a[0], a[1], a[4]]
+        else:
+            no_eq.words += [code, 2 + len(a), *a]
+    row = []
+    for what, pl in (("one TAP", tap), ("EQ as an AMP", no_eq), ("flagship", plan)):
+        found = _device_us(torch, lambda: region_cuda.region_part_cuda(pl, operands, pf, sf, S),
+                           "region_kernel", n=n)
+        row.append(f"{what} " + ("/".join(f"{us:.3f}" for _, us, _ in found) or "not measured"))
+    log(f"timing region breakdown S={S} [{card}]: device us per launch: " + "; ".join(row))
 
 
 def profile_blocks(torch, ws, dev, card, sr):
@@ -1657,6 +1778,28 @@ def launch_path_pieces(torch, dev, card, x, n=2000):
 # --------------------------------------------------------------------------
 
 
+def ptxas_summary(text, names=("eq_cascade_kernel", "region_kernel")):
+    """{kernel: (registers, stack bytes, spill store bytes, spill load
+    bytes)} from the build log's ``-Xptxas -v`` lines."""
+    import re
+
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((n for n in names if n in m.group(1)), None)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            out.setdefault(current, [None, *map(int, m.groups())])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current and current in out and out[current][0] is None:
+            out[current][0] = int(m.group(1))
+            current = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1687,9 +1830,13 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t:.2f} s: {kernels.library_path().name}")
     build_log = kernels.library_path().with_suffix(".log")
     if build_log.exists():
-        for line in build_log.read_text().splitlines():
+        text = build_log.read_text()
+        for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log("  ptxas:", line.strip())
+        for name, (regs, stack, stores, loads) in ptxas_summary(text).items():
+            log(f"ptxas {name}: {regs} registers, {stack} bytes stack, {stores} bytes spill "
+                f"stores, {loads} bytes spill loads")
 
     errs = {"envelope": check_envelope(torch, np, dev), "eq_cascade": check_eq(torch, np, dev),
             "region": check_region(torch, np, dev), "crossfade": check_crossfade(torch, np, dev)}

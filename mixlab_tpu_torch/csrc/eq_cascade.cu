@@ -1,185 +1,137 @@
-// EqThree's two 4-stage one-pole cascades and band mix, hand-written for
-// Hopper (sm_90a).
+// EqThree's two 4-stage one-pole cascades and band mix over one block: one
+// cooperative launch, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mixlab_tpu/dsp/eq_pallas.py (eq_cascade_pallas /
-// _eq_body).  Per stage and band (420 Hz "lo", 2700 Hz "hi") the reference
-// recurrence y_i = a*y_{i-1} + b_i (src/module/eq_three.rs:117-124) is solved
-// in 128-sample chunks:
-//   Z[k, i]  = sum_{j <= i} T[i - j] * B[k, j]     (zero-state chunk response,
-//                                                   T[d] = a^d, f32 FMAs)
-//   yend[k]  = aC * yend[k-1] + Z[k, 127]          (chunk-end carry, aC = a^128,
-//                                                   yend[-1] = the stage's pole)
-//   Y[k, i]  = Z[k, i] + a^(i+1) * yend[k-1]
-//   B'       = f * Y                               (next stage's drive)
-// and after stage 4 the bands mix: out = g_lo*lo + g_mid*(hi_lp - lo)
-// + g_hi*(xd - hi_lp).  The exported poles are Y at sample S-1, not at the
-// padded end.  The tables are the JAX package's (computed in f64, stored f32).
+// _eq_body), which solves each stage as 128-sample Toeplitz products with a
+// carry over the chunk ends, one stage after the other.
 //
-// What bounds it on the card: the Toeplitz products are the work, 128*S/2
-// multiply-adds per stage and band (~23 MFLOP per stage at S = 44,100); the
-// traffic is ~2 reads and writes of the block per stage, a few MB that stay
-// in L2.  Neither is near the card's limits; what costs time is the chain of
-// dependencies: every stage needs the carry across all chunks before it can
-// start the next stage.  The design splits there: five launches on one
-// stream (stage 1, stages 2-4 each fused with the previous stage's carry, and
-// the mix fused with stage 4's carry), each spread over ceil(K/CPB) x 2
-// blocks of 128 threads so all SMs work on the products.  Each block redoes
-// the short carry chain for the chunks before its own (one thread, <= K
-// FMAs from shared memory) rather than waiting on the others.  Products stay
-// in IEEE f32 on the FMA units (the reference asks for Precision.HIGHEST;
-// TF32 tensor cores would keep ~3 digits).  Intermediates go to a scratch
-// buffer the caller allocates.
+// What bounds it on the card: latency.  A 44,100-sample block moves 529 KB
+// (x and xd in, out written; 0.16 us at 3.35 TB/s) and the recurrence is
+// ~1.46 MFLOP (0.02 us at 67 TFLOP/s f32); what costs time is the chain of
+// dependencies through the block.  Before, each of the four stages needed
+// its own carry across the whole block (five launches, a serial walk over
+// the chunk ends in every CTA, 36.4 us).  Now the four stages are one
+// linear system with a 4-value state per band, so one carry serves them all
+// (csrc/eq_scan.cuh): G CTAs of T threads, each thread a run of L samples
+// (T = 128 and L = 4 by the sweep in chip_smoke.py phase 7: G = 87 at
+// S = 44,100; a longer run when the CTAs would not fit on the card at once,
+// eq_cuda.scan_plan), both inputs staged once with 16-byte loads, pass 1 in
+// registers, a block scan, the CTAs' aggregates to a scratch [G][8], one
+// grid barrier, warp 0 folding the aggregates before its CTA, pass 2, the
+// output stored with 16-byte stores.  What remains is the launch, the
+// barrier and the two short scans.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "eq_scan.cuh"
 #include "on_device.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;        // samples per chunk = threads per block
-constexpr int kMaxChunks = 3072;   // 384 Ki samples per launch (split above)
+namespace cg = cooperative_groups;
 
-// device table layout (floats): tcol[2][128] = a_b^d (d = i - j),
-// rowp[2][128] = a_b^(i+1), aC[2] = a_b^128
-constexpr int kTcol = 0;
-constexpr int kRowp = 2 * kChunk;
-constexpr int kAc = 4 * kChunk;
+__global__ void __launch_bounds__(eq_scan::kMaxThreads)
+eq_cascade_kernel(const float* __restrict__ x, const float* __restrict__ xd, int S, int lg,
+                  const float* __restrict__ poles0, const float* __restrict__ gains,
+                  const float* __restrict__ tables, float f_lo, float f_hi, float vsa,
+                  float* __restrict__ agg, float* __restrict__ out,
+                  float* __restrict__ poles_out) {
+  extern __shared__ float tile[];  // x, then xd, each at the staged positions
+  __shared__ eq_scan::Shared sh;
+  float* xs = tile;
+  float* xds = tile + (static_cast<int>(blockDim.x) << lg) + blockDim.x;
+  const int tile0 = blockIdx.x * (static_cast<int>(blockDim.x) << lg);
 
-struct Scratch {
-  float* z;      // [2 bands][K * 128]
-  float* zlast;  // [2 bands][K]
-};
-
-// y at the end of chunk `upto - 1` (the pole if upto == 0), for one band;
-// every thread of the block gets it
-__device__ float carry_into(const float* zlast, int upto, float aC, float pole,
-                           float* zl_smem) {
-  __shared__ float y_sh;
-  for (int j = threadIdx.x; j < upto; j += kChunk) zl_smem[j] = zlast[j];
+  eq_scan::load_table(tables, sh);
+  eq_scan::stage<false>(x, S, tile0, lg, xs);
+  eq_scan::stage<false>(xd, S, tile0, lg, xds);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float y = pole;
-#pragma unroll 8
-    for (int j = 0; j < upto; ++j) y = fmaf(aC, y, zl_smem[j]);
-    y_sh = y;
-  }
+  const eq_scan::Coeffs c{{sh.tab[eq_scan::kA], sh.tab[eq_scan::kA + 1]}, {f_lo, f_hi}, vsa};
+  const eq_scan::Entry en = eq_scan::scan_up(xs, lg, c, sh, agg);
+  cg::this_grid().sync();
+  eq_scan::scan_down(xs, xds, S, tile0, lg, c, gains, sh, agg, poles0, en, poles_out, nullptr);
   __syncthreads();
-  const float y = y_sh;
-  __syncthreads();  // zl_smem and y_sh may be reused after this
-  return y;
+  eq_scan::unstage(xs, S, tile0, lg, out);
 }
 
-// Stage s (0..3) of band blockIdx.y over chunks [blockIdx.x*cpb, +cpb).
-// s == 0 drives from x; s > 0 first finishes stage s-1 (carry, Y, pole) and
-// drives from f * Y.
-__global__ void __launch_bounds__(kChunk)
-eq_stage_kernel(const float* __restrict__ x, int S, int K, int cpb, int s,
-                Scratch in, Scratch out, const float* __restrict__ poles0,
-                float* __restrict__ poles_out, const float* __restrict__ tables,
-                float f_lo, float f_hi, float vsa) {
-  __shared__ float tcol[kChunk];
-  __shared__ float B[kChunk];
-  __shared__ float zl[kMaxChunks];
-
-  const int b = blockIdx.y;
-  const int i = threadIdx.x;
-  const int k0 = blockIdx.x * cpb;
-  const int k1 = min(k0 + cpb, K);
-  const float f = b ? f_hi : f_lo;
-  const float aC = tables[kAc + b];
-  const float rowp = tables[kRowp + b * kChunk + i];
-  tcol[i] = tables[kTcol + b * kChunk + i];
-  __syncthreads();
-
-  float yprev = 0.0f;
-  if (s > 0) yprev = carry_into(in.zlast + b * K, k0, aC, poles0[(s - 1) * 2 + b], zl);
-
-  for (int k = k0; k < k1; ++k) {
-    const int t = k * kChunk + i;
-    if (s == 0) {
-      B[i] = (t < S ? x[t] : 0.0f) * f + vsa;
-    } else {
-      const float y = in.z[b * K * kChunk + t] + rowp * yprev;
-      if (t == S - 1) poles_out[(s - 1) * 2 + b] = y;
-      B[i] = y * f;
-      yprev = fmaf(aC, yprev, in.zlast[b * K + k]);  // carry into chunk k+1
-    }
-    __syncthreads();
-    float z = 0.0f;
-    for (int j = 0; j <= i; ++j) z = fmaf(tcol[i - j], B[j], z);
-    out.z[b * K * kChunk + t] = z;
-    if (i == kChunk - 1) out.zlast[b * K + k] = z;
-    __syncthreads();  // B is rewritten for the next chunk
-  }
+size_t shared_bytes(int threads, int run) {
+  return eq_scan::tile_floats(threads, run) * sizeof(float);
 }
 
-// Finishes stage 4 for both bands (carry, Y, poles) and mixes the bands.
-__global__ void __launch_bounds__(kChunk)
-eq_mix_kernel(const float* __restrict__ xd, float* __restrict__ y_out, int S, int K,
-              int cpb, Scratch in, const float* __restrict__ poles0,
-              float* __restrict__ poles_out, const float* __restrict__ gains,
-              const float* __restrict__ tables) {
-  __shared__ float zl[kMaxChunks];
-  const int i = threadIdx.x;
-  const int k0 = blockIdx.x * cpb;
-  const int k1 = min(k0 + cpb, K);
-  float yp[2], rowp[2], aC[2];
-  for (int b = 0; b < 2; ++b) {
-    aC[b] = tables[kAc + b];
-    rowp[b] = tables[kRowp + b * kChunk + i];
-    yp[b] = carry_into(in.zlast + b * K, k0, aC[b], poles0[3 * 2 + b], zl);
-  }
-  const float g_lo = gains[0], g_mid = gains[1], g_hi = gains[2];
-  for (int k = k0; k < k1; ++k) {
-    const int t = k * kChunk + i;
-    float y[2];
-    for (int b = 0; b < 2; ++b) {
-      y[b] = in.z[b * K * kChunk + t] + rowp[b] * yp[b];
-      if (t == S - 1) poles_out[3 * 2 + b] = y[b];
-      yp[b] = fmaf(aC[b], yp[b], in.zlast[b * K + k]);
-    }
-    if (t < S) {
-      const float lo = y[0], hi_lp = y[1];
-      y_out[t] = lo * g_lo + (hi_lp - lo) * g_mid + (xd[t] - hi_lp) * g_hi;
-    }
-  }
+// the largest tile may exceed the 48 KB a launch gets without asking
+cudaError_t allow_shared(int device) {
+  static bool done[64] = {};
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      eq_cascade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared_bytes(eq_scan::kMaxThreads, eq_scan::kMaxRun)));
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
 }
+
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 }  // namespace
 
 extern "C" {
 
+// CTAs of `threads` threads of the eq kernel that one card holds at once at
+// the longest run, into *resident; the wrapper sizes its grid by it.
+// Returns a cudaError_t (0 = cudaSuccess).
+int mixlab_eq_resident_tiles(int threads, int device, int* resident) {
+  *resident = 0;
+  if (!pow2(threads) || threads < 32 || threads > eq_scan::kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OnDevice on(device);
+  cudaError_t err = on.error();
+  int n_sm = 0, per_sm = 0;
+  if (err == cudaSuccess) err = allow_shared(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, eq_cascade_kernel, threads, shared_bytes(threads, eq_scan::kMaxRun));
+  }
+  *resident = per_sm * n_sm;
+  return static_cast<int>(err);
+}
+
 // One EqThree block: x, xd [S] (xd = the 3-sample-delayed input), poles0
-// [4][2] (stage-major, band-minor), gains [3] and tables [4*128 + 2] (see
-// kTcol/kRowp/kAc) are device pointers; out [S] and poles_out [4][2] are
-// written.  `scratch` is a device buffer of 2 * 2 * (K*128 + K) floats,
-// K = ceil(S / 128) <= 3072.  The launches go to card `device`.  Returns
-// cudaGetLastError() after the launches (0 = cudaSuccess).
+// [4][2] (stage-major, band-minor), gains [3] and tables [eq_scan::kTable]
+// (eq_cuda.kernel_tables) are device pointers; out [S] and poles_out [4][2]
+// are written.  `tiles` CTAs of `threads` threads, each thread a run of
+// `run` samples (powers of two, run <= 32, 32 <= threads <= 512; every CTA
+// but the last full, the last holding sample S-1); `scratch` holds 8
+// floats a CTA, 16-byte aligned.  The launch goes to card `device`.
+// Returns the launch's cudaError_t (0 = cudaSuccess); a grid larger than the
+// card holds at once is refused by the cooperative launch.
 int mixlab_eq_cascade(const float* x, const float* xd, int S, const float* poles0,
                       const float* gains, const float* tables, float f_lo, float f_hi,
-                      float vsa, float* scratch, float* out, float* poles_out,
-                      int device, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int K = (S + kChunk - 1) / kChunk;
-  if (S < 1 || K > kMaxChunks) return static_cast<int>(cudaErrorInvalidValue);
+                      float vsa, int run, int threads, int tiles, float* scratch, float* out,
+                      float* poles_out, int device, void* stream) {
+  const long long tile = static_cast<long long>(threads) * run;
+  if (S < 1 || !pow2(run) || run > eq_scan::kMaxRun || !pow2(threads) || threads < 32 ||
+      threads > eq_scan::kMaxThreads || tiles < 1 || tiles * tile < S ||
+      (tiles - 1) * tile >= S || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   OnDevice on(device);
   if (on.error() != cudaSuccess) return static_cast<int>(on.error());
-  const size_t slot = 2 * (static_cast<size_t>(K) * kChunk + K);
-  Scratch buf[2];
-  for (int q = 0; q < 2; ++q) {
-    buf[q].z = scratch + q * slot;
-    buf[q].zlast = buf[q].z + 2 * static_cast<size_t>(K) * kChunk;
-  }
-  // ~1 block per SM and band on a 132-SM card
-  const int cpb = (K + 127) / 128;
-  const int nblk = (K + cpb - 1) / cpb;
-  for (int s = 0; s < 4; ++s) {
-    eq_stage_kernel<<<dim3(nblk, 2), kChunk, 0, stream>>>(
-        x, S, K, cpb, s, buf[(s + 1) & 1], buf[s & 1], poles0, poles_out, tables,
-        f_lo, f_hi, vsa);
-  }
-  eq_mix_kernel<<<nblk, kChunk, 0, stream>>>(xd, out, S, K, cpb, buf[1], poles0,
-                                             poles_out, gains, tables);
+  cudaError_t err = allow_shared(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int lg = 0;
+  while ((1 << lg) < run) ++lg;
+  void* args[] = {&x, &xd, &S, &lg, &poles0, &gains, &tables, &f_lo, &f_hi, &vsa,
+                  &scratch, &out, &poles_out};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(eq_cascade_kernel),
+                                    dim3(tiles), dim3(threads), args,
+                                    shared_bytes(threads, run),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

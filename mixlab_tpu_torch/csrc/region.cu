@@ -2,60 +2,59 @@
 // and the producers it absorbs) as ONE cooperative launch per part,
 // hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel built by mixlab_tpu/engine/pallas_graph.py
+// Replaces the TPU kernel built by mixlab_tpu/engine/pallas_graph.py:377
 // (build_mega_program / _make_kernel, one pl.pallas_call per part of at most
 // 192Ki samples).  Where the TPU kernel is traced per graph, this kernel is
 // fixed: it walks a plan, the flat op list the region's modules emitted
 // (mixlab_tpu_torch/dsp/base.py, OP_*), over slots, i.e. [S] buffers of the
 // part whose device pointers arrive in a table.  No source is generated per
-// graph, so nothing is built beyond this file.
+// graph, so nothing is built beyond this file and its header.
 //
-// Layout: a CTA of 128 threads owns 128-sample chunks (chunk k belongs to
-// CTA k % gridDim.x) and thread c owns sample k*128 + c of each chunk it
-// visits.  Every elementwise op (FILL, AMP, AMP_MOD, MIX, I16, TAP) is then
-// thread-local and runs with no barrier; each rounds as the JAX emit does,
-// in its order (the library is built with -fmad=false, so a*b + c stays
-// two roundings unless the source says fmaf).  PEAK is a block reduction of
-// the bit patterns of |l|, |r| (for non-negative floats the unsigned order
-// is the float order, and a NaN is above +inf, so it wins as jnp.max lets
-// it) and one atomicMax per CTA; the scalar taps are zeroed by CTA 0 before
-// the plan's first barrier.  SYNC is a grid-wide barrier
-// (cooperative_groups::this_grid().sync(); the launch is cooperative and
-// the grid sized by the occupancy query, so every CTA is resident).
+// Layout: G CTAs of 128 threads; CTA c owns the contiguous chunks
+// [c*L, c*L + L) of 128 samples (L = eq_cuda.scan_plan's run, a power of
+// two: L = 4 and G = 94 at the 48 kHz flagship block, S = 48,000).  In an
+// elementwise op (FILL, AMP, AMP_MOD, MIX, I16, TAP) thread i handles
+// sample i of each of its CTA's chunks, up to kBatch chunks at a time with
+// every load issued before the first store, so an op costs one memory
+// latency, not L; each op rounds as the JAX emit does, in its order (the
+// library is built with -fmad=false, so a*b + c stays two roundings unless
+// the source says fmaf).  PEAK is a block reduction of the bit patterns of
+// |l|, |r| (for non-negative floats the unsigned order is the float order,
+// and a NaN is above +inf, so it wins as jnp.max lets it) and one atomicMax
+// per CTA; the scalar taps are zeroed by CTA 0 before the plan's first
+// barrier.  SYNC is a grid-wide barrier (cooperative_groups::this_grid()
+// .sync(); the launch is cooperative and G at most what the card holds at
+// once, by the occupancy query).
 //
 // EQ (EqThree, src/module/eq_three.rs:117-124; the TPU body is
-// mixlab_tpu/dsp/eq_pallas.py:_eq_body): per stage and band the one-pole
-// recurrence y_i = a*y_{i-1} + b_i runs in 128-sample chunks as in
-// csrc/eq_cascade.cu,
-//   Z[k, i]  = sum_{j <= i} a^(i-j) * B[k, j]     (Toeplitz, f32 FMAs)
-//   yend[k]  = a^128 * yend[k-1] + Z[k, 127]       (yend[-1] = the pole)
-//   Y[k, i]  = Z[k, i] + a^(i+1) * yend[k-1],      B' = f * Y,
-// then the band mix out = g_lo*lo + g_mid*(hi_lp - lo) + g_hi*(xd - hi_lp)
-// with xd the input delayed by 3 samples (the first 3 from the state).  Its
-// exits are the poles at the part's last sample and the last 3 inputs.  The
-// plan puts a SYNC before each EQ (the delay reads the previous chunk); each
-// stage ends with a grid-wide barrier after which every CTA scans the
-// chunk-end values Z[k, 127] itself (a per-thread chain over ceil(K/128)
-// chunks and a warp-shuffle scan of the segment maps (A, B): y -> A*y + B),
-// so yend for every chunk sits in its shared memory without another
-// barrier.  Z stays in place in one scratch slot per band.
+// mixlab_tpu/dsp/eq_pallas.py:_eq_body) runs the core csrc/eq_scan.cuh over
+// the CTA's tile, which is exactly its chunks (128 threads, runs of L
+// samples): x staged from the CTA's own chunks, pass 1, the block scan, the
+// aggregate to the op's scratch slot, ONE grid barrier, then the delayed
+// input xd = x[t-3] (across the tile's first edge from the previous CTA's
+// chunks, which that barrier makes visible, and from the state's history
+// before the part), pass 2, and the band mix stored back over the CTA's
+// chunks.  Every op reads and writes only its CTA's chunks but the EQ's
+// 3-sample halo, so no op needs a barrier to read the one before it (the
+// plan emits no SYNC for an EQ; its own barrier counts as the plan's first).
+// Exits: the poles at the part's last sample, then its last 3 inputs.
 //
-// What bounds it on the card: at the 48 kHz flagship block (S = 48,000,
-// 375 chunks) the function moves ~1.54 MB (six crossing operands in, one
-// stereo tap out), 0.46 us at 3.35 TB/s, and its arithmetic is far below
-// that; the Toeplitz form multiplies the eq's work by 64 (~49.5 MFLOP,
-// still only ~0.74 us at 67 TFLOP/s f32).  The time goes to latency: four
-// dependent stages, each a 128-step dependent FMA chain per thread, a
-// grid-wide barrier and the redundant chunk-end scan, over a few hundred
-// CTAs that each own one chunk (0.166 ms per launch on an NVIDIA H100
-// 80GB HBM3 at 700 W, chip_smoke.py).  The design keeps every intermediate
-// in L2-resident scratch and the whole region in one launch; spreading the
-// Toeplitz chain over more threads per chunk is later work.
+// What bounds it on the card: at the 48 kHz flagship block the function
+// moves 1,538,264 B (six crossing operands in, one stereo tap out), 0.46 us
+// at 3.35 TB/s; its arithmetic (the recurrence's ~1.6 MFLOP, the
+// elementwise ops) is far below that.  What costs time is latency: the
+// launch, the grid barrier, one memory round trip per op, the EQ's two
+// passes of L dependent samples and its scans.  Before, the EQ solved each
+// stage as 128-sample Toeplitz products with a grid barrier and a redundant
+// scan of every chunk end in every CTA after each of its four stages
+// (51.4 us per launch on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py);
+// the scan form needs one carry for all four stages.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "eq_scan.cuh"
 #include "on_device.cuh"
 
 namespace cg = cooperative_groups;
@@ -64,6 +63,7 @@ namespace {
 
 constexpr int kChunk = 128;       // samples per chunk = threads per CTA
 constexpr int kMaxChunks = 4096;  // region_cuda.MAX_CHUNKS
+constexpr int kBatch = 8;         // chunks a thread loads before it stores
 
 // op codes: mixlab_tpu_torch/dsp/base.py OP_*
 enum Op : int {
@@ -71,13 +71,9 @@ enum Op : int {
   kI16 = 5, kTap = 6, kPeak = 7, kEq = 8,
 };
 
-// eq table layout (floats, eq_cuda.kernel_tables + 3): tcol[2][128] = a_b^d,
-// rowp[2][128] = a_b^(i+1), aC[2] = a_b^128, then f_lo, f_hi, vsa
-constexpr int kTcol = 0;
-constexpr int kRowp = 2 * kChunk;
-constexpr int kAc = 4 * kChunk;
-constexpr int kF = 4 * kChunk + 2;
-constexpr int kVsa = 4 * kChunk + 4;
+// the EQ's table constant: eq_cuda.kernel_tables, then f_lo, f_hi, vsa
+constexpr int kF = eq_scan::kTable;
+constexpr int kVsa = eq_scan::kTable + 2;
 
 struct Part {
   const int* ops;
@@ -91,137 +87,84 @@ struct Part {
   float* ef;               // exits
   int S;
   int K;                   // S / 128
+  int lg;                  // log2 of the chunks a CTA owns (the EQ's run)
 };
 
 __device__ __forceinline__ float* slot(const Part& p, int s) {
   return reinterpret_cast<float*>(p.slots[s]);
 }
 
-// yend[k] for k < K of one band: the state at the end of each chunk, from
-// the chunk-end zero-state values zl (written by every CTA before the last
-// barrier, so read past L1) and the pole; every CTA computes all of them.
-__device__ void carry_scan(const float* zl, int K, float aC, float pole, float* yend) {
-  __shared__ float warp_a[kChunk / 32], warp_b[kChunk / 32];
-  const int c = threadIdx.x, lane = c & 31, warp = c >> 5;
-  const int per = (K + kChunk - 1) / kChunk;
-  const int k0 = min(c * per, K), k1 = min(k0 + per, K);
-  // this thread's chunks as one map y -> A*y + B
-  float A = 1.0f, B = 0.0f;
-  for (int k = k0; k < k1; ++k) {
-    B = fmaf(aC, B, __ldcg(zl + k));
-    A *= aC;
-  }
-  // inclusive scan over the warp; (earlier, later) composes to
-  // (A_l * A_e, A_l * B_e + B_l)
-  for (int off = 1; off < 32; off <<= 1) {
-    const float Au = __shfl_up_sync(0xffffffffu, A, off);
-    const float Bu = __shfl_up_sync(0xffffffffu, B, off);
-    if (lane >= off) {
-      B = fmaf(A, Bu, B);
-      A *= Au;
-    }
-  }
-  if (lane == 31) {
-    warp_a[warp] = A;
-    warp_b[warp] = B;
-  }
-  __syncthreads();
-  float PA = 1.0f, PB = 0.0f;  // the earlier warps
-  for (int w = 0; w < warp; ++w) {
-    PB = fmaf(warp_a[w], PB, warp_b[w]);
-    PA *= warp_a[w];
-  }
-  // exclusive: the earlier lanes of this warp after the earlier warps
-  float Ae = __shfl_up_sync(0xffffffffu, A, 1);
-  float Be = __shfl_up_sync(0xffffffffu, B, 1);
-  if (lane == 0) {
-    Ae = 1.0f;
-    Be = 0.0f;
-  }
-  float y = fmaf(Ae * PA, pole, fmaf(Ae, PB, Be));  // y at the end of chunk k0-1
-  for (int k = k0; k < k1; ++k) {
-    y = fmaf(aC, y, __ldcg(zl + k));
-    yend[k] = y;
-  }
-  __syncthreads();  // yend complete, warp_a / warp_b free
-}
-
-// a = [dst, x, z_lo, z_hi, zl, sf, p_gains, p_tab, ef, sample_rate]
-__device__ void eq_op(const Part& p, const int* a, cg::grid_group& grid, float* yend) {
-  __shared__ float tcol[2][kChunk];
-  __shared__ float drive[kChunk];
+// a = [dst, x, agg, sf, p_gains, p_tab, ef, sample_rate]; `tile` is the
+// dynamic shared memory (eq_scan::tile_floats(128, L) floats)
+__device__ void eq_op(const Part& p, const int* a, cg::grid_group& grid, float* tile) {
+  __shared__ eq_scan::Shared sh;
   float* out = slot(p, a[0]);
   const float* x = slot(p, a[1]);
-  float* Z[2] = {slot(p, a[2]), slot(p, a[3])};
-  float* zl = slot(p, a[4]);
-  const float* sf = p.sf + a[5];
-  const float* g = p.pf + a[6];
-  const float* tab = p.pf + a[7];
-  float* ef = p.ef + a[8];
-  const int c = threadIdx.x, S = p.S, K = p.K;
+  float* agg = slot(p, a[2]);
+  const float* sf = p.sf + a[3];
+  const float* tab = p.pf + a[5];
+  float* ef = p.ef + a[6];
+  const int S = p.S, lg = p.lg;
+  const int n = kChunk << lg;  // the tile's samples
+  const int tile0 = blockIdx.x * n;
+  float* xs = tile;
+  float* xds = tile + n + kChunk;
 
-  tcol[0][c] = tab[kTcol + c];
-  tcol[1][c] = tab[kTcol + kChunk + c];
-  const float rowp[2] = {tab[kRowp + c], tab[kRowp + kChunk + c]};
-  const float aC[2] = {tab[kAc], tab[kAc + 1]};
-  const float f[2] = {tab[kF], tab[kF + 1]};
-  const float vsa = tab[kVsa];
+  eq_scan::load_table(tab, sh);
+  __syncthreads();  // the ops before wrote x thread by thread
+  eq_scan::stage<true>(x, S, tile0, lg, xs);
   __syncthreads();
-
-  for (int s = 0; s < 4; ++s) {
-    // the chunk-end values alternate between two halves of zl: a CTA may
-    // start stage s+1 while another still scans stage s's values, and the
-    // barrier that ends stage s+1 comes before stage s+2 reuses this half
-    float* zs = zl + (s & 1) * 2 * K;
-    for (int k = blockIdx.x; k < K; k += gridDim.x) {
-      const int t = k * kChunk + c;
-      for (int b = 0; b < 2; ++b) {
-        float d;
-        if (s == 0) {
-          d = x[t] * f[b] + vsa;
-        } else {  // finish stage s-1 at this sample, drive stage s
-          const float yp = k == 0 ? sf[(s - 1) * 2 + b] : yend[b * K + k - 1];
-          const float y = Z[b][t] + rowp[b] * yp;
-          if (t == S - 1) ef[(s - 1) * 2 + b] = y;
-          d = y * f[b];
-        }
-        drive[c] = d;
-        __syncthreads();
-        float z = 0.0f;
-        for (int j = 0; j <= c; ++j) z = fmaf(tcol[b][c - j], drive[j], z);
-        Z[b][t] = z;
-        if (c == kChunk - 1) zs[b * K + k] = z;
-        __syncthreads();  // drive is rewritten next
-      }
-    }
-    grid.sync();
-    for (int b = 0; b < 2; ++b) carry_scan(zs + b * K, K, aC[b], sf[s * 2 + b], yend + b * K);
+  const eq_scan::Coeffs c{{sh.tab[eq_scan::kA], sh.tab[eq_scan::kA + 1]},
+                          {__ldg(tab + kF), __ldg(tab + kF + 1)}, __ldg(tab + kVsa)};
+  const eq_scan::Entry en = eq_scan::scan_up(xs, lg, c, sh, agg);
+  grid.sync();
+  // the delayed input (eq_three.rs:71-79): the previous chunks' last 3
+  // samples across the tile's first edge, the state's history before the
+  // part; scan_down's barrier orders these writes before pass 2 reads them
+  for (int j = threadIdx.x; j < n; j += kChunk) {
+    const int t = tile0 + j;
+    xds[eq_scan::pos(j, lg)] =
+        j >= 3 ? xs[eq_scan::pos(j - 3, lg)] : (t >= 3 ? __ldcg(x + t - 3) : sf[8 + t]);
   }
+  eq_scan::scan_down(xs, xds, S, tile0, lg, c, p.pf + a[4], sh, agg, sf, en, ef, ef + 8);
+  __syncthreads();
+  eq_scan::unstage(xs, S, tile0, lg, out);
+  __syncthreads();  // the next ops read `out` thread by thread
+}
 
-  // finish stage 4 and mix the bands
-  for (int k = blockIdx.x; k < K; k += gridDim.x) {
-    const int t = k * kChunk + c;
-    float y[2];
-    for (int b = 0; b < 2; ++b) {
-      const float yp = k == 0 ? sf[6 + b] : yend[b * K + k - 1];
-      y[b] = Z[b][t] + rowp[b] * yp;
-      if (t == S - 1) ef[6 + b] = y[b];
-    }
-    const float xd = t >= 3 ? __ldcg(x + t - 3) : sf[8 + t];  // eq_three.rs:71-79
-    out[t] = y[0] * g[0] + (y[1] - y[0]) * g[1] + (xd - y[1]) * g[2];
-    if (t >= S - 3) ef[8 + t - (S - 3)] = x[t];
-  }
+// the chunks of this CTA: [k0, k0 + n)
+struct Chunks {
+  int k0, n;
+};
+
+__device__ __forceinline__ Chunks my_chunks(const Part& p) {
+  const int k0 = blockIdx.x << p.lg;
+  return Chunks{k0, max(0, min(1 << p.lg, p.K - k0))};
 }
 
 __device__ void peak_op(const Part& p, const int* a) {
   __shared__ unsigned warp_max[kChunk / 32];
   const float* l = slot(p, a[1]);
   const float* r = slot(p, a[2]);
+  const Chunks ch = my_chunks(p);
   unsigned m = 0u;
-  for (int k = blockIdx.x; k < p.K; k += gridDim.x) {
-    const int t = k * kChunk + threadIdx.x;
-    m = max(m, __float_as_uint(fabsf(l[t])));
-    m = max(m, __float_as_uint(fabsf(r[t])));
+  for (int u0 = 0; u0 < ch.n; u0 += kBatch) {
+    float lv[kBatch], rv[kBatch];
+    const int t0 = (ch.k0 + u0) * kChunk + threadIdx.x;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (u0 + u < ch.n) {
+        lv[u] = l[t0 + u * kChunk];
+        rv[u] = r[t0 + u * kChunk];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (u0 + u < ch.n) {
+        m = max(m, __float_as_uint(fabsf(lv[u])));
+        m = max(m, __float_as_uint(fabsf(rv[u])));
+      }
+    }
   }
   for (int off = 16; off > 0; off >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
@@ -233,8 +176,108 @@ __device__ void peak_op(const Part& p, const int* a) {
   __syncthreads();  // warp_max is free again
 }
 
+// One elementwise op over this thread's samples of the CTA's chunks,
+// kBatch chunks at a time: every load of a batch before its first store.
+__device__ void elementwise_op(const Part& p, int code, const int* a) {
+  const Chunks ch = my_chunks(p);
+  for (int u0 = 0; u0 < ch.n; u0 += kBatch) {
+    const int t0 = (ch.k0 + u0) * kChunk + threadIdx.x;
+    const int m = min(kBatch, ch.n - u0);
+    float v[kBatch];
+    switch (code) {
+      case kFill: {
+        const float val = 0.0f + p.pf[a[1]];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) slot(p, a[0])[t0 + u * kChunk] = val;
+        }
+        break;
+      }
+      case kAmp: {
+        const float* src = slot(p, a[1]);
+        const float amp = p.pf[a[2]];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) v[u] = src[t0 + u * kChunk];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) slot(p, a[0])[t0 + u * kChunk] = v[u] * amp;
+        }
+        break;
+      }
+      case kAmpMod: {
+        const float* src = slot(p, a[1]);
+        const float* mod = slot(p, a[2]);
+        const float amp = p.pf[a[3]], md = p.pf[a[4]];
+        float mv[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) {
+            v[u] = src[t0 + u * kChunk];
+            mv[u] = mod[t0 + u * kChunk];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) {
+            const float scale = ((1.0f - md) + md * mv[u]) * amp;
+            slot(p, a[0])[t0 + u * kChunk] = v[u] * scale;
+          }
+        }
+        break;
+      }
+      case kMix: {
+        const int n = a[1];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) v[u] = 0.0f;
+        for (int j = 0; j < n; ++j) {
+          const float* src = slot(p, a[2 + j]);
+          const float w = p.pf[a[2 + n + j]];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (u < m) v[u] = v[u] + w * src[t0 + u * kChunk];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) slot(p, a[0])[t0 + u * kChunk] = v[u];
+        }
+        break;
+      }
+      case kI16: {
+        const int16_t* src = reinterpret_cast<const int16_t*>(p.slots[a[1]]);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) v[u] = static_cast<float>(src[t0 + u * kChunk]) * (1.0f / 32768.0f);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) slot(p, a[0])[t0 + u * kChunk] = v[u];
+        }
+        break;
+      }
+      case kTap: {
+        const float* src = slot(p, a[1]);
+        float* dst = p.taps + static_cast<size_t>(a[0]) * p.S;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) v[u] = src[t0 + u * kChunk];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u < m) dst[t0 + u * kChunk] = v[u];
+        }
+        break;
+      }
+      default:
+        break;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kChunk) region_kernel(Part p) {
-  extern __shared__ float yend[];  // [2][K]
+  extern __shared__ float tile[];  // the EQ's staged tile
   cg::grid_group grid = cg::this_grid();
   if (blockIdx.x == 0) {
     for (int j = threadIdx.x; j < p.n_stap; j += kChunk) p.stap[j] = 0.0f;
@@ -246,83 +289,78 @@ __global__ void __launch_bounds__(kChunk) region_kernel(Part p) {
     pc += len;
     if (code == kSync) {
       grid.sync();
-      continue;
-    }
-    if (code == kEq) {
-      eq_op(p, a, grid, yend);
-      continue;
-    }
-    if (code == kPeak) {
+    } else if (code == kEq) {
+      eq_op(p, a, grid, tile);
+    } else if (code == kPeak) {
       peak_op(p, a);
-      continue;
-    }
-    for (int k = blockIdx.x; k < p.K; k += gridDim.x) {
-      const int t = k * kChunk + threadIdx.x;
-      switch (code) {
-        case kFill:
-          slot(p, a[0])[t] = 0.0f + p.pf[a[1]];
-          break;
-        case kAmp:
-          slot(p, a[0])[t] = slot(p, a[1])[t] * p.pf[a[2]];
-          break;
-        case kAmpMod: {
-          const float amp = p.pf[a[3]], md = p.pf[a[4]];
-          const float scale = ((1.0f - md) + md * slot(p, a[2])[t]) * amp;
-          slot(p, a[0])[t] = slot(p, a[1])[t] * scale;
-          break;
-        }
-        case kMix: {
-          const int n = a[1];
-          float acc = 0.0f;
-          for (int j = 0; j < n; ++j) acc = acc + p.pf[a[2 + n + j]] * slot(p, a[2 + j])[t];
-          slot(p, a[0])[t] = acc;
-          break;
-        }
-        case kI16:
-          slot(p, a[0])[t] =
-              static_cast<float>(reinterpret_cast<const int16_t*>(p.slots[a[1]])[t]) *
-              (1.0f / 32768.0f);
-          break;
-        case kTap:
-          p.taps[static_cast<size_t>(a[0]) * p.S + t] = slot(p, a[1])[t];
-          break;
-        default:
-          break;
-      }
+    } else {
+      elementwise_op(p, code, a);
     }
   }
+}
+
+size_t shared_bytes(int run) { return eq_scan::tile_floats(kChunk, run) * sizeof(float); }
+
+cudaError_t allow_shared(int device) {
+  static bool done[64] = {};
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(region_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(shared_bytes(eq_scan::kMaxRun)));
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
+// CTAs of the region kernel that one card holds at once at the longest run,
+// into *resident; the wrapper sizes its grid by it.  Returns a cudaError_t
+// (0 = cudaSuccess).
+int mixlab_region_resident_tiles(int device, int* resident) {
+  *resident = 0;
+  OnDevice on(device);
+  cudaError_t err = on.error();
+  int n_sm = 0, per_sm = 0;
+  if (err == cudaSuccess) err = allow_shared(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, region_kernel, kChunk,
+                                                        shared_bytes(eq_scan::kMaxRun));
+  }
+  *resident = per_sm * n_sm;
+  return static_cast<int>(err);
+}
+
 // One part of S samples (a positive multiple of 128, at most kMaxChunks
-// chunks).  Every pointer is a device pointer: ops [n_words] int32 (the
-// plan), slots [n_slots] int64 (one buffer of S elements each), pf, sf,
-// taps [n_taps][S], stap [n_stap], ef [n_ef].  The launch goes to card
-// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess).
+// chunks) in `tiles` CTAs of `run` chunks each (a power of two, at most
+// eq_scan::kMaxRun; every CTA but the last full, the last holding the last
+// chunk).  Every pointer is a device pointer: ops [n_words] int32 (the
+// plan), slots [n_slots] int64 (one buffer of S elements each, the EQ's
+// scratch slot 16-byte aligned), pf, sf, taps [n_taps][S], stap [n_stap],
+// ef [n_ef].  The launch goes to card `device`.  Returns the launch's
+// cudaError_t (0 = cudaSuccess).
 int mixlab_region_part(const int* ops, int n_words, const long long* slots, const float* pf,
                        const float* sf, float* taps, float* stap, int n_stap, float* ef,
-                       int S, int device, void* stream_ptr) {
-  if (S <= 0 || S % kChunk != 0 || S / kChunk > kMaxChunks) {
+                       int S, int run, int tiles, int device, void* stream_ptr) {
+  const int K = S / kChunk;
+  if (S <= 0 || S % kChunk != 0 || K > kMaxChunks || run < 1 || run > eq_scan::kMaxRun ||
+      (run & (run - 1)) != 0 || tiles < 1 || tiles * run < K || (tiles - 1) * run >= K) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OnDevice on(device);
   if (on.error() != cudaSuccess) return static_cast<int>(on.error());
-  Part p{ops, n_words, slots, pf, sf, taps, stap, n_stap, ef, S, S / kChunk};
-  const size_t smem = 2 * static_cast<size_t>(p.K) * sizeof(float);
-  int n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, region_kernel, kChunk, smem);
-  }
+  cudaError_t err = allow_shared(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int grid = min(p.K, per_sm * n_sm);
+  int lg = 0;
+  while ((1 << lg) < run) ++lg;
+  Part p{ops, n_words, slots, pf, sf, taps, stap, n_stap, ef, S, K, lg};
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(region_kernel), dim3(grid),
-                                    dim3(kChunk), args, smem,
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(region_kernel), dim3(tiles),
+                                    dim3(kChunk), args, shared_bytes(run),
                                     static_cast<cudaStream_t>(stream_ptr));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

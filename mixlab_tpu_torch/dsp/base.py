@@ -65,14 +65,16 @@ OP_MIX = 4       # [dst, n, src_0.., p_0..]    dst = ((0 + w0*s0) + w1*s1) + ...
 OP_I16 = 5       # [dst, src]                  dst = f32(src_i16) * 2^-15
 OP_TAP = 6       # [tap, src]                  taps[tap] = src
 OP_PEAK = 7      # [stap, l, r]                stap[stap] = max(max|l|, max|r|)
-OP_EQ = 8        # [dst, x, z_lo, z_hi, zl, sf, p_gains, p_tab, ef, sample_rate]
+OP_EQ = 8        # [dst, x, agg, sf, p_gains, p_tab, ef, sample_rate]
 #                  EqThree over the part: the 3-sample delay from
 #                  sf[sf+8..sf+10], both 4-pole cascades from the poles
 #                  sf[sf..sf+7] (stage-major), the band mix with gains
 #                  pf[p_gains..+2]; exits ef[ef..ef+7] = the poles at the
 #                  part's last sample, ef[ef+8..ef+10] = its last 3 inputs.
-#                  z_lo, z_hi, zl are scratch slots; pf[p_tab..] holds
-#                  ``eq_cuda.kernel_tables`` then f_lo, f_hi, vsa.
+#                  agg is a scratch slot (the CTAs' aggregate states);
+#                  pf[p_tab..] holds ``eq_cuda.kernel_tables`` then f_lo,
+#                  f_hi, vsa.  The kernel's EQ holds a grid barrier of its
+#                  own, after which it reads the 3 samples before its tile.
 OP_NAMES = ("SYNC", "FILL", "AMP", "AMP_MOD", "MIX", "I16", "TAP", "PEAK", "EQ")
 
 
@@ -101,12 +103,12 @@ class RegionPlan:
         return self.n_slots - 1
 
     def add(self, code: int, *args: int) -> None:
-        # the barriers are the plan's business, not the modules': an EQ's
-        # delay reads the previous chunk (another CTA's), and the kernel
-        # zeroes the scalar taps before its first barrier
-        if code == OP_EQ or (code == OP_PEAK and not self._synced):
+        # the barriers are the plan's business, not the modules': the kernel
+        # zeroes the scalar taps before its first barrier (an EQ's own
+        # barrier counts; every other op reads only its CTA's samples)
+        if code == OP_PEAK and not self._synced:
             self.add(OP_SYNC)
-        self._synced |= code == OP_SYNC
+        self._synced |= code in (OP_SYNC, OP_EQ)
         self.words += [code, 2 + len(args), *(int(a) for a in args)]
 
     def const(self, values) -> int:

@@ -24,7 +24,6 @@ int32 sample offsets relative to the block start (clamped at
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Dict, Tuple
 
@@ -139,11 +138,7 @@ def tile_plan(S: int, resident: int, lane: int = LANE):
 @functools.lru_cache(maxsize=None)
 def resident_tiles(index: int) -> int:
     """CTAs of the envelope kernel that card ``index`` holds at once."""
-    lib = kernels.load()
-    n = ctypes.c_int(0)
-    kernels.check(lib, lib.mixlab_envelope_resident_tiles(index, ctypes.byref(n)),
-                  "envelope occupancy query")
-    return n.value
+    return kernels.query("mixlab_envelope_resident_tiles", "envelope occupancy query", index)
 
 
 def _launch(x, index, state, params, ms_per_sample, lane=LANE):

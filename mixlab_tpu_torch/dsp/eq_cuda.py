@@ -4,11 +4,14 @@ plain twin.
 ``eq_cascade_cuda`` replaces the TPU kernel
 ``mixlab_tpu/dsp/eq_pallas.py:eq_cascade_pallas`` (same contract:
 ``(x [S], xd [S], poles0 [4, 2], gains [3], f_lo, f_hi, vsa) ->
-(out [S], poles [4, 2])``).  The kernel is ``csrc/eq_cascade.cu``: per stage
-and band, 128-sample chunk products with the lower-triangular Toeplitz
-table in IEEE f32 FMAs, an in-order carry over the chunk ends, then the band
-mix — five launches on the current stream, spread over the card's SMs.
-See the source's header note for what bounds it.
+(out [S], poles [4, 2])``).  The kernel is ``csrc/eq_cascade.cu`` over the
+core ``csrc/eq_scan.cuh``: one cooperative launch of ``tiles`` CTAs of
+``THREADS`` threads, each thread a run of ``RUN`` consecutive samples.  A
+thread runs both 4-stage cascades over its run from zero state, the runs'
+affine maps compose by a scan (within the CTA, then across the CTAs after one
+grid barrier), and each thread reruns its samples from its true entry state.
+``scan_plan`` sizes the grid; see the source's header note for what bounds
+it.
 
 ``eq_cascade_torch`` is the plain PyTorch twin, the same math as
 ``_eq_body`` (``eq_pallas.py:80-137``): Toeplitz products as matrix
@@ -19,8 +22,10 @@ blocks below the kernel's gate (where the JAX package runs its plain path);
 it raises while the process asks for TF32 (card) or bf16 (CPU) products
 (``precision.py``).
 
-The tables are computed in float64 and stored as float32 exactly as the JAX
-package builds them (``eq_three._toeplitz_tables``, ``eq_pallas._lane_tables``).
+The twin's tables are computed in float64 and stored as float32 exactly as
+the JAX package builds them (``eq_three._toeplitz_tables``,
+``eq_pallas._lane_tables``); the kernel's (``kernel_tables``) likewise in
+float64, stored as float32.
 """
 
 from __future__ import annotations
@@ -36,11 +41,25 @@ from mixlab_tpu_torch.precision import require_ieee_f32
 
 # blocks at least this long take the kernel (the JAX package's gate)
 PALLAS_THRESHOLD = 8192
-_CHUNK = 128  # chunk length = threads per block of the kernel
-# longest block one launch takes: the kernel stages the chunk-end states of
-# one band in a 12 KB shared-memory array (3072 chunks); longer blocks split
-# into sequential launches carrying the poles exactly
+_CHUNK = 128  # the twin's chunk length (eq_pallas's C)
+# the kernel's scan (csrc/eq_scan.cuh): THREADS threads a CTA, RUN samples a
+# thread while the CTAs of a block fit on the card at once, else the shortest
+# power-of-two run that fits, at most MAX_RUN
+THREADS = 128
+RUN = 4
+MAX_RUN = 32
+# longest block one launch takes; longer blocks split into sequential
+# launches carrying the poles exactly
 MAX_KERNEL_S = 384 * 1024
+# the kernel's table (floats): a_b = 1 - f_b for the two bands, two pads,
+# then for k < TABLE_POWERS and each band the first column of A_b^(2^k),
+# the 4x4 lower-triangular Toeplitz map of one band's four stage states over
+# 2^k samples without input (eq_scan.cuh kA, kPow, kPowers, kTable)
+TABLE_A = 0
+TABLE_POW = 4
+TABLE_POWERS = 32
+TABLE_LEN = TABLE_POW + TABLE_POWERS * 2 * 4
+_AGG_WORDS = 8  # one CTA's aggregate state in the scratch (32 bytes)
 
 
 def _plan(S: int):
@@ -89,21 +108,48 @@ def _lane_tables(a_lo: float, a_hi: float, C: int, K: int):
 
 
 @functools.lru_cache(maxsize=8)
-def kernel_tables(a_lo: float, a_hi: float) -> np.ndarray:
-    """The kernel's f32 table: Toeplitz column a^d (tcol) per band, the row
-    powers a^(i+1) per band, then aC = a^128 per band."""
-    C = _CHUNK
-    T_lo = _toeplitz_tables((a_lo, a_lo), C)[0][0]
-    T_hi = _toeplitz_tables((a_hi, a_hi), C)[0][0]
-    _, row, _ = _lane_tables(a_lo, a_hi, C, 1)
-    aC = np.array([float(a_lo) ** C, float(a_hi) ** C], np.float64).astype(np.float32)
-    # T[i, j] = a^(i-j) depends only on i - j: its first column is the table
-    return np.concatenate([T_lo[:, 0], T_hi[:, 0], row[0], row[1], aC]).astype(np.float32)
+def kernel_tables(f_lo: float, f_hi: float) -> np.ndarray:
+    """The kernel's f32 table (``TABLE_*`` layout): a per band, then the
+    transitions A_b^(2^k) by repeated squaring in float64.  A_b[i][j] =
+    a*f^(i-j) for j <= i (stage i's state after a sample without input);
+    the product of two lower-triangular Toeplitz matrices is one, with
+    first column C @ d for first columns c, d."""
+    t = np.zeros(TABLE_LEN, np.float64)
+    for b, f in enumerate((float(f_lo), float(f_hi))):
+        a = 1.0 - f
+        t[TABLE_A + b] = a
+        col = a * f ** np.arange(4.0)
+        for k in range(TABLE_POWERS):
+            at = TABLE_POW + (2 * k + b) * 4
+            t[at:at + 4] = col
+            col = np.array([sum(col[i - j] * col[j] for j in range(i + 1)) for i in range(4)])
+    return t.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
-def _device_tables(a_lo: float, a_hi: float, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(kernel_tables(a_lo, a_hi)).to(device)
+def _device_tables(f_lo: float, f_hi: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(kernel_tables(f_lo, f_hi)).to(device)
+
+
+def scan_plan(S: int, resident: int, threads: int = THREADS, run: int = RUN):
+    """``(run, tiles)`` for a block of S samples on a card that holds
+    ``resident`` of the kernel's CTAs at once: ``run`` samples a thread while
+    the ``ceil(S / (threads * run))`` CTAs fit, else the shortest power of
+    two that fits.  Raises ``ValueError`` past ``MAX_RUN``."""
+    need = -(-S // (max(resident, 1) * threads))
+    while run < need:
+        run *= 2
+    if run > MAX_RUN:
+        raise ValueError(f"eq scan: {S} samples do not fit {resident} CTAs of "
+                         f"{threads} x {MAX_RUN} samples")
+    return run, -(-S // (threads * run))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_tiles(index: int, threads: int = THREADS) -> int:
+    """CTAs of the eq kernel of ``threads`` threads that card ``index`` holds
+    at once at the longest run."""
+    return kernels.query("mixlab_eq_resident_tiles", "eq occupancy query", threads, index)
 
 
 def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
@@ -160,19 +206,22 @@ def _check(t, shape, name, index):
             f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
 
 
-def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index):
+def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index, threads=THREADS, run=RUN):
     dev = x.device
     S = x.shape[0]
-    _, K, _ = _plan(S)
-    tables = _device_tables(1.0 - f_lo, 1.0 - f_hi, dev)
-    scratch = torch.empty(2 * 2 * (K * _CHUNK + K), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x)
-    poles_out = torch.empty((4, 2), dtype=torch.float32, device=dev)
+    run, tiles = scan_plan(S, resident_tiles(index, threads), threads, run)
+    tables = _device_tables(f_lo, f_hi, dev)
+    # the output, the poles and the CTAs' aggregates in one allocation, the
+    # poles and the aggregates at 16-byte boundaries
+    at = -(-S // 4) * 4
+    buf = torch.empty(at + 8 + tiles * _AGG_WORDS, dtype=torch.float32, device=dev)
+    out = buf[:S]
+    poles_out = buf[at:at + 8].view(4, 2)
     kernels.launch(
         "mixlab_eq_cascade", "eq_cascade kernel launch", index,
         x.data_ptr(), xd.data_ptr(), S, poles0.data_ptr(), gains.data_ptr(),
-        tables.data_ptr(), float(f_lo), float(f_hi), float(vsa),
-        scratch.data_ptr(), out.data_ptr(), poles_out.data_ptr(),
+        tables.data_ptr(), float(f_lo), float(f_hi), float(vsa), run, threads, tiles,
+        buf.data_ptr() + 4 * (at + 8), out.data_ptr(), poles_out.data_ptr(),
     )
     eq_cascade_cuda.launches += 1
     return out, poles_out

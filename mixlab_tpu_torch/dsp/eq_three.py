@@ -89,13 +89,13 @@ class EqThreeDef(ModuleDef):
     def mega_spec(self, params, cfg, block, connected):
         f_lo = _filter_coeff(FREQ_LO, cfg.sample_rate)
         f_hi = _filter_coeff(FREQ_HI, cfg.sample_rate)
-        tables = np.concatenate([kernel_tables(1.0 - f_lo, 1.0 - f_hi),
+        tables = np.concatenate([kernel_tables(f_lo, f_hi),
                                  np.array([f_lo, f_hi, VSA], np.float32)])
 
         def emit(ctx, ins):
             x = ctx.expect_mono(ins[0])
-            scratch = [ctx.plan.new_slot() for _ in range(3)]  # z_lo, z_hi, zl
-            out = ctx.op(OP_EQ, x, *scratch, ctx.sf[0], ctx.pf[0],
+            agg = ctx.plan.new_slot()  # the kernel's CTA aggregates
+            out = ctx.op(OP_EQ, x, agg, ctx.sf[0], ctx.pf[0],
                          ctx.plan.const(tables), ctx.ef[0], cfg.sample_rate)
             return [out], {}
 

@@ -14,8 +14,11 @@ modules emitted — over one part of ``S`` samples:
 reads them), ``pf`` the parameter row (param scalars, then the plan's
 constants), ``sf`` the state row; ``ef`` comes back laid out like ``sf``
 (the layout law), so it is the next part's state row.  The kernel is
-``csrc/region.cu``: one cooperative launch per part that walks the plan
-(see the source's header note for what bounds it).
+``csrc/region.cu``: one cooperative launch per part that walks the plan,
+each CTA over ``RUN`` contiguous chunks of 128 samples (a longer run when
+the CTAs would not fit on the card at once, ``eq_cuda.scan_plan``), its EQ
+through the core the eq kernel uses (``csrc/eq_scan.cuh``); see the
+source's header note for what bounds it.
 
 ``region_part_torch`` is the plain PyTorch twin: the same plan, op by op,
 in the JAX emit's order and rounding, with EqThree through
@@ -43,12 +46,14 @@ from mixlab_tpu_torch.dsp.base import (
     OP_TAP,
     RegionPlan,
 )
-from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_torch
+from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_torch, scan_plan
 from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 
 CHUNK = 128  # samples per chunk = threads per CTA of the kernel
-# chunks one launch takes: the kernel keeps both bands' chunk-end states in
-# shared memory (2 x 4 B per chunk); the region program's parts stay below
+# chunks a CTA owns (the EQ's run: samples a thread) while the CTAs fit on
+# the card at once (chip_smoke.py phase 7 sweeps it)
+RUN = 4
+# chunks one launch takes; the region program's parts stay below
 MAX_CHUNKS = 4096
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -84,7 +89,7 @@ def region_part_torch(plan: RegionPlan, operands: Sequence[torch.Tensor],
         elif code == OP_PEAK:
             stap[a[0]] = torch.maximum(slots[a[1]].abs(), slots[a[2]].abs()).max()
         elif code == OP_EQ:
-            dst, x, _, _, _, s0, g0, _, e0, sample_rate = a
+            dst, x, _, s0, g0, _, e0, sample_rate = a
             xs = slots[x]
             xd = torch.cat([sf[s0 + 8:s0 + 11], xs])[:S]  # eq_three.rs:71-79
             out, poles = eq_cascade_torch(
@@ -109,6 +114,12 @@ def operand_dtypes(plan: RegionPlan):
     return dtypes
 
 
+@functools.lru_cache(maxsize=None)
+def resident_tiles(index: int) -> int:
+    """CTAs of the region kernel that card ``index`` holds at once."""
+    return kernels.query("mixlab_region_resident_tiles", "region occupancy query", index)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_ops(words: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int32).to(device)
@@ -124,9 +135,9 @@ def _check_tensor(t, what, dtype, dtype_text, n, index) -> None:
 
 
 def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
-                     pf: torch.Tensor, sf: torch.Tensor, S: int) -> Result:
+                     pf: torch.Tensor, sf: torch.Tensor, S: int, run: int = RUN) -> Result:
     """One part of the region: the CUDA kernel for CUDA tensors, the plain
-    twin for CPU tensors."""
+    twin for CPU tensors.  ``run``: chunks a CTA owns at the least."""
     if pf.is_cpu:
         return region_part_torch(plan, operands, pf, sf, S)
     index = kernels.cuda_index(pf, "region_part")
@@ -142,6 +153,7 @@ def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
     _check_tensor(sf, "sf", torch.float32, "float32", plan.n_ef, index)
 
     dev = pf.device
+    run, tiles = scan_plan(S, resident_tiles(index), CHUNK, run)
     ops = _device_ops(tuple(plan.words), dev)
     scratch = torch.empty((plan.n_slots - plan.n_operands, S), dtype=torch.float32,
                           device=dev)
@@ -156,7 +168,7 @@ def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
         "mixlab_region_part", "region kernel launch", index,
         ops.data_ptr(), ops.numel(), ptrs.data_ptr(), pf.data_ptr(),
         sf.data_ptr(), taps.data_ptr(), stap.data_ptr(), plan.n_stap,
-        ef.data_ptr(), S,
+        ef.data_ptr(), S, run, tiles,
     )
     region_part_cuda.launches += 1
     return taps, stap, ef

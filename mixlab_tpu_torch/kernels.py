@@ -70,13 +70,15 @@ _SIGNATURES = {
     "mixlab_eq_cascade": [
         _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # x, xd, S, poles0, gains, tables
         _c_float, _c_float, _c_float,                    # f_lo, f_hi, vsa
+        _c_int, _c_int, _c_int,                          # run, threads, tiles
         _c_ptr, _c_ptr, _c_ptr,                          # scratch, out, poles_out
         _c_int, _c_ptr,                                  # device, stream
     ],
     "mixlab_region_part": [
         _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # ops, n_words, slots, pf, sf
         _c_ptr, _c_ptr, _c_int, _c_ptr,          # taps, stap, n_stap, ef
-        _c_int, _c_int, _c_ptr,                  # S, device, stream
+        _c_int, _c_int, _c_int,                  # S, run, tiles
+        _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_crossfade": [
         *[_c_ptr, _c_ptr, _c_ptr, _c_int] * 3,  # (a, b, out, n) per plane
@@ -94,6 +96,8 @@ _SIGNATURES = {
 # queries, called directly (no stream): name -> argtypes
 _QUERIES = {
     "mixlab_envelope_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
+    "mixlab_eq_resident_tiles": [_c_int, _c_int, _c_ptr],  # threads, device, int* resident
+    "mixlab_region_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
 }
 
 
@@ -185,6 +189,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.mixlab_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def query(name: str, what: str, *args) -> int:
+    """Call the C query ``name`` with ``args`` and an int out-parameter and
+    return the int; raise ``RuntimeError`` naming ``what`` on a CUDA error."""
+    lib = load()
+    n = ctypes.c_int(0)
+    check(lib, getattr(lib, name)(*args, ctypes.byref(n)), what)
+    return n.value
 
 
 def cuda_index(t, what: str) -> int:

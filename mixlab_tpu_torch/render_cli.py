@@ -10,7 +10,7 @@ asked for).  The output format follows the extension, as in the JAX CLI:
     encoder (``av/flacenc.py``);
   * ``.mp4``  — refused: the export reads the Monitor's pipe through the
     fMP4 codec pipeline (``MonitorPipeline``), which the port does not
-    carry yet (ROADMAP.md queue 1 item 6);
+    carry yet (ROADMAP.md queue 1, MonitorPipeline);
   * any other extension (``.wav``, ``.pcm``, ...) — a 16-bit PCM WAV file.
 
 ``--sample-rate 48000`` renders 60-tick blocks of 48,000 samples, a whole
@@ -95,7 +95,7 @@ def main(argv=None) -> np.ndarray:
     if args.output.lower().endswith(".mp4"):
         raise SystemExit(
             ".mp4 export is not ported: it needs the Monitor's fMP4 codec pipeline "
-            "(MonitorPipeline, ROADMAP.md queue 1 item 6); write .wav or .flac")
+            "(ROADMAP.md queue 1, MonitorPipeline); write .wav or .flac")
 
     from mixlab_tpu_torch.device import resolve_device
     from mixlab_tpu_torch.precision import switch_tf32_off

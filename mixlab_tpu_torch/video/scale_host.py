@@ -10,7 +10,7 @@ The JAX package's first choice here is a C++ twin
 (``mixlab_tpu/native``, ``scale_plane_banded``), with this numpy path as
 its fallback.  The port imports nothing of that package and runs the numpy
 path only; its copy of the C++ twin comes with ``StreamOutputController``
-(ROADMAP.md queue 1 item 15), the only caller of the host scale
+(ROADMAP.md queue 1, StreamOutputController), the only caller of the host scale
 (``mixlab_tpu/server/stream_output.py:344-360``).
 """
 

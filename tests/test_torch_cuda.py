@@ -75,7 +75,14 @@ def test_envelope_kernel_matches_twin(dev, S, attack, kind):
         assert abs(st_k["off_amp"].item() - st_t["off_amp"].item()) <= ENV_ATOL
 
 
-@pytest.mark.parametrize("S", [8192, 44_100, eqc.MAX_KERNEL_S, eqc.MAX_KERNEL_S + 1])
+# the kernel's edges: a run (RUN samples a thread) and a CTA's tile cut by S
+# (chip_smoke phase 4), both rates' blocks, the split bound
+EQ_SIZES = [1, eqc.RUN - 1, eqc.RUN + 1, eqc.THREADS * eqc.RUN - 1, eqc.THREADS * eqc.RUN,
+            eqc.THREADS * eqc.RUN + 1, 8192, 44_100, 48_000, eqc.MAX_KERNEL_S,
+            eqc.MAX_KERNEL_S + 1]
+
+
+@pytest.mark.parametrize("S", EQ_SIZES)
 def test_eq_kernel_matches_twin(dev, S):
     f_lo = _filter_coeff(FREQ_LO, 44_100)
     f_hi = _filter_coeff(FREQ_HI, 44_100)
@@ -93,6 +100,29 @@ def test_eq_kernel_matches_twin(dev, S):
         torch.cuda.synchronize()
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **EQ_TOL)
         np.testing.assert_allclose(p_k.cpu().numpy(), p_t.cpu().numpy(), **EQ_TOL)
+
+
+def test_eq_kernel_one_device_launch_per_call(dev):
+    """One eq call is one kernel on the card (the profiler's device items),
+    and the wrapper counts it once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    S = 44_100
+    x = torch.ones(S, device=dev)
+    args = (x, x, torch.zeros(4, 2, device=dev), torch.ones(3, device=dev), 0.06, 0.38, 0.0)
+    eqc.eq_cascade_cuda(*args)  # the tables reach the card once
+    torch.cuda.synchronize()
+    n = eqc.eq_cascade_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            eqc.eq_cascade_cuda(*args)
+        torch.cuda.synchronize()
+    items = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    assert len(items) == 1 and "eq_cascade_kernel" in next(iter(items)), items
+    assert next(iter(items.values())) == 5
+    assert eqc.eq_cascade_cuda.launches == n + 5
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -119,7 +149,7 @@ def test_launch_counters_count_launches(dev):
 
 
 REGION_CASES = [("flagship", 60, 1), ("flagship", 300, 2), ("flagship", 152, 1),
-                ("sink_zoo", 60, 1)]
+                ("sink_zoo", 60, 1), ("sink_zoo", 300, 2)]
 
 
 @pytest.mark.parametrize("graph,ticks,parts", REGION_CASES,

@@ -284,11 +284,11 @@ def test_engine_left_out_parts_raise_or_stay_silent():
     """What the port's engine leaves out raises naming its ROADMAP.md item,
     and a MediaSource without an opener is a silent feed, as in the JAX
     engine."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, MediaPlayer"):
         Engine(cfg=CFG, device="cpu", media_opener=lambda media_id: None)
     ws = tgraph.Workspace()
     ws.create_module(tp.ModuleParams("StreamOutput", tp.StreamOutputParams()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, StreamOutputController"):
         Engine(workspace=ws, cfg=CFG, device="cpu")
 
     eng = Engine(cfg=CFG, device="cpu")

@@ -172,7 +172,7 @@ def test_render_cli_writes_wav_for_any_other_extension(tmp_path):
 
 
 def test_render_cli_refuses_mp4(tmp_path):
-    with pytest.raises(SystemExit, match=r"fMP4 codec pipeline.*ROADMAP.md queue 1 item 6"):
+    with pytest.raises(SystemExit, match=r"fMP4 codec pipeline.*ROADMAP.md queue 1, MonitorPipeline"):
         render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.mp4"),
                          "--device", "cpu"])
     with pytest.raises(SystemExit, match="MonitorPipeline"):

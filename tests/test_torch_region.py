@@ -262,8 +262,9 @@ def test_clip_tap_is_bool(feed):
 
 
 def test_flagship_plan():
-    """The flagship's region as a plan: one EQ behind a barrier, the four
-    absorbed amplifiers as modulated amps (each one op: its L is its R),
+    """The flagship's region as a plan: one EQ (its grid barrier inside the
+    op: each CTA reads only its own chunks but the EQ's 3-sample halo), the
+    four absorbed amplifiers as modulated amps (each one op: its L is its R),
     the mixer's master as one mix per channel (its cue bus is read by
     nothing, so not computed), the Monitor's stereo tap."""
     ws = _port(bench.build_16_module_graph()[0])
@@ -277,7 +278,7 @@ def test_flagship_plan():
         region_cuda.region_part_cuda = real
     (plan,) = plans
     names = [OP_NAMES[code] for code, _ in plan.ops()]
-    assert names == ["AMP_MOD"] * 4 + ["SYNC", "EQ", "MIX", "MIX", "TAP", "TAP"]
+    assert names == ["AMP_MOD"] * 4 + ["EQ", "MIX", "MIX", "TAP", "TAP"]
     assert plan.n_operands == 6  # 4 oscillators, fm, envelope: deduplicated
     assert (plan.n_taps, plan.n_stap, plan.n_ef) == (2, 0, 11)
 
