@@ -31,7 +31,10 @@ imports no jax.  Phases, any failure of which exits non-zero:
      kernels must launch) and (b) at ``--sample-rate 48000`` (the region
      kernel once per block, the envelope kernel in the prelude); the audio
      is held against the float64 oracle (first 2 s) and the port's own CPU
-     render (all 10 s);
+     render (all 10 s); and (c) the ``.mp4`` export of 2 s at the defaults
+     on the pure codec tier: the file walks as ``ftyp``, ``moov`` (``avc1``,
+     ``mp4a``), then ``moof``/``mdat`` pairs with 86 AAC frames and 20
+     video frames, and the envelope and eq kernels launch once per block;
   7. timing, for information: each kernel vs its twin at the main path's
      shapes (and the region kernel on one part of a two-part block), the
      envelope kernel's device time per launch at 44,100 and 48,000 samples
@@ -101,7 +104,24 @@ imports no jax.  Phases, any failure of which exits non-zero:
      events in turns, both kernels' device time by the profiler), and the
      host time of each piece of a wrapper's launch path, the guarded path's
      (a device guard, a ``Stream`` object, messages formatted up front) and
-     the lean path's (``kernels.launch``).
+     the lean path's (``kernels.launch``);
+ 15. the served session on the card, the realtime engine's Monitor codec
+     threads live (pure tier): (a) in this process a ``ProjectHandle`` on
+     cuda and ``run_server`` on an ephemeral port; a WebSocket client of the
+     script's own builds ``flagship.realtime_video_ops`` (cameras fed at
+     60 fps as in phase 10), reads the Monitor's socket id from its
+     indication and subscribes to ``/_monitor/<id>`` for 10 s: the init
+     packet, then segments that walk as ``moof``/``mdat``; exactly one
+     crossfade launch per video tick (counts set to 0 and read on the
+     engine thread), the native CAVLC tier, and for information segments/s,
+     the pipe's dropped count, the encoders' ms per frame and per second of
+     audio and the served ``tick_once`` p50/p99 and share over 16.667 ms;
+     then, each encoder alone, the native and numpy CAVLC tiers' ms per
+     560x350 frame (byte-identical) and the AAC encoder's ms per second;
+     (b) ``python -m mixlab_tpu_torch --listen 127.0.0.1:<port>`` at its
+     default device: ``GET /`` with the port's ``index.html``, one client
+     op, SIGTERM -> exit 0 within 15 s with the op persisted.  Any
+     exception in a server, codec or engine thread fails the phase.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -186,6 +206,55 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def fmp4_boxes(data: bytes, start: int = 0, end=None):
+    """[(type, payload start, box end)] of the ISO-BMFF boxes in data[start:end]."""
+    end = len(data) if end is None else end
+    out = []
+    while start + 8 <= end:
+        size = int.from_bytes(data[start:start + 4], "big")
+        kind = data[start + 4:start + 8].decode("latin-1")
+        if size < 8 or start + size > end:
+            raise AssertionError(f"fmp4: bad {kind!r} box of {size} bytes at {start}")
+        out.append((kind, start + 8, start + size))
+        start += size
+    if start != end:
+        raise AssertionError(f"fmp4: {end - start} trailing bytes")
+    return out
+
+
+def parse_fmp4(data: bytes) -> dict:
+    """Walk a fragmented MP4 as the monitor writes it: ``ftyp``, ``moov``
+    (a ``trak`` per track, its sample entry ``avc1`` or ``mp4a``), then
+    ``moof``/``mdat`` pairs; -> {"codecs": {track id: entry}, "samples":
+    {entry: sample count}, "fragments": n}.  Raises on any other layout."""
+    top = fmp4_boxes(data)
+    kinds = [k for k, _, _ in top]
+    if kinds[:2] != ["ftyp", "moov"] or kinds[2:] != ["moof", "mdat"] * ((len(kinds) - 2) // 2):
+        raise AssertionError(f"fmp4 layout {kinds[:6]}... ({len(kinds)} boxes)")
+
+    def child(s, e, *path):
+        for kind in path:
+            s, e = next((a, b) for k, a, b in fmp4_boxes(data, s, e) if k == kind)
+        return s, e
+
+    codecs = {}
+    for kind, s, e in fmp4_boxes(data, top[1][1], top[1][2]):
+        if kind == "trak":
+            ts, _ = child(s, e, "tkhd")
+            track = int.from_bytes(data[ts + 12:ts + 16], "big")  # version 0
+            ss, se = child(s, e, "mdia", "minf", "stbl", "stsd")
+            entry = fmp4_boxes(data, ss + 8, se)[0][0]
+            codecs[track] = entry
+    samples = {entry: 0 for entry in codecs.values()}
+    for kind, s, e in top[2::2]:
+        ts, te = child(s, e, "traf")
+        hs, _ = child(ts, te, "tfhd")
+        track = int.from_bytes(data[hs + 4:hs + 8], "big")
+        rs, _ = child(ts, te, "trun")
+        samples[codecs[track]] += int.from_bytes(data[rs + 4:rs + 8], "big")
+    return {"codecs": codecs, "samples": samples, "fragments": (len(top) - 2) // 2}
 
 
 # --------------------------------------------------------------------------
@@ -990,24 +1059,46 @@ class Cameras:
             send.close()
 
 
+class NoCodec:
+    """Stands in for the Monitor's codec thread (``MonitorPipeline``) where a
+    phase reads the monitor pipe itself."""
+
+    socket_id = "no-codec"
+
+    def __init__(self, pipe, cfg):
+        pass
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+
 def realtime_engine(device, cams):
     """The port's ``Engine`` at 44.1 kHz, ``block_ticks=1``, built by one
     session's client ops: the flagship graph and, with ``cams``, two
     StreamInputs on those RTMP mountpoints and a VideoMixer(a=0, b=1,
-    fader=0.6) feeding the Monitor's video input.  Returns (engine, ids,
-    session id)."""
+    fader=0.6) feeding the Monitor's video input.  The Monitor gets no
+    codec thread (``NoCodec``): the caller reads its pipe.  Returns
+    (engine, ids, session id)."""
     from mixlab_tpu_torch import protocol as p
     from mixlab_tpu_torch.engine.config import EngineConfig
     from mixlab_tpu_torch.engine.engine import Engine
     from mixlab_tpu_torch.flagship import realtime_video_ops
+    from mixlab_tpu_torch.server import monitor
 
     eng = Engine(cfg=EngineConfig(sample_rate=RT_RATE), block_ticks=1, device=device)
     sid, _, events = eng.connect_session()
     ops, ids = realtime_video_ops(p, cams)
-    for seq, op in enumerate(ops, 1):
-        eng.update(sid, p.WorkspaceMessage(seq, op))
-        while not events.empty():  # read the broadcast, as a browser does
-            events.get_nowait()
+    real, monitor.MonitorPipeline = monitor.MonitorPipeline, NoCodec
+    try:
+        for seq, op in enumerate(ops, 1):
+            eng.update(sid, p.WorkspaceMessage(seq, op))
+            while not events.empty():  # read the broadcast, as a browser does
+                events.get_nowait()
+    finally:
+        monitor.MonitorPipeline = real
     n_links = sum(isinstance(op, p.CreateConnection) for op in ops)
     if (len(eng.ws.modules), len(eng.ws.connections)) != (len(ops) - n_links, n_links):
         raise AssertionError(f"the client ops built {len(eng.ws.modules)} modules and "
@@ -1778,6 +1869,659 @@ def launch_path_pieces(torch, dev, card, x, n=2000):
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# the .mp4 export and the served session
+
+
+MP4_SECONDS = 2
+SERVED_SECONDS = 10.0
+TICK_BUDGET_MS = 1000.0 / 60
+
+
+class _PureTier:
+    """``MIXLAB_CODEC_TIER=pure`` while the block runs: the zero-dependency
+    tier (AAC-LC + CAVLC H.264) that the parity tests hold to the JAX
+    package's, whatever CLI encoders the host has."""
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("MIXLAB_CODEC_TIER")
+        os.environ["MIXLAB_CODEC_TIER"] = "pure"
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("MIXLAB_CODEC_TIER", None)
+        else:
+            os.environ["MIXLAB_CODEC_TIER"] = self.old
+
+
+def mp4_path(torch, proj: Path, tmp: Path):
+    """``render_cli`` ``.mp4`` export of the flagship (its Monitor) for 2 s on
+    the card at its defaults (44.1 kHz, 60-tick blocks), with the launch
+    counts set to 0 just before and read just after: the file must walk as
+    ``ftyp``, ``moov`` (``avc1``, ``mp4a``), ``moof``/``mdat`` pairs with
+    2 s's samples, and the envelope and eq kernels launch once a block."""
+    from mixlab_tpu_torch import render_cli
+
+    out = tmp / "flagship.mp4"
+    counters = launch_counters()
+    with _PureTier():
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        render_cli.main([str(proj), str(out), "--seconds", str(MP4_SECONDS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {name: fn.launches for name, fn in counters.items()}
+    walk = parse_fmp4(out.read_bytes())
+    n_blocks = MP4_SECONDS * 60 // 60
+    want = {"mp4a": MP4_SECONDS * RT_RATE // 1024, "avc1": MP4_SECONDS * 60 // 6}
+    log(f"mp4 path: render_cli {MP4_SECONDS} s .mp4 on cuda in {wall:.3f} s, "
+        f"{out.stat().st_size} bytes, tracks {walk['codecs']}, samples {walk['samples']} "
+        f"(want {want}), {walk['fragments']} fragments, launches {launches}")
+    if sorted(walk["codecs"].values()) != ["avc1", "mp4a"] or walk["samples"] != want:
+        raise AssertionError(f"the .mp4 export holds {walk}, want samples {want}")
+    for name in ("envelope", "eq_cascade"):
+        if launches[name] != n_blocks:
+            raise AssertionError(f"the .mp4 export launched the {name} kernel "
+                                 f"{launches[name]} times in {n_blocks} blocks")
+    return launches
+
+
+async def ws_open(port: int, path: str):
+    """A WebSocket client of the script's own: the upgrade, then (reader,
+    writer)."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write((f"GET {path} HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+                  "Connection: Upgrade\r\nSec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ==\r\n"
+                  "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    if b" 101 " not in head.split(b"\r\n")[0]:
+        raise AssertionError(f"websocket upgrade of {path} refused: {head[:80]!r}")
+    return reader, writer
+
+
+async def ws_read(reader, timeout=30.0) -> bytes:
+    """One unmasked server frame's payload."""
+    import asyncio
+
+    async def read():
+        head = await reader.readexactly(2)
+        n = head[1] & 0x7F
+        if n == 126:
+            n = int.from_bytes(await reader.readexactly(2), "big")
+        elif n == 127:
+            n = int.from_bytes(await reader.readexactly(8), "big")
+        return await reader.readexactly(n)
+
+    return await asyncio.wait_for(read(), timeout)
+
+
+def ws_text(payload: str) -> bytes:
+    """A masked client text frame."""
+    import os
+
+    data, mask = payload.encode(), os.urandom(4)
+    n = len(data)
+    if n < 126:
+        head = bytes([0x81, 0x80 | n])
+    elif n < 65536:
+        head = bytes([0x81, 0x80 | 126]) + n.to_bytes(2, "big")
+    else:
+        head = bytes([0x81, 0x80 | 127]) + n.to_bytes(8, "big")
+    return head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(data))
+
+
+async def ws_op(reader, writer, seq, op):
+    """Send one client op; read until its Sync; -> the Updates before it."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.protocol import wire
+
+    writer.write(ws_text(json.dumps({"v": 1, "kind": "Workspace",
+                                     "m": wire.encode(p.WorkspaceMessage(seq, op))})))
+    await writer.drain()
+    updates = []
+    while True:
+        kind, body = wire.parse_envelope(await ws_read(reader))
+        if kind == "Sync":
+            if body != seq:
+                raise AssertionError(f"op {seq}: Sync {body}")
+            return updates
+        if kind == "Update":
+            updates.append(body)
+
+
+class ThreadFaults:
+    """Collects every exception that ends a thread and every ERROR record
+    logged (the engine's failed commands, the server loop's failed tasks)
+    while active; ``check`` raises if there was one."""
+
+    def __enter__(self):
+        import logging
+
+        self.faults = []
+        self.old_hook = threading.excepthook
+        threading.excepthook = lambda a: self.faults.append(
+            f"thread {a.thread.name if a.thread else '?'}: {a.exc_type.__name__}: {a.exc_value}")
+        faults = self.faults
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                faults.append(f"log {record.name}: {record.getMessage()}")
+
+        self.handler = Handler(level=logging.ERROR)
+        logging.getLogger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        threading.excepthook = self.old_hook
+        logging.getLogger().removeHandler(self.handler)
+
+    def check(self, what):
+        if self.faults:
+            raise AssertionError(f"{what}: {len(self.faults)} faults: {self.faults[:5]}")
+
+
+async def monitor_segments(port: int, socket_id: str, seconds: float, on_subscribed):
+    """Subscribe to ``/_monitor/<socket_id>``: the init packet must be an
+    fMP4 ``ftyp`` + ``moov``; then ``on_subscribed()``, and count the
+    segments for ``seconds``, each of which must walk as ``moof``/``mdat``.
+    -> (segments, elapsed seconds)."""
+    reader, writer = await ws_open(port, f"/_monitor/{socket_id}")
+    header, _, init = (await ws_read(reader)).partition(b"\n")
+    head = json.loads(header)
+    if head.get("mode") != "fmp4" or [k for k, _, _ in fmp4_boxes(init)] != ["ftyp", "moov"]:
+        raise AssertionError(f"monitor init packet {head}")
+    on_subscribed()
+    t0 = time.monotonic()
+    segments = 0
+    while time.monotonic() < t0 + seconds:
+        header, _, seg = (await ws_read(reader)).partition(b"\n")
+        if json.loads(header)["t"] == "init":
+            continue
+        if [k for k, _, _ in fmp4_boxes(seg)] != ["moof", "mdat"]:
+            raise AssertionError("a monitor segment is not moof/mdat")
+        segments += 1
+    elapsed = time.monotonic() - t0
+    writer.close()
+    return segments, elapsed
+
+
+def monitor_client(port: int, socket_id: str, seconds: float) -> None:
+    """The monitor client in a process of its own (``served_session`` with
+    ``client="process"``): prints ``subscribed`` once the init packet is in,
+    then one JSON line ``{"segments": n, "elapsed": s}``."""
+    import asyncio
+
+    segments, elapsed = asyncio.run(monitor_segments(
+        port, socket_id, seconds, lambda: print("subscribed", flush=True)))
+    print(json.dumps({"segments": segments, "elapsed": elapsed}), flush=True)
+
+
+class _NoAac:
+    """Stands in for the codec thread's AAC encoder in an attribution run:
+    takes the audio and gives no frames."""
+
+    def feed(self, pcm):
+        pass
+
+    def poll_frames(self):
+        return []
+
+
+def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
+                   client: str = "thread") -> dict:
+    """Phase 15 (a): a ``ProjectHandle`` on the card and ``run_server`` on an
+    ephemeral port in this process.  A client of the script's own builds
+    ``flagship.realtime_video_ops`` over the session socket, a feeder thread
+    publishes both cameras at 60 fps, and the client subscribes to the
+    Monitor's ``/_monitor/<socket id>`` for 10 s.  The launch counts are
+    set to 0 and read on the engine thread, at the Monitor's pipe pushes
+    that open and close the window, so the crossfade count must equal the
+    video ticks in it exactly.
+
+    ``aac=False`` swaps the codec thread's AAC encoder for ``_NoAac`` and
+    ``client="process"`` reads the monitor from a process of its own
+    (``monitor_client``): ``served_attribution`` runs those.  -> the
+    window's figures, its kernel launches under ``"launches"``."""
+    import asyncio
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.av.codecs import codec_tier
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.project import open_or_create
+    from mixlab_tpu_torch.flagship import realtime_video_ops
+    from mixlab_tpu_torch.server.app import run_server
+
+    cams_names = ("srv-cam1", "srv-cam2")
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    counters = launch_counters()
+    window = {"armed": False, "open": False, "video": 0, "items": 0, "launches": None}
+    # after the window: composites copied to the host on the engine thread
+    # at their push, and the pictures the codec thread fed its encoder
+    check = {"left": 0, "host": {}, "fed": {}}
+    walls = []
+    with _PureTier(), ThreadFaults() as faults:
+        proj = open_or_create(tmp / "served.mixlab", EngineConfig(sample_rate=RT_RATE),
+                              block_ticks=1, device=str(dev))
+        eng = proj.engine
+        tick_once = eng.tick_once
+
+        def timed_tick(*args):
+            t = time.perf_counter()
+            out = tick_once(*args)
+            walls.append(time.perf_counter() - t)
+            return out
+
+        eng.tick_once = timed_tick
+        cams = None  # the mountpoints listen once the ops have built the StreamInputs
+        stop = threading.Event()
+
+        def feeder():
+            start, k = time.monotonic(), 0
+            while not stop.is_set():
+                cams.publish(k, pool[k % len(pool)])
+                k += 1
+                stop.wait(max(0.0, start + k / 60 - time.monotonic()))
+
+        feed = threading.Thread(target=feeder, name="feeder")
+        loop = asyncio.new_event_loop()
+        server_thread = threading.Thread(target=loop.run_forever, name="server-loop")
+        server_thread.start()
+        tcp = None
+        try:
+            tcp, _ = asyncio.run_coroutine_threadsafe(
+                run_server(proj, "127.0.0.1", 0), loop).result(60)
+            port = tcp.sockets[0].getsockname()[1]
+
+            async def build():
+                reader, writer = await ws_open(port, "/session")
+                await ws_read(reader)  # WorkspaceState
+                await ws_read(reader)  # MediaLibrary
+                ops, ids = realtime_video_ops(p, cams_names)
+                socket_id = None
+                for seq, op in enumerate(ops, 1):
+                    for up in await ws_op(reader, writer, seq, op):
+                        if up["t"] == "SUCreateModule" and up["params"]["kind"] == "Monitor":
+                            socket_id = up["indication"]["value"]["socket_id"]
+                writer.close()
+                return ids, socket_id
+
+            ids, socket_id = asyncio.run_coroutine_threadsafe(build(), loop).result(120)
+            cams = Cameras(cams_names)
+            feed.start()
+            pipeline = eng._monitor_pipelines[ids["monitor"]]
+            if socket_id != pipeline.socket_id:
+                raise AssertionError(f"the Monitor's indication reads {socket_id!r}, its codec "
+                                     f"thread's socket is {pipeline.socket_id!r}")
+            pipe = eng.monitor_pipe(ids["monitor"])
+            push = pipe.push
+
+            def counted_push(item):
+                # runs on the engine thread at the end of each tick
+                if window["armed"] and not window["open"]:
+                    for fn in counters.values():
+                        fn.launches = 0
+                    window["open"] = True
+                elif window["open"] and window["launches"] is None:
+                    # this tick's crossfade launched before its push
+                    window["video"] += item[2] is not None
+                    window["items"] += 1
+                    if not window["armed"]:  # the push that closes the window
+                        window["launches"] = {n: fn.launches for n, fn in counters.items()}
+                elif check["left"] > 0 and item[2] is not None:
+                    pic = item[2].picture
+                    check["host"][item[0]] = (pic.settings, pic.to_numpy())
+                    check["left"] -= 1
+                return push(item)
+
+            pipe.push = counted_push
+
+            if not pipeline.broadcast.ready.wait(30):
+                raise AssertionError("the monitor's codecs were not ready in 30 s")
+            if not aac:
+                pipeline._aac = _NoAac()
+            armed = {}
+
+            def arm():
+                walls.clear()
+                armed["dropped"], armed["stats"] = pipe.dropped, dict(pipeline.stats)
+                window["armed"] = True
+
+            if client == "thread":
+                segments, elapsed = asyncio.run_coroutine_threadsafe(monitor_segments(
+                    port, socket_id, SERVED_SECONDS, arm), loop).result(SERVED_SECONDS + 60)
+            else:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", "import chip_smoke as cs; cs.monitor_client("
+                     f"{port}, {socket_id!r}, {SERVED_SECONDS})"],
+                    cwd=ROOT, stdout=subprocess.PIPE, text=True)
+                try:
+                    if proc.stdout.readline().strip() != "subscribed":
+                        raise AssertionError("the monitor client process did not subscribe")
+                    arm()
+                    out = proc.communicate(timeout=SERVED_SECONDS + 60)[0]
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                if proc.returncode != 0:
+                    raise AssertionError(f"the monitor client process exited {proc.returncode}")
+                got = json.loads(out.strip().splitlines()[-1])
+                segments, elapsed = got["segments"], got["elapsed"]
+            window["armed"] = False
+            dropped = pipe.dropped - armed["dropped"]
+            stats = {k: pipeline.stats[k] - armed["stats"][k] for k in armed["stats"]}
+            deadline = time.monotonic() + 10
+            while window["launches"] is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            checked = monitor_pictures(torch, np, pipeline, check)
+            cavlc = type(pipeline._h264._cavlc).__name__
+        finally:
+            stop.set()
+            if feed.is_alive():
+                feed.join(timeout=5)
+            eng.stop()
+
+            async def shut_down():
+                # close the listener and end every connection's task before
+                # the loop stops, so none is left pending
+                if tcp is not None:
+                    tcp.close()
+                tasks = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+
+            asyncio.run_coroutine_threadsafe(shut_down(), loop).result(30)
+            loop.call_soon_threadsafe(loop.stop)
+            server_thread.join(timeout=10)
+            loop.close()
+            if cams is not None:
+                cams.close()
+            proj.close()
+        faults.check("served session")
+    if window["launches"] is None:
+        raise AssertionError("the served window did not close on the engine thread")
+    launches = window["launches"]
+    w = np.sort(np.asarray(walls[:window["items"]]) * 1e3)
+    p50, p99 = float(np.percentile(w, 50)), float(np.percentile(w, 99))
+    over = float((w > TICK_BUDGET_MS).mean())
+    ms_frame = 1e3 * stats["video_s"] / max(stats["video_frames"], 1)
+    ms_audio_s = 1e3 * stats["audio_s"] / max(stats["audio_samples"] / RT_RATE, 1e-9)
+    variant = ("" if aac else ", AAC encoder a no-op") + (
+        ", client in a process of its own" if client == "process" else "")
+    log(f"served session{variant} [{card}]: codec tier {codec_tier()} (auto: "
+        f"{_auto_codec_tier()}), CAVLC tier {cavlc}; {segments} segments in {elapsed:.3f} s "
+        f"({segments / elapsed:.2f}/s); {window['items']} ticks in the window, "
+        f"{window['video']} with video, pipe dropped {dropped}; encode {ms_frame:.3f} ms "
+        f"per video frame ({stats['video_frames']} frames, scale included), "
+        f"{ms_audio_s:.3f} ms per second of audio; served tick_once p50 {p50:.3f} ms, "
+        f"p99 {p99:.3f} ms, over {TICK_BUDGET_MS:.3f} ms {100 * over:.2f}% of "
+        f"{len(w)} ticks; launches {launches}; {checked} fed pictures within 1 LSB "
+        f"of the engine's composites scaled on the host")
+    if cavlc != "NativeCavlcIntraEncoder":
+        raise AssertionError(f"the monitor's CAVLC tier is {cavlc}, not the native encoder")
+    if launches["crossfade"] != window["video"] or window["video"] < 60:
+        raise AssertionError(f"the served window launched the crossfade kernel "
+                             f"{launches['crossfade']} times in {window['video']} video ticks")
+    if segments < (10 if aac else 5) * SERVED_SECONDS:
+        raise AssertionError(f"only {segments} monitor segments in {elapsed:.1f} s")
+    return {"launches": launches, "segments_per_s": segments / elapsed,
+            "ticks": window["items"], "dropped": dropped, "p50": p50, "p99": p99,
+            "over": over, "ms_frame": ms_frame, "ms_audio_s": ms_audio_s}
+
+
+def served_attribution() -> int:
+    """For information, not part of ``main``: what in the process takes the
+    served session's tick wall.  On one card, in turns: the bare engine
+    (phase 10's ``tick_once`` with video: 300 ticks in direct drive, no
+    codec thread), then phase 15 (a) as ``main`` runs it, with the AAC
+    encoder a no-op, with the monitor client in a process of its own, with
+    both, and as ``main`` runs it again; then the bare engine again.  Run
+    from the repo's root:
+
+        python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.served_attribution())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.device import resolve_device
+    from mixlab_tpu_torch.precision import switch_tf32_off
+
+    card = card_line()
+    log(card)
+    switch_tf32_off()
+    dev = resolve_device("cuda")
+    kernels.load()
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    names = ("b-cam1", "b-cam2")
+
+    def bare(label):
+        eng, ids, _ = realtime_engine(str(dev), names)
+        cams = Cameras(names)
+        try:
+            pipe = eng.monitor_pipe(ids["monitor"])
+            _tick_walls(torch, eng, cams, pipe, pool, 20)  # warm-up
+            w = np.asarray(_tick_walls(torch, eng, cams, pipe, pool, 300)) * 1e3
+        finally:
+            cams.close()
+            eng.stop()
+        log(f"attribution, bare engine {label} [{card}]: tick_once p50 "
+            f"{np.percentile(w, 50):.3f} ms, p99 {np.percentile(w, 99):.3f} ms, over "
+            f"{TICK_BUDGET_MS:.3f} ms {100 * float((w > TICK_BUDGET_MS).mean()):.2f}% of 300 ticks")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        bare("before")
+        for i, (aac, client) in enumerate(((True, "thread"), (False, "thread"), (True, "process"),
+                                           (False, "process"), (True, "thread"))):
+            sub = Path(tmp) / f"variant{i}"
+            sub.mkdir()
+            served_session(torch, np, dev, card, sub, aac=aac, client=client)
+        bare("after")
+    return 0
+
+
+SERVED_CHECK_TICKS = 36
+
+
+def monitor_pictures(torch, np, pipeline, check) -> int:
+    """The pictures the codec thread fed its H.264 encoder against the
+    engine's own composites: for the next ``SERVED_CHECK_TICKS`` pushes with
+    a picture, the engine thread copies the composite to the host as it
+    pushes it (``check["host"]``); the codec thread, which scales the
+    composite on the card on its own thread, records what it fed the
+    encoder (``check["fed"]``).  Each fed picture must be within 1 LSB of
+    its composite scaled on the host (the scale's f32 sums, card against
+    CPU).  A picture the codec thread read while the engine was still
+    writing it, or after its memory was reused, would differ by far more.
+    -> the number of pictures compared (at least 4)."""
+    from mixlab_tpu_torch.av.codecs import MONITOR_PICTURE
+    from mixlab_tpu_torch.video.frame import Picture
+    from mixlab_tpu_torch.video.scale import scale_picture
+
+    encode, h264_feed, current = pipeline._encode_tick_fmp4, pipeline._h264.feed, {}
+
+    def encode_tick(t0, audio, video):
+        current["t0"] = t0
+        out = encode(t0, audio, video)
+        current["done"] = t0
+        return out
+
+    def feed(pic):
+        if "t0" in current:  # not a tick that began before the wrappers
+            check["fed"][current["t0"]] = pic.to_numpy()
+        return h264_feed(pic)
+
+    pipeline._h264.feed, pipeline._encode_tick_fmp4 = feed, encode_tick
+    check["left"] = SERVED_CHECK_TICKS
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and (
+            check["left"] or current.get("done", -1) < max(check["host"])):
+        time.sleep(0.01)
+    both = sorted(set(check["host"]) & set(check["fed"]))
+    for t0 in both:
+        settings, planes = check["host"][t0]
+        want = scale_picture(Picture(settings, {k: torch.from_numpy(v) for k, v in
+                                                planes.items()}), MONITOR_PICTURE).to_numpy()
+        for k, got in check["fed"][t0].items():
+            err = int(np.abs(got.astype(np.int32) - want[k].astype(np.int32)).max())
+            if got.shape != want[k].shape or err > 1:
+                raise AssertionError(f"the monitor fed its encoder a picture at t0={t0} "
+                                     f"whose {k} plane is {err} LSB from the engine's composite")
+    if len(both) < SERVED_CHECK_TICKS // 6 - 2:
+        raise AssertionError(f"only {len(both)} fed pictures matched the engine's "
+                             f"{len(check['host'])} composites")
+    return len(both)
+
+
+def _auto_codec_tier() -> str:
+    import os
+
+    from mixlab_tpu_torch.av.codecs import codec_tier
+
+    old = os.environ.pop("MIXLAB_CODEC_TIER", None)
+    try:
+        return codec_tier()
+    finally:
+        if old is not None:
+            os.environ["MIXLAB_CODEC_TIER"] = old
+
+
+def codec_timing(torch, np, dev, card, n_frames=10, audio_seconds=2):
+    """For information, on the card's host, each encoder alone on this
+    thread: the CAVLC tiers' ms per 560x350 frame (the native C++ encoder
+    and the numpy one, which must give the same bytes) on the cameras'
+    content scaled on the card, and the pure AAC-LC encoder's ms per second
+    of 44.1 kHz stereo."""
+    from mixlab_tpu_torch.av.codecs import MONITOR_PICTURE, PureAacStream
+    from mixlab_tpu_torch.av.encode_stream import f32_to_i16
+    from mixlab_tpu_torch.av.h264cavlc_fast import (FastCavlcIntraEncoder,
+                                                     NativeCavlcIntraEncoder)
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+    from mixlab_tpu_torch.video.scale import scale_picture
+
+    pics = []
+    for tick in range(2):
+        for size, planes in zip(CAM_SIZES, cam_frames(torch, np, dev, tick)[0]):
+            pic = Picture(PictureSettings(*size), planes).to(dev)
+            pics.append(Picture(MONITOR_PICTURE,
+                                scale_picture(pic, MONITOR_PICTURE).to_numpy()))
+    ms, units = {}, {}
+    for name, enc in (("native", NativeCavlcIntraEncoder(30)),
+                      ("numpy", FastCavlcIntraEncoder(30))):
+        units[name] = [enc.encode_frame(pic) for pic in pics]  # warm-up and the bytes
+        t = time.perf_counter()
+        for i in range(n_frames):
+            enc.encode_frame(pics[i % len(pics)])
+        ms[name] = 1e3 * (time.perf_counter() - t) / n_frames
+    rng = np.random.default_rng(15)
+    n = audio_seconds * RT_RATE
+    tone = 0.5 * np.sin(2 * np.pi * 440.0 * np.arange(n) / RT_RATE)
+    audio = np.stack([tone, -tone], axis=1) + 0.05 * rng.standard_normal((n, 2))
+    aac = PureAacStream(RT_RATE, 2)
+    t = time.perf_counter()
+    for i in range(0, n, RT_SPT):  # fed a tick at a time, as the codec thread does
+        aac.feed(f32_to_i16(audio[i:i + RT_SPT].astype(np.float32).reshape(-1)))
+        aac.poll_frames()
+    ms_audio = 1e3 * (time.perf_counter() - t) / audio_seconds
+    log(f"codec timing, each encoder alone on one host thread [{card}]: CAVLC per "
+        f"560x350 frame native {ms['native']:.3f} ms, numpy {ms['numpy']:.3f} ms "
+        f"({n_frames} frames of the cameras' content, qp 30); pure AAC-LC "
+        f"{ms_audio:.3f} ms per second of audio ({audio_seconds} s in ticks of {RT_SPT})")
+    if units["native"] != units["numpy"]:
+        raise AssertionError("the native and numpy CAVLC tiers disagree")
+
+
+def served_subprocess(tmp: Path):
+    """Phase 15 (b): ``python -m mixlab_tpu_torch --listen 127.0.0.1:<port>
+    <tmp>/p.mixlab`` at its default device: the listening line, ``GET /``
+    with the port's ``index.html``, one client op, then SIGTERM: exit 0
+    within 15 s with the op's module in the workspace row."""
+    import asyncio
+    import signal
+    import socket
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.project import ProjectBase
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    path = tmp / "p.mixlab"
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "mixlab_tpu_torch", "--listen",
+                             f"127.0.0.1:{port}", str(path)], cwd=ROOT,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines = []
+
+    def read_err():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+
+    reader_thread = threading.Thread(target=read_err, name="stderr")
+    reader_thread.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not any("listening on" in line for line in lines):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("the server did not listen:\n" + "\n".join(lines[-20:]))
+            time.sleep(0.05)
+        t_listen = time.perf_counter() - t
+
+        async def drive():
+            r, w = await asyncio.open_connection("127.0.0.1", port)
+            w.write(b"GET / HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+            await w.drain()
+            data = await asyncio.wait_for(r.read(-1), 30)
+            head, _, body = data.partition(b"\r\n\r\n")
+            index = (ROOT / "mixlab_tpu_torch/server/static/index.html").read_bytes()
+            if not head.startswith(b"HTTP/1.1 200 OK") or body != index:
+                raise AssertionError(f"GET / answered {head[:40]!r} ({len(body)} bytes)")
+            reader, writer = await ws_open(port, "/session")
+            await ws_read(reader)
+            await ws_read(reader)
+            await ws_op(reader, writer, 1, p.CreateModule(
+                p.ModuleParams("Oscillator", p.OscillatorParams(440.0, p.Waveform.SINE)),
+                p.WindowGeometry()))
+            writer.close()
+
+        asyncio.run(drive())
+        proc.send_signal(signal.SIGTERM)
+        t_term = time.perf_counter()
+        rc = proc.wait(15)
+        t_exit = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader_thread.join(timeout=5)
+    with ProjectBase(path) as base:
+        saved = base.read_workspace()
+    log(f"served subprocess: listening after {t_listen:.2f} s, GET / 200 with the port's "
+        f"index.html, one op, SIGTERM -> exit {rc} in {t_exit:.2f} s; workspace row "
+        f"{json.dumps(saved)[:160]}")
+    if rc != 0:
+        raise AssertionError(f"the server exited {rc} on SIGTERM:\n" + "\n".join(lines[-20:]))
+    if saved is None or "Oscillator" not in json.dumps(saved):
+        raise AssertionError(f"the op's module is not in the workspace row: {saved}")
+
+
 def ptxas_summary(text, names=("eq_cascade_kernel", "region_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
     bytes)} from the build log's ``-Xptxas -v`` lines."""
@@ -1848,12 +2592,16 @@ def main() -> int:
         with ProjectBase(proj) as base:
             base.write_workspace(build_16_module_graph()[0].to_persist())
         paths = {str(sr): main_path(torch, np, proj, tmp, sr) for sr in (44_100, 48_000)}
+        paths["mp4"] = mp4_path(torch, proj, tmp)
         paths["realtime"] = realtime_path(torch, np, dev)
         paths["composite"] = composite_path(torch, np, dev, card)
         paths["profile"] = profile_path(torch, dev, card)
         times = timing(torch, np, dev, card, proj)
         times.update(realtime_timing(torch, np, dev, card))
         times.update(video_timing(torch, np, dev, card))
+        paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
+        codec_timing(torch, np, dev, card)
+        served_subprocess(tmp)
 
     # each kernel's launches on the main path that carries it
     launches = {"envelope": paths["44100"]["envelope"], "eq_cascade": paths["44100"]["eq_cascade"],

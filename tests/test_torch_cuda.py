@@ -288,6 +288,22 @@ def test_cuda_engine_ticks_launch_the_crossfade_once_each(dev):
         eng.stop()
 
 
+
+def test_cuda_served_session_streams_the_monitor(dev, tmp_path, monkeypatch):
+    """The served session on the card (``chip_smoke.served_session``, 3 s,
+    small frames): the session socket builds the realtime workspace, the
+    Monitor's socket streams fMP4 segments from the native CAVLC tier, and
+    the crossfade launches once per video tick; the pictures the codec
+    thread fed its encoder are within 1 LSB of the engine's composites."""
+    import chip_smoke
+
+    sizes = ((96, 54), (64, 48))
+    monkeypatch.setattr(chip_smoke.cam_frames, "__defaults__", (sizes,))
+    monkeypatch.setattr(chip_smoke.Cameras.__init__, "__defaults__", (sizes,))
+    monkeypatch.setattr(chip_smoke, "SERVED_SECONDS", 3.0)
+    launches = chip_smoke.served_session(torch, np, dev, "card", tmp_path)["launches"]
+    assert launches["crossfade"] >= 60
+
 RESIZE_CASES = [
     ([(720, 1280), (360, 640), (360, 640)], [(1080, 1920), (540, 960), (540, 960)]),
     ([(240, 250)], [(256, 125)]),

@@ -2,9 +2,10 @@
 
 Both engines run in direct drive (``tick_once``) on the same client ops and
 the same ingest (numpy frames and i16 audio made from seeds), each on its own
-mountpoint registry.  The JAX engine's Monitor codec thread is replaced by a
-stub that reads nothing (the port has no codec thread yet), so the tests read
-each engine's monitor pipe themselves.
+mountpoint registry.  Both engines' Monitor codec threads are replaced by a
+stub that reads nothing, so the tests read each engine's monitor pipe
+themselves (``tests/test_torch_monitor.py`` holds the codec threads to each
+other).
 
 Tolerances: the broadcast ops are compared as wire bytes (exact); monitor
 audio within 2^-11, the documented deviation of the JAX package's jitted
@@ -54,7 +55,7 @@ CAM_SIZES = ((96, 54), (64, 48))
 
 
 class _NoCodec:
-    """Stands in for the JAX engine's Monitor codec thread, which would
+    """Stands in for each engine's Monitor codec thread, which would
     consume the monitor pipe that the tests read."""
 
     socket_id = "no-codec"
@@ -72,6 +73,7 @@ class _NoCodec:
 @pytest.fixture(autouse=True)
 def _no_monitor_codec(monkeypatch):
     monkeypatch.setattr("mixlab_tpu.server.monitor.MonitorPipeline", _NoCodec)
+    monkeypatch.setattr("mixlab_tpu_torch.server.monitor.MonitorPipeline", _NoCodec)
 
 
 def _drain(q):
@@ -320,6 +322,7 @@ def flagship_video():
     yields (sides, per-tick outputs), the engines left at tick 8."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("mixlab_tpu.server.monitor.MonitorPipeline", _NoCodec)
+        mp.setattr("mixlab_tpu_torch.server.monitor.MonitorPipeline", _NoCodec)
         sides = [_Side(True, ("fv-cam1", "fv-cam2")), _Side(False, ("fv-cam1", "fv-cam2"))]
         try:
             outs = [[side.tick(i) for i in range(8)] for side in sides]
@@ -359,6 +362,7 @@ def test_checkpoints_restore_across_engines(flagship_video):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("mixlab_tpu.server.monitor.MonitorPipeline", _NoCodec)
+        mp.setattr("mixlab_tpu_torch.server.monitor.MonitorPipeline", _NoCodec)
         bj = _Side(True, ("ck-cam1", "ck-cam2"),
                    workspace=jgraph.Workspace.from_persist(ck_t["workspace"]))
         bt = _Side(False, ("ck-cam1", "ck-cam2"),

@@ -16,6 +16,7 @@ from mixlab_tpu.engine.config import EngineConfig as JaxEngineConfig
 from mixlab_tpu.engine.project import ProjectBase as JaxProjectBase
 from mixlab_tpu.engine.scan_render import render_scanned as jax_render_scanned
 from mixlab_tpu.io_host.wav import decode_frames, parse_header
+from mixlab_tpu_torch import protocol as tp
 from mixlab_tpu_torch import render_cli
 from mixlab_tpu_torch.convert import to_numpy, to_torch
 from mixlab_tpu_torch.engine import scan_render
@@ -171,13 +172,57 @@ def test_render_cli_writes_wav_for_any_other_extension(tmp_path):
     assert frames["out.pcm"] == frames["out.wav"] == frames["out.WAVE"]
 
 
-def test_render_cli_refuses_mp4(tmp_path):
-    with pytest.raises(SystemExit, match=r"fMP4 codec pipeline.*ROADMAP.md queue 1, MonitorPipeline"):
-        render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.mp4"),
-                         "--device", "cpu"])
-    with pytest.raises(SystemExit, match="MonitorPipeline"):
-        render_cli.main([str(tmp_path / "p.mixlab"), str(tmp_path / "x.MP4"),
-                         "--device", "cpu"])
+def test_render_cli_refuses_mp4(tmp_path, monkeypatch):
+    """An .mp4 export is refused where it cannot be made: a project without
+    a Monitor, and the libavcodec shim tier, which the port does not carry
+    (named by its ROADMAP.md item)."""
+    ws = Workspace()
+    ws.create_module(tp.ModuleParams("Oscillator", tp.OscillatorParams()), tp.WindowGeometry())
+    proj = tmp_path / "no_monitor.mixlab"
+    with ProjectBase(proj) as base:
+        base.write_workspace(ws.to_persist())
+    with pytest.raises(SystemExit, match="no Monitor module"):
+        render_cli.main([str(proj), str(tmp_path / "x.mp4"), "--device", "cpu"])
+    monkeypatch.setenv("MIXLAB_CODEC_TIER", "shim")
+    with pytest.raises(RuntimeError, match="ROADMAP.md queue 1, Shim codec tier"):
+        render_cli.main([str(proj), str(tmp_path / "x.MP4"), "--device", "cpu"])
+    assert not (tmp_path / "x.mp4").exists() and not (tmp_path / "x.MP4").exists()
+
+
+def test_render_cli_writes_mp4(tmp_path, monkeypatch):
+    """The flagship with its Monitor exported to .mp4 on the CPU for 1 s in
+    60-tick blocks: ``ftyp``, ``moov`` with ``avc1`` and ``mp4a``, then
+    ``moof``/``mdat`` pairs, with 1 s's samples (43 AAC frames of 1,024,
+    10 video frames at 60 / 6 fps), read back by the JAX package's demuxer;
+    the AAC frames are those of the port's WAV render of the same second."""
+    import chip_smoke
+    from mixlab_tpu.av.mp4read import Mp4Reader
+    from mixlab_tpu_torch.av.codecs import PureAacStream
+    from mixlab_tpu_torch.av.encode_stream import f32_to_i16
+
+    monkeypatch.setenv("MIXLAB_CODEC_TIER", "pure")
+    ws, _ = build_16_module_graph()
+    proj = tmp_path / "flagship.mixlab"
+    with ProjectBase(proj) as base:
+        base.write_workspace(ws.to_persist())
+    out = tmp_path / "out.mp4"
+    assert render_cli.main([str(proj), str(out), "--seconds", "1", "--device", "cpu"]) is None
+    data = out.read_bytes()
+    walk = chip_smoke.parse_fmp4(data)
+    assert sorted(walk["codecs"].values()) == ["avc1", "mp4a"]
+    assert walk["samples"] == {"mp4a": 44_100 // 1024, "avc1": 10}
+    reader = Mp4Reader(data)
+    video, audio = reader.video_track(), reader.audio_track()
+    assert (video.codec, video.width, video.height) == ("h264", 560, 350)
+    assert (audio.codec, audio.sample_rate, audio.channels) == ("aac", 44_100, 2)
+    assert len(video.samples) == 10 and all(s.key for s in video.samples)
+    # the audio track is the AAC of the offline render of the same second
+    wav = render_cli.main([str(proj), str(tmp_path / "out.wav"), "--seconds", "1",
+                           "--device", "cpu"])
+    aac = PureAacStream(44_100, 2)
+    aac.feed(f32_to_i16(wav.reshape(-1)))
+    want = [f[7:] for f in aac.poll_frames()]  # raw blocks: the ADTS header stripped
+    assert [reader.sample_data(s) for s in audio.samples] == want
 
 
 def test_render_cli_48k_runs_the_region_and_matches_oracle(tmp_path, monkeypatch):

@@ -67,6 +67,40 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "video.resize_cuda", "video.fused", "video.scale_host", "tools",
         "tools.profile_env_eq")} <= names
+    # the served session: the entry point, the server, the codecs, the
+    # host C++ loader and the protocol sniffer
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "__main__", "server", "server.app", "server.http", "server.ws", "server.monitor",
+        "server.fleet", "av.aac", "av.aac_tables", "av.aacenc", "av.avc", "av.sps",
+        "av.h264enc", "av.h264cavlc", "av.h264cavlc_fast", "av.mp4", "av.encode_stream",
+        "av.codecs", "native", "io_host.listen", "engine.project")} <= names
+
+
+_CONCURRENT_BUILD = r"""
+import sys
+from pathlib import Path
+from mixlab_tpu_torch import native
+
+native.BUILD_DIR = Path(sys.argv[1])
+print(native.build())
+assert native.available()
+"""
+
+
+def test_native_build_is_atomic_under_concurrent_first_use(tmp_path):
+    """Six processes start the host C++ build at once into an empty folder:
+    one library results, every process loads it, and no temporary file is
+    left behind."""
+    procs = [subprocess.Popen([sys.executable, "-c", _CONCURRENT_BUILD, str(tmp_path)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err for _, err in outs]
+    paths = {out.strip() for out, _ in outs}
+    assert len(paths) == 1
+    (path,) = paths
+    assert sorted(f.name for f in tmp_path.iterdir()) == sorted(
+        [Path(path).name, Path(path).with_suffix(".lock").name])
 
 
 def test_resolve_device():
