@@ -121,7 +121,28 @@ imports no jax.  Phases, any failure of which exits non-zero:
      (b) ``python -m mixlab_tpu_torch --listen 127.0.0.1:<port>`` at its
      default device: ``GET /`` with the port's ``index.html``, one client
      op, SIGTERM -> exit 0 within 15 s with the op persisted.  Any
-     exception in a server, codec or engine thread fails the phase.
+     exception in a server, codec or engine thread fails the phase;
+ 16. the batched paths, each with the launch counts set to 0 just before and
+     read just after: (a) the batched eq kernel (B = 1, 2, 32, 133, 1,024 x
+     S = 8,192, 12,000, 44,100, 96,000) and the batched envelope kernel
+     (B = 1, 2, 32, 1,024 x S = 32,768, 48,000, 96,000; dense and sparse
+     gates) against their batched twins over 3 carried blocks (EQ_TOL,
+     ENV_ATOL), exactly one device launch a call for every B (profiler),
+     and each form's time, device time, bound and twin time at B = 1,024 and
+     8,192 x 12,000 and 32 x 96,000; (b) the fleet: the flagship at 48 kHz
+     in 15-tick blocks, N = 1,024 sessions with their own params, one eq
+     launch and no envelope launch a block, four slots against single-patch
+     renders on the card (EQ_TOL); for information N = 1,024 and 8,192: wall
+     per block, realtime multiple, device busy share and peak memory; (c)
+     fleet serving: a ``FleetEngine`` of 1,024 slots on the card behind a
+     ``FleetServeApp``, 16 WebSocket clients for 5 s: joins, states, framed
+     i16 PCM, one edit and its Sync, every unedited session within 1 LSB of
+     a dedicated render from its join; blocks/s and the share over the
+     250 ms budget; (d) ``stem_parallel_step`` with 16 stems (master =
+     16 x one stem within 2e-4, one eq launch), the resampler against
+     ``resample_block_np`` within 2e-6 (refused under cuDNN TF32), and
+     config 3 (16 stereo stems 44.1 -> 48 kHz and the per-channel eq,
+     B = 32 x 96,000) as x realtime.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -1748,7 +1769,7 @@ def envelope_call_pieces(torch, envc, card, x, st, prm):
     buf = torch.empty(S + 4 + 16 * tiles, device=x.device)
     outs = {k: torch.empty_like(v) for k, v in st.items()}
     fn = kernels.load().mixlab_envelope_block
-    args = (x.data_ptr(), buf.data_ptr(), S, lane, tiles, buf.data_ptr() + 4 * (S + 4),
+    args = (x.data_ptr(), buf.data_ptr(), S, 1, 0, lane, tiles, buf.data_ptr() + 4 * (S + 4),
             *(prm[k].data_ptr() for k in envc._PARAMS), MS_PER_SAMPLE,
             *(st[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")),
             *(outs[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")), index)
@@ -2522,7 +2543,619 @@ def served_subprocess(tmp: Path):
         raise AssertionError(f"the op's module is not in the workspace row: {saved}")
 
 
-def ptxas_summary(text, names=("eq_cascade_kernel", "region_kernel")):
+# ---------------------------------------------------------------------------
+# phase 16: the batched paths (the fleet, fleet serving, stems, the resampler)
+# ---------------------------------------------------------------------------
+
+FLEET_TICKS = 15                      # server/fleet_serve.py: 0.25 s a block at 60 Hz
+FLEET_N = (1024, 8192)
+FLEET_AUDIO_S = FLEET_TICKS / 60
+BATCH_EQ = ((1, 2, 32, 133, 1024), (8192, 12_000, 44_100, 96_000))
+BATCH_ENV = ((1, 2, 32, 1024), (32_768, 48_000, 96_000))
+# the rows' batched shapes in PERF.md: the fleet's (N x 12,000) and config 3's
+BATCH_TIMED = ((1024, 12_000), (8192, 12_000), (32, 96_000))
+RESAMPLE_ATOL = 2e-6
+MIX_ATOL = 2e-4          # tests/test_multichip.py:29
+SERVED_SLOTS = 1024
+SERVED_CLIENTS = 16
+SERVED_SECONDS = 5.0
+
+
+def kernel_launches(torch, fn, n=10):
+    """(kernel launches per call, device us per launch, kernel name) from the
+    profiler over ``n`` calls of ``fn``: the launches are the CUDA runtime's
+    launch calls traced on the host (the device rows of a profile in this
+    process have come up short), and every device kernel seen
+    must be the one named."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                   and e.key.startswith(("cudaLaunch", "cuLaunch")))
+    rows = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if len(rows) != 1 or rows[0].count > n:
+        raise AssertionError(f"device kernels seen: {[(e.key[:60], e.count) for e in rows]}")
+    # without traced launch calls, the device rows count them
+    per_call = (launches or rows[0].count) / n
+    return per_call, rows[0].self_device_time_total / rows[0].count, rows[0].key
+
+
+def _close(torch, got, want, tol):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= tol["atol"] + tol["rtol"] * want.float().abs()).all()), err.max().item()
+
+
+def batched_kernels(torch, np, dev, card):
+    """(a) the batched eq and envelope kernels against their batched twins
+    at every B x S of the lists, 3 carried blocks; one device launch per
+    call for every B; then, for information, each form's time per call, device
+    time per launch, bound and twin time at the fleet's and config 3's
+    shapes."""
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    g = torch.Generator(device=dev).manual_seed(16)
+    rand = lambda *shape, lo=-1.0, hi=1.0: torch.rand(
+        shape, generator=g, device=dev) * (hi - lo) + lo
+    worst = {"eq_cascade": 0.0, "envelope": 0.0}
+    eq_r, env_r = eqc.resident_tiles(dev.index or 0), envc.resident_tiles(dev.index or 0)
+    for B in BATCH_EQ[0]:
+        for S in BATCH_EQ[1]:
+            seq, run, tiles = eqc.batch_plan(S, B, eq_r)
+            gains = rand(B, 3, lo=0.5, hi=2.0)
+            pk = rand(B, 4, 2, lo=-0.1, hi=0.1)
+            pt = pk.clone()
+            for blk in range(3):
+                x, xd = rand(B, S), rand(B, S)
+                got, pk = eqc.eq_cascade_batched(x, xd, pk, gains, *f)
+                want, pt = eqc.eq_cascade_torch_batched(x, xd, pt, gains, *f)
+                for name, a, b in (("out", got, want), ("poles", pk, pt)):
+                    ok, err = _close(torch, a, b, EQ_TOL)
+                    if not ok:
+                        raise AssertionError(f"batched eq B={B} S={S} block {blk} {name}: "
+                                             f"max err {err}")
+                    worst["eq_cascade"] = max(worst["eq_cascade"], err)
+            launch = ""
+            if S == BATCH_EQ[1][1]:  # one device launch a call, for every B
+                per_call, _, name = kernel_launches(
+                    torch, lambda: eqc.eq_cascade_batched(x, xd, pk, gains, *f))
+                if per_call != 1:
+                    raise AssertionError(f"batched eq B={B} S={S}: {per_call} device launches "
+                                         "a call")
+                launch = f", 1 device launch a call ({name})"
+            log(f"batched eq kernel vs twin B={B} S={S} "
+                f"({'one CTA a block' if seq else f'grid {tiles} x {B}'}, L={run}): ok "
+                f"(3 blocks){launch}")
+    for B in BATCH_ENV[0]:
+        for S in BATCH_ENV[1]:
+            seq, lane, tiles = envc.batch_plan(S, B, env_r)
+            params = {"attack_ms": rand(B, lo=0.0, hi=30.0), "decay_ms": rand(B, lo=1.0, hi=500.0),
+                      "sustain_amplitude": rand(B, lo=0.0, hi=1.0),
+                      "release_ms": rand(B, lo=1.0, hi=300.0)}
+            for kind, p_edge in (("dense", 0.3), ("sparse", 2e-4)):
+                u = torch.rand((3, B, S), generator=g, device=dev)
+                xs = torch.where(u < p_edge, 0.0, torch.where(u < 2 * p_edge, 1.0, 0.5))
+                sk = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
+                      "on_pos": torch.full((B,), envc.POS_FLOOR, dtype=torch.int32, device=dev),
+                      "off_pos": torch.full((B,), envc.POS_FLOOR, dtype=torch.int32, device=dev),
+                      "off_amp": torch.zeros(B, device=dev)}
+                st = dict(sk)
+                for blk in range(3):
+                    got, sk = envc.envelope_block_batched(xs[blk], sk, params, 1000 / 48_000)
+                    want, st = envc.envelope_block_torch_batched(xs[blk], st, params, 1000 / 48_000)
+                    err = max((got - want).abs().max().item(),
+                              (sk["off_amp"] - st["off_amp"]).abs().max().item())
+                    same = all(torch.equal(sk[k], st[k]) for k in ("mode_on", "on_pos", "off_pos"))
+                    if not (err <= ENV_ATOL and same):
+                        raise AssertionError(f"batched envelope B={B} S={S} {kind} block {blk}: "
+                                             f"max err {err}, integer state equal {same}")
+                    worst["envelope"] = max(worst["envelope"], err)
+            launch = ""
+            if S == BATCH_ENV[1][0]:  # one device launch a call, for every B
+                per_call, _, name = kernel_launches(
+                    torch, lambda: envc.envelope_block_batched(xs[0], sk, params, 1000 / 48_000))
+                if per_call != 1:
+                    raise AssertionError(f"batched envelope B={B} S={S}: {per_call} device "
+                                         "launches a call")
+                launch = f", 1 device launch a call ({name})"
+            log(f"batched envelope kernel vs twin B={B} S={S} "
+                f"({'one CTA a block' if seq else f'grid {tiles} x {B}'}, C={lane}): ok (dense, "
+                f"sparse; 3 blocks){launch}")
+
+    times = {"eq_cascade": {}, "envelope": {}}
+    for B, S in BATCH_TIMED:
+        x, xd = rand(B, S), rand(B, S)
+        poles, gains = rand(B, 4, 2, lo=-0.1, hi=0.1), rand(B, 3, lo=0.5, hi=2.0)
+        eq_bound = bound(12.0 * B * S, eq_flops(S) * B)
+        eq_call = lambda: eqc.eq_cascade_batched(x, xd, poles, gains, *f)
+        _, eq_dev, _ = kernel_launches(torch, eq_call, n=5)
+        times["eq_cascade"][f"{B}x{S}"] = row = {
+            "ms": time_ms(torch, eq_call, n=20, warmup=3), "device_us": eq_dev,
+            "plain_ms": time_ms(torch, lambda: eqc.eq_cascade_torch_batched(
+                x, xd, poles, gains, *f), n=3, warmup=1),
+            "bound_ms": eq_bound[0], "bound_by": eq_bound[1],
+            "form": "one CTA a block" if eqc.batch_plan(S, B, eq_r)[0] else "grid"}
+        log(f"batched eq B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {eq_dev:.1f} us "
+            f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
+            f"{eq_bound[0] * 1e3:.1f} us ({eq_bound[1]}), share of the bound "
+            f"{eq_bound[0] * 1e3 / eq_dev:.3f}")
+        gate = (rand(B, S) > 0.9998).to(torch.float32)
+        st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
+              "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+              "off_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+              "off_amp": torch.zeros(B, device=dev)}
+        prm = {k: torch.full((B,), v, device=dev) for k, v in dict(
+            attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
+        env_bound = bound(8.0 * B * S, 0.0)
+        env_call = lambda: envc.envelope_block_batched(gate, st, prm, 1000 / 48_000)
+        _, env_dev, _ = kernel_launches(torch, env_call, n=5)
+        times["envelope"][f"{B}x{S}"] = row = {
+            "ms": time_ms(torch, env_call, n=20, warmup=3), "device_us": env_dev,
+            "plain_ms": time_ms(torch, lambda: envc.envelope_block_torch_batched(
+                gate, st, prm, 1000 / 48_000), n=3, warmup=1),
+            "bound_ms": env_bound[0], "bound_by": env_bound[1],
+            "form": "one CTA a block" if envc.batch_plan(S, B, env_r)[0] else "grid"}
+        log(f"batched envelope B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {env_dev:.1f} us "
+            f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
+            f"{env_bound[0] * 1e3:.1f} us (bytes), share of the bound "
+            f"{env_bound[0] * 1e3 / env_dev:.3f}")
+        del x, xd, gate
+    return worst, times
+
+
+def fleet_workspaces(n):
+    """n flagship workspaces with their own continuous params (the
+    oscillators' and FM's frequencies, the amplifiers, the EQ gains)."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+
+    base, _ = build_16_module_graph()
+    out = []
+    for i in range(n):
+        ws = base.snapshot()
+        d = (i % 97) / 97.0
+        for j in range(4):
+            ws.update_params(p.ModuleId(3 + j), p.ModuleParams(
+                "Oscillator", p.OscillatorParams(110.0 * (j + 1) * (1 + 0.05 * d), p.Waveform.SINE)))
+            ws.update_params(p.ModuleId(8 + j), p.ModuleParams(
+                "Amplifier", p.AmplifierParams(amplitude=0.5 - 0.2 * d, mod_depth=0.3)))
+        ws.update_params(p.ModuleId(7), p.ModuleParams("FmSine", p.FmSineParams(
+            440.0 + 40 * d, 880.0 - 40 * d)))
+        ws.update_params(p.ModuleId(12), p.ModuleParams("EqThree", p.EqThreeParams(
+            p.Decibel(4.0 - 2 * d), p.Decibel(d), p.Decibel(4.0 + d))))
+        out.append(ws)
+    return out
+
+
+def fleet_path(torch, np, dev, card):
+    """(b) the fleet: the flagship at 48 kHz in 15-tick blocks, N = 1,024
+    sessions with their own params, counts set to 0 just before a block and
+    read just after (one eq launch, no envelope launch); four slots against
+    single-patch renders on the card; then, for information, N = 1,024 and
+    8,192: wall per block, realtime multiple, device busy share and peak
+    device memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(FLEET_TICKS)
+    spb = block.n_samples(cfg)
+    counters = launch_counters()
+    launches, info = None, {}
+    for n in FLEET_N:
+        t = time.perf_counter()
+        wss = fleet_workspaces(n)
+        fleet = Fleet.build(wss[0], n, cfg, block, per_instance_params=wss, device=str(dev))
+        built = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        fleet.run_block(0)  # first block: allocations
+        torch.cuda.synchronize()
+        if launches is None:
+            for fn in counters.values():
+                fn.launches = 0
+            taps = fleet.run_block(spb)
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            log(f"fleet N={n}: one block launched {launches}")
+            if launches["eq_cascade"] != 1 or launches["envelope"] != 0:
+                raise AssertionError(f"fleet block launched the eq kernel {launches['eq_cascade']} "
+                                     f"and the envelope kernel {launches['envelope']} times "
+                                     "(want 1 and 0)")
+            for i in (0, 1, n // 2, n - 1):
+                patch = compile_patch(wss[i], cfg, block, dev)
+                aux, st = patch.prepare_aux(wss[i]), patch.init_state(wss[i])
+                for b in range(2):
+                    st, want = patch.run(aux, patch.host_aux(b * spb), st)
+                for c in range(2):
+                    got_c, want_c = taps["16"]["audio"][c][i], want["16"]["audio"][c]
+                    ok, err = _close(torch, got_c, want_c, EQ_TOL)
+                    if not ok or not bool(torch.isfinite(got_c).all()):
+                        raise AssertionError(f"fleet slot {i} channel {c} vs its single render: "
+                                             f"max err {err}")
+                log(f"fleet slot {i} vs a single-patch render on the card (2 blocks): max err "
+                    f"{err:.3e} (EQ_TOL)")
+        walls = []
+        for b in range(2, 8):
+            t = time.perf_counter()
+            fleet.run_block(b * spb)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall = float(np.median(walls))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for b in range(8, 11):
+                fleet.run_block(b * spb)
+            torch.cuda.synchronize()
+        rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        dev_s = sum(e.self_device_time_total for e in rows) / 3 / 1e6
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        info[n] = {"wall_ms": wall * 1e3, "realtime": FLEET_AUDIO_S / wall,
+                   "busy": dev_s / wall, "peak_gib": peak, "build_s": built}
+        log(f"fleet N={n} [{card}]: built in {built:.2f} s, wall {wall * 1e3:.3f} ms a block "
+            f"(median of 6; {FLEET_AUDIO_S} s of audio a session), {FLEET_AUDIO_S / wall:.2f} x "
+            f"realtime, device {dev_s * 1e3:.3f} ms a block = busy share {dev_s / wall:.3f} of "
+            f"the unprofiled wall, peak device memory {peak:.2f} GiB")
+        for e in rows[:6]:
+            log(f"  {e.self_device_time_total / 3e3:9.3f} ms a block {e.count / 3:6.0f}x  "
+                f"{e.key[:90]}")
+        del fleet
+        torch.cuda.empty_cache()
+    return launches, info
+
+
+def fleet_served(torch, np, dev, card):
+    """(c) fleet serving: a FleetEngine of capacity 1,024 on the card (the
+    flagship, 15-tick blocks) behind a FleetServeApp on an ephemeral port,
+    16 WebSocket clients for 5 s; counts set to 0 just before the clients
+    start and read just after they end."""
+    import asyncio
+
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.server.fleet_serve import FleetEngine, FleetServeApp
+
+    cfg = EngineConfig(sample_rate=48_000)
+    template, mon = build_16_module_graph()
+    counters = launch_counters()
+    with ThreadFaults() as faults:
+        t = time.perf_counter()
+        eng = FleetEngine(template, SERVED_SLOTS, cfg, block_ticks=FLEET_TICKS, device=str(dev))
+        log(f"fleet serving: FleetEngine of {SERVED_SLOTS} slots built and warmed in "
+            f"{time.perf_counter() - t:.2f} s")
+        app = FleetServeApp(eng)
+
+        async def client(port, k):
+            reader, writer = await ws_open(port, "/fleet")
+            joined = json.loads(await ws_read(reader))
+            state = json.loads(await ws_read(reader))
+            if joined.get("t") != "Joined" or state.get("kind") != "WorkspaceState":
+                raise AssertionError(f"client {k}: {joined} / {state.get('kind')}")
+            t_join = eng.slots[joined["slot"]].joined_sample  # the script inspects its engine
+            pcms, synced, t_edit = [], None, None
+            end = time.monotonic() + SERVED_SECONDS
+            while time.monotonic() < end:
+                if k == 0 and t_edit is None and len(pcms) >= 2:
+                    writer.write(ws_text(json.dumps({"v": 1, "kind": "Workspace", "m": {
+                        "t": "WorkspaceMessage", "sequence": 1, "op": {
+                            "t": "UpdateModuleParams", "module_id": 3, "params": {
+                                "kind": "Oscillator", "params": {
+                                    "t": "OscillatorParams", "freq": 220.0,
+                                    "waveform": "sine"}}}}})))
+                    await writer.drain()
+                    t_edit = time.monotonic()
+                head, _, body = (await ws_read(reader)).partition(b"\n")
+                msg = json.loads(head)
+                if msg.get("t") == "pcm":
+                    pcms.append((msg["t0"], np.frombuffer(body, np.int16).reshape(-1, 2)))
+                elif msg.get("t") == "Sync":
+                    synced = msg["sequence"]
+                elif msg.get("t") == "Error":
+                    raise AssertionError(f"client {k}: {msg}")
+            writer.close()
+            return joined["slot"], pcms, synced, t_join
+
+        async def go():
+            port = await app.serve()
+            for fn in counters.values():
+                fn.launches = 0
+            tick0, t = eng.tick, time.monotonic()
+            res = await asyncio.gather(*(client(port, k) for k in range(SERVED_CLIENTS)))
+            launches = {name: fn.launches for name, fn in counters.items()}
+            elapsed = time.monotonic() - t
+            await app.shutdown()
+            return res, launches, eng.tick - tick0, elapsed
+
+        eng.start()
+        try:
+            results, launches, ticks, elapsed = asyncio.run(go())
+            status = eng.status()
+        finally:
+            eng.stop()
+        faults.check("fleet serving")
+    blocks = ticks // FLEET_TICKS
+    log(f"fleet serving [{card}]: {SERVED_CLIENTS} clients for {elapsed:.3f} s, {blocks} "
+        f"blocks ({blocks / elapsed:.3f} blocks/s, 4 = the 60 Hz schedule), on schedule "
+        f"{status['on_schedule_fraction']}, over the 250 ms budget "
+        f"{1 - status['on_schedule_fraction']:.4f}, max late {status['max_late_ms']} ms, "
+        f"launches {launches}")
+    if abs(launches["eq_cascade"] - blocks) > 1:  # a block may straddle either end
+        raise AssertionError(f"served fleet: {launches['eq_cascade']} eq launches in {blocks} "
+                             "blocks")
+    slots = [r[0] for r in results]
+    if len(set(slots)) != SERVED_CLIENTS or any(len(r[1]) < 3 for r in results):
+        raise AssertionError(f"served fleet: slots {slots}, packets {[len(r[1]) for r in results]}")
+    if results[0][2] != 1:
+        raise AssertionError(f"the editing client got Sync {results[0][2]}")
+    # every unedited session against a dedicated render from its join (the
+    # edit of client 0 must not reach them); client 0's PCM after its Sync
+    # is another render
+    patch = compile_patch(template, cfg, BlockSpec(FLEET_TICKS), dev)
+    renders = {}
+
+    def render(t_join, n):
+        if t_join not in renders:
+            aux, st, out = patch.prepare_aux(template), patch.init_state(template), {}
+            for j in range(n):
+                t0 = t_join + j * patch.block.n_samples(cfg)
+                st, taps = patch.run(aux, patch.host_aux(t0), st)
+                out[t0] = torch.stack([(torch.clamp(c.reshape(-1), -1, 1) * 32767.0)
+                                       .to(torch.int16) for c in taps["16"]["audio"]],
+                                      1).cpu().numpy()
+            renders[t_join] = out
+        return renders[t_join]
+
+    lsb = 0
+    for _, pcms, _, t_join in results[1:]:
+        want = render(t_join, 4)
+        for t0, got in pcms:
+            if t0 in want:
+                lsb = max(lsb, int(np.abs(got.astype(np.int32) - want[t0]).max()))
+    edited = render(results[0][3], 4)
+    differ = sum(not np.array_equal(x, edited[t]) for t, x in results[0][1] if t in edited)
+    log(f"fleet serving: the {SERVED_CLIENTS - 1} unedited sessions vs dedicated renders from "
+        f"their joins (4 blocks each): {lsb} LSB; the edited session differs from its "
+        f"template render in {differ} of its first blocks")
+    if lsb > 1:
+        raise AssertionError(f"served PCM vs a dedicated render: {lsb} LSB")
+    return launches, {"blocks_per_s": blocks / elapsed,
+                      "over_budget": 1 - status["on_schedule_fraction"]}
+
+
+def stems_path(torch, np, dev, card):
+    """(d) stems: ``stem_parallel_step`` with 16 stems of the flagship
+    (counts set to 0 just before and read just after: one eq launch for all
+    16); the resampler on the card against ``resample_block_np`` with the
+    precision guard active; config 3 (16 stereo stems 44.1 -> 48 kHz and the
+    per-channel eq, B = 32 x 96,000) as x realtime, for information."""
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp import resampler as rs
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel.stems import stem_parallel_step
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(FLEET_TICKS)
+    ws, mon = build_16_module_graph()
+    fn, make_args, patch = stem_parallel_step(ws, cfg, block, str(mon.value), n_stems=16,
+                                              device=str(dev))
+    args = make_args(0)
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    _, master = fn(*args)
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    _, taps = patch.run(patch.prepare_aux(ws), patch.host_aux(0), patch.init_state(ws))
+    one = torch.stack([c for c in taps[str(mon.value)]["audio"]], -1)
+    err = (master - 16.0 * one).abs().max().item()
+    log(f"stems: 16 stems of the flagship, master vs 16 x one stem: max err {err:.3e} "
+        f"(atol {MIX_ATOL}), launches {launches}")
+    if not err <= MIX_ATOL or launches["eq_cascade"] != 1:
+        raise AssertionError(f"stems: master err {err}, eq launches {launches['eq_cascade']}")
+
+    # the resampler: the guard refuses cuDNN's TF32, then the conv in IEEE f32
+    x_np = np.random.default_rng(3).uniform(-1, 1, (735 * 120, 32)).astype(np.float32)
+    ctx_np = np.zeros((31, 32), np.float32)
+    x, ctx = torch.from_numpy(x_np).to(dev), torch.from_numpy(ctx_np).to(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        rs.resample_block(x, ctx, 44_100, 48_000)
+        raise AssertionError("the resampler ran under cuDNN TF32")
+    except RuntimeError as e:
+        if "IEEE f32" not in str(e):
+            raise
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    worst = 0.0
+    for blk in range(2):
+        y, ctx = rs.resample_block(x, ctx, 44_100, 48_000)
+        want, ctx_np = rs.resample_block_np(x_np, ctx_np, 44_100, 48_000)
+        worst = max(worst, float(np.abs(y.cpu().numpy() - want).max()))
+    log(f"resampler on the card (32 channels, 88,200 -> 96,000 samples, 2 carried blocks) vs "
+        f"resample_block_np: max err {worst:.3e} (atol {RESAMPLE_ATOL}); refused under cuDNN TF32")
+    if not worst <= RESAMPLE_ATOL:
+        raise AssertionError(f"resampler on the card: max err {worst}")
+
+    # config 3 (bench.py:299-364): 2 s blocks
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    gains = torch.tensor([1.5849, 0.7943, 1.5849], device=dev).expand(32, 3).contiguous()
+    poles = torch.zeros(32, 4, 2, device=dev)
+    hist = torch.zeros(32, 3, device=dev)
+    ctx = torch.zeros(31, 32, device=dev)
+
+    def config3():
+        nonlocal ctx, poles, hist
+        y, ctx = rs.resample_block(x, ctx, 44_100, 48_000)  # [96,000, 32]
+        yc = y.T.contiguous()
+        yd = torch.cat([hist, yc], 1)[:, :yc.shape[1]]
+        hist = yc[:, -3:]
+        out, poles = eqc.eq_cascade_batched(yc, yd.contiguous(), poles, gains, *f)
+        return out
+
+    per_block = time_ms(torch, config3, n=10, warmup=2) / 1e3
+    log(f"config 3 [{card}]: 16 stereo stems, 44.1 -> 48 kHz and the per-channel eq "
+        f"(B = 32 x 96,000, one eq launch), {per_block * 1e3:.3f} ms per 2 s block = "
+        f"{2.0 / per_block:.1f} x realtime")
+    return launches, {"x_realtime": 2.0 / per_block}
+
+
+def batched_sweep() -> int:
+    """Not in ``main``: the one-CTA-a-block forms' run (eq, CTA sizes 64-256)
+    and lane (envelope) at the fleet's and config 3's shapes, each held to
+    its batched twin, device time per launch by the profiler (it chose
+    ``eq_cuda.SEQ_RUN`` and ``envelope_cuda.SEQ_LANE``).
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.batched_sweep())'``"""
+    import torch
+
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda")
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for B, S in BATCH_TIMED:
+        x, xd = (torch.rand((B, S), generator=g, device=dev) * 2 - 1 for _ in range(2))
+        poles = torch.rand((B, 4, 2), generator=g, device=dev) * 0.2 - 0.1
+        gains = torch.rand((B, 3), generator=g, device=dev) + 0.5
+        want = eqc.eq_cascade_torch_batched(x, xd, poles, gains, *f)
+        for T in (64, 128, 256):
+            for L in (2, 4, 8, 16, 32):
+                fn = lambda: eqc._launch(x, xd, poles, gains, *f, 0, T, L, sequential=True)
+                ok = all(_close(torch, a, b, EQ_TOL)[0] for a, b in zip(fn(), want))
+                _, us, _ = kernel_launches(torch, fn, n=5)
+                log(f"sweep eq one CTA a block B={B} S={S} T={T} L={L} [{card}]: {us:.1f} us "
+                    f"device a launch, twin ok {ok}")
+                if not ok:
+                    return 1
+        gate = (torch.rand((B, S), generator=g, device=dev) > 0.9995).to(torch.float32)
+        st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
+              "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+              "off_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+              "off_amp": torch.zeros(B, device=dev)}
+        prm = {k: torch.full((B,), v, device=dev) for k, v in dict(
+            attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
+        want, _ = envc.envelope_block_torch_batched(gate, st, prm, 1000 / 48_000)
+        for C in (2, 4, 8, 16):
+            fn = lambda: envc._launch(gate, 0, st, prm, 1000 / 48_000, C, sequential=True)
+            ok = (fn()[0] - want).abs().max().item() <= ENV_ATOL
+            _, us, _ = kernel_launches(torch, fn, n=5)
+            log(f"sweep envelope one CTA a block B={B} S={S} C={C} [{card}]: {us:.1f} us device "
+                f"a launch, twin ok {ok}")
+            if not ok:
+                return 1
+    return 0
+
+
+def single_ab(parent: str) -> int:
+    """Not in ``main``: the single-block eq and envelope launches of the
+    parent (``parent``: a checkout's root, e.g. unpacked by ``git archive``
+    into a listed directory) and of this checkout, in turns (parent, change,
+    change, parent, three times), device time per launch by the profiler at
+    S = 44,100.  The parent's ``csrc`` is built with this checkout's flags
+    and called through its own C signatures (before the batch axis).
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.single_ab("<dir>"))'``"""
+    import ctypes
+    import os
+
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+
+    card = card_line()
+    kernels.load()
+    out = Path(parent) / "_ab_build"
+    out.mkdir(exist_ok=True)
+    nvcc, objs = kernels.find_nvcc(), []
+    for name in ("eq_cascade.cu", "envelope.cu"):
+        objs.append(str(out / f"{name}.o"))
+        subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", objs[-1],
+                        str(Path(parent) / "mixlab_tpu_torch" / "csrc" / name)],
+                       check=True, capture_output=True)
+    lib_path = str(out / "parent.so")
+    subprocess.run([nvcc, *kernels._ARCH, "-shared", "-o", lib_path, *objs], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mixlab_eq_cascade.argtypes = [P, P, I, P, P, P, F, F, F, I, I, I, P, P, P, I, P]
+    lib.mixlab_envelope_block.argtypes = [P, P, I, I, I, P, P, P, P, P, F, *[P] * 8, I, P]
+    raw, dev, S = torch._C._cuda_getCurrentRawStream, torch.device("cuda"), 44_100
+    f_lo, f_hi = _filter_coeff(FREQ_LO, S), _filter_coeff(FREQ_HI, S)
+    x, xd = (torch.rand(S, device=dev) * 2 - 1 for _ in range(2))
+    poles, gains = torch.zeros(4, 2, device=dev), torch.tensor([1.5849, 1.0, 1.5849], device=dev)
+    tables = eqc._device_tables(f_lo, f_hi, dev)
+    run, tiles = eqc.scan_plan(S, eqc.resident_tiles(0))
+    at = -(-S // 4) * 4
+    buf = torch.empty(at + 8 + 8 * tiles, device=dev)
+    parent_eq = lambda: lib.mixlab_eq_cascade(
+        x.data_ptr(), xd.data_ptr(), S, poles.data_ptr(), gains.data_ptr(), tables.data_ptr(),
+        f_lo, f_hi, VSA, run, eqc.THREADS, tiles, buf.data_ptr() + 4 * (at + 8), buf.data_ptr(),
+        buf.data_ptr() + 4 * at, 0, raw(0))
+    change_eq = lambda: eqc._launch(x, xd, poles, gains, f_lo, f_hi, VSA, 0)
+    gate = torch.ones(S, device=dev)
+    st = {"mode_on": torch.tensor(False, device=dev),
+          "on_pos": torch.tensor(envc.POS_FLOOR, dtype=torch.int32, device=dev),
+          "off_pos": torch.tensor(envc.POS_FLOOR, dtype=torch.int32, device=dev),
+          "off_amp": torch.tensor(0.0, device=dev)}
+    prm = {k: torch.tensor(v, device=dev) for k, v in dict(
+        attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
+    lane, etiles = envc.tile_plan(S, envc.resident_tiles(0))
+    ebuf = torch.empty(at + 16 * etiles, device=dev)
+    outs = {k: torch.empty_like(v) for k, v in st.items()}
+    parent_env = lambda: lib.mixlab_envelope_block(
+        gate.data_ptr(), ebuf.data_ptr(), S, lane, etiles, ebuf.data_ptr() + 4 * at,
+        *(prm[k].data_ptr() for k in envc._PARAMS), 1000 / 44_100,
+        *(st[k].data_ptr() for k in envc._STATE), *(outs[k].data_ptr() for k in envc._STATE),
+        0, raw(0))
+    change_env = lambda: envc._launch(gate, 0, st, prm, 1000 / 44_100)
+    if parent_eq() or parent_env():
+        return 1
+    torch.cuda.synchronize()
+    res = {}
+    for _ in range(3):
+        for who in ("parent", "change", "change", "parent"):
+            for kind, fns in (("eq", (parent_eq, change_eq)), ("envelope", (parent_env, change_env))):
+                found = _device_us(torch, fns[who == "change"], "kernel", n=50)
+                res.setdefault(f"{who} {kind}", []).append(found[0][1])
+    for k, v in res.items():
+        log(f"A/B single launch S={S} [{card}] {k}: device us per launch "
+            + " ".join(f"{u:.3f}" for u in v) + f"; median {np.median(v):.3f}")
+    return 0
+
+
+def batched_paths(torch, np, dev, card):
+    """Phase 16: -> (errors, times, {path: launches}, information)."""
+    errs, times = batched_kernels(torch, np, dev, card)
+    paths, info = {}, {}
+    paths["fleet"], info["fleet"] = fleet_path(torch, np, dev, card)
+    paths["fleet_served"], info["fleet_served"] = fleet_served(torch, np, dev, card)
+    paths["stems"], info["stems"] = stems_path(torch, np, dev, card)
+    return errs, times, paths, info
+
+
+
+def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
+                               "envelope_kernel", "envelope_seq_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
     bytes)} from the build log's ``-Xptxas -v`` lines."""
     import re
@@ -2599,6 +3232,12 @@ def main() -> int:
         times = timing(torch, np, dev, card, proj)
         times.update(realtime_timing(torch, np, dev, card))
         times.update(video_timing(torch, np, dev, card))
+        # phase 16 before phase 15: after the served session's threads the
+        # profiler in this process has recorded no device kernel
+        batched_errs, batched_times, batched_launches, _ = batched_paths(torch, np, dev, card)
+        paths.update(batched_launches)
+        for key, err in batched_errs.items():
+            errs[key] = max(errs[key], err)
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)
         served_subprocess(tmp)
@@ -2626,7 +3265,8 @@ def main() -> int:
          "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
          "bound_ms": times[key]["bound_ms"], "bound_by": times[key]["bound_by"],
          "library_ms": times[key].get("library_ms"),
-         "launches_by_path": {name: counts[key] for name, counts in paths.items()}}
+         "launches_by_path": {name: counts[key] for name, counts in paths.items()},
+         **({"batched": batched_times[key]} if key in batched_times else {})}
         for key, name, source, replaces in rows
     ]}
     log(card)

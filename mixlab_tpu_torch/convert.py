@@ -8,6 +8,12 @@ the port's tensors on a given device and ``to_numpy`` turns the port's
 pytree back.  Leaf types: bool stays bool (envelope ``mode_on``), integers
 become int32 (envelope positions), everything else float32.  Dicts, tuples,
 lists and ``None`` keep their structure.
+
+Stacked trees (a fleet's or the stems' ``aux`` and state, every leaf
+[n, ...] on a leading instance axis) convert the same way, leaf by leaf: the
+JAX ``Fleet``'s host-numpy ``aux`` and device state become the port's
+``Fleet.aux`` (numpy, as there) and ``Fleet.state`` (tensors) with
+``fleet_from_jax`` and go back with ``fleet_to_numpy``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,50 @@ def to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+def tree_map(fn, *trees):
+    """``fn`` applied leaf by leaf to trees of one structure (the first
+    tree's); ``None`` stays ``None``."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def stack(trees, xp=None):
+    """Trees of one structure -> one tree with every leaf stacked on a new
+    leading axis: tensors with ``torch.stack``, anything else with
+    ``np.stack``."""
+    def leaf(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return np.stack([np.asarray(x) for x in xs])
+
+    return tree_map(leaf, *trees)
+
+
+def fleet_from_jax(jax_fleet, fleet) -> None:
+    """Give the port's ``fleet`` (``parallel.fleet.Fleet``) the aux and DSP
+    state of the JAX package's ``jax_fleet`` (same workspace, same n):
+    ``aux`` as host numpy, the state as tensors on the fleet's device."""
+    fleet.aux = tree_map(lambda mine, theirs: np.asarray(theirs).astype(mine.dtype),
+                         fleet.aux, jax_fleet.aux)
+    fleet.aux_changed()
+    fleet.state = tree_map(
+        lambda mine, theirs: _leaf_to_torch(np.asarray(theirs), mine.device).to(mine.dtype),
+        fleet.state, jax_fleet.state)
+
+
+def fleet_to_numpy(fleet):
+    """A fleet's ``(aux, state)`` as numpy trees (either package's fleet)."""
+    return (tree_map(np.asarray, fleet.aux),
+            tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                     else np.asarray(x), fleet.state))
 
 
 # ---------------------------------------------------------------------------

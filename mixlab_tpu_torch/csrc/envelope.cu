@@ -36,6 +36,16 @@
 // thread up to 255 registers, so the record pair and its shuffled copy stay
 // in registers (ptxas reports the spill bytes in the build log).
 //
+// Over a batch (what jax.vmap(envelope_block_pallas) computes: B blocks of
+// S samples, each with its own state and params, read from [B] arrays), ONE
+// launch in one of two forms (envelope_cuda.batch_plan): the cooperative
+// grid above with gridDim.y = B where the B x G tiles fit on the card at
+// once, else one CTA a block (envelope_seq_kernel) that walks its block in
+// tiles of 256 * C samples, running phase A, the block scan and phase B on
+// each and carrying the exit state from tile to tile: no grid barrier, any
+// B.  Batched, the kernel moves 8 bytes a sample (x in, out written) and
+// is bandwidth-bound at large B.
+//
 // Exactness: composition is associative, and every f32 written is computed
 // from concrete int positions by the same expressions (the library is built
 // with -fmad=false), so regrouping the scan by tiles changes no output bit.
@@ -254,38 +264,9 @@ __device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, co
   return o;
 }
 
-__global__ void __launch_bounds__(kThreads)
-envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int C,
-                Pair* __restrict__ tiles,
-                const float* __restrict__ attack, const float* __restrict__ decay,
-                const float* __restrict__ sustain, const float* __restrict__ release,
-                float msps,
-                const uint8_t* __restrict__ mode_in, const int* __restrict__ on_in,
-                const int* __restrict__ off_in, const float* __restrict__ amp_in,
-                uint8_t* __restrict__ mode_out, int* __restrict__ on_out,
-                int* __restrict__ off_out, float* __restrict__ amp_out) {
-  extern __shared__ float xs[];  // [kThreads][C | 1]: lane k's samples at k * (C | 1)
-  __shared__ Pair warp_tot[kWarps];
-  __shared__ Entry exits[kThreads];
-  __shared__ Entry tile_entry;
-
-  const int k = threadIdx.x;
-  const int stride = C | 1;
-  const int T = kThreads * C;
-  const int tile0 = blockIdx.x * T;
-  const Params p{*attack, *decay, *sustain, *release, msps};
-  const Entry E0{static_cast<int>(*mode_in != 0), *on_in, *off_in, *amp_in};
-
-  // ---- stage the tile, coalesced ------------------------------------------
-  for (int j = k; j < T; j += kThreads) {
-    const int t = tile0 + j;
-    xs[(j / C) * stride + j % C] = t < S ? __ldg(x + t) : 0.5f;
-  }
-  __syncthreads();
-  float* mine = xs + k * stride;
-  const int base = tile0 + k * C;
-
-  // ---- phase A: both entry machines, symbolically ------------------------
+// Phase A over a lane's C staged samples (block positions base..): both
+// entry machines' symbolic records
+__device__ __forceinline__ Pair phase_a(const float* mine, int base, int C, const Params& p) {
   Pair rec = identity_pair();
   for (int c = 0; c < C; ++c) {
     const int t = base + c;
@@ -313,36 +294,16 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
       }
     }
   }
+  return rec;
+}
 
-  // ---- combine: lanes within the tile, then the tiles before it ----------
-  const Pair pre = block_scan(rec, warp_tot, p);
-  if (k == kThreads - 1) tiles[blockIdx.x] = pre;  // the tile's aggregate
-  cg::this_grid().sync();
-
-  if (blockIdx.x == 0) {
-    if (k == 0) tile_entry = E0;
-  } else {  // uniform over the CTA: every thread takes the scan's barriers
-    const Pair v = block_scan(
-        k < static_cast<int>(blockIdx.x) ? load_pair_cg(tiles + k) : identity_pair(), warp_tot, p);
-    if (k == static_cast<int>(blockIdx.x) - 1) tile_entry = apply_entry(v, E0, p);
-  }
-  __syncthreads();
-  exits[k] = apply_entry(pre, tile_entry, p);
-  __syncthreads();
-  Entry st = k == 0 ? tile_entry : exits[k - 1];
-
-  if (blockIdx.x == gridDim.x - 1 && k == kThreads - 1) {
-    const Entry& ex = exits[kThreads - 1];  // lanes past S only read pads
-    *mode_out = static_cast<uint8_t>(ex.mode != 0);
-    *on_out = max(ex.on - S, kPosFloor);
-    *off_out = max(ex.off - S, kPosFloor);
-    *amp_out = ex.amp;
-  }
-
-  // ---- phase B: concrete outputs, in place of the lane's inputs ----------
+// Phase B: the lane's outputs from its entry state st, in place of its
+// staged inputs; stops at sample S (only pads remain past it)
+__device__ __forceinline__ void phase_b(float* mine, int base, int C, int S, Entry st,
+                                        const Params& p) {
   for (int c = 0; c < C; ++c) {
     const int t = base + c;
-    if (t >= S) break;  // only pads remain in this lane
+    if (t >= S) break;
     const float xc = mine[c];
     const bool rising = st.mode == 0 && xc == 1.0f;
     const bool falling = st.mode == 1 && xc == 0.0f;
@@ -363,10 +324,138 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
     }
     mine[c] = y;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int C,
+                Pair* __restrict__ tiles,
+                const float* __restrict__ attack, const float* __restrict__ decay,
+                const float* __restrict__ sustain, const float* __restrict__ release,
+                float msps,
+                const uint8_t* __restrict__ mode_in, const int* __restrict__ on_in,
+                const int* __restrict__ off_in, const float* __restrict__ amp_in,
+                uint8_t* __restrict__ mode_out, int* __restrict__ on_out,
+                int* __restrict__ off_out, float* __restrict__ amp_out) {
+  extern __shared__ float xs[];  // [kThreads][C | 1]: lane k's samples at k * (C | 1)
+  __shared__ Pair warp_tot[kWarps];
+  __shared__ Entry exits[kThreads];
+  __shared__ Entry tile_entry;
+
+  const int k = threadIdx.x;
+  const int stride = C | 1;
+  const int T = kThreads * C;
+  const int tile0 = blockIdx.x * T;
+  // block blockIdx.y of the batch: its samples, tiles, params and state
+  const size_t seq = blockIdx.y;
+  x += seq * S, out += seq * S, tiles += seq * gridDim.x;
+  const Params p{attack[seq], decay[seq], sustain[seq], release[seq], msps};
+  const Entry E0{static_cast<int>(mode_in[seq] != 0), on_in[seq], off_in[seq], amp_in[seq]};
+
+  // ---- stage the tile, coalesced ------------------------------------------
+  for (int j = k; j < T; j += kThreads) {
+    const int t = tile0 + j;
+    xs[(j / C) * stride + j % C] = t < S ? __ldg(x + t) : 0.5f;
+  }
+  __syncthreads();
+  float* mine = xs + k * stride;
+  const int base = tile0 + k * C;
+
+  // ---- phase A: both entry machines, symbolically ------------------------
+  const Pair rec = phase_a(mine, base, C, p);
+
+  // ---- combine: lanes within the tile, then the tiles before it ----------
+  const Pair pre = block_scan(rec, warp_tot, p);
+  if (k == kThreads - 1) tiles[blockIdx.x] = pre;  // the tile's aggregate
+  cg::this_grid().sync();
+
+  if (blockIdx.x == 0) {
+    if (k == 0) tile_entry = E0;
+  } else {  // uniform over the CTA: every thread takes the scan's barriers
+    const Pair v = block_scan(
+        k < static_cast<int>(blockIdx.x) ? load_pair_cg(tiles + k) : identity_pair(), warp_tot, p);
+    if (k == static_cast<int>(blockIdx.x) - 1) tile_entry = apply_entry(v, E0, p);
+  }
+  __syncthreads();
+  exits[k] = apply_entry(pre, tile_entry, p);
+  __syncthreads();
+  Entry st = k == 0 ? tile_entry : exits[k - 1];
+
+  if (blockIdx.x == gridDim.x - 1 && k == kThreads - 1) {
+    const Entry& ex = exits[kThreads - 1];  // lanes past S only read pads
+    mode_out[seq] = static_cast<uint8_t>(ex.mode != 0);
+    on_out[seq] = max(ex.on - S, kPosFloor);
+    off_out[seq] = max(ex.off - S, kPosFloor);
+    amp_out[seq] = ex.amp;
+  }
+
+  // ---- phase B: concrete outputs, in place of the lane's inputs ----------
+  phase_b(mine, base, C, S, st, p);
   __syncthreads();
   for (int j = k; j < T; j += kThreads) {
     const int t = tile0 + j;
     if (t < S) out[t] = xs[(j / C) * stride + j % C];
+  }
+}
+
+// One block of the batch a CTA (blockIdx.x), walked in tiles of 256 * C
+// samples with the exit state carried from tile to tile in `carry`.
+__global__ void __launch_bounds__(kThreads)
+envelope_seq_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int C,
+                    const float* __restrict__ attack, const float* __restrict__ decay,
+                    const float* __restrict__ sustain, const float* __restrict__ release,
+                    float msps,
+                    const uint8_t* __restrict__ mode_in, const int* __restrict__ on_in,
+                    const int* __restrict__ off_in, const float* __restrict__ amp_in,
+                    uint8_t* __restrict__ mode_out, int* __restrict__ on_out,
+                    int* __restrict__ off_out, float* __restrict__ amp_out) {
+  extern __shared__ float xs[];
+  __shared__ Pair warp_tot[kWarps];
+  __shared__ Entry exits[kThreads];
+  __shared__ Entry carry;
+
+  const int k = threadIdx.x;
+  const int stride = C | 1;
+  const int T = kThreads * C;
+  const size_t seq = blockIdx.x;
+  x += seq * S, out += seq * S;
+  const Params p{attack[seq], decay[seq], sustain[seq], release[seq], msps};
+  if (k == 0) {
+    carry = Entry{static_cast<int>(mode_in[seq] != 0), on_in[seq], off_in[seq], amp_in[seq]};
+  }
+  float* mine = xs + k * stride;
+
+  for (int tile0 = 0; tile0 < S; tile0 += T) {
+    for (int j = k; j < T; j += kThreads) {
+      const int t = tile0 + j;
+      xs[(j / C) * stride + j % C] = t < S ? __ldg(x + t) : 0.5f;
+    }
+    __syncthreads();
+    const int base = tile0 + k * C;
+
+    // phase A: both entry machines, symbolically
+    const Pair rec = phase_a(mine, base, C, p);
+
+    // the lanes' prefixes within the tile, entered with the carried state
+    const Pair pre = block_scan(rec, warp_tot, p);
+    exits[k] = apply_entry(pre, carry, p);
+    __syncthreads();
+    Entry st = k == 0 ? carry : exits[k - 1];
+
+    // phase B: concrete outputs, in place of the lane's inputs
+    phase_b(mine, base, C, S, st, p);
+    __syncthreads();  // every thread has read carry and written its outputs
+    if (k == 0) carry = exits[kThreads - 1];  // lanes past S only read pads
+    for (int j = k; j < T; j += kThreads) {
+      const int t = tile0 + j;
+      if (t < S) out[t] = xs[(j / C) * stride + j % C];
+    }
+    __syncthreads();  // xs, exits and carry are free for the next tile
+  }
+  if (k == 0) {
+    mode_out[seq] = static_cast<uint8_t>(carry.mode != 0);
+    on_out[seq] = max(carry.on - S, kPosFloor);
+    off_out[seq] = max(carry.off - S, kPosFloor);
+    amp_out[seq] = carry.amp;
   }
 }
 
@@ -394,31 +483,44 @@ int mixlab_envelope_resident_tiles(int device, int* resident) {
   return static_cast<int>(err);
 }
 
-// One envelope block of S samples (1 <= S) in `tiles` CTAs of 256 * C samples
-// (1 <= C <= 16, 1 <= tiles <= 256, the last tile holding sample S-1); tile
-// scratch holds `tiles` records of 64 bytes.  All pointers are device
-// pointers; the state and params are 0-d tensors; the launch goes to card
-// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess); a grid
-// larger than the card holds at once is refused by the cooperative launch.
-int mixlab_envelope_block(const float* x, float* out, int S, int C, int tiles,
-                          void* scratch, const float* attack, const float* decay,
+// The envelope over `batch` blocks of S samples (1 <= S): x, out
+// [batch][S]; the params attack..release and the state in and out are
+// [batch] arrays (bool state as one byte).  With seq == 0 a cooperative grid
+// of `tiles` x `batch` CTAs of 256 * C samples (1 <= C <= 16,
+// 1 <= tiles <= 256, the last tile of a block holding sample S-1; the tile
+// scratch holds `tiles` x `batch` records of 64 bytes); with seq == 1 one
+// CTA a block walking tiles of 256 * C samples, `tiles` and the scratch
+// unused.  All pointers are device pointers; the launch goes to card
+// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess); a
+// cooperative grid larger than the card holds at once is refused by the
+// launch.
+int mixlab_envelope_block(const float* x, float* out, int S, int batch, int seq, int C,
+                          int tiles, void* scratch, const float* attack, const float* decay,
                           const float* sustain, const float* release, float msps,
                           const uint8_t* mode_in, const int* on_in, const int* off_in,
                           const float* amp_in, uint8_t* mode_out, int* on_out,
                           int* off_out, float* amp_out, int device, void* stream) {
-  if (S < 1 || C < 1 || C > kMaxLane || tiles < 1 || tiles > kMaxTiles ||
-      static_cast<long long>(tiles) * kThreads * C < S ||
-      static_cast<long long>(tiles - 1) * kThreads * C >= S) {
+  if (S < 1 || batch < 1 || C < 1 || C > kMaxLane ||
+      (!seq && (tiles < 1 || tiles > kMaxTiles || batch > 65535 ||
+                static_cast<long long>(tiles) * kThreads * C < S ||
+                static_cast<long long>(tiles - 1) * kThreads * C >= S))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OnDevice on(device);
   if (on.error() != cudaSuccess) return static_cast<int>(on.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (seq) {
+    envelope_seq_kernel<<<batch, kThreads, shared_bytes(C), st>>>(
+        x, out, S, C, attack, decay, sustain, release, msps, mode_in, on_in, off_in, amp_in,
+        mode_out, on_out, off_out, amp_out);
+    return static_cast<int>(cudaGetLastError());
+  }
   Pair* tile_recs = static_cast<Pair*>(scratch);
   void* args[] = {&x, &out, &S, &C, &tile_recs, &attack, &decay, &sustain, &release, &msps,
                   &mode_in, &on_in, &off_in, &amp_in, &mode_out, &on_out, &off_out, &amp_out};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(envelope_kernel), dim3(tiles), dim3(kThreads), args,
-      shared_bytes(C), static_cast<cudaStream_t>(stream));
+      reinterpret_cast<const void*>(envelope_kernel), dim3(tiles, batch), dim3(kThreads), args,
+      shared_bytes(C), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,22 @@
 // grid barrier, warp 0 folding the aggregates before its CTA, pass 2, the
 // output stored with 16-byte stores.  What remains is the launch, the
 // barrier and the two short scans.
+//
+// Over a batch (what jax.vmap(eq_cascade_pallas) computes: the fleet's N
+// sessions, config 3's stems x channels), B independent blocks of S samples,
+// each with its own poles and gains, go in ONE launch, in one of two forms
+// (eq_cuda.batch_plan):
+//   * the cooperative grid above with gridDim.y = B, where B x G CTAs fit on
+//     the card at once (config 3: 32 blocks of 96,000 samples);
+//   * otherwise one CTA a block (eq_cascade_seq_kernel): the CTA walks its
+//     block in tiles of T*L samples, runs pass 1, the block scan and pass 2
+//     on each, and carries the entry state from tile to tile in shared
+//     memory (carry' = A^(T*L) carry + the tile's aggregate): no grid
+//     barrier, no cooperative launch, any B (the fleet: 1,024-8,192 blocks
+//     of 12,000 samples).
+// Batched, the work is bandwidth-bound: 12 bytes a sample (x, xd in, out
+// written) against ~20 FLOP a sample, e.g. 147.5 MB at B = 1,024 x 12,000,
+// 44 us at 3.35 TB/s.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -32,6 +48,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+template <bool kBatch>
 __global__ void __launch_bounds__(eq_scan::kMaxThreads)
 eq_cascade_kernel(const float* __restrict__ x, const float* __restrict__ xd, int S, int lg,
                   const float* __restrict__ poles0, const float* __restrict__ gains,
@@ -43,6 +60,12 @@ eq_cascade_kernel(const float* __restrict__ x, const float* __restrict__ xd, int
   float* xs = tile;
   float* xds = tile + (static_cast<int>(blockDim.x) << lg) + blockDim.x;
   const int tile0 = blockIdx.x * (static_cast<int>(blockDim.x) << lg);
+  if (kBatch) {  // block blockIdx.y of the batch: its samples, poles, gains, aggregates
+    const size_t seq = blockIdx.y;
+    x += seq * S, xd += seq * S, out += seq * S;
+    poles0 += 8 * seq, poles_out += 8 * seq, gains += 3 * seq;
+    agg += 8 * seq * gridDim.x;
+  }
 
   eq_scan::load_table(tables, sh);
   eq_scan::stage<false>(x, S, tile0, lg, xs);
@@ -56,6 +79,45 @@ eq_cascade_kernel(const float* __restrict__ x, const float* __restrict__ xd, int
   eq_scan::unstage(xs, S, tile0, lg, out);
 }
 
+// One block of the batch a CTA (blockIdx.x), walked in tiles of
+// blockDim.x << lg samples with the entry state carried in sh.entry.
+__global__ void __launch_bounds__(eq_scan::kMaxThreads)
+eq_cascade_seq_kernel(const float* __restrict__ x, const float* __restrict__ xd, int S,
+                      int lg, const float* __restrict__ poles0,
+                      const float* __restrict__ gains, const float* __restrict__ tables,
+                      float f_lo, float f_hi, float vsa, float* __restrict__ agg,
+                      float* __restrict__ out, float* __restrict__ poles_out) {
+  extern __shared__ float tile[];
+  __shared__ eq_scan::Shared sh;
+  float* xs = tile;
+  float* xds = tile + (static_cast<int>(blockDim.x) << lg) + blockDim.x;
+  const size_t seq = blockIdx.x;
+  x += seq * S, xd += seq * S, out += seq * S;
+  poles0 += 8 * seq, poles_out += 8 * seq, gains += 3 * seq;
+  const int ltile = lg + __ffs(blockDim.x) - 1;  // log2 of the tile's samples
+  const int W = blockDim.x >> 5;
+
+  eq_scan::load_table(tables, sh);
+  if (threadIdx.x == 0) eq_scan::store_state(sh.entry, eq_scan::load_poles(poles0));
+  for (int tile0 = 0; tile0 < S; tile0 += 1 << ltile) {
+    eq_scan::stage<false>(x, S, tile0, lg, xs);
+    eq_scan::stage<false>(xd, S, tile0, lg, xds);
+    __syncthreads();
+    const eq_scan::Coeffs c{{sh.tab[eq_scan::kA], sh.tab[eq_scan::kA + 1]}, {f_lo, f_hi}, vsa};
+    const eq_scan::Entry en = eq_scan::scan_up(xs, lg, c, sh, agg);  // agg unread
+    eq_scan::run_down(xs, xds, S, tile0, lg, c, gains,
+                      eq_scan::affine(en.M, eq_scan::load_state(sh.entry), en.E), poles_out);
+    __syncthreads();  // every thread has read sh.entry and written its outputs
+    if (threadIdx.x == 0) {  // the next tile's entry: A^(T*L) carry + this tile's aggregate
+      eq_scan::State a = eq_scan::load_state(sh.warp[W - 1]);
+      eq_scan::absorb(a, eq_scan::load_state(sh.entry), sh.tab, ltile);
+      eq_scan::store_state(sh.entry, a);
+    }
+    eq_scan::unstage(xs, S, tile0, lg, out);
+    __syncthreads();  // xs, sh.warp and sh.entry are free for the next tile
+  }
+}
+
 size_t shared_bytes(int threads, int run) {
   return eq_scan::tile_floats(threads, run) * sizeof(float);
 }
@@ -64,9 +126,11 @@ size_t shared_bytes(int threads, int run) {
 cudaError_t allow_shared(int device) {
   static bool done[64] = {};
   if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      eq_cascade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shared_bytes(eq_scan::kMaxThreads, eq_scan::kMaxRun)));
+  const int bytes = static_cast<int>(shared_bytes(eq_scan::kMaxThreads, eq_scan::kMaxRun));
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(eq_cascade_kernel<false>, attr, bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(eq_cascade_kernel<true>, attr, bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(eq_cascade_seq_kernel, attr, bytes);
   if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
   return err;
 }
@@ -92,31 +156,43 @@ int mixlab_eq_resident_tiles(int threads, int device, int* resident) {
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   }
+  // the fewer of the single and the batched grid's CTAs a card holds
+  int batched = 0;
+  const size_t bytes = shared_bytes(threads, eq_scan::kMaxRun);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, eq_cascade_kernel, threads, shared_bytes(threads, eq_scan::kMaxRun));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, eq_cascade_kernel<false>,
+                                                        threads, bytes);
   }
-  *resident = per_sm * n_sm;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&batched, eq_cascade_kernel<true>,
+                                                        threads, bytes);
+  }
+  *resident = (per_sm < batched ? per_sm : batched) * n_sm;
   return static_cast<int>(err);
 }
 
-// One EqThree block: x, xd [S] (xd = the 3-sample-delayed input), poles0
-// [4][2] (stage-major, band-minor), gains [3] and tables [eq_scan::kTable]
-// (eq_cuda.kernel_tables) are device pointers; out [S] and poles_out [4][2]
-// are written.  `tiles` CTAs of `threads` threads, each thread a run of
-// `run` samples (powers of two, run <= 32, 32 <= threads <= 512; every CTA
-// but the last full, the last holding sample S-1); `scratch` holds 8
-// floats a CTA, 16-byte aligned.  The launch goes to card `device`.
-// Returns the launch's cudaError_t (0 = cudaSuccess); a grid larger than the
-// card holds at once is refused by the cooperative launch.
-int mixlab_eq_cascade(const float* x, const float* xd, int S, const float* poles0,
-                      const float* gains, const float* tables, float f_lo, float f_hi,
-                      float vsa, int run, int threads, int tiles, float* scratch, float* out,
-                      float* poles_out, int device, void* stream) {
+// EqThree over `batch` blocks of S samples: x, xd [batch][S] (xd = the
+// 3-sample-delayed input), poles0 [batch][4][2] (stage-major, band-minor),
+// gains [batch][3] and tables [eq_scan::kTable] (eq_cuda.kernel_tables) are
+// device pointers; out [batch][S] and poles_out [batch][4][2] are written.
+// Threads of `threads`, each a run of `run` samples (powers of two,
+// run <= 32, 32 <= threads <= 512).  With seq == 0 a cooperative grid of
+// `tiles` x `batch` CTAs (every CTA of a block but the last full, the last
+// holding sample S-1; `scratch` holds 8 floats a CTA, 16-byte aligned);
+// with seq == 1 one CTA a block, `tiles` unused and `scratch` 8 floats a
+// block (written, never read).  The launch
+// goes to card `device`.  Returns the launch's cudaError_t (0 =
+// cudaSuccess); a cooperative grid larger than the card holds at once is
+// refused by the launch.
+int mixlab_eq_cascade(const float* x, const float* xd, int S, int batch, int seq,
+                      const float* poles0, const float* gains, const float* tables, float f_lo,
+                      float f_hi, float vsa, int run, int threads, int tiles, float* scratch,
+                      float* out, float* poles_out, int device, void* stream) {
   const long long tile = static_cast<long long>(threads) * run;
-  if (S < 1 || !pow2(run) || run > eq_scan::kMaxRun || !pow2(threads) || threads < 32 ||
-      threads > eq_scan::kMaxThreads || tiles < 1 || tiles * tile < S ||
-      (tiles - 1) * tile >= S || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) {
+  if (S < 1 || batch < 1 || !pow2(run) || run > eq_scan::kMaxRun || !pow2(threads) ||
+      threads < 32 || threads > eq_scan::kMaxThreads ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+      (!seq && (tiles < 1 || batch > 65535 || tiles * tile < S || (tiles - 1) * tile >= S))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OnDevice on(device);
@@ -125,12 +201,19 @@ int mixlab_eq_cascade(const float* x, const float* xd, int S, const float* poles
   if (err != cudaSuccess) return static_cast<int>(err);
   int lg = 0;
   while ((1 << lg) < run) ++lg;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (seq) {
+    eq_cascade_seq_kernel<<<batch, threads, shared_bytes(threads, run), st>>>(
+        x, xd, S, lg, poles0, gains, tables, f_lo, f_hi, vsa, scratch, out, poles_out);
+    return static_cast<int>(cudaGetLastError());
+  }
   void* args[] = {&x, &xd, &S, &lg, &poles0, &gains, &tables, &f_lo, &f_hi, &vsa,
                   &scratch, &out, &poles_out};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(eq_cascade_kernel),
-                                    dim3(tiles), dim3(threads), args,
-                                    shared_bytes(threads, run),
-                                    static_cast<cudaStream_t>(stream));
+  // one block: the kernel without the batch offsets, as before the batch axis
+  const void* kernel = batch > 1 ? reinterpret_cast<const void*>(eq_cascade_kernel<true>)
+                                 : reinterpret_cast<const void*>(eq_cascade_kernel<false>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(tiles, batch), dim3(threads), args,
+                                    shared_bytes(threads, run), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -363,4 +363,30 @@ __device__ __forceinline__ void scan_down(float* xs, const float* xds, int S, in
   }
 }
 
+// Pass 2 of a tile whose entry state s the CTA carried from the tile before
+// (csrc/eq_cascade.cu's one-CTA-a-block form): scan_down's rerun, band mix
+// and poles at sample S-1, from s.
+__device__ __forceinline__ void run_down(float* xs, const float* xds, int S, int tile0, int lg,
+                                         const Coeffs& c, const float* gains, State s,
+                                         float* poles_out) {
+  const int L = 1 << lg;
+  const float g0 = __ldg(gains), g1 = __ldg(gains + 1), g2 = __ldg(gains + 2);
+  float* mine = xs + pos(threadIdx.x << lg, lg);
+  const float* mine_d = xds + pos(threadIdx.x << lg, lg);
+  const int base = tile0 + (threadIdx.x << lg);
+  for (int j = 0; j < L; ++j) {
+    const int t = base + j;
+    if (t >= S) break;
+    step(s, mine[j], c);
+    const float lo = s.y[0][3], hi = s.y[1][3];
+    mine[j] = lo * g0 + (hi - lo) * g1 + (mine_d[j] - hi) * g2;
+    if (t == S - 1) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) poles_out[k * 2 + b] = s.y[b][k];
+    }
+  }
+}
+
 }  // namespace eq_scan

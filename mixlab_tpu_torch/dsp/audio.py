@@ -111,6 +111,18 @@ class OscillatorDef(ModuleDef):
         base = np.mod(ticks * spt * (params.freq / cfg.sample_rate), 1.0)
         return {"base": base.astype(np.float32)}
 
+    def host_prepare_batched(self, params_list, t0: int, block: BlockSpec, cfg):
+        """The fleet's fast path (``parallel/fleet.py``): the phase bases of
+        N instances in one vectorized pass, [N, T]."""
+        spt = cfg.samples_per_tick
+        ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
+        freqs = np.array([p.freq for p in params_list], dtype=np.float64)
+        base = np.mod(ticks[None, :] * spt * (freqs[:, None] / cfg.sample_rate), 1.0)
+        return {"base": base.astype(np.float32)}
+
+    def structural_key(self, params: OscillatorParams):
+        return params.waveform
+
     def run_block(self, params, aux, host_aux, state, inputs, cfg, block, device):
         i = _ramp(cfg.samples_per_tick, device)
         n = (host_aux["base"][:, None] + i[None, :] * aux["delta"]).reshape(-1)
@@ -156,6 +168,20 @@ class FmSineDef(ModuleDef):
         tsamp = ticks * spt
         base_mid = np.mod(tsamp * (freq_mid / cfg.sample_rate), 1.0)
         tsec = tsamp / cfg.sample_rate
+        return {
+            "base_mid": base_mid.astype(np.float32),
+            "tsec": tsec.astype(np.float32),
+        }
+
+    def host_prepare_batched(self, params_list, t0: int, block: BlockSpec, cfg):
+        """The fleet's fast path (see ``OscillatorDef.host_prepare_batched``)."""
+        spt = cfg.samples_per_tick
+        ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
+        tsamp = ticks * spt
+        amps = np.array([(p.freq_hi - p.freq_lo) / 2.0 for p in params_list])
+        mids = np.array([p.freq_lo for p in params_list]) + amps
+        base_mid = np.mod(tsamp[None, :] * (mids[:, None] / cfg.sample_rate), 1.0)
+        tsec = np.broadcast_to(tsamp / cfg.sample_rate, (len(params_list), block.n_ticks))
         return {
             "base_mid": base_mid.astype(np.float32),
             "tsec": tsec.astype(np.float32),
@@ -222,6 +248,9 @@ class AmplifierDef(ModuleDef):
 
 class MixerDef(ModuleDef):
     kind = "Mixer"
+
+    def structural_key(self, params: MixerParams):
+        return len(params.channels)
 
     def terminals(self, params: MixerParams):
         ins = [LineType.STEREO.labeled(str(i + 1)) for i in range(len(params.channels))]

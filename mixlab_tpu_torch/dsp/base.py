@@ -250,6 +250,12 @@ class ModuleDef:
         return old_state
 
     # -- param lowering ----------------------------------------------------
+    def structural_key(self, params) -> Any:
+        """Hashable fingerprint of the params' structural parts (what shapes
+        the program: waveform, channel count).  An edit that keeps it only
+        swaps ``aux``; a fleet's instances must share it."""
+        return None
+
     def prepare(self, params, cfg: EngineConfig, device: torch.device) -> Pytree:
         """Device tensors derived from params (recomputed per edit)."""
         return None

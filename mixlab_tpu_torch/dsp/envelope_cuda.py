@@ -11,6 +11,15 @@ the aggregates of the tiles before it after one grid-wide barrier.  It is
 latency-bound (the launch, the barrier and two block scans); see the
 source's header note.  ``tile_plan`` sizes the grid.
 
+``envelope_block_batched`` runs B independent blocks ``[B, S]`` with state
+and params ``[B]`` (what ``jax.vmap(envelope_block_pallas)`` computes) in ONE
+launch: the cooperative grid with ``gridDim.y = B`` where it fits the card,
+else one CTA a block walking its tiles with the state carried from tile to
+tile (``batch_plan``).  Under ``torch.func.vmap`` ``envelope_block_cuda`` is
+the custom op ``mixlab_tpu_torch::envelope_block``, whose batching rule makes
+that call.  Its twin is ``envelope_block_torch_batched``; the single twin is
+it at B = 1.
+
 ``envelope_block_torch`` is the plain PyTorch twin: the flat formulation of
 ``mixlab_tpu/dsp/envelope.py`` (running maxima over edge positions and a
 gather for the captured release amplitude).  The wrapper uses it only for a
@@ -40,6 +49,7 @@ THREADS = 256
 LANE = 2
 TILE = THREADS * LANE
 MAX_LANE = 16
+SEQ_LANE = 16  # the lane in the sequential form (batch_plan): one CTA a block
 MAX_TILES = THREADS
 # longest block one launch takes: 128 co-resident tiles (one CTA on each of
 # 128 SMs; an H100 has 132) of the longest lane.  Longer blocks split into
@@ -49,6 +59,8 @@ MAX_KERNEL_S = 128 * THREADS * MAX_LANE
 _PAIR_WORDS = 16  # one tile's aggregate record in the scratch (64 bytes)
 
 _PARAMS = ("attack_ms", "decay_ms", "sustain_amplitude", "release_ms")
+_STATE = ("mode_on", "on_pos", "off_pos", "off_amp")
+_STATE_DTYPES = (torch.bool, torch.int32, torch.int32, torch.float32)
 
 
 def _amp_on(ms_since_on, params):
@@ -64,53 +76,68 @@ def _amp_on(ms_since_on, params):
 
 def _last_index(mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Index of the last True at or before each position, -1 if none."""
-    return torch.cummax(torch.where(mask, idx, -1), dim=0).values
+    return torch.cummax(torch.where(mask, idx, -1), dim=-1).values
 
 
-def envelope_block_torch(
+def envelope_block_torch_batched(
     x: torch.Tensor, state: Dict[str, torch.Tensor], params, ms_per_sample: float
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Plain PyTorch envelope over ``x`` [S] (the flat path of
-    ``mixlab_tpu/dsp/envelope.py:107-165``)."""
-    S = x.shape[0]
+    """Plain PyTorch envelope over B independent blocks ``x`` [B, S], with
+    each block's state and params [B] (the flat path of
+    ``mixlab_tpu/dsp/envelope.py:107-165``, which ``jax.vmap`` runs once per
+    block)."""
+    B, S = x.shape
     idx = torch.arange(S, dtype=torch.int32, device=x.device)
+    col = {k: v[:, None] for k, v in state.items()}
+    prm = {k: params[k][:, None] for k in _PARAMS}
     u_set = x == 1.0
     u_rst = x == 0.0
 
     # mode: last gate event wins (set/reset flip-flop)
     last_ev = _last_index(u_set | u_rst, idx)
     mode_after = torch.where(
-        last_ev >= 0, u_set[last_ev.clamp(min=0).long()], state["mode_on"]
+        last_ev >= 0, torch.gather(u_set, 1, last_ev.clamp(min=0).long()), col["mode_on"]
     )
-    mode_before = torch.cat([state["mode_on"].reshape(1), mode_after[:-1]])
+    mode_before = torch.cat([col["mode_on"], mode_after[:, :-1]], dim=1)
 
     rising = u_set & ~mode_before
     falling = u_rst & mode_before
 
-    on_scan = torch.cummax(torch.where(rising, idx, _SENTINEL), dim=0).values
-    on_pos = torch.maximum(on_scan, state["on_pos"])
+    on_scan = torch.cummax(torch.where(rising, idx, _SENTINEL), dim=-1).values
+    on_pos = torch.maximum(on_scan, col["on_pos"])
     ms_on = (idx - on_pos).to(torch.float32) * ms_per_sample
-    cand = _amp_on(ms_on, params)
+    cand = _amp_on(ms_on, prm)
 
     # off_amplitude: the ON amplitude captured at the last falling edge
     last_off = _last_index(falling, idx)
     in_block_off = last_off >= 0
-    off_pos = torch.where(in_block_off, last_off, state["off_pos"])
+    off_pos = torch.where(in_block_off, last_off, col["off_pos"])
     off_amp = torch.where(
-        in_block_off, cand[last_off.clamp(min=0).long()], state["off_amp"]
+        in_block_off, torch.gather(cand, 1, last_off.clamp(min=0).long()), col["off_amp"]
     )
 
     ms_off = (idx - off_pos).to(torch.float32) * ms_per_sample
-    release_amp = 1.0 - torch.clamp(ms_off / params["release_ms"], 0.0, 1.0)
+    release_amp = 1.0 - torch.clamp(ms_off / prm["release_ms"], 0.0, 1.0)
     out = torch.where(mode_after, cand, off_amp * release_amp)
 
     new_state = {
-        "mode_on": mode_after[-1],
-        "on_pos": torch.clamp(on_pos[-1] - S, min=POS_FLOOR),
-        "off_pos": torch.clamp(off_pos[-1] - S, min=POS_FLOOR),
-        "off_amp": off_amp[-1],
+        "mode_on": mode_after[:, -1],
+        "on_pos": torch.clamp(on_pos[:, -1] - S, min=POS_FLOOR),
+        "off_pos": torch.clamp(off_pos[:, -1] - S, min=POS_FLOOR),
+        "off_amp": off_amp[:, -1],
     }
     return out, new_state
+
+
+def envelope_block_torch(
+    x: torch.Tensor, state: Dict[str, torch.Tensor], params, ms_per_sample: float
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Plain PyTorch envelope over one block ``x`` [S] with 0-d state and
+    params: the batched twin at B = 1."""
+    out, st = envelope_block_torch_batched(
+        x[None], {k: v.reshape(1) for k, v in state.items()},
+        {k: params[k].reshape(1) for k in _PARAMS}, ms_per_sample)
+    return out[0], {k: v[0] for k, v in st.items()}
 
 
 def _check_scalar(t, dtype, index, name):
@@ -122,17 +149,30 @@ def _check_scalar(t, dtype, index, name):
             f"{getattr(t, 'device', None)}")
 
 
-def tile_plan(S: int, resident: int, lane: int = LANE):
-    """``(lane, tiles)`` for a block of S samples on a card that holds
-    ``resident`` of the kernel's CTAs at once: ``lane`` samples a thread
-    while the ``ceil(S / (THREADS * lane))`` tiles fit, else the shortest
-    lane that fits.  Raises ``ValueError`` past ``MAX_LANE``."""
-    cap = min(resident, MAX_TILES)
-    lane = max(lane, -(-S // (cap * THREADS)))
-    if lane > MAX_LANE:
-        raise ValueError(f"envelope: {S} samples do not fit {cap} tiles of at most "
-                         f"{THREADS * MAX_LANE}")
+def tile_plan(S: int, resident: int, lane: int = LANE, batch: int = 1):
+    """``(lane, tiles)`` for ``batch`` blocks of S samples in one cooperative
+    grid of ``batch * tiles`` CTAs on a card that holds ``resident`` of the
+    kernel's CTAs at once: ``lane`` samples a thread while the grid fits,
+    else the shortest lane that fits.  Raises ``ValueError`` past
+    ``MAX_LANE``."""
+    cap = min(resident // batch, MAX_TILES)
+    lane = max(lane, -(-S // (max(cap, 1) * THREADS)))
+    if cap < 1 or lane > MAX_LANE:
+        raise ValueError(f"envelope: {batch} x {S} samples do not fit {resident} tiles of at "
+                         f"most {THREADS * MAX_LANE}")
     return lane, -(-S // (THREADS * lane))
+
+
+def batch_plan(S: int, batch: int, resident: int):
+    """``(sequential, lane, tiles)`` for ``batch`` blocks of S samples in one
+    launch: the cooperative grid of ``tile_plan`` where it fits the card
+    (``sequential`` False), else one CTA a block walking its ``tiles`` tiles
+    of ``THREADS * SEQ_LANE`` samples in order, the state carried from tile
+    to tile (``sequential`` True: no grid barrier, any ``batch``)."""
+    try:
+        return (False, *tile_plan(S, resident, LANE, batch))
+    except ValueError:
+        return True, SEQ_LANE, -(-S // (THREADS * SEQ_LANE))
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,24 +181,37 @@ def resident_tiles(index: int) -> int:
     return kernels.query("mixlab_envelope_resident_tiles", "envelope occupancy query", index)
 
 
-def _launch(x, index, state, params, ms_per_sample, lane=LANE):
+def _launch(x, index, state, params, ms_per_sample, lane=LANE, sequential=None):
+    """One launch over ``x`` [S] (0-d state and params) or ``x`` [B, S]
+    (state and params [B]).  A batch takes ``batch_plan`` unless
+    ``sequential`` forces the form (with ``lane``)."""
     dev = x.device
-    S = x.shape[0]
-    lane, tiles = tile_plan(S, resident_tiles(index), lane)
+    B, S = (1, x.shape[0]) if x.dim() == 1 else x.shape
+    if sequential is None and B > 1:
+        sequential, lane, tiles = batch_plan(S, B, resident_tiles(index))
+    elif sequential:
+        tiles = -(-S // (THREADS * lane))
+    else:
+        sequential = False
+        lane, tiles = tile_plan(S, resident_tiles(index), lane, B)
     # the output and, past it at a 16-byte boundary, the tiles' scratch:
     # one allocation
-    at = -(-S // 4) * 4
-    buf = torch.empty(at + tiles * _PAIR_WORDS, dtype=torch.float32, device=dev)
-    out = buf[:S]
+    n = B * S
+    at = -(-n // 4) * 4
+    buf = torch.empty(at + (0 if sequential else B * tiles * _PAIR_WORDS),
+                      dtype=torch.float32, device=dev)
+    out = buf[:n].view(x.shape)
+    shape = x.shape[:-1]
     new_state = {
-        "mode_on": torch.empty((), dtype=torch.bool, device=dev),
-        "on_pos": torch.empty((), dtype=torch.int32, device=dev),
-        "off_pos": torch.empty((), dtype=torch.int32, device=dev),
-        "off_amp": torch.empty((), dtype=torch.float32, device=dev),
+        "mode_on": torch.empty(shape, dtype=torch.bool, device=dev),
+        "on_pos": torch.empty(shape, dtype=torch.int32, device=dev),
+        "off_pos": torch.empty(shape, dtype=torch.int32, device=dev),
+        "off_amp": torch.empty(shape, dtype=torch.float32, device=dev),
     }
     kernels.launch(
         "mixlab_envelope_block", "envelope kernel launch", index,
-        x.data_ptr(), out.data_ptr(), S, lane, tiles, buf.data_ptr() + 4 * at,
+        x.data_ptr(), out.data_ptr(), S, B, int(sequential), lane, tiles,
+        buf.data_ptr() + 4 * at,
         *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
         state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
         state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
@@ -174,7 +227,14 @@ def envelope_block_cuda(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Envelope over ``x`` [S]: the CUDA kernel for a CUDA tensor, the plain
     twin for a CPU tensor.  Blocks over ``MAX_KERNEL_S`` run as sequential
-    launches with the state carried on the device."""
+    launches with the state carried on the device.  Under
+    ``torch.func.vmap`` it is the custom op ``mixlab_tpu_torch::envelope_block``,
+    whose batching rule makes one ``envelope_block_batched`` call."""
+    if kernels.is_batched(x, *state.values(), *params.values()):
+        out, *st = torch.ops.mixlab_tpu_torch.envelope_block(
+            x, *(state[k] for k in _STATE), *(params[k] for k in _PARAMS),
+            float(ms_per_sample))
+        return out, dict(zip(_STATE, st))
     if x.is_cpu:
         return envelope_block_torch(x, state, params, ms_per_sample)
     index = kernels.cuda_index(x, "envelope")
@@ -204,3 +264,53 @@ def envelope_block_cuda(
 
 
 envelope_block_cuda.launches = 0
+
+
+def envelope_block_batched(
+    x: torch.Tensor, state: Dict[str, torch.Tensor], params, ms_per_sample: float
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The envelope over B independent blocks ``x`` [B, S] with state and
+    params [B], what ``jax.vmap(envelope_block_pallas)`` computes: ONE kernel
+    launch for a CUDA tensor, whatever B and S (``batch_plan``); the batched
+    twin for a CPU tensor."""
+    if x.is_cpu:
+        return envelope_block_torch_batched(x, state, params, ms_per_sample)
+    index = kernels.cuda_index(x, "envelope")
+    if not (x.dim() == 2 and x.dtype is torch.float32 and x.is_contiguous()
+            and x.shape[0] > 0 and 0 < x.shape[1] < 2**30):
+        raise ValueError(
+            "envelope_block_batched: x must be a contiguous [B, S] float32 tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    B = x.shape[0]
+    for name, t, dtype in [*((k, state[k], d) for k, d in zip(_STATE, _STATE_DTYPES)),
+                           *((k, params[k], torch.float32) for k in _PARAMS)]:
+        if not (isinstance(t, torch.Tensor) and t.dtype == dtype and t.is_cuda
+                and t.get_device() == index and t.shape == (B,) and t.is_contiguous()):
+            raise ValueError(
+                f"envelope_block_batched {name}: expected a contiguous {dtype} tensor of shape "
+                f"({B},) on {torch.device('cuda', index)}, got {getattr(t, 'dtype', type(t))} "
+                f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
+    return _launch(x, index, state, params, ms_per_sample)
+
+
+@torch.library.custom_op("mixlab_tpu_torch::envelope_block", mutates_args=())
+def _envelope_op(x: torch.Tensor, mode_on: torch.Tensor, on_pos: torch.Tensor,
+                 off_pos: torch.Tensor, off_amp: torch.Tensor, attack_ms: torch.Tensor,
+                 decay_ms: torch.Tensor, sustain_amplitude: torch.Tensor,
+                 release_ms: torch.Tensor, ms_per_sample: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    out, st = envelope_block_cuda(
+        x, dict(zip(_STATE, (mode_on, on_pos, off_pos, off_amp))),
+        dict(zip(_PARAMS, (attack_ms, decay_ms, sustain_amplitude, release_ms))),
+        ms_per_sample)
+    return out.clone(), *(st[k].clone() for k in _STATE)  # outputs alias nothing
+
+
+@_envelope_op.register_vmap
+def _envelope_vmap(info, in_dims, x, *rest):
+    *tensors, ms_per_sample = rest
+    x, *tensors = kernels.batch_first(info.batch_size, in_dims, x, *tensors)
+    out, st = envelope_block_batched(x, dict(zip(_STATE, tensors[:4])),
+                                     dict(zip(_PARAMS, tensors[4:])), ms_per_sample)
+    return (out, *(st[k] for k in _STATE)), (0,) * 5

@@ -13,6 +13,16 @@ grid barrier), and each thread reruns its samples from its true entry state.
 ``scan_plan`` sizes the grid; see the source's header note for what bounds
 it.
 
+``eq_cascade_batched`` is the same block over B independent sequences
+(``[B, S]``, each with its own poles and gains), what
+``jax.vmap(eq_cascade_pallas)`` computes for the fleet's sessions and the
+stems: ONE launch whatever B, the cooperative grid with ``gridDim.y = B``
+where B x CTAs fit on the card, else one CTA a sequence walking its tiles
+with the carry in shared memory (``batch_plan``).  Under ``torch.func.vmap``
+``eq_cascade_cuda`` becomes the custom op ``mixlab_tpu_torch::eq_cascade``,
+whose batching rule makes that one call.  Its twin is
+``eq_cascade_torch_batched``; the single twin is it at B = 1.
+
 ``eq_cascade_torch`` is the plain PyTorch twin, the same math as
 ``_eq_body`` (``eq_pallas.py:80-137``): Toeplitz products as matrix
 products and a Hillis-Steele scan of the chunk-end states.  The wrapper
@@ -48,6 +58,8 @@ _CHUNK = 128  # the twin's chunk length (eq_pallas's C)
 THREADS = 128
 RUN = 4
 MAX_RUN = 32
+# the run a thread in the sequential form (batch_plan): one CTA a block
+SEQ_RUN = 16
 # longest block one launch takes; longer blocks split into sequential
 # launches carrying the poles exactly
 MAX_KERNEL_S = 384 * 1024
@@ -131,18 +143,30 @@ def _device_tables(f_lo: float, f_hi: float, device: torch.device) -> torch.Tens
     return torch.from_numpy(kernel_tables(f_lo, f_hi)).to(device)
 
 
-def scan_plan(S: int, resident: int, threads: int = THREADS, run: int = RUN):
-    """``(run, tiles)`` for a block of S samples on a card that holds
-    ``resident`` of the kernel's CTAs at once: ``run`` samples a thread while
-    the ``ceil(S / (threads * run))`` CTAs fit, else the shortest power of
-    two that fits.  Raises ``ValueError`` past ``MAX_RUN``."""
-    need = -(-S // (max(resident, 1) * threads))
-    while run < need:
+def scan_plan(S: int, resident: int, threads: int = THREADS, run: int = RUN, batch: int = 1):
+    """``(run, tiles)`` for ``batch`` blocks of S samples in one cooperative
+    grid of ``batch * tiles`` CTAs on a card that holds ``resident`` of the
+    kernel's CTAs at once: ``run`` samples a thread while the grid fits,
+    else the shortest power of two that fits.  Raises ``ValueError`` past
+    ``MAX_RUN``."""
+    while batch * -(-S // (threads * run)) > max(resident, 1) and run <= MAX_RUN:
         run *= 2
     if run > MAX_RUN:
-        raise ValueError(f"eq scan: {S} samples do not fit {resident} CTAs of "
+        raise ValueError(f"eq scan: {batch} x {S} samples do not fit {resident} CTAs of "
                          f"{threads} x {MAX_RUN} samples")
     return run, -(-S // (threads * run))
+
+
+def batch_plan(S: int, batch: int, resident: int, threads: int = THREADS):
+    """``(sequential, run, tiles)`` for ``batch`` blocks of S samples in one
+    launch: the cooperative grid of ``scan_plan`` where it fits the card
+    (``sequential`` False), else one CTA a block walking its ``tiles`` tiles
+    of ``threads * SEQ_RUN`` samples in order with the carry in shared
+    memory (``sequential`` True: no grid barrier, any ``batch``)."""
+    try:
+        return (False, *scan_plan(S, resident, threads, RUN, batch))
+    except ValueError:
+        return True, SEQ_RUN, -(-S // (threads * SEQ_RUN))
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,16 +176,24 @@ def resident_tiles(index: int, threads: int = THREADS) -> int:
     return kernels.query("mixlab_eq_resident_tiles", "eq occupancy query", threads, index)
 
 
-def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
-    """Plain PyTorch EqThree block (the math of ``eq_pallas._eq_body``).
-    Its products refuse to run in less than IEEE f32 (``precision.py``)."""
+def eq_cascade_torch_batched(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
+    """Plain PyTorch EqThree block over B independent sequences (the math of
+    ``eq_pallas._eq_body``, which ``jax.vmap`` runs once per sequence):
+    ``x``, ``xd`` [B, S], ``poles0`` [B, 4, 2], ``gains`` [B, 3] ->
+    ``(out [B, S], poles [B, 4, 2])``.  Each stage's Toeplitz products are
+    one matrix product over all B sequences' chunks, so a sequence's result
+    does not depend on B.  Its products refuse to run in less than IEEE f32
+    (``precision.py``)."""
     require_ieee_f32(x, "EqThree")
-    S = x.shape[0]
+    B, S = x.shape
     C, K, pad = _plan(S)
     a_lo, a_hi = 1.0 - f_lo, 1.0 - f_hi
     dev = x.device
-    x2 = torch.nn.functional.pad(x, (0, pad)).reshape(K, C).T  # [C, K]
-    xd2 = torch.nn.functional.pad(xd, (0, pad)).reshape(K, C).T
+
+    def chunks(v):  # [B, S] -> [C, B, K]: chunk k of sequence b in column (b, k)
+        return torch.nn.functional.pad(v, (0, pad)).reshape(B, K, C).permute(2, 0, 1)
+
+    x2, xd2 = chunks(x), chunks(xd)
     Ts = [torch.from_numpy(_toeplitz_tables((a, a), C)[0][0]).to(dev)
           for a in (a_lo, a_hi)]
     pow_np, row_np, factors = _lane_tables(a_lo, a_hi, C, K)
@@ -175,25 +207,35 @@ def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float)
     poles = [[None, None] for _ in range(4)]
     for s in range(4):
         for b in range(2):
-            pole0 = poles0[s, b]
-            Z = Ts[b] @ Bs[b]  # [C, K] zero-state chunk responses
-            carry = Z[C - 1]
+            pole0 = poles0[:, s, b, None]  # [B, 1]
+            # [C, B, K] zero-state chunk responses
+            Z = (Ts[b] @ Bs[b].reshape(C, B * K)).reshape(C, B, K)
+            carry = Z[C - 1]  # [B, K]
             step = 1
             for fct in factors[b]:
-                shifted = torch.cat([carry.new_zeros(step), carry[:-step]])
+                shifted = torch.cat([carry.new_zeros(B, step), carry[:, :-step]], dim=1)
                 carry = carry + float(np.float32(fct)) * shifted
                 step *= 2
             y_end = carry + pow_v[b] * pole0
-            y_prev = torch.cat([pole0.reshape(1), y_end[:-1]])
-            Yb = Z + row_v[b][:, None] * y_prev[None, :]
-            poles[s][b] = Yb[r0, k0]
+            y_prev = torch.cat([pole0, y_end[:, :-1]], dim=1)
+            Yb = Z + row_v[b][:, None, None] * y_prev[None]
+            poles[s][b] = Yb[r0, :, k0]
             Y[b] = Yb
             if s < 3:
                 Bs[b] = Yb * fs[b]
     lo, hi_lp = Y
-    out_ck = lo * gains[0] + (hi_lp - lo) * gains[1] + (xd2 - hi_lp) * gains[2]
-    out = out_ck.T.reshape(-1)[:S]
-    return out, torch.stack([torch.stack(p) for p in poles])
+    g = gains.T[:, None, :, None]  # [3, 1, B, 1]
+    out_ck = lo * g[0] + (hi_lp - lo) * g[1] + (xd2 - hi_lp) * g[2]
+    out = out_ck.permute(1, 2, 0).reshape(B, K * C)[:, :S]
+    return out, torch.stack([torch.stack(p, dim=1) for p in poles], dim=1)
+
+
+def eq_cascade_torch(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
+    """Plain PyTorch EqThree block over one sequence ``x`` [S]: the batched
+    twin at B = 1."""
+    out, poles = eq_cascade_torch_batched(x[None], xd[None], poles0[None], gains[None],
+                                          f_lo, f_hi, vsa)
+    return out[0], poles[0]
 
 
 def _check(t, shape, name, index):
@@ -206,22 +248,34 @@ def _check(t, shape, name, index):
             f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
 
 
-def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index, threads=THREADS, run=RUN):
+def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index, threads=THREADS, run=RUN,
+            sequential=None):
+    """One launch over ``x`` [S] (``poles0`` [4, 2], ``gains`` [3]) or over
+    ``x`` [B, S] (``poles0`` [B, 4, 2], ``gains`` [B, 3]).  A batch takes
+    ``batch_plan`` unless ``sequential`` forces the form (with ``run``)."""
     dev = x.device
-    S = x.shape[0]
-    run, tiles = scan_plan(S, resident_tiles(index, threads), threads, run)
+    B, S = (1, x.shape[0]) if x.dim() == 1 else x.shape
+    if sequential is None and B > 1:
+        sequential, run, tiles = batch_plan(S, B, resident_tiles(index, threads), threads)
+    elif sequential:
+        tiles = -(-S // (threads * run))
+    else:
+        sequential = False
+        run, tiles = scan_plan(S, resident_tiles(index, threads), threads, run, B)
     tables = _device_tables(f_lo, f_hi, dev)
     # the output, the poles and the CTAs' aggregates in one allocation, the
     # poles and the aggregates at 16-byte boundaries
-    at = -(-S // 4) * 4
-    buf = torch.empty(at + 8 + tiles * _AGG_WORDS, dtype=torch.float32, device=dev)
-    out = buf[:S]
-    poles_out = buf[at:at + 8].view(4, 2)
+    n = B * S
+    at = -(-n // 4) * 4
+    scratch = B * (1 if sequential else tiles) * _AGG_WORDS
+    buf = torch.empty(at + 8 * B + scratch, dtype=torch.float32, device=dev)
+    out = buf[:n].view(x.shape)
+    poles_out = buf[at:at + 8 * B].view(poles0.shape)
     kernels.launch(
         "mixlab_eq_cascade", "eq_cascade kernel launch", index,
-        x.data_ptr(), xd.data_ptr(), S, poles0.data_ptr(), gains.data_ptr(),
-        tables.data_ptr(), float(f_lo), float(f_hi), float(vsa), run, threads, tiles,
-        buf.data_ptr() + 4 * (at + 8), out.data_ptr(), poles_out.data_ptr(),
+        x.data_ptr(), xd.data_ptr(), S, B, int(sequential), poles0.data_ptr(),
+        gains.data_ptr(), tables.data_ptr(), float(f_lo), float(f_hi), float(vsa), run,
+        threads, tiles, buf.data_ptr() + 4 * (at + 8 * B), out.data_ptr(), poles_out.data_ptr(),
     )
     eq_cascade_cuda.launches += 1
     return out, poles_out
@@ -232,7 +286,12 @@ def eq_cascade_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full EqThree block: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors.  Blocks over ``MAX_KERNEL_S`` run as sequential
-    launches with the poles carried on the device."""
+    launches with the poles carried on the device.  Under ``torch.func.vmap``
+    (the fleet's batched program) it is the custom op
+    ``mixlab_tpu_torch::eq_cascade``, whose batching rule makes one
+    ``eq_cascade_batched`` call over the whole batch."""
+    if kernels.is_batched(x, xd, poles0, gains):
+        return torch.ops.mixlab_tpu_torch.eq_cascade(x, xd, poles0, gains, f_lo, f_hi, vsa)
     if x.is_cpu:
         return eq_cascade_torch(x, xd, poles0, gains, f_lo, f_hi, vsa)
     index = kernels.cuda_index(x, "eq_cascade")
@@ -256,3 +315,38 @@ def eq_cascade_cuda(
 
 
 eq_cascade_cuda.launches = 0
+
+
+def eq_cascade_batched(
+    x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EqThree over B independent blocks, what ``jax.vmap(eq_cascade_pallas)``
+    computes: ``x``, ``xd`` [B, S], ``poles0`` [B, 4, 2], ``gains`` [B, 3] ->
+    ``(out [B, S], poles [B, 4, 2])``.  ONE kernel launch for a CUDA tensor,
+    whatever B and S (``batch_plan``); the batched twin for a CPU tensor."""
+    if x.is_cpu:
+        return eq_cascade_torch_batched(x, xd, poles0, gains, f_lo, f_hi, vsa)
+    index = kernels.cuda_index(x, "eq_cascade")
+    if not (x.dim() == 2 and x.shape[0] > 0 and 0 < x.shape[1] < 2**31):
+        raise ValueError(f"eq_cascade_batched: x must be [B, S], got {tuple(x.shape)}")
+    B, S = x.shape
+    _check(x, (B, S), "x", index)
+    _check(xd, (B, S), "xd", index)
+    _check(poles0, (B, 4, 2), "poles0", index)
+    _check(gains, (B, 3), "gains", index)
+    return _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index)
+
+
+@torch.library.custom_op("mixlab_tpu_torch::eq_cascade", mutates_args=())
+def _eq_cascade_op(x: torch.Tensor, xd: torch.Tensor, poles0: torch.Tensor,
+                   gains: torch.Tensor, f_lo: float, f_hi: float,
+                   vsa: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, poles = eq_cascade_cuda(x, xd, poles0, gains, f_lo, f_hi, vsa)
+    return out.clone(), poles.clone()  # a custom op's outputs alias nothing
+
+
+@_eq_cascade_op.register_vmap
+def _eq_cascade_vmap(info, in_dims, x, xd, poles0, gains, f_lo, f_hi, vsa):
+    x, xd, poles0, gains = kernels.batch_first(info.batch_size, in_dims[:4], x, xd, poles0,
+                                               gains)
+    return eq_cascade_batched(x, xd, poles0, gains, f_lo, f_hi, vsa), (0, 0)

@@ -21,6 +21,11 @@ Two programs, as in the JAX package: the regular one calls every module's
 everything downstream of it as one kernel launch per part.  ``mega=None``
 takes the region program where the graph and block qualify, ``mega=True``
 requires it (``ValueError`` otherwise), ``mega=False`` keeps the regular one.
+
+``batched_program`` maps the regular program over a leading instance axis
+(the fleet's sessions, the stems): ``torch.func.vmap`` over
+``run_modules``, so the EqThree and Envelope kernels launch once a block for
+all instances through their custom ops' batching rules.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ class CompiledPatch:
     block: BlockSpec
     device: torch.device
     order: List[ModuleId]
+    structural_fingerprint: Any  # equal for workspaces one program serves
     entries: Dict[ModuleId, ModuleEntry]
     connections: Dict[InputId, OutputId]
     _fn: Callable  # (aux, host_aux (numpy), state) -> (state, taps)
@@ -137,12 +143,59 @@ def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, dev
 
 def _regular_program(order, entries, connections, cfg, block, device):
     def program(aux, host_aux, state):
-        dev_aux = {k: upload(h, device) for k, h in host_aux.items()}
+        dev_aux = upload_all(host_aux, device)
         _, new_state, taps = run_modules(order, entries, connections, aux, dev_aux,
                                          state, cfg, block, device)
         return new_state, taps
 
     return program
+
+
+def upload_all(host_aux, device: torch.device):
+    """A block's numpy ``host_aux`` (a dict per module key, or None; stacked
+    [n, ...] leaves for a batched program) -> tensors on ``device``: one
+    transfer a leaf."""
+    return {k: upload(h, device) for k, h in host_aux.items()}
+
+
+def batched_program(patch: CompiledPatch) -> Callable:
+    """The regular block program of ``patch`` over a leading instance axis:
+    ``(aux, dev_host_aux, state) -> (state', taps)`` with every tensor leaf
+    stacked [n, ...] and ``dev_host_aux`` already on the device
+    (``upload_all``).  ``None`` leaves (modules without state, aux or
+    host arrays) stay out of the mapped arguments and are put back inside."""
+    from mixlab_tpu_torch.convert import tree_leaves, tree_unflatten
+
+    order, entries, connections = patch.order, patch.entries, patch.connections
+    cfg, block, device = patch.cfg, patch.block, patch.device
+
+    def program(aux, dev_aux, state):
+        args = (aux, dev_aux, state)
+        structure = []
+
+        def one(*leaves):
+            a, h, s = tree_unflatten(args, leaves)
+            _, new_state, taps = run_modules(order, entries, connections, a, h, s, cfg,
+                                             block, device)
+            structure.append((new_state, taps))
+            return tuple(tree_leaves((new_state, taps)))
+
+        outs = torch.func.vmap(one)(*tree_leaves(args))
+        return tree_unflatten(structure[0], outs)
+
+    return program
+
+
+def structural_fingerprint(order, entries, connections):
+    """What a program is built from apart from continuous params: module
+    kinds and structural keys, terminal types and connections (the JAX
+    package's fingerprint)."""
+    return tuple(
+        (mid.value, e.params.kind, get_def(e.params.kind).structural_key(e.params.params),
+         tuple(t.line_type for t in e.inputs), tuple(t.line_type for t in e.outputs))
+        for mid, e in ((m, entries[m]) for m in order)
+    ) + tuple(sorted((i.module_id.value, i.index, o.module_id.value, o.index)
+                     for i, o in connections.items()))
 
 
 def compile_patch(
@@ -182,6 +235,7 @@ def compile_patch(
         block=block,
         device=device,
         order=order,
+        structural_fingerprint=structural_fingerprint(order, entries, connections),
         entries=entries,
         connections=connections,
         _fn=fn or _regular_program(order, entries, connections, cfg, block, device),

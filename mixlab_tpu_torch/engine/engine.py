@@ -237,6 +237,7 @@ class Engine:
         block_ticks: int = 1,
         media_opener: Optional[Callable] = None,
         device: str = "cuda",
+        patch_compiler: Optional[Callable] = None,
     ):
         if media_opener is not None:
             raise NotImplementedError(NOT_PORTED_MEDIA_PLAYER)
@@ -245,6 +246,10 @@ class Engine:
         self.ws = workspace or Workspace()
         self.persist_cb = persist_cb
         self.block = BlockSpec(block_ticks)
+        # the graph's lowering: (ws, cfg, block, device) -> a CompiledPatch-
+        # shaped object; parallel/stems.py StemsPatch.compiler(n) runs the
+        # whole live engine over n stems mixed down on the card
+        self._patch_compiler = patch_compiler or compile_patch
 
         self._cmd: queue.Queue = queue.Queue(maxsize=8)
         self._log = _Broadcast(64)
@@ -276,7 +281,7 @@ class Engine:
     def _rebuild(self):
         """Compile the workspace and adopt the program at once (there is
         nothing to trace), then bring the host modules in line."""
-        self._adopt_patch(compile_patch(self.ws, self.cfg, self.block, self.device))
+        self._adopt_patch(self._patch_compiler(self.ws, self.cfg, self.block, self.device))
         self._sync_host_modules()
 
     def _adopt_patch(self, patch: CompiledPatch):

@@ -37,7 +37,7 @@ import torch
 from mixlab_tpu_torch.dsp.base import OP_PEAK, OP_TAP, EmitCtx, MegaSpec, Peak, RegionPlan
 from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine import region_cuda
-from mixlab_tpu_torch.engine.compiler import _mid_key, run_modules, upload
+from mixlab_tpu_torch.engine.compiler import _mid_key, run_modules, upload_all
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.protocol import InputId, LineType, OutputId
 
@@ -168,7 +168,7 @@ def build_mega_program(ws, cfg: EngineConfig, block: BlockSpec, device: torch.de
         n_ef += d["exit_f"]
 
     def program(aux, host_aux, state):
-        dev_aux = {k: upload(h, device) for k, h in host_aux.items()}
+        dev_aux = upload_all(host_aux, device)
         # the prelude: the modules outside the region, through run_block
         buffers, new_state, taps_all = run_modules(
             prelude_order, entries, connections, aux, dev_aux, state, cfg, block, device)

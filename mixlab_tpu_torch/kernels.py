@@ -61,6 +61,7 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "mixlab_envelope_block": [
         _c_ptr, _c_ptr, _c_int,                  # x, out, S
+        _c_int, _c_int,                          # batch, sequential
         _c_int, _c_int, _c_ptr,                  # lane, tiles, tile scratch
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_float,  # attack..release, msps
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state in
@@ -68,7 +69,8 @@ _SIGNATURES = {
         _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_eq_cascade": [
-        _c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # x, xd, S, poles0, gains, tables
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int,          # x, xd, S, batch, sequential
+        _c_ptr, _c_ptr, _c_ptr,                          # poles0, gains, tables
         _c_float, _c_float, _c_float,                    # f_lo, f_hi, vsa
         _c_int, _c_int, _c_int,                          # run, threads, tiles
         _c_ptr, _c_ptr, _c_ptr,                          # scratch, out, poles_out
@@ -219,6 +221,20 @@ def _entry(name: str):
     _raw_stream = torch._C._cuda_getCurrentRawStream
     fn = _entries[name] = getattr(load(), name)
     return fn
+
+
+def is_batched(*ts) -> bool:
+    """Whether any of ``ts`` is a ``torch.func.vmap`` batched tensor (whose
+    data pointer a kernel cannot take: the wrapper then goes through its
+    custom op's batching rule)."""
+    return any(torch._C._functorch.is_batchedtensor(t) for t in ts)
+
+
+def batch_first(batch_size: int, in_dims, *ts):
+    """A vmap batching rule's tensors with the batch axis first (an unbatched
+    one expanded to the batch), contiguous."""
+    return [(t.movedim(d, 0) if d is not None else t.expand(batch_size, *t.shape)).contiguous()
+            for t, d in zip(ts, in_dims)]
 
 
 def launch(name: str, what: str, index: int, *args) -> None:

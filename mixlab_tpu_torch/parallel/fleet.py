@@ -1,0 +1,243 @@
+"""Fleet: N independent sessions of one patch as one batched block program
+on one card (port of ``mixlab_tpu/parallel/fleet.py``).
+
+A ``Fleet`` runs N instances of one compiled patch — the same graph
+structure, each instance with its own params (aux), DSP state and host
+arrays — as the patch's regular block program mapped over a leading
+instance axis (``engine.compiler.batched_program``): one call renders a
+block for every session, and each kernel on the path (the EqThree's, the
+Envelope's at offline block sizes) launches once a block for all of them.
+
+A param edit of one instance writes its row of the stacked aux, which is
+kept in host memory as numpy (as the JAX package keeps it) and shipped to
+the card once a leaf at the next block after an edit; nothing is rebuilt.
+The host arrays of a block (oscillator phase bases) are computed for all
+instances in one vectorized pass where the module defines
+``host_prepare_batched``, broadcast where every instance has the same
+params, and looped otherwise.
+
+``build`` takes ``device=`` where the JAX package takes ``mesh=``: a mesh,
+or more than one device, raises naming ROADMAP.md queue 1, Multi-device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mixlab_tpu_torch.convert import stack, to_numpy, to_torch, tree_leaves, tree_map
+from mixlab_tpu_torch.device import resolve_device
+from mixlab_tpu_torch.dsp.base import ModuleDef
+from mixlab_tpu_torch.dsp.registry import get_def
+from mixlab_tpu_torch.engine.compiler import (
+    CompiledPatch,
+    batched_program,
+    compile_patch,
+    upload_all,
+)
+from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+from mixlab_tpu_torch.engine.graph import Workspace
+from mixlab_tpu_torch.parallel import one_device
+
+_CPU = torch.device("cpu")
+
+
+def _key(mid) -> str:
+    return str(mid.value)
+
+
+def host_aux_row(patch: CompiledPatch, ws: Workspace) -> Dict[str, Any]:
+    """One instance's aux (``prepare`` of each module of ``patch`` with
+    ``ws``'s params) as host numpy."""
+    return to_numpy({
+        _key(mid): get_def(ws.modules[mid].params.kind).prepare(
+            ws.modules[mid].params.params, patch.cfg, _CPU)
+        for mid in patch.order})
+
+
+def host_state_row(patch: CompiledPatch, ws: Workspace) -> Dict[str, Any]:
+    """One instance's initial DSP state as host numpy."""
+    return to_numpy({
+        _key(mid): get_def(ws.modules[mid].params.kind).init_state(
+            ws.modules[mid].params.params, patch.cfg, _CPU)
+        for mid in patch.order})
+
+
+def instance_params(patch: CompiledPatch) -> Dict[str, Any]:
+    """Module key -> the raw params ``patch`` was compiled with."""
+    return {_key(mid): e.params.params for mid, e in patch.entries.items()}
+
+
+def reset_rows(state, init, rows) -> None:
+    """Set rows ``rows`` of every stacked state leaf to the single-instance
+    ``init`` leaf, in place: a few rows in one multi-tensor copy, many with
+    one indexed copy a leaf."""
+    pairs = list(zip(tree_leaves(state), tree_leaves(init)))
+    if not rows or not pairs:
+        return
+    if len(rows) * len(pairs) <= 256:
+        torch._foreach_copy_([s[r] for s, _ in pairs for r in rows],
+                             [i for _, i in pairs for _ in rows])
+        return
+    idx = torch.tensor(rows, device=pairs[0][0].device)
+    for s, i in pairs:
+        s.index_copy_(0, idx, i.expand(len(rows), *i.shape))
+
+
+@dataclass
+class Fleet:
+    """N instances of one patch, batched on the leading axis."""
+
+    cfg: EngineConfig
+    block: BlockSpec
+    n: int
+    patch: CompiledPatch
+    _fn: Callable
+    aux: Any  # stacked [n, ...] host numpy
+    state: Any  # stacked [n, ...] tensors on the device
+    _params: List[Dict[str, Any]] = field(default_factory=list)  # per instance
+    tap_transform: Optional[Callable] = None
+    _dev_aux: Any = None  # aux on the device, None after an edit
+
+    @property
+    def device(self) -> torch.device:
+        return self.patch.device
+
+    @classmethod
+    def build(
+        cls,
+        ws: Workspace,
+        n: int,
+        cfg: EngineConfig = EngineConfig(),
+        block: BlockSpec = BlockSpec(1),
+        per_instance_params: Optional[List[Workspace]] = None,
+        device="cuda",
+        mesh=None,
+        tap_transform: Optional[Callable] = None,
+    ) -> "Fleet":
+        """One program, n stacked instances on ``device``.
+
+        ``per_instance_params``: n workspaces of the SAME structural
+        fingerprint with their own continuous params.  ``tap_transform``: a
+        device-side pass over the stacked taps (e.g. f32 -> i16 PCM).
+        ``mesh`` (or several devices) raises: ROADMAP.md queue 1,
+        Multi-device."""
+        dev = resolve_device(str(one_device(device, mesh)))
+        patch = compile_patch(ws, cfg, block, dev, mega=False)
+        if per_instance_params is None:
+            # identical instances share ONE params view (host_aux then
+            # computes once and broadcasts)
+            params = [instance_params(patch)] * n
+            sources = [ws] * n
+        else:
+            if len(per_instance_params) != n:
+                raise ValueError(f"{len(per_instance_params)} instance workspaces for n={n}")
+            views = [compile_patch(w, cfg, block, dev, mega=False) for w in per_instance_params]
+            if {v.structural_fingerprint for v in views} != {patch.structural_fingerprint}:
+                raise ValueError("fleet instances must share the structural fingerprint")
+            params = [instance_params(v) for v in views]
+            sources = per_instance_params
+        # the rows built on the host, each stacked state leaf uploaded once
+        aux = stack([host_aux_row(patch, w) for w in sources])
+        state = to_torch(stack([host_state_row(patch, w) for w in sources]), dev)
+        return cls(cfg=cfg, block=block, n=n, patch=patch, _fn=batched_program(patch),
+                   aux=aux, state=state, _params=params, tap_transform=tap_transform)
+
+    # -- per-instance edits (no rebuild) ---------------------------------------
+
+    def update_instance_aux(self, index: int, ws: Workspace):
+        """Swap one instance's continuous params: host-memory writes, shipped
+        by the next block.  A structural change raises ``ValueError``."""
+        view = compile_patch(ws, self.cfg, self.block, self.device, mega=False)
+        if view.structural_fingerprint != self.patch.structural_fingerprint:
+            raise ValueError("instance edit changed the structural fingerprint")
+        self.set_instance_row(index, host_aux_row(self.patch, ws), instance_params(view))
+
+    def set_instance_row(self, index: int, row, params: Dict[str, Any]):
+        """Write a prepared aux row (``host_aux_row``) and its params view."""
+        def put(stacked, leaf):
+            stacked[index] = leaf
+
+        tree_map(put, self.aux, row)
+        self._params[index] = params
+        self.aux_changed()
+
+    def aux_changed(self):
+        """The host aux was written: the next block ships it."""
+        self._dev_aux = None
+
+    def reset_instance_state(self, index: int, ws: Workspace):
+        """Reset one instance's DSP state to init (session join / leave): one
+        multi-tensor write on the device."""
+        reset_rows(self.state, self.patch.init_state(ws), [index])
+
+    # -- execution -----------------------------------------------------------
+
+    def _module_host(self, mid, params, t0, feeds=None):
+        """One module's host arrays for one instance, with its external feeds
+        (zeros where a feed is missing)."""
+        k = _key(mid)
+        d = get_def(self.patch.entries[mid].params.kind)
+        h = d.host_prepare(params[k], t0, self.block, self.cfg) or {}
+        for name, (shape, dtype) in (self.patch._ext_specs.get(k) or {}).items():
+            arr = (feeds or {}).get(k, {}).get(name)
+            h = {**h, name: np.zeros(shape, dtype) if arr is None else arr}
+        return h or None
+
+    def host_aux(self, t0: int, ext_feeds_per_instance=None):
+        """The block's host arrays, stacked [n, ...] in host memory.  Per
+        module: ``host_prepare_batched`` where the module defines it, one
+        compute broadcast where all instances share their params, else a
+        loop over the instances."""
+        if ext_feeds_per_instance:
+            return stack([
+                {_key(mid): self._module_host(mid, self._params[i], t0,
+                                              ext_feeds_per_instance.get(i))
+                 for mid in self.patch.order}
+                for i in range(self.n)])
+        out: Dict[str, Any] = {}
+        for mid in self.patch.order:
+            k = _key(mid)
+            d = get_def(self.patch.entries[mid].params.kind)
+            hb = getattr(d, "host_prepare_batched", None)
+            if type(d).host_prepare is ModuleDef.host_prepare:  # no host arrays
+                h = {}
+            else:
+                h = self._batched_host(d, hb, [p[k] for p in self._params], t0)
+            for name, (shape, dtype) in (self.patch._ext_specs.get(k) or {}).items():
+                h[name] = np.zeros((self.n,) + tuple(shape), dtype)
+            out[k] = h or None
+        return out
+
+    def _batched_host(self, d, hb, plist, t0):
+        """One module's host arrays for all instances (``host_aux``)."""
+        if hb is not None:
+            return {name: np.asarray(v)
+                    for name, v in (hb(plist, t0, self.block, self.cfg) or {}).items()}
+        if all(p is plist[0] for p in plist[1:]):
+            h1 = d.host_prepare(plist[0], t0, self.block, self.cfg) or {}
+            return {name: np.broadcast_to(np.asarray(v), (self.n,) + np.shape(v))
+                    for name, v in h1.items()}
+        pp = [d.host_prepare(p, t0, self.block, self.cfg) or {} for p in plist]
+        return {name: np.stack([np.asarray(x[name]) for x in pp]) for name in pp[0]}
+
+    def device_aux(self):
+        """The stacked aux on the device (uploaded after an edit)."""
+        if self._dev_aux is None:
+            self._dev_aux = to_torch(self.aux, self.device)
+        return self._dev_aux
+
+    def step(self, host_aux, state):
+        """``(state', taps)`` of one block from the stacked host arrays."""
+        state, taps = self._fn(self.device_aux(), upload_all(host_aux, self.device), state)
+        if self.tap_transform is not None:
+            taps = self.tap_transform(taps)
+        return state, taps
+
+    def run_block(self, t0: int, ext_feeds_per_instance=None):
+        """One batched block for the whole fleet; returns the stacked taps."""
+        self.state, taps = self.step(self.host_aux(t0, ext_feeds_per_instance), self.state)
+        return taps

@@ -1,4 +1,5 @@
-"""IEEE f32 matrix products, whatever the process's precision flags.
+"""IEEE f32 matrix products and convolutions, whatever the process's
+precision flags.
 
 The JAX package pins ``Precision.HIGHEST`` at each f32 product
 (``mixlab_tpu/dsp/eq_three.py:116``).  PyTorch has no per-call precision:
@@ -12,6 +13,11 @@ CPU.  The flags that concern only the card (``allow_tf32``,
 ``torch.set_float32_matmul_precision("high")`` and ``"medium"`` reach both
 backends (on a CPU with bf16 instructions ``"medium"`` changes the CPU's
 products too).
+
+Convolutions (the resampler's strided ``conv1d``, ``dsp/resampler.py``) read
+flags of their own: cuDNN's on the card, where ``torch.backends.cudnn.allow_tf32``
+is True by default, and oneDNN's on the CPU.  ``require_ieee_f32(t, what,
+conv=True)`` checks those.
 """
 
 from __future__ import annotations
@@ -46,9 +52,37 @@ def reduced_precision_setting(device_type: str) -> Optional[str]:
     return None
 
 
-def require_ieee_f32(t: torch.Tensor, what: str) -> None:
+def reduced_conv_setting(device_type: str) -> Optional[str]:
+    """The setting under which PyTorch may run an f32 convolution on a
+    ``device_type`` tensor in less than IEEE f32 (cuDNN on "cuda", oneDNN on
+    "cpu"); ``None`` when none does."""
+    name = "cudnn" if device_type == "cuda" else "mkldnn"
+    backend = getattr(torch.backends, name)
+    op = getattr(getattr(backend, "conv", None), "fp32_precision", None)
+    if op is not None:  # PyTorch 2.9 and later: the first value not "none" decides
+        for setting, value in ((f"torch.backends.{name}.conv.fp32_precision", op),
+                               (f"torch.backends.{name}.fp32_precision",
+                                getattr(backend, "fp32_precision", "none")),
+                               ("torch.backends.fp32_precision", torch.backends.fp32_precision)):
+            if value != "none":
+                return f'{setting} is "{value}"' if value in _REDUCED else None
+        return None
+    if device_type == "cuda" and torch.backends.cudnn.allow_tf32:
+        return "torch.backends.cudnn.allow_tf32 is True"
+    return None
+
+
+def require_ieee_f32(t: torch.Tensor, what: str, conv: bool = False) -> None:
     """Raise ``RuntimeError`` naming the setting if an f32 product on ``t``
-    could run in less than IEEE f32."""
+    (a convolution if ``conv``) could run in less than IEEE f32."""
+    if conv:
+        setting = reduced_conv_setting(t.device.type)
+        if setting is not None:
+            raise RuntimeError(
+                f"{what}: f32 convolutions must be IEEE f32, as the reference's "
+                f"Precision.HIGHEST, but {setting}; switch it off "
+                "(torch.backends.cudnn.allow_tf32 = False)")
+        return
     setting = reduced_precision_setting(t.device.type)
     if setting is not None:
         raise RuntimeError(
@@ -58,8 +92,8 @@ def require_ieee_f32(t: torch.Tensor, what: str) -> None:
 
 
 def switch_tf32_off() -> None:
-    """Set the process's f32 matrix products, on the card and the CPU, to
-    IEEE f32 (the port runs no convolution): for an entry point that owns
-    its process (``render_cli``, the profiling tool), never for library
-    code."""
+    """Set the process's f32 matrix products, on the card and the CPU, and
+    cuDNN's f32 convolutions to IEEE f32: for an entry point that owns its
+    process (``render_cli``, the profiling tool), never for library code."""
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False

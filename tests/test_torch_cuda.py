@@ -453,3 +453,61 @@ def test_f32_products_on_the_card_refuse_tf32(dev, switch):
         torch.backends.cuda.matmul.fp32_precision = saved[1]
         torch.backends.fp32_precision = saved[2]
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# -- the batched forms (the fleet, the stems) ------------------------------------
+
+
+def _eq_batch(dev, B, S, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, lo=-1.0, hi=1.0: torch.from_numpy(
+        rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+    return (t(3, B, S), t(3, B, S), t(B, 4, 2, lo=-0.1, hi=0.1), t(B, 3, lo=0.5, hi=2.0))
+
+
+def _batch_sizes():
+    """B = 1, 2 and one either side of the cooperative grid's limit at one
+    CTA a block (eq and envelope)."""
+    eq_r = eqc.resident_tiles(0)
+    env_r = envc.resident_tiles(0)
+    return [1, 2, eq_r - 1, eq_r, eq_r + 1], [1, 2, env_r - 1, env_r, env_r + 1]
+
+
+@pytest.mark.parametrize("S", [1, eqc.RUN + 1, eqc.THREADS * eqc.RUN - 1,
+                               eqc.THREADS * eqc.RUN, eqc.THREADS * eqc.SEQ_RUN + 1, 12_000])
+def test_batched_eq_kernel_matches_twin(dev, S):
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    for B in _batch_sizes()[0]:
+        x, xd, poles, gains = _eq_batch(dev, B, S, B * 7 + S)
+        pk, pt = poles, poles
+        for blk in range(3):
+            n0 = eqc.eq_cascade_cuda.launches
+            got, pk = eqc.eq_cascade_batched(x[blk], xd[blk], pk, gains, *f)
+            assert eqc.eq_cascade_cuda.launches == n0 + 1
+            want, pt = eqc.eq_cascade_torch_batched(x[blk], xd[blk], pt, gains, *f)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **EQ_TOL,
+                                       err_msg=f"B={B} S={S}")
+            np.testing.assert_allclose(pk.cpu().numpy(), pt.cpu().numpy(), **EQ_TOL)
+
+
+@pytest.mark.parametrize("S", [1, envc.TILE - 1, envc.TILE + 1,
+                               envc.THREADS * envc.SEQ_LANE + 1, 32_768])
+def test_batched_envelope_kernel_matches_twin(dev, S):
+    rng = np.random.default_rng(S)
+    for B in _batch_sizes()[1]:
+        x = torch.from_numpy(rng.choice([0.0, 1.0, 0.5], size=(3, B, S), p=[0.01, 0.01, 0.98])
+                             .astype(np.float32)).to(dev)
+        st = {k: v.expand(B).contiguous() for k, v in _env_state(dev).items()}
+        params = {k: v.expand(B).contiguous() for k, v in _env_params(dev).items()}
+        sk, stw = st, st
+        for blk in range(3):
+            got, sk = envc.envelope_block_batched(x[blk], sk, params, 1000 / 48_000)
+            want, stw = envc.envelope_block_torch_batched(x[blk], stw, params, 1000 / 48_000)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=ENV_ATOL,
+                                       err_msg=f"B={B} S={S}")
+            for k in ("mode_on", "on_pos", "off_pos"):
+                assert torch.equal(sk[k], stw[k]), k
+            np.testing.assert_allclose(sk["off_amp"].cpu().numpy(),
+                                       stw["off_amp"].cpu().numpy(), atol=ENV_ATOL)

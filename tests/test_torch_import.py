@@ -12,8 +12,8 @@ import torch
 from mixlab_tpu_torch import kernels
 from mixlab_tpu_torch.dsp.base import OP_TAP, RegionPlan
 from mixlab_tpu_torch.device import resolve_device
-from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
-from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_cuda
+from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_batched, envelope_block_cuda
+from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_batched, eq_cascade_cuda
 from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
 from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
@@ -74,6 +74,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "server.fleet", "av.aac", "av.aac_tables", "av.aacenc", "av.avc", "av.sps",
         "av.h264enc", "av.h264cavlc", "av.h264cavlc_fast", "av.mp4", "av.encode_stream",
         "av.codecs", "native", "io_host.listen", "engine.project")} <= names
+    # the batched paths: the fleet, fleet serving, stems and the resampler
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "parallel", "parallel.fleet", "parallel.stems", "server.fleet_serve",
+        "dsp.resampler")} <= names
 
 
 _CONCURRENT_BUILD = r"""
@@ -139,7 +143,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("wrapper", ["envelope", "eq", "region", "crossfade", "resize",
-                                     "passthrough"])
+                                     "passthrough", "envelope_batched", "eq_batched"])
 def test_wrappers_refuse_other_devices(wrapper):
     """Only CPU tensors take the plain twin; any other device launches the
     kernel or raises — here a meta tensor must raise, not fall back."""
@@ -152,6 +156,17 @@ def test_wrappers_refuse_other_devices(wrapper):
     elif wrapper == "eq":
         with pytest.raises(ValueError, match="unsupported device"):
             eq_cascade_cuda(x, x, torch.zeros(4, 2), torch.ones(3), 0.1, 0.2, 0.0)
+    elif wrapper == "envelope_batched":
+        xb = torch.empty((2, 4096), device="meta")
+        state = {"mode_on": torch.zeros(2, dtype=torch.bool),
+                 "on_pos": torch.zeros(2, dtype=torch.int32),
+                 "off_pos": torch.zeros(2, dtype=torch.int32), "off_amp": torch.zeros(2)}
+        with pytest.raises(ValueError, match="unsupported device"):
+            envelope_block_batched(xb, state, {}, 1.0)
+    elif wrapper == "eq_batched":
+        xb = torch.empty((2, 4096), device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            eq_cascade_batched(xb, xb, torch.zeros(2, 4, 2), torch.ones(2, 3), 0.1, 0.2, 0.0)
     elif wrapper == "resize":
         y = torch.empty((48, 64), dtype=torch.uint8, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
