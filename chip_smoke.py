@@ -115,9 +115,11 @@ imports no jax.  Phases, any failure of which exits non-zero:
      crossfade launch per video tick (counts set to 0 and read on the
      engine thread), the native CAVLC tier, and for information segments/s,
      the pipe's dropped count, the encoders' ms per frame and per second of
-     audio and the served ``tick_once`` p50/p99 and share over 16.667 ms;
-     then, each encoder alone, the native and numpy CAVLC tiers' ms per
-     560x350 frame (byte-identical) and the AAC encoder's ms per second;
+     audio and the served ``tick_once`` p50/p99 and share over 16.667 ms
+     (the AAC encoder runs in its codec process, ``av/aac_worker.py``; the
+     log line names earlier figures with it on the codec thread); then, each encoder alone, the native and numpy
+     CAVLC tiers' ms per 560x350 frame (byte-identical) and the AAC
+     encoder's ms per second in this process and through its codec process;
      (b) ``python -m mixlab_tpu_torch --listen 127.0.0.1:<port>`` at its
      default device: ``GET /`` with the port's ``index.html``, one client
      op, SIGTERM -> exit 0 within 15 s with the op persisted.  Any
@@ -142,7 +144,27 @@ imports no jax.  Phases, any failure of which exits non-zero:
      16 x one stem within 2e-4, one eq launch), the resampler against
      ``resample_block_np`` within 2e-6 (refused under cuDNN TF32), and
      config 3 (16 stereo stems 44.1 -> 48 kHz and the per-channel eq,
-     B = 32 x 96,000) as x realtime.
+     B = 32 x 96,000) as x realtime;
+ 17. media playback, after phase 15: (a) the port's native H.264 decode
+     tier against its Python tier, bit-exact, on the x264 streams committed
+     under ``tests/data/h264/`` (CAVLC and CABAC, P and B, the High
+     profile's 8x8 transform) and on a 1080p CAVLC intra stream of the
+     port's encoder, then ms per 1080p frame by tier; (b) a 1920x1080, 30
+     fps, 10 s MP4 with 44.1 kHz stereo AAC-LC made here by the port's
+     encoders and mux, uploaded into a ``ProjectHandle`` on cuda behind
+     ``run_server``; the script's WebSocket client builds the realtime
+     workspace with one 1080p camera on the VideoMixer's channel A at fader
+     0 and a MediaSource of the upload on channel B, and subscribes to the
+     Monitor: one crossfade launch per video tick in a 5 s window (counts
+     set to 0 and read on the engine thread); 12 composites holding a media
+     picture equal decoded pictures exactly; at fader 0.6, 12 composites
+     within 1 LSB of the CPU twin on the mixer's stored pictures; the PCM
+     the engine's feed played equal to the AAC decoder's within 1e-4; for
+     information the window's served tick p50/p99, share over 16.667 ms,
+     the pipe's dropped ticks, the feed's late frames and underrun ticks,
+     and a second window with the AAC path a no-op; (c)
+     ``imdct_batch_torch`` on the card against the numpy ``imdct_batch``
+     within 2e-3, refused under TF32.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -2097,8 +2119,37 @@ class _NoAac:
     def poll_frames(self):
         return []
 
+    def close(self):
+        pass
 
-def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
+
+class _InProcessAac(_NoAac):
+    """The AAC encoder as the JAX package (and the port before its codec
+    process) runs it: ``AacLcEncoder`` on the codec thread itself, the same
+    frames in the same polls."""
+
+    def __init__(self, rate, channels):
+        from mixlab_tpu_torch.av.aac import adts_frame
+        from mixlab_tpu_torch.av.aacenc import AacLcEncoder
+
+        self.enc, self.adts, self.channels = AacLcEncoder(rate, channels), adts_frame, channels
+        self.buf = []
+
+    def feed(self, pcm):
+        self.buf.append(pcm.reshape(-1, self.channels))
+
+    def poll_frames(self):
+        import numpy as np
+
+        buf = np.concatenate(self.buf) if self.buf else np.zeros((0, self.channels), np.int16)
+        n = len(buf) // 1024
+        out = [self.adts(self.enc.encode_granule(buf[k * 1024:(k + 1) * 1024]), self.enc.asc)
+               for k in range(n)]
+        self.buf = [buf[n * 1024:]]
+        return out
+
+
+def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
                    client: str = "thread") -> dict:
     """Phase 15 (a): a ``ProjectHandle`` on the card and ``run_server`` on an
     ephemeral port in this process.  A client of the script's own builds
@@ -2109,7 +2160,9 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
     that open and close the window, so the crossfade count must equal the
     video ticks in it exactly.
 
-    ``aac=False`` swaps the codec thread's AAC encoder for ``_NoAac`` and
+    ``aac="noop"`` swaps the codec thread's AAC encoder for ``_NoAac``,
+    ``aac="inprocess"`` for ``_InProcessAac`` (the encoder on the codec
+    thread, as before its codec process), and
     ``client="process"`` reads the monitor from a process of its own
     (``monitor_client``): ``served_attribution`` runs those.  -> the
     window's figures, its kernel launches under ``"launches"``."""
@@ -2157,7 +2210,7 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
         loop = asyncio.new_event_loop()
         server_thread = threading.Thread(target=loop.run_forever, name="server-loop")
         server_thread.start()
-        tcp = None
+        tcp = replaced = None
         try:
             tcp, _ = asyncio.run_coroutine_threadsafe(
                 run_server(proj, "127.0.0.1", 0), loop).result(60)
@@ -2208,8 +2261,9 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
 
             if not pipeline.broadcast.ready.wait(30):
                 raise AssertionError("the monitor's codecs were not ready in 30 s")
-            if not aac:
-                pipeline._aac = _NoAac()
+            if aac != "process":  # the codec process ends after the engine stops
+                replaced, pipeline._aac = pipeline._aac, (
+                    _NoAac() if aac == "noop" else _InProcessAac(RT_RATE, 2))
             armed = {}
 
             def arm():
@@ -2268,6 +2322,8 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
             loop.close()
             if cams is not None:
                 cams.close()
+            if replaced is not None:
+                replaced.close()
             proj.close()
         faults.check("served session")
     if window["launches"] is None:
@@ -2278,8 +2334,12 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
     over = float((w > TICK_BUDGET_MS).mean())
     ms_frame = 1e3 * stats["video_s"] / max(stats["video_frames"], 1)
     ms_audio_s = 1e3 * stats["audio_s"] / max(stats["audio_samples"] / RT_RATE, 1e-9)
-    variant = ("" if aac else ", AAC encoder a no-op") + (
+    variant = {"process": "", "noop": ", AAC encoder a no-op",
+               "inprocess": ", AAC encoder on the codec thread"}[aac] + (
         ", client in a process of its own" if client == "process" else "")
+    before = ("; the AAC encoder in its codec process (with it on the codec thread, earlier "
+              "runs on an NVIDIA H100 80GB HBM3 at 700 W: 2 / 8 dropped, 15.64 / 54.20% "
+              "over)") if aac == "process" else ""
     log(f"served session{variant} [{card}]: codec tier {codec_tier()} (auto: "
         f"{_auto_codec_tier()}), CAVLC tier {cavlc}; {segments} segments in {elapsed:.3f} s "
         f"({segments / elapsed:.2f}/s); {window['items']} ticks in the window, "
@@ -2288,13 +2348,13 @@ def served_session(torch, np, dev, card, tmp: Path, aac: bool = True,
         f"{ms_audio_s:.3f} ms per second of audio; served tick_once p50 {p50:.3f} ms, "
         f"p99 {p99:.3f} ms, over {TICK_BUDGET_MS:.3f} ms {100 * over:.2f}% of "
         f"{len(w)} ticks; launches {launches}; {checked} fed pictures within 1 LSB "
-        f"of the engine's composites scaled on the host")
+        f"of the engine's composites scaled on the host{before}")
     if cavlc != "NativeCavlcIntraEncoder":
         raise AssertionError(f"the monitor's CAVLC tier is {cavlc}, not the native encoder")
     if launches["crossfade"] != window["video"] or window["video"] < 60:
         raise AssertionError(f"the served window launched the crossfade kernel "
                              f"{launches['crossfade']} times in {window['video']} video ticks")
-    if segments < (10 if aac else 5) * SERVED_SECONDS:
+    if segments < (5 if aac == "noop" else 10) * SERVED_SECONDS:
         raise AssertionError(f"only {segments} monitor segments in {elapsed:.1f} s")
     return {"launches": launches, "segments_per_s": segments / elapsed,
             "ticks": window["items"], "dropped": dropped, "p50": p50, "p99": p99,
@@ -2305,10 +2365,12 @@ def served_attribution() -> int:
     """For information, not part of ``main``: what in the process takes the
     served session's tick wall.  On one card, in turns: the bare engine
     (phase 10's ``tick_once`` with video: 300 ticks in direct drive, no
-    codec thread), then phase 15 (a) as ``main`` runs it, with the AAC
-    encoder a no-op, with the monitor client in a process of its own, with
-    both, and as ``main`` runs it again; then the bare engine again.  Run
-    from the repo's root:
+    codec thread), then phase 15 (a) twice over in the order: as ``main``
+    runs it (the AAC encoder in its codec process), with the encoder on the
+    codec thread (as before its codec process), with the encoder a no-op;
+    then as ``main`` runs it with the interpreter's switch interval at
+    0.5 ms (5 ms by default) and with the monitor client in a process of
+    its own; then the bare engine again.  Run from the repo's root:
 
         python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.served_attribution())'
     """
@@ -2348,11 +2410,19 @@ def served_attribution() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         bare("before")
-        for i, (aac, client) in enumerate(((True, "thread"), (False, "thread"), (True, "process"),
-                                           (False, "process"), (True, "thread"))):
+        variants = [(aac, "thread", None) for aac in ("process", "inprocess", "noop")] * 2
+        variants += [("process", "thread", 5e-4), ("process", "process", None)]
+        for i, (aac, client, switch) in enumerate(variants):
             sub = Path(tmp) / f"variant{i}"
             sub.mkdir()
-            served_session(torch, np, dev, card, sub, aac=aac, client=client)
+            old = sys.getswitchinterval()
+            if switch is not None:
+                sys.setswitchinterval(switch)
+                log(f"attribution: switch interval {switch * 1e3:.1f} ms")
+            try:
+                served_session(torch, np, dev, card, sub, aac=aac, client=client)
+            finally:
+                sys.setswitchinterval(old)
         bare("after")
     return 0
 
@@ -2429,6 +2499,7 @@ def codec_timing(torch, np, dev, card, n_frames=10, audio_seconds=2):
     and the numpy one, which must give the same bytes) on the cameras'
     content scaled on the card, and the pure AAC-LC encoder's ms per second
     of 44.1 kHz stereo."""
+    from mixlab_tpu_torch.av.aacenc import AacLcEncoder
     from mixlab_tpu_torch.av.codecs import MONITOR_PICTURE, PureAacStream
     from mixlab_tpu_torch.av.encode_stream import f32_to_i16
     from mixlab_tpu_torch.av.h264cavlc_fast import (FastCavlcIntraEncoder,
@@ -2455,15 +2526,27 @@ def codec_timing(torch, np, dev, card, n_frames=10, audio_seconds=2):
     tone = 0.5 * np.sin(2 * np.pi * 440.0 * np.arange(n) / RT_RATE)
     audio = np.stack([tone, -tone], axis=1) + 0.05 * rng.standard_normal((n, 2))
     aac = PureAacStream(RT_RATE, 2)
-    t = time.perf_counter()
-    for i in range(0, n, RT_SPT):  # fed a tick at a time, as the codec thread does
-        aac.feed(f32_to_i16(audio[i:i + RT_SPT].astype(np.float32).reshape(-1)))
+    try:
+        aac.feed(np.zeros(2 * 1024, np.int16))  # the child started and warm
         aac.poll_frames()
-    ms_audio = 1e3 * (time.perf_counter() - t) / audio_seconds
+        t = time.perf_counter()
+        for i in range(0, n, RT_SPT):  # fed a tick at a time, as the codec thread does
+            aac.feed(f32_to_i16(audio[i:i + RT_SPT].astype(np.float32).reshape(-1)))
+            aac.poll_frames()
+        ms_audio = 1e3 * (time.perf_counter() - t) / audio_seconds
+    finally:
+        aac.close()
+    enc = AacLcEncoder(RT_RATE, 2)
+    i16 = f32_to_i16(audio.astype(np.float32).reshape(-1)).reshape(-1, 2)
+    t = time.perf_counter()
+    for k in range(n // 1024):
+        enc.encode_granule(i16[k * 1024:(k + 1) * 1024])
+    ms_inproc = 1e3 * (time.perf_counter() - t) / audio_seconds
     log(f"codec timing, each encoder alone on one host thread [{card}]: CAVLC per "
         f"560x350 frame native {ms['native']:.3f} ms, numpy {ms['numpy']:.3f} ms "
         f"({n_frames} frames of the cameras' content, qp 30); pure AAC-LC "
-        f"{ms_audio:.3f} ms per second of audio ({audio_seconds} s in ticks of {RT_SPT})")
+        f"{ms_inproc:.3f} ms per second of audio in this process, {ms_audio:.3f} ms of "
+        f"wall through the codec process ({audio_seconds} s in ticks of {RT_SPT})")
     if units["native"] != units["numpy"]:
         raise AssertionError("the native and numpy CAVLC tiers disagree")
 
@@ -3177,6 +3260,613 @@ def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "re
     return {k: tuple(v) for k, v in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: media playback on the card (the MediaPlayer and its decoders)
+# ---------------------------------------------------------------------------
+
+MEDIA_SIZE = (1920, 1080)
+MEDIA_FPS = 30
+MEDIA_SECONDS = 10
+MEDIA_DISTINCT = 10       # distinct pictures, cycled: the stream is all-intra
+MEDIA_QP = 30
+MEDIA_PCM_ATOL = 1e-4
+MEDIA_WINDOW_S = 5.0
+MEDIA_CHECK_TICKS = 12
+DECODE_TIMED = 10         # 1080p frames timed on the native tier
+DECODE_PY_FRAMES = 2      # and on the Python tier (seconds each)
+IMDCT_ATOL = 2e-3         # tests/test_vorbis.py:68
+
+
+class _PythonDecodeTier:
+    """The port's native library patched away while the block runs: each
+    H.264 decoder takes its Python tier, as on a host without g++."""
+
+    def __enter__(self):
+        from mixlab_tpu_torch import native
+
+        self.native, self.old = native, native._load
+        native._load = lambda: None
+
+    def __exit__(self, *exc):
+        self.native._load = self.old
+
+
+def _decode_all(data: bytes):
+    from mixlab_tpu_torch.av.h264dec import PureH264Decoder
+
+    dec = PureH264Decoder()
+    return dec.decode_annexb(data) + dec.flush()
+
+
+def _same_frames(np, a, b) -> bool:
+    return len(a) == len(b) > 0 and all(
+        fa[0] == fb[0] and all(x.shape == y.shape and np.array_equal(x, y)
+                               for x, y in zip(fa[1:], fb[1:])) for fa, fb in zip(a, b))
+
+
+def media_pictures(torch, np, dev):
+    """The MEDIA_DISTINCT 1080p pictures (bars and gradients made on the
+    card, fetched) encoded by the port's CAVLC intra encoder: -> (the
+    avcc access units, one Annex B stream of them with SPS and PPS, the
+    encoder's wall per frame)."""
+    from mixlab_tpu_torch.av.h264enc import PureH264Stream, nal
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+    from mixlab_tpu_torch.video.pattern import pattern_picture
+
+    w, h = MEDIA_SIZE
+    stream = PureH264Stream(PictureSettings(w, h), fps=MEDIA_FPS, mode="cavlc", qp=MEDIA_QP)
+    units, t = [], 0.0
+    for i in range(MEDIA_DISTINCT):
+        kind = "bars" if i % 2 == 0 else "gradient"
+        pic = Picture(PictureSettings(w, h),
+                      pattern_picture(kind, w, h, 7 * i, device=dev).to_numpy())
+        t0 = time.perf_counter()
+        stream.feed(pic)
+        ((_key, avcc),) = stream.poll_access_units()
+        t += time.perf_counter() - t0
+        units.append(avcc)
+    sc = b"\x00\x00\x00\x01"
+    annexb = sc + nal(7, stream.sps) + sc + nal(8, stream.pps) + b"".join(
+        sc + u[4:] for u in units)
+    return units, annexb, stream.dcr, 1e3 * t / MEDIA_DISTINCT
+
+
+def media_decode(torch, np, dev, card, annexb: bytes) -> list:
+    """Phase 17 (a): the native decode tier against the Python tier,
+    bit-exact, on the committed x264 streams (``tests/data/h264/``: CAVLC
+    and CABAC, P and B, the 8x8 transform) and on the port's 1080p CAVLC
+    intra stream; then, for information, ms per 1080p frame by tier.
+    -> the 1080p stream's frames decoded on the native tier."""
+    from mixlab_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("the port's native library (the decode tier) did not build")
+    names = []
+    for path in sorted((ROOT / "tests" / "data" / "h264").glob("*.264")):
+        data = path.read_bytes()
+        nat = _decode_all(data)
+        with _PythonDecodeTier():
+            py = _decode_all(data)
+        if not _same_frames(np, nat, py):
+            raise AssertionError(f"{path.name}: the native decode tier disagrees with the "
+                                 "Python tier")
+        names.append(f"{path.stem} ({len(nat)} frames)")
+    if len(names) < 5:
+        raise AssertionError(f"only {len(names)} committed x264 streams: {names}")
+    t = time.perf_counter()
+    frames = _decode_all(annexb)
+    ms_native = 1e3 * (time.perf_counter() - t) / len(frames)
+    t = time.perf_counter()
+    for _ in range(max(DECODE_TIMED // len(frames), 1)):
+        _decode_all(annexb)
+    ms_native = min(ms_native, 1e3 * (time.perf_counter() - t)
+                    / (max(DECODE_TIMED // len(frames), 1) * len(frames)))
+    sc = b"\x00\x00\x00\x01"
+    head = sc.join(annexb.split(sc)[:3 + DECODE_PY_FRAMES])  # "", SPS, PPS, the IDRs
+    t = time.perf_counter()
+    with _PythonDecodeTier():
+        py = _decode_all(head)
+    ms_py = 1e3 * (time.perf_counter() - t) / len(py)
+    if len(frames) != MEDIA_DISTINCT or not _same_frames(np, py, frames[:len(py)]):
+        raise AssertionError("the 1080p CAVLC intra stream: the native decode tier disagrees "
+                             "with the Python tier")
+    log(f"media decode [{card}]: native tier == Python tier, bit-exact, on {', '.join(names)} "
+        f"and the port's 1080p CAVLC intra stream ({len(frames)} frames, {DECODE_PY_FRAMES} "
+        f"on the Python tier); ms per {MEDIA_SIZE[0]}x{MEDIA_SIZE[1]} frame: native "
+        f"{ms_native:.3f}, "
+        f"Python {ms_py:.1f}")
+    return frames
+
+
+def media_mp4(np, units, dcr):
+    """The 1920x1080, 30 fps, 10 s MP4 with 44.1 kHz stereo AAC-LC, made here
+    by the port's own encoders and fMP4 mux: the access units cycled, and
+    10 s of a seeded tone through the AAC codec process.  -> (bytes, the
+    AAC decoder's PCM of the track, the wall in s)."""
+    from fractions import Fraction
+
+    from mixlab_tpu_torch.av import mp4
+    from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
+    from mixlab_tpu_torch.av.aacdec import AacLcDecoder
+    from mixlab_tpu_torch.av.codecs import PureAacStream
+    from mixlab_tpu_torch.av.encode_stream import f32_to_i16
+    from mixlab_tpu_torch.utils.mtime import MediaDuration
+
+    t0 = time.perf_counter()
+    n = MEDIA_SECONDS * RT_RATE
+    rng = np.random.default_rng(17)
+    ts = np.arange(n) / RT_RATE
+    pcm = np.stack([0.4 * np.sin(2 * np.pi * 440 * ts), 0.3 * np.sin(2 * np.pi * 554 * ts)], 1)
+    pcm = (pcm + rng.normal(0, 0.02, pcm.shape)).astype(np.float32)
+    aac = PureAacStream(RT_RATE, 2)
+    try:
+        aac.feed(f32_to_i16(pcm.reshape(-1)))
+        frames = aac.poll_frames()
+    finally:
+        aac.close()
+    w, h = MEDIA_SIZE
+    mux, blob = mp4.Mp4Mux.create(mp4.Mp4Params(
+        timescale=RT_RATE, width=w, height=h, dcr=dcr, sample_rate=RT_RATE, channels=2))
+    blob = bytearray(blob)
+    events = [(Fraction(k * 1024, RT_RATE), 0, k) for k in range(len(frames))]
+    events += [(Fraction(k, MEDIA_FPS), 1, k) for k in range(MEDIA_SECONDS * MEDIA_FPS)]
+    for _, kind, k in sorted(events):
+        if kind == 0:
+            blob += mux.write_track(MediaDuration.new(1024, RT_RATE), mp4.AdtsFrame(frames[k]))
+        else:
+            blob += mux.write_track(MediaDuration.new(1, MEDIA_FPS), mp4.AvcFrame(
+                True, MediaDuration.zero(), units[k % len(units)]))
+    asc = AudioSpecificConfiguration.lc_stereo(RT_RATE)
+    dec = AacLcDecoder(asc)
+    t1 = time.perf_counter()
+    ref = np.concatenate([dec.decode_raw(f[7:], asc.sampling_frequency_index)
+                          for f in frames]).astype(np.float32)
+    ms_granule = 1e3 * (time.perf_counter() - t1) / len(frames)
+    return bytes(blob), ref, time.perf_counter() - t0, ms_granule, [f[7:] for f in frames]
+
+
+def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
+                  then=({"aac": "noop"}, {"aac": "process", "client": "process"})) -> dict:
+    """Phase 17 (b): the MP4 uploaded into a ``ProjectHandle`` on the card,
+    ``run_server`` on an ephemeral port, and the script's WebSocket client
+    builds ``flagship.realtime_video_ops`` with one 1080p camera (fed at 60
+    fps) on the VideoMixer's channel A at fader 0, then a MediaSource of the
+    upload on channel B.  The Monitor's codec thread is live (pure tier:
+    the AAC codec process).  Then, with a client subscribed to the Monitor:
+
+      * a window of MEDIA_WINDOW_S with the launch counts set to 0 and read
+        on the engine thread: one crossfade launch per video tick;
+      * MEDIA_CHECK_TICKS composites at fader 0 of ticks whose mixer holds
+        a media picture, each copied to the host on the engine thread: every
+        one is a decoded picture, exactly;
+      * the fader set to 0.6 by a client op: MEDIA_CHECK_TICKS composites
+        against the CPU twin on the mixer's stored pictures of the same
+        tick, within 1 LSB;
+      * the played PCM (what the engine's feed reads, underrun gaps left
+        out) against the AAC decoder's PCM of the track, within 1e-4;
+      * for information, the window's served tick_once p50/p99, share over
+        16.667 ms, the Monitor pipe's dropped ticks, the feed's late frames
+        and underrun ticks; then a window for each variant of ``then``, a
+        dict: ``aac`` the AAC encoder a no-op (``"noop"``), on the codec
+        thread (``"inprocess"``) or in its codec process (``"process"``);
+        ``cached`` the decodes (``"audio"``, ``"video"``) the decode thread
+        looks up instead of running; ``client`` ``"process"`` for the
+        monitor client in a process of its own (``monitor_client``).
+
+    -> the first window's launches and figures."""
+    import asyncio
+    from fractions import Fraction
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine import engine as engine_mod
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.project import open_or_create
+    from mixlab_tpu_torch.flagship import realtime_video_ops
+    from mixlab_tpu_torch.server.app import run_server
+    from mixlab_tpu_torch.video.blend import crossfade_torch
+
+    from mixlab_tpu_torch.engine.media_player import _upload_planes
+
+    blob, ref_pcm, mp4_wall, ms_granule, raws = media_mp4(np, units, dcr)
+    t = time.perf_counter()
+    for _ in range(3):
+        for pic in pictures:
+            _upload_planes(*pic[1:], dev)
+    ms_upload = 1e3 * (time.perf_counter() - t) / (3 * len(pictures))
+    log(f"media mp4 [{card}]: {MEDIA_SIZE[0]}x{MEDIA_SIZE[1]} {MEDIA_FPS} fps {MEDIA_SECONDS} s, "
+        f"{MEDIA_SECONDS * MEDIA_FPS} H.264 samples ({MEDIA_DISTINCT} distinct, cycled) and "
+        f"{len(ref_pcm) // 1024} AAC-LC frames, {len(blob)} bytes, made in {mp4_wall:.3f} s; "
+        f"the decode thread's other work, each alone: AAC-LC decode {ms_granule:.3f} ms per "
+        f"1,024-sample granule ({ms_granule * RT_RATE / 1024:.1f} ms per second of audio, "
+        f"Python), upload of a decoded picture to {dev} {ms_upload:.3f} ms")
+    cam = ("media-cam1",)
+    pool = [cam_frames(torch, np, dev, i, sizes=CAM_SIZES[:1]) for i in range(4)]
+    counters = launch_counters()
+    ref_y = {pic[1].tobytes(): i for i, pic in enumerate(pictures)}
+    state = {"window": None, "check": None, "walls": [], "played": [], "underrun": 0,
+             "late": 0, "released": 0, "dropped0": 0, "offset0": None}
+
+    class CountingQueue(queue.Queue):
+        """The feed's audio queue, counting the samples taken from it."""
+        taken = 0
+
+        def get_nowait(self):
+            chunk = super().get_nowait()
+            self.taken += len(chunk)
+            return chunk
+
+    pts_of = {}
+
+    class PtsQueue(queue.Queue):
+        """The feed's video queue, noting each frame's pts as it is taken."""
+
+        def get_nowait(self):
+            item = super().get_nowait()
+            pts_of[id(item[1])] = item[0]
+            return item
+
+    class CountedFeed(engine_mod.MediaSourceFeed):
+        """The MediaSource's feed with the engine thread's reads recorded:
+        the samples each tick played (underrun gaps left out) and each
+        released frame's delay behind the feed's clock beyond the first
+        frame's (more than a frame's duration is late)."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.queue = CountingQueue(maxsize=self.queue.maxsize)
+            self.video_q = PtsQueue(maxsize=self.video_q.maxsize)
+
+        def fill_tick(self, n):
+            carry0, taken0 = (0 if self.carry is None else len(self.carry)), self.queue.taken
+            out = super().fill_tick(n)
+            filled = (carry0 + self.queue.taken - taken0
+                      - (0 if self.carry is None else len(self.carry)))
+            state["played"].append(out[:filled].copy())
+            win = state["window"]
+            if win is not None and win["open"] and win["launches"] is None and filled < n:
+                state["underrun"] += 1
+            return out
+
+        def take_video(self, n):
+            pos = self.pos
+            frame = super().take_video(n)
+            if frame is not None:
+                delay = (pos - pts_of.pop(id(frame))).frac
+                if state["offset0"] is None:
+                    state["offset0"] = delay
+                win = state["window"]
+                if win is not None and win["open"] and win["launches"] is None:
+                    state["released"] += 1
+                    state["late"] += delay - state["offset0"] > Fraction(1, MEDIA_FPS)
+            return frame
+    with _PureTier(), ThreadFaults() as faults:
+        proj = open_or_create(tmp / "media.mixlab", EngineConfig(sample_rate=RT_RATE),
+                              block_ticks=1, device=str(dev))
+        eng = proj.engine
+        media_id = proj.upload_media("clip.mp4", "video/mp4", [blob])
+        tick_once = eng.tick_once
+
+        def timed_tick(*args):
+            t = time.perf_counter()
+            out = tick_once(*args)
+            state["walls"].append(time.perf_counter() - t)
+            return out
+
+        eng.tick_once = timed_tick
+        cams, stop, tcp = None, threading.Event(), None
+
+        def feeder():
+            start, k = time.monotonic(), 0
+            while not stop.is_set():
+                cams.publish(k, pool[k % len(pool)])
+                k += 1
+                stop.wait(max(0.0, start + k / 60 - time.monotonic()))
+
+        feed_thread = threading.Thread(target=feeder, name="media-feeder")
+        loop = asyncio.new_event_loop()
+        server_thread = threading.Thread(target=loop.run_forever, name="server-loop")
+        server_thread.start()
+        replaced = None
+        try:
+            tcp, _ = asyncio.run_coroutine_threadsafe(
+                run_server(proj, "127.0.0.1", 0), loop).result(60)
+            port = tcp.sockets[0].getsockname()[1]
+            ops, ids = realtime_video_ops(p, cam, fader=0.0)
+            geo = p.WindowGeometry()
+            media_mid = p.ModuleId(int(ids["mixer"].value) + 1)
+            ops += [p.CreateModule(p.ModuleParams("MediaSource", p.MediaSourceParams(media_id)),
+                                   geo),
+                    p.CreateConnection(p.InputId(ids["mixer"], 1), p.OutputId(media_mid, 0))]
+            session = {}
+
+            async def client_ops(op_list, first_seq):
+                reader, writer = await ws_open(port, "/session")
+                await ws_read(reader)  # WorkspaceState
+                await ws_read(reader)  # MediaLibrary
+                for seq, op in enumerate(op_list, first_seq):
+                    for up in await ws_op(reader, writer, seq, op):
+                        if up["t"] == "SUCreateModule" and up["params"]["kind"] == "Monitor":
+                            session["socket_id"] = up["indication"]["value"]["socket_id"]
+                writer.close()
+
+            engine_mod.MediaSourceFeed = CountedFeed  # the feed the op creates
+            try:
+                asyncio.run_coroutine_threadsafe(client_ops(ops, 1), loop).result(120)
+            finally:
+                engine_mod.MediaSourceFeed = CountedFeed.__mro__[1]
+            cams = Cameras(cam, sizes=CAM_SIZES[:1])  # the StreamInput listens now
+            feed_thread.start()
+            if media_mid not in eng._media_players or not eng._media_players[media_mid].is_alive():
+                raise AssertionError("the MediaSource's decode thread did not start")
+            if eng._media_players[media_mid].device != dev:
+                raise AssertionError("the MediaPlayer uploads to "
+                                     f"{eng._media_players[media_mid].device}, not {dev}")
+            pipeline = eng._monitor_pipelines[ids["monitor"]]
+            mixer = eng._video_mixers[ids["mixer"]]
+            if not isinstance(eng._media_feeds[media_mid], CountedFeed):
+                raise AssertionError("the MediaSource's feed is not the counted one")
+            pipe = eng.monitor_pipe(ids["monitor"])
+            push = pipe.push
+
+            def counted_push(item):
+                win, chk = state["window"], state["check"]
+                if win is not None:
+                    if win["armed"] and not win["open"]:
+                        for fn in counters.values():
+                            fn.launches = 0
+                        win["open"] = True
+                        state["walls"].clear()
+                        state["released"] = state["late"] = state["underrun"] = 0
+                        state["dropped0"] = pipe.dropped
+                    elif win["open"] and win["launches"] is None:
+                        win["video"] += item[2] is not None
+                        win["items"] += 1
+                        if not win["armed"]:
+                            win["launches"] = {k: fn.launches for k, fn in counters.items()}
+                elif chk is not None and len(chk["got"]) < MEDIA_CHECK_TICKS \
+                        and item[2] is not None and mixer.channels[1].stored is not None:
+                    # a tick whose composite holds a media picture
+                    stored = [mixer.channels[i].stored for i in (0, 1)]
+                    chk["got"].append((item[2].picture.to_numpy(),
+                                       [None if s is None else s.to_numpy() for s in stored]))
+                return push(item)
+
+            pipe.push = counted_push
+            if not pipeline.broadcast.ready.wait(60):
+                raise AssertionError("the monitor's codecs were not ready in 60 s")
+            deadline = time.monotonic() + 30
+            while not any(len(x) for x in state["played"]) and time.monotonic() < deadline:
+                time.sleep(0.01)
+
+            def run_window(label, client="thread"):
+                win = {"armed": False, "open": False, "video": 0, "items": 0, "launches": None}
+                state["window"] = win
+
+                def arm():
+                    win["armed"] = True
+
+                if client == "thread":
+                    segments, elapsed = asyncio.run_coroutine_threadsafe(monitor_segments(
+                        port, session["socket_id"], MEDIA_WINDOW_S, arm), loop).result(
+                            MEDIA_WINDOW_S + 60)
+                else:
+                    proc = subprocess.Popen(
+                        [sys.executable, "-c", "import chip_smoke as cs; cs.monitor_client("
+                         f"{port}, {session['socket_id']!r}, {MEDIA_WINDOW_S})"],
+                        cwd=ROOT, stdout=subprocess.PIPE, text=True)
+                    try:
+                        if proc.stdout.readline().strip() != "subscribed":
+                            raise AssertionError("the monitor client process did not subscribe")
+                        arm()
+                        out = proc.communicate(timeout=MEDIA_WINDOW_S + 60)[0]
+                    finally:
+                        if proc.poll() is None:
+                            proc.kill()
+                            proc.wait()
+                    got = json.loads(out.strip().splitlines()[-1])
+                    segments, elapsed = got["segments"], got["elapsed"]
+                win["armed"] = False
+                deadline = time.monotonic() + 10
+                while win["launches"] is None and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                state["window"] = None
+                if win["launches"] is None:
+                    raise AssertionError(f"media window {label} did not close on the engine "
+                                         "thread")
+                w = np.sort(np.asarray(state["walls"][:win["items"]]) * 1e3)
+                res = {"launches": win["launches"], "video": win["video"],
+                       "ticks": win["items"], "segments_per_s": segments / elapsed,
+                       "p50": float(np.percentile(w, 50)), "p99": float(np.percentile(w, 99)),
+                       "over": float((w > TICK_BUDGET_MS).mean()),
+                       "dropped": pipe.dropped - state["dropped0"], "late": state["late"],
+                       "released": state["released"], "underrun": state["underrun"]}
+                log(f"media playback window, {label} [{card}]: {res['ticks']} ticks, "
+                    f"{res['video']} with video, {segments} monitor segments in "
+                    f"{elapsed:.3f} s; served tick_once p50 {res['p50']:.3f} ms, p99 "
+                    f"{res['p99']:.3f} ms, over {TICK_BUDGET_MS:.3f} ms "
+                    f"{100 * res['over']:.2f}%; pipe dropped {res['dropped']}; media frames "
+                    f"released {res['released']}, late {res['late']}; audio underrun ticks "
+                    f"{res['underrun']}; launches {res['launches']}")
+                return res
+
+            first = run_window("AAC codec process on")
+
+            def take_checks():
+                state["check"] = {"got": []}
+                deadline = time.monotonic() + 20
+                while len(state["check"]["got"]) < MEDIA_CHECK_TICKS and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.01)
+                got, state["check"] = state["check"]["got"], None
+                if len(got) < MEDIA_CHECK_TICKS:
+                    raise AssertionError(f"only {len(got)} composites copied for the check")
+                return got
+
+            shown = set()
+            for comp, _stored in take_checks():
+                i = ref_y.get(comp["y"].tobytes())
+                if i is None or not all(np.array_equal(comp[k], pictures[i][j])
+                                        for j, k in ((2, "u"), (3, "v"))):
+                    raise AssertionError("a composite at fader 0 is not a decoded picture")
+                shown.add(i)
+            fade = int(RT_FADER * 255.0)
+            asyncio.run_coroutine_threadsafe(client_ops([p.UpdateModuleParams(
+                ids["mixer"], p.ModuleParams("VideoMixer", p.VideoMixerParams(
+                    a=0, b=1, fader=RT_FADER)))], len(ops) + 1), loop).result(60)
+            lsb = 0
+            for comp, stored in take_checks():
+                if any(s is None for s in stored):
+                    raise AssertionError("a mixer channel held no picture in the check")
+                for k in ("y", "u", "v"):
+                    want = crossfade_torch(torch.from_numpy(stored[0][k]),
+                                           torch.from_numpy(stored[1][k]), fade).numpy()
+                    lsb = max(lsb, int(np.abs(comp[k].astype(np.int32) - want).max()))
+            if lsb > COMPOSITE_LSB:
+                raise AssertionError(f"composites at fader {RT_FADER} are {lsb} LSB from the "
+                                     "CPU twin")
+            replaced = pipeline._aac
+            labels = {"process": "AAC codec process on", "noop": "AAC path a no-op",
+                      "inprocess": "AAC encoder on the codec thread"}
+            later = []
+            from mixlab_tpu_torch.av import aacdec, h264dec
+
+            pcm_of = {raw: ref_pcm[k * 1024:(k + 1) * 1024] for k, raw in enumerate(raws)}
+            pic_of = {unit: pic[1:] for unit, pic in zip(units, pictures)}
+            real = aacdec.AacLcDecoder.decode_raw, h264dec.PureH264Decoder.decode
+            for variant in then:
+                aac, cached = variant["aac"], set(variant.get("cached", ()))
+                client = variant.get("client", "thread")
+                pipeline._aac = {"process": replaced, "noop": _NoAac(),
+                                 "inprocess": _InProcessAac(RT_RATE, 2)}[aac]
+                if "audio" in cached:  # the decode thread looks its PCM up
+                    aacdec.AacLcDecoder.decode_raw = lambda self, raw, sfi: pcm_of[raw]
+                if "video" in cached:  # and its pictures
+                    h264dec.PureH264Decoder.decode = \
+                        lambda self, packet, pts=0: [(pts, *pic_of[packet])]
+                try:
+                    later.append(run_window(labels[aac] + "".join(
+                        f", {c} decode looked up" for c in sorted(cached)) + (
+                        ", client in a process of its own" if client == "process" else ""),
+                        client))
+                finally:
+                    aacdec.AacLcDecoder.decode_raw, h264dec.PureH264Decoder.decode = real
+            pipeline._aac = replaced
+        finally:
+            stop.set()
+            if feed_thread.is_alive():
+                feed_thread.join(timeout=5)
+            eng.stop()
+
+            async def shut_down():
+                if tcp is not None:
+                    tcp.close()
+                tasks = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+
+            asyncio.run_coroutine_threadsafe(shut_down(), loop).result(30)
+            loop.call_soon_threadsafe(loop.stop)
+            server_thread.join(timeout=10)
+            loop.close()
+            if cams is not None:
+                cams.close()
+            if replaced is not None and replaced is not pipeline._aac:
+                replaced.close()
+            proj.close()
+        faults.check("media playback")
+    played = np.concatenate(state["played"])
+    n = min(len(played), len(ref_pcm))
+    pcm_err = float(np.abs(played[:n] - ref_pcm[:n]).max())
+    log(f"media playback checks [{card}]: {MEDIA_CHECK_TICKS} composites at fader 0 "
+        f"are decoded pictures exactly ({len(shown)} distinct); at fader {RT_FADER} max "
+        f"{lsb} LSB from the CPU twin (limit {COMPOSITE_LSB}); played PCM {n} samples, max abs "
+        f"err {pcm_err:.3e} against the AAC decoder's (atol {MEDIA_PCM_ATOL})")
+    if n < RT_RATE * MEDIA_WINDOW_S or pcm_err > MEDIA_PCM_ATOL:
+        raise AssertionError(f"the played PCM ({n} samples) is {pcm_err:.3e} from the AAC "
+                             "decoder's")
+    for res in [first] + later:
+        if res["launches"]["crossfade"] != res["video"] or res["video"] < 60:
+            raise AssertionError(f"the media window launched the crossfade kernel "
+                                 f"{res['launches']['crossfade']} times in {res['video']} "
+                                 "video ticks")
+    return first
+
+
+def media_imdct(torch, np, dev, card):
+    """Phase 17 (c): ``imdct_batch_torch`` on the card against the numpy
+    ``imdct_batch`` (2e-3), and refused while cuBLAS may use TF32."""
+    from mixlab_tpu_torch.av.vorbis import imdct_batch, imdct_batch_torch
+
+    specs = np.random.default_rng(21).normal(size=(64, 1024)).astype(np.float32)
+    got = imdct_batch_torch(specs, device=dev)
+    if got.device.type != "cuda":
+        raise AssertionError(f"imdct_batch_torch ran on {got.device}")
+    err = float(np.abs(got.cpu().numpy() - imdct_batch(specs)).max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        imdct_batch_torch(specs, device=dev)
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"media imdct [{card}]: imdct_batch_torch 64 x 1024 on {dev} vs numpy max abs err "
+        f"{err:.3e} (atol {IMDCT_ATOL}); refused under TF32: {refused}")
+    if err > IMDCT_ATOL or not refused:
+        raise AssertionError(f"imdct_batch_torch: err {err:.3e}, refused under TF32 {refused}")
+
+
+def media_attribution() -> int:
+    """For information, not part of ``main``: phase 17 (b)'s served media
+    playback with a window for each variant in turns: the AAC encoder on the
+    codec thread, a no-op, in its codec process; then, with the encoder in
+    its codec process, the monitor client in a process of its own, and with
+    it the decode thread's video, audio or both decodes looked up instead of
+    run (its uploads and pushes kept); twice.  Run from the repo's root:
+
+        python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.media_attribution())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.device import resolve_device
+    from mixlab_tpu_torch.precision import switch_tf32_off
+
+    card = card_line()
+    log(card)
+    switch_tf32_off()
+    dev = resolve_device("cuda")
+    kernels.load()
+    units, annexb, dcr, _ = media_pictures(torch, np, dev)
+    pictures = _decode_all(annexb)
+    then = ([{"aac": aac} for aac in ("inprocess", "noop", "process")]
+            + [{"aac": "process", "client": "process"}]
+            + [{"aac": "process", "client": "process", "cached": cached}
+               for cached in (("video",), ("audio",), ("audio", "video"))]) * 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        media_session(torch, np, dev, card, Path(tmp), units, dcr, pictures, then=then)
+    return 0
+
+
+def media_paths(torch, np, dev, card, tmp: Path) -> dict:
+    """Phase 17: (a) the decode tiers, (b) the served playback, (c) the
+    IMDCT.  -> (b)'s launches."""
+    t = time.perf_counter()
+    units, annexb, dcr, ms_encode = media_pictures(torch, np, dev)
+    frames = media_decode(torch, np, dev, card, annexb)
+    launches = media_session(torch, np, dev, card, tmp, units, dcr, frames)["launches"]
+    media_imdct(torch, np, dev, card)
+    log(f"phase 17 (media playback) took {time.perf_counter() - t:.1f} s; the port's CAVLC "
+        f"encoder {ms_encode:.1f} ms per 1080p frame")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3240,6 +3930,7 @@ def main() -> int:
             errs[key] = max(errs[key], err)
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)
+        paths["media"] = media_paths(torch, np, dev, card, tmp)
         served_subprocess(tmp)
 
     # each kernel's launches on the main path that carries it

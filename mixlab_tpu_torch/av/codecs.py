@@ -12,6 +12,10 @@ interface, in preference order:
     — zero-dependency tier: CAVLC intra H.264 (the C++ frame encoder of
     ``native/`` when it builds, else numpy) + AAC-LC; fMP4 with
     ``codecs="avc1.*, mp4a.40.2"`` plays via MSE with no codec libraries.
+    The AAC-LC encoder is Python; it runs in a codec process of its own
+    (``av/aac_worker.py``), so that its time is not taken from the engine
+    thread under the interpreter lock (the JAX package runs it in the
+    calling thread).
   * ``PcmAudioEncoder`` / ``PngVideoEncoder`` — preview mode: s16le
     passthrough + zlib PNG frames; the web client plays these via
     WebAudio/img when MSE is unavailable.
@@ -31,13 +35,18 @@ import os
 import shutil
 import struct
 import subprocess
+import sys
+import threading
+import time
+import weakref
 import zlib
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
-from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration, adts_frame
+from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
 from mixlab_tpu_torch.video.colorspace import picture_yuv420_to_rgb
 from mixlab_tpu_torch.video.frame import Picture, PictureSettings
 
@@ -108,23 +117,28 @@ class PcmAudioEncoder:
 
 
 class _DrainThread:
-    """Background stdout reader so codec pipes never deadlock."""
+    """Background stdout reader so codec pipes never deadlock.  ``lock`` is
+    a condition, notified at each read and at the end of the stream
+    (``eof``), for a reader that waits for output."""
 
     def __init__(self, stream):
-        import threading
-
         self.buf = bytearray()
-        self.lock = threading.Lock()
+        self.lock = threading.Condition()
+        self.eof = False
 
         def run():
             while True:
-                data = stream.read(65536)
-                if not data:
-                    return
+                data = stream.read1(65536)  # what is there, not a full 64 KiB
                 with self.lock:
+                    if not data:
+                        self.eof = True
+                        self.lock.notify_all()
+                        return
                     self.buf += data
+                    self.lock.notify_all()
 
-        threading.Thread(target=run, daemon=True).start()
+        self.thread = threading.Thread(target=run, daemon=True, name="codec-drain")
+        self.thread.start()
 
     def snapshot(self) -> bytearray:
         with self.lock:
@@ -164,25 +178,9 @@ class FfmpegAacStream:
         self.proc.stdin.flush()
 
     def poll_frames(self):
-        from mixlab_tpu_torch.av.aac import parse_adts_header
-
-        frames = []
-        buf = self.out.snapshot()
-        consumed = 0
-        while len(buf) - consumed >= 7:
-            view = bytes(buf[consumed : consumed + 7])
-            try:
-                hdr = parse_adts_header(view)
-            except Exception:
-                consumed += 1  # resync
-                continue
-            n = hdr["frame_length"]
-            if len(buf) - consumed < n:
-                break
-            frames.append(bytes(buf[consumed : consumed + n]))
-            consumed += n
-        if consumed:
-            self.out.consume(consumed)
+        with self.out.lock:
+            frames, used = _split_adts(self.out.buf)
+            del self.out.buf[:used]
         return frames
 
     def configuration_data(self) -> bytes:
@@ -327,46 +325,131 @@ def make_monitor_encoders(sample_rate: int):
     return audio, video, "pcm+png"
 
 
+def _split_adts(buf) -> tuple:
+    """Whole ADTS frames at the start of ``buf`` -> (frames, bytes used);
+    a byte that starts no valid header is skipped (resync)."""
+    from mixlab_tpu_torch.av.aac import parse_adts_header
+
+    frames = []
+    used = 0
+    while len(buf) - used >= 7:
+        try:
+            n = parse_adts_header(bytes(buf[used:used + 7]))["frame_length"]
+        except Exception:
+            used += 1
+            continue
+        if len(buf) - used < n:
+            break
+        frames.append(bytes(buf[used:used + n]))
+        used += n
+    return frames, used
+
+
+def _end_process(proc: subprocess.Popen):
+    """Close the child's stdin, wait for it, kill it if it lingers."""
+    try:
+        proc.stdin.close()
+    except OSError:
+        pass
+    try:
+        proc.wait(timeout=5)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
 class PureAacStream:
-    """Zero-dependency AAC-LC encode (av/aacenc.py, round 4): the duck
-    type of the JAX package's ShimAacStream — feed interleaved i16, poll
-    ADTS frames.
+    """Zero-dependency AAC-LC encode (av/aacenc.py): the duck type of the
+    JAX package's ShimAacStream — feed interleaved i16, poll ADTS frames.
     Makes pure-tier RTMP publish and fMP4 monitoring standards-compliant
     where the reference cannot build at all (fdk-aac FFI,
-    src/video/encode.rs:146-222)."""
+    src/video/encode.rs:146-222).
+
+    The encoder runs in a child process (``python -m
+    mixlab_tpu_torch.av.aac_worker``, started here: never a fork of this
+    process, which may hold a CUDA context), fed interleaved i16 over a
+    pipe; its ADTS frames come back on another, read by a ``_DrainThread``.
+    ``poll_frames`` returns the frames of every whole granule fed so far,
+    waiting for the child without the interpreter lock, so the frames and
+    the order they arrive in are the in-process encoder's, byte for byte
+    (the JAX package's ``PureAacStream``); the child encodes while the
+    caller does other work between ``feed`` and ``poll_frames``.  A child
+    that dies raises ``RuntimeError`` in the caller; ``close`` ends it."""
 
     codec = "aac"
+    POLL_TIMEOUT_S = 30.0
 
     def __init__(self, sample_rate: int = 44100, channels: int = 2,
                  bitrate: Optional[int] = None, quality: int = 60):
-        from mixlab_tpu_torch.av.aacenc import AacLcEncoder
+        from mixlab_tpu_torch.av.aac import (
+            AudioObjectType,
+            AudioSpecificConfiguration,
+            sampling_frequency_index,
+        )
+        from mixlab_tpu_torch.av.aac_tables import SWB_OFFSET_LONG
+        from mixlab_tpu_torch.av.aacenc import AacEncodeError
 
         # bitrate engages the encoder's coarse rate control + reservoir
         # (the reference publishes CBR 160k, stream_output.rs:337-345);
         # None = VBR quality mode (cheapest, the monitor default)
-        self._enc = AacLcEncoder(sample_rate, channels, quality=quality,
-                                 bitrate=bitrate)
+        sfi = sampling_frequency_index(sample_rate)
+        if sfi not in SWB_OFFSET_LONG:  # refused here, as the encoder would
+            raise AacEncodeError(f"unsupported sample rate {sample_rate}")
         self.sample_rate = sample_rate
         self.channels = channels
-        self.asc = self._enc.asc
-        self._buf = np.zeros((0, channels), dtype=np.int16)
+        self.asc = AudioSpecificConfiguration(
+            object_type=AudioObjectType.LOW_COMPLEXITY,
+            sampling_frequency_index=sfi, channel_configuration=channels)
+        root = str(Path(__file__).resolve().parents[2])
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "mixlab_tpu_torch.av.aac_worker",
+             str(sample_rate), str(channels), str(quality), str(bitrate or 0)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env, close_fds=True)
+        self.out = _DrainThread(self.proc.stdout)
+        self._fed = 0       # samples per channel written to the child
+        self._returned = 0  # frames handed out
+        self._closer = weakref.finalize(self, _end_process, self.proc)
 
     def feed(self, pcm_i16: np.ndarray):
-        pcm = np.asarray(pcm_i16, dtype=np.int16).reshape(-1, self.channels)
-        self._buf = np.concatenate([self._buf, pcm]) if len(self._buf) else pcm
+        pcm = np.asarray(pcm_i16, dtype="<i2").reshape(-1, self.channels)
+        try:
+            self.proc.stdin.write(pcm.tobytes())
+            self.proc.stdin.flush()
+        except (BrokenPipeError, ValueError) as e:
+            raise RuntimeError(
+                f"the AAC codec process has exited (code {self.proc.poll()})") from e
+        self._fed += len(pcm)
 
     def poll_frames(self) -> List[bytes]:
-        from mixlab_tpu_torch.av.aac import adts_frame
-
-        out = []
-        while len(self._buf) >= 1024:
-            raw = self._enc.encode_granule(self._buf[:1024])
-            self._buf = self._buf[1024:]
-            out.append(adts_frame(raw, self.asc))
+        want = self._fed // 1024 - self._returned
+        out: List[bytes] = []
+        deadline = time.monotonic() + self.POLL_TIMEOUT_S
+        with self.out.lock:
+            while True:
+                frames, used = _split_adts(self.out.buf)
+                del self.out.buf[:used]
+                out += frames
+                if len(out) >= want:
+                    break
+                if self.out.eof:
+                    raise RuntimeError(
+                        f"the AAC codec process has exited (code {self.proc.poll()}) "
+                        f"with {want - len(out)} frames owed")
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"the AAC codec process owes {want - len(out)} frames "
+                        f"after {self.POLL_TIMEOUT_S} s")
+                self.out.lock.wait(timeout=0.5)
+        self._returned += len(out)
         return out
 
     def configuration_data(self) -> bytes:
         return self.asc.to_bytes()
 
     def close(self):
-        pass
+        """End the child (stdin closed, waited for, killed if it lingers)."""
+        self._closer()
+        self.out.thread.join(timeout=5)

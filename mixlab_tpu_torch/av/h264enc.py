@@ -25,11 +25,13 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import TYPE_CHECKING, List, Optional, Tuple
 
 import numpy as np
 
-from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+if TYPE_CHECKING:  # annotations only: the AAC codec process imports this
+    # module for BitWriter and must not import torch
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
 
 
 class BitWriter:

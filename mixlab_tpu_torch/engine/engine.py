@@ -32,11 +32,16 @@ Differences from the JAX engine, each deliberate:
     A block of n ticks therefore gives the video of n one-tick blocks
     (the ``.mp4`` export runs 60-tick blocks); at one tick a block, the
     default, both engines do the same.
-  * Not ported yet (ROADMAP.md queue 1: StreamOutputController,
-    MediaPlayer): the StreamOutput controller (a StreamOutput in the
-    workspace raises ``NotImplementedError``); the MediaPlayer
-    (``media_opener`` raises ``NotImplementedError``; without an opener a
-    MediaSource is a silent feed, as in the JAX engine).
+  * Not ported yet (ROADMAP.md queue 1, StreamOutputController): the
+    StreamOutput controller (a StreamOutput in the workspace raises
+    ``NotImplementedError``).
+
+Each MediaSource with a ``media_id`` gets its decode thread
+(``engine/media_player.py`` ``MediaPlayer``) when ``media_opener`` is
+given, started with the module or a new ``media_id`` and stopped when it
+goes or the engine stops; it uploads its pictures to the engine's
+``device``.  Without an opener a MediaSource is a silent feed, as in the
+JAX engine.
 
 Each Monitor gets its codec thread (``server/monitor.py``
 ``MonitorPipeline``), started with the module and stopped when it goes or
@@ -83,9 +88,6 @@ log = logging.getLogger(__name__)
 NOT_PORTED_STREAM_OUTPUT = (
     "the StreamOutput controller (RTMP publish) is not ported to "
     "mixlab_tpu_torch yet: ROADMAP.md queue 1, StreamOutputController")
-NOT_PORTED_MEDIA_PLAYER = (
-    "the MediaPlayer (media_opener) is not ported to mixlab_tpu_torch yet: "
-    "ROADMAP.md queue 1, MediaPlayer")
 
 
 # ---------------------------------------------------------------------------
@@ -239,12 +241,11 @@ class Engine:
         device: str = "cuda",
         patch_compiler: Optional[Callable] = None,
     ):
-        if media_opener is not None:
-            raise NotImplementedError(NOT_PORTED_MEDIA_PLAYER)
         self.cfg = cfg
         self.device = resolve_device(str(device))
         self.ws = workspace or Workspace()
         self.persist_cb = persist_cb
+        self.media_opener = media_opener
         self.block = BlockSpec(block_ticks)
         # the graph's lowering: (ws, cfg, block, device) -> a CompiledPatch-
         # shaped object; parallel/stems.py StemsPatch.compiler(n) runs the
@@ -266,6 +267,7 @@ class Engine:
         self._monitor_pipes: Dict[ModuleId, _MonitorPipe] = {}
         self._monitor_pipelines: Dict[ModuleId, object] = {}
         self._media_feeds: Dict[ModuleId, MediaSourceFeed] = {}
+        self._media_players: Dict[ModuleId, object] = {}
         self._plotter_counts: Dict[ModuleId, int] = {}
         self._clip_times: Dict[ModuleId, float] = {}
         self._lag_times: Dict[ModuleId, float] = {}
@@ -326,8 +328,8 @@ class Engine:
                     "Monitor", p.MonitorIndication(pipeline.socket_id)
                 )
             if kind == "MediaSource" and mid not in self._media_feeds:
-                # no media_opener (the constructor refuses one): a silent feed
                 self._media_feeds[mid] = MediaSourceFeed(self.cfg)
+                self._start_media_player(mid, entry.params.params)
             if kind == "OutputDevice" and mid not in self._audio_streams:
                 self._open_audio_device(mid, entry.params.params)
             if kind == "Plotter" and mid not in self._plotter_counts:
@@ -338,6 +340,7 @@ class Engine:
             self._monitor_pipes,
             self._monitor_pipelines,
             self._media_feeds,
+            self._media_players,
             self._plotter_counts,
             self._clip_times,
             self._lag_times,
@@ -346,7 +349,7 @@ class Engine:
             for mid in [m for m in d_ if m not in live]:
                 if d_ is self._stream_feeds:
                     d_[mid].set_recv(None)
-                if d_ is self._monitor_pipelines:
+                if d_ is self._monitor_pipelines or d_ is self._media_players:
                     d_[mid].stop()
                 if d_ is self._audio_streams and d_[mid] is not None:
                     d_[mid].close()
@@ -371,6 +374,21 @@ class Engine:
                 devices=tuple(backend.devices()),
             ),
         )
+
+    def _start_media_player(self, mid: ModuleId, params: p.MediaSourceParams):
+        old = self._media_players.pop(mid, None)
+        if old is not None:
+            old.stop()
+        if params.media_id is None or self.media_opener is None:
+            return
+        stream = self.media_opener(params.media_id)
+        if stream is None:
+            return
+        from mixlab_tpu_torch.engine.media_player import MediaPlayer
+
+        player = MediaPlayer(stream, self._media_feeds[mid], self.cfg, self.device)
+        player.start()
+        self._media_players[mid] = player
 
     def _listen_mountpoint(self, mid: ModuleId, params: p.StreamInputParams):
         feed = self._stream_feeds[mid]
@@ -464,9 +482,21 @@ class Engine:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5.0)
-        # tear down the codec threads so shutdown is clean, not daemon-leaky
+        # tear down the codec and decode threads so shutdown is clean, not
+        # daemon-leaky
         for pipeline in self._monitor_pipelines.values():
             pipeline.stop()
+        for player in self._media_players.values():
+            player.stop()
+        # a codec thread ends its AAC codec process as it leaves
+        for pipeline in self._monitor_pipelines.values():
+            if isinstance(pipeline, threading.Thread) and pipeline.is_alive():
+                pipeline.join(timeout=5.0)
+        # join the decode threads so a later ProjectBase.close() cannot race
+        # an in-flight blob read
+        for player in self._media_players.values():
+            if player.is_alive():
+                player.join(timeout=2.0)
         for feed in self._stream_feeds.values():
             feed.set_recv(None)
         for stream in self._audio_streams.values():
@@ -635,6 +665,9 @@ class Engine:
             oldp, newp = old_params.params, new_params.params
             if oldp.mountpoint != newp.mountpoint or oldp.protocol != newp.protocol:
                 self._listen_mountpoint(mid, newp)
+        elif kind == "MediaSource":
+            if old_params.params.media_id != new_params.params.media_id:
+                self._start_media_player(mid, new_params.params)
         elif kind == "OutputDevice":
             if old_params.params.device != new_params.params.device:
                 self._open_audio_device(mid, new_params.params)

@@ -18,10 +18,11 @@ Rebuild of the reference persistence layer:
     ``src/project.rs:120-132`` — coalescing to the newest snapshot).
 
 The schema and the JSON are the JAX package's, so either package opens the
-other's files.  One difference: the handle gives the engine no
-``media_opener``, since the port's MediaPlayer is not ported yet (ROADMAP.md
-queue 1, MediaPlayer); a MediaSource plays silence, as in an engine
-without an opener.  Uploads are stored and listed all the same.
+other's files.  The handle gives the engine ``media_opener=open_media``, as
+the JAX package does, so an uploaded file plays through a MediaSource.
+One difference: ``close`` stops the engine first (its decode and codec
+threads, and the codec processes they own) and then the database, so a
+closed handle leaves no thread reading a blob and no process behind.
 
 Project files use the reference's ``<name>.mixlab`` convention.
 """
@@ -325,6 +326,7 @@ class ProjectHandle:
             cfg=cfg,
             block_ticks=block_ticks,
             persist_cb=self._enqueue_persist,
+            media_opener=self.base.open_media,
             device=device,
         )
         self.notify_media = threading.Event()
@@ -361,6 +363,7 @@ class ProjectHandle:
         return media_id
 
     def close(self):
+        self.engine.stop()
         self._persist_q.put(None)
         self._writer.join(timeout=5.0)
         self.base.close()

@@ -1,6 +1,8 @@
 """ctypes bindings for the port's host C++ (``mixlab_native.cpp``): the
-WebSocket unmask and the CAVLC intra frame encoder, the two parts of
-``mixlab_tpu/native`` that the served session runs.
+WebSocket unmask, the CAVLC intra frame encoder and the H.264 decoders
+(``h264_parse_slice``, ``h264_dc_recon``, ``h264_decode_islice``,
+``h264_decode_islice_cabac``, ``h264_decode_inter``): the parts of
+``mixlab_tpu/native`` that the served session and media playback run.
 
 The library is built with ``g++`` at first use into ``mixlab_tpu_torch/_build/``
 under a name that carries a hash of the source and the flags.  The build is
@@ -10,9 +12,11 @@ the result into place, and every other process waits on the lock and then
 loads the finished file, so workers that start together build it once.
 
 This is host code, not a device kernel.  Every entry point has a fallback,
-as in the JAX package: ``ws_unmask`` XORs in numpy and ``h264_encode_frame``
-returns ``None`` (the caller takes the numpy encoder).  ``available()`` says
-which path is active.
+as in the JAX package: ``ws_unmask`` XORs in numpy, ``h264_encode_frame``
+returns ``None`` (the caller takes the numpy encoder), and each decoder
+returns ``None`` (or ``False``) so that the caller takes its Python tier
+(``av/h264dec_fast.py``, ``av/h264cabac.py``, ``av/h264dec.py``).
+``available()`` says which path is active.
 """
 
 from __future__ import annotations
@@ -85,6 +89,46 @@ def _load() -> Optional[ctypes.CDLL]:
         return None
     lib.ws_unmask.restype = None
     lib.ws_unmask.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p]
+    lib.h264_parse_slice.restype = ctypes.c_int64
+    lib.h264_parse_slice.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+    ] + [ctypes.c_void_p] * 8
+    lib.h264_dc_recon.restype = None
+    lib.h264_dc_recon.argtypes = (
+        [ctypes.c_void_p] * 4
+        + [ctypes.c_int64] * 4
+        + [ctypes.c_void_p] * 3
+    )
+    lib.h264_decode_islice.restype = ctypes.c_int64
+    lib.h264_decode_islice.argtypes = (
+        [ctypes.c_char_p]               # data (padded RBSP)
+        + [ctypes.c_int64] * 10         # n_bytes..off_b
+        + [ctypes.c_char_p]             # tables
+        + [ctypes.c_void_p] * 4         # ry, ru, rv, out_state
+    )
+    lib.h264_decode_islice_cabac.restype = ctypes.c_int64
+    lib.h264_decode_islice_cabac.argtypes = (
+        [ctypes.c_char_p]               # data (padded RBSP)
+        + [ctypes.c_int64] * 10         # n_bytes..off_b
+        + [ctypes.c_char_p]             # cabac tables blob
+        + [ctypes.c_void_p] * 4         # ry, ru, rv, out_state
+    )
+    lib.h264_decode_inter.restype = ctypes.c_int64
+    lib.h264_decode_inter.argtypes = (
+        [ctypes.c_char_p]               # data (padded RBSP)
+        + [ctypes.c_int64] * 2          # n_bytes, start_pos
+        + [ctypes.c_void_p]             # cfg (int64[20])
+        + [ctypes.c_void_p] * 3         # refs_y/u/v
+        + [ctypes.c_void_p] * 6         # slot/pid/poc for list0, list1
+        + [ctypes.c_void_p] * 4         # col mv/ridx/rpid/rpoc
+        + [ctypes.c_int64]              # has_wp
+        + [ctypes.c_void_p]             # wp
+        + [ctypes.c_char_p] * 2         # cavlc tables, cabac blob
+        + [ctypes.c_void_p] * 3         # ry, ru, rv
+        + [ctypes.c_void_p] * 4         # mv/ridx/rpid/rpoc motion export
+        + [ctypes.c_void_p]             # out_state
+    )
     lib.h264_encode_frame.restype = ctypes.c_int64
     lib.h264_encode_frame.argtypes = (
         [ctypes.c_void_p] * 3           # py, pu, pv
@@ -110,6 +154,128 @@ def ws_unmask(payload: bytes, mask: bytes) -> bytes:
     buf = np.frombuffer(bytearray(payload), dtype=np.uint8)
     lib.ws_unmask(buf.ctypes.data, buf.size, mask)
     return buf.tobytes()
+
+
+def h264_parse_slice(padded: bytes, n_bytes: int, start_pos: int,
+                     first_mb: int, mbw: int, mbh: int, qp: int,
+                     tables: bytes, kinds: np.ndarray, qps: np.ndarray,
+                     l_dc: np.ndarray, l_ac: np.ndarray, c_dc: np.ndarray,
+                     c_ac: np.ndarray, pcm: np.ndarray,
+                     out_state: np.ndarray) -> Optional[int]:
+    """CAVLC pass-1 slice parse (see mixlab_native.cpp); fills the
+    preallocated coefficient arrays in place.  Returns the C error code
+    (0 = ok), or None when the native library is unavailable (the caller
+    falls back to the Python parse in av/h264dec_fast.py)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return int(lib.h264_parse_slice(
+        padded, n_bytes, start_pos, first_mb, mbw, mbh, qp, tables,
+        kinds.ctypes.data, qps.ctypes.data, l_dc.ctypes.data,
+        l_ac.ctypes.data, c_dc.ctypes.data, c_ac.ctypes.data,
+        pcm.ctypes.data, out_state.ctypes.data))
+
+
+def h264_dc_recon(mb_y: np.ndarray, mb_c: np.ndarray, kinds: np.ndarray,
+                  pcm: np.ndarray, first_mb: int, mbw: int, mbh: int,
+                  ry: np.ndarray, ru: np.ndarray, rv: np.ndarray) -> bool:
+    """Sequential DC-prediction reconstruction into the decoder's planes
+    (see mixlab_native.cpp).  Returns False when the native library is
+    unavailable (caller falls back to the Python wavefront)."""
+    lib = _load()
+    if lib is None:
+        return False
+    lib.h264_dc_recon(
+        mb_y.ctypes.data, mb_c.ctypes.data, kinds.ctypes.data,
+        pcm.ctypes.data, len(kinds), first_mb, mbw, mbh,
+        ry.ctypes.data, ru.ctypes.data, rv.ctypes.data)
+    return True
+
+
+def h264_decode_islice(padded: bytes, n_bytes: int, start_pos: int,
+                       mbw: int, mbh: int, slice_qp: int,
+                       chroma_qp_off: int, chroma_qp_off2: int,
+                       disable_idc: int, off_a: int, off_b: int,
+                       tables: bytes, ry: np.ndarray, ru: np.ndarray,
+                       rv: np.ndarray,
+                       out_state: np.ndarray) -> Optional[int]:
+    """FULL baseline-intra slice decode: macroblock layer + deblocking into
+    the uint8 planes (see mixlab_native.cpp h264_decode_islice).  Returns
+    the C error code (0 = ok), or None when the native library is
+    unavailable (caller falls back to the Python tiers)."""
+    lib = _load()
+    if lib is None:
+        return None
+    return int(lib.h264_decode_islice(
+        padded, n_bytes, start_pos, mbw, mbh, slice_qp,
+        chroma_qp_off, chroma_qp_off2, disable_idc, off_a, off_b, tables,
+        ry.ctypes.data, ru.ctypes.data, rv.ctypes.data,
+        out_state.ctypes.data))
+
+
+def h264_decode_islice_cabac(padded: bytes, n_bytes: int, start_pos: int,
+                             mbw: int, mbh: int, slice_qp: int,
+                             chroma_qp_off: int, chroma_qp_off2: int,
+                             disable_idc: int, off_a: int, off_b: int,
+                             cabac_tables: bytes, ry: np.ndarray,
+                             ru: np.ndarray, rv: np.ndarray,
+                             out_state: np.ndarray) -> Optional[int]:
+    """Full intra CABAC slice decode (see mixlab_native.cpp
+    h264_decode_islice_cabac).  Returns the C error code (0 = ok), or
+    None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    return int(lib.h264_decode_islice_cabac(
+        padded, n_bytes, start_pos, mbw, mbh, slice_qp,
+        chroma_qp_off, chroma_qp_off2, disable_idc, off_a, off_b,
+        cabac_tables, ry.ctypes.data, ru.ctypes.data, rv.ctypes.data,
+        out_state.ctypes.data))
+
+
+def h264_decode_inter(padded: bytes, n_bytes: int, start_pos: int,
+                      cfg: np.ndarray, refs_y: np.ndarray,
+                      refs_u: np.ndarray, refs_v: np.ndarray,
+                      ref_slot0: np.ndarray, ref_pid0: np.ndarray,
+                      ref_poc0: np.ndarray, ref_slot1: np.ndarray,
+                      ref_pid1: np.ndarray, ref_poc1: np.ndarray,
+                      col_mv: Optional[np.ndarray],
+                      col_ridx: Optional[np.ndarray],
+                      col_rpid: Optional[np.ndarray],
+                      col_rpoc: Optional[np.ndarray],
+                      wp: Optional[np.ndarray], cavlc_tables: bytes,
+                      cabac_blob: bytes, ry: np.ndarray, ru: np.ndarray,
+                      rv: np.ndarray, mv_out: np.ndarray,
+                      ridx_out: np.ndarray, rpid_out: np.ndarray,
+                      rpoc_out: np.ndarray,
+                      out_state: np.ndarray) -> Optional[int]:
+    """P/B-slice decode (CAVLC or CABAC): macroblock layer, MC + direct
+    prediction and deblocking into the uint8 planes (mixlab_native.cpp
+    h264_decode_inter).  ``cfg`` is the int64[20] config block (see the
+    C entry); refs_y/u/v are stacked full reference planes; the
+    slot/pid/poc triples map each list's entries; col_* is the
+    co-located motion of RefPicList1[0] (B direct); the per-4x4 motion
+    field exports into mv/ridx/rpid/rpoc_out for DPB storage.  Returns
+    the C error code (0 = ok) or None when the native library is
+    unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data
+
+    return int(lib.h264_decode_inter(
+        padded, n_bytes, start_pos, cfg.ctypes.data,
+        refs_y.ctypes.data, refs_u.ctypes.data, refs_v.ctypes.data,
+        ref_slot0.ctypes.data, ref_pid0.ctypes.data, ref_poc0.ctypes.data,
+        ref_slot1.ctypes.data, ref_pid1.ctypes.data, ref_poc1.ctypes.data,
+        ptr(col_mv), ptr(col_ridx), ptr(col_rpid), ptr(col_rpoc),
+        0 if wp is None else 1, ptr(wp),
+        cavlc_tables, cabac_blob,
+        ry.ctypes.data, ru.ctypes.data, rv.ctypes.data,
+        mv_out.ctypes.data, ridx_out.ctypes.data, rpid_out.ctypes.data,
+        rpoc_out.ctypes.data, out_state.ctypes.data))
 
 
 def h264_encode_frame(py: np.ndarray, pu: np.ndarray, pv: np.ndarray,

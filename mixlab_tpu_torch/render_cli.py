@@ -92,8 +92,9 @@ def _render_mp4(project_path: str, cfg, n_ticks: int, out_path: str,
     port's engine reads its feeds and runs its video pass once per tick of
     a block, and the codec thread encodes a block's item tick by tick, so
     the video is that of one-tick blocks: a picture every
-    ``VIDEO_TICK_DIVISOR`` ticks.  The MediaPlayer is not ported, so no
-    media source paces the export to realtime."""
+    ``VIDEO_TICK_DIVISOR`` ticks.  A MediaSource's decode thread paces its
+    media in realtime, as in the JAX package, while the export ticks as
+    fast as the codec thread takes the items."""
     import queue
     import time
 

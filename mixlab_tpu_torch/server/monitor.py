@@ -32,7 +32,10 @@ Differences from the JAX package, each deliberate:
   * a pipe item of several ticks (an engine with ``block_ticks > 1``, as
     the ``.mp4`` export runs) carries one picture per tick, and is encoded
     tick by tick, so it gives the packets of as many one-tick items;
-  * ``stats`` adds up the encoders' host time, for the measurements.
+  * ``stats`` adds up the encoders' host time, for the measurements;
+  * the pure tier's AAC-LC encoder runs in a codec process
+    (``av/codecs.py`` ``PureAacStream``), ended when this thread ends; its
+    frames and their order are the in-process encoder's.
 """
 
 from __future__ import annotations
@@ -216,21 +219,27 @@ class MonitorPipeline(threading.Thread):
         unregister_socket(self.socket_id)
 
     def run(self):
-        self._ensure_codecs()
-        spt = self.cfg.samples_per_tick
-        while not self._stop_evt.is_set():
-            try:
-                t0, audio, video = self.pipe.q.get(timeout=0.25)
-            except queue.Empty:
-                continue
-            if audio.shape[0] > spt:
-                # a block of several ticks carries a picture per tick:
-                # encode it tick by tick, as that many one-tick items
-                for j, tick_video in enumerate(video):
-                    self._encode_tick_fmp4(t0 + j * spt,
-                                           audio[j * spt:(j + 1) * spt], tick_video)
-            else:
-                self._encode_tick_fmp4(t0, audio, video)
+        try:
+            self._ensure_codecs()
+            spt = self.cfg.samples_per_tick
+            while not self._stop_evt.is_set():
+                try:
+                    t0, audio, video = self.pipe.q.get(timeout=0.25)
+                except queue.Empty:
+                    continue
+                if audio.shape[0] > spt:
+                    # a block of several ticks carries a picture per tick:
+                    # encode it tick by tick, as that many one-tick items
+                    for j, tick_video in enumerate(video):
+                        self._encode_tick_fmp4(t0 + j * spt,
+                                               audio[j * spt:(j + 1) * spt], tick_video)
+                else:
+                    self._encode_tick_fmp4(t0, audio, video)
+        finally:
+            # the pure tier's AAC codec process ends with this thread
+            close = getattr(getattr(self, "_aac", None), "close", None)
+            if close is not None:
+                close()
 
     def _encode_tick_fmp4(self, t0: int, audio: np.ndarray, video):
         self._ensure_codecs()

@@ -511,3 +511,47 @@ def test_batched_envelope_kernel_matches_twin(dev, S):
                 assert torch.equal(sk[k], stw[k]), k
             np.testing.assert_allclose(sk["off_amp"].cpu().numpy(),
                                        stw["off_amp"].cpu().numpy(), atol=ENV_ATOL)
+
+
+def test_media_player_uploads_complete_pictures_to_the_card(dev):
+    """The MediaPlayer's uploads land on the engine's device, complete when
+    the frame is pushed: a Y4M upload's frames, read back on the card's own
+    stream right after they come out of the feed, equal the file's planes.
+    The imdct's matrix form on the card matches the numpy IMDCT (2e-3)."""
+    import io
+
+    from mixlab_tpu_torch.av.vorbis import imdct_batch, imdct_batch_torch
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.feeds import MediaSourceFeed
+    from mixlab_tpu_torch.engine.media_player import MediaPlayer
+    from mixlab_tpu_torch.io_host import throttle
+
+    w, h, n = 1920, 1080, 4
+    rng = np.random.default_rng(4)
+    frames = [[rng.integers(0, 256, s, dtype=np.uint8) for s in ((h, w), (h // 2, w // 2),
+                                                                 (h // 2, w // 2))]
+              for _ in range(n)]
+    blob = f"YUV4MPEG2 W{w} H{h} F30:1 Ip A1:1 C420\n".encode() + b"".join(
+        b"FRAME\n" + b"".join(p.tobytes() for p in f) for f in frames)
+    cfg = EngineConfig(sample_rate=44_100)
+    feed = MediaSourceFeed(cfg)
+    wait_until = throttle.MediaThrottle.wait_until
+    throttle.MediaThrottle.wait_until = lambda self, t: None
+    player = MediaPlayer(io.BytesIO(blob), feed, cfg, dev)
+    player.start()
+    try:
+        for i in range(2 * n):  # past the loop at EOF
+            pts, frame = feed.video_q.get(timeout=30)
+            planes = frame.picture.planes
+            assert all(p.device.type == "cuda" for p in planes.values())
+            for k, want in zip("yuv", frames[i % n]):
+                assert torch.equal(planes[k].cpu(), torch.from_numpy(want)), (i, k)
+    finally:
+        player.stop()
+        player.join(timeout=5)
+        throttle.MediaThrottle.wait_until = wait_until
+    assert not player.is_alive()
+    specs = rng.normal(size=(8, 256)).astype(np.float32)
+    got = imdct_batch_torch(specs, device=dev)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), imdct_batch(specs), atol=2e-3)

@@ -284,16 +284,16 @@ def test_client_ops_broadcast_byte_identical():
 
 def test_engine_left_out_parts_raise_or_stay_silent():
     """What the port's engine leaves out raises naming its ROADMAP.md item,
-    and a MediaSource without an opener is a silent feed, as in the JAX
-    engine."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, MediaPlayer"):
-        Engine(cfg=CFG, device="cpu", media_opener=lambda media_id: None)
+    and a MediaSource whose opener finds no media is a silent feed, as in
+    the JAX engine (the engine takes a ``media_opener`` since the
+    MediaPlayer was ported)."""
     ws = tgraph.Workspace()
     ws.create_module(tp.ModuleParams("StreamOutput", tp.StreamOutputParams()))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, StreamOutputController"):
         Engine(workspace=ws, cfg=CFG, device="cpu")
 
-    eng = Engine(cfg=CFG, device="cpu")
+    opened = []
+    eng = Engine(cfg=CFG, device="cpu", media_opener=lambda media_id: opened.append(media_id))
     sid, _, events = eng.connect_session()
     geo = tp.WindowGeometry()
     # a client op that would add a StreamOutput is rolled back, Sync still sent
@@ -310,6 +310,7 @@ def test_engine_left_out_parts_raise_or_stay_silent():
     eng.tick_once()  # the rollback also rolled back the id: MediaSource is 1
     t0, audio, video = eng.monitor_pipe(tp.ModuleId(2)).q.get(timeout=2)
     assert t0 == 0 and video is None and not audio.any()
+    assert opened == [tp.MediaId(3)] and eng._media_players == {}
     eng.stop()
 
 

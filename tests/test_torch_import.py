@@ -78,6 +78,12 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "parallel", "parallel.fleet", "parallel.stems", "server.fleet_serve",
         "dsp.resampler")} <= names
+    # media playback: the decode thread, its readers and decoders, the
+    # throttles and the AAC codec process
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "engine.media_player", "io_host.throttle", "av.y4m", "av.jpeg", "av.flacdec",
+        "av.ogg", "av.vorbis", "av.mp4read", "av.aacdec", "av.h264mc", "av.cabac_tables",
+        "av.h264cabac", "av.h264dec_fast", "av.h264dec", "av.aac_worker")} <= names
 
 
 _CONCURRENT_BUILD = r"""
@@ -88,13 +94,19 @@ from mixlab_tpu_torch import native
 native.BUILD_DIR = Path(sys.argv[1])
 print(native.build())
 assert native.available()
+lib = native._load()
+for name in ("ws_unmask", "h264_encode_frame", "h264_parse_slice", "h264_dc_recon",
+             "h264_decode_islice", "h264_decode_islice_cabac", "h264_decode_inter"):
+    getattr(lib, name)
 """
 
 
 def test_native_build_is_atomic_under_concurrent_first_use(tmp_path):
     """Six processes start the host C++ build at once into an empty folder:
-    one library results, every process loads it, and no temporary file is
-    left behind."""
+    one library results, every process loads it with every entry point
+    (the encoder and, since the media slice, the H.264 decoders, which make
+    the build several times longer), and no temporary file is left
+    behind."""
     procs = [subprocess.Popen([sys.executable, "-c", _CONCURRENT_BUILD, str(tmp_path)],
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for _ in range(6)]
