@@ -159,12 +159,28 @@ imports no jax.  Phases, any failure of which exits non-zero:
      set to 0 and read on the engine thread); 12 composites holding a media
      picture equal decoded pictures exactly; at fader 0.6, 12 composites
      within 1 LSB of the CPU twin on the mixer's stored pictures; the PCM
-     the engine's feed played equal to the AAC decoder's within 1e-4; for
+     the engine's feed played equal to the AAC decoder's within 1e-4 (the
+     MediaPlayer decodes AAC-LC in its codec process); for
      information the window's served tick p50/p99, share over 16.667 ms,
-     the pipe's dropped ticks, the feed's late frames and underrun ticks,
-     and a second window with the AAC path a no-op; (c)
+     the pipe's dropped ticks, the feed's frames late on the wall clock and
+     underrun ticks, and a second window with the AAC path a no-op; (c)
      ``imdct_batch_torch`` on the card against the numpy ``imdct_batch``
-     within 2e-3, refused under TF32.
+     within 2e-3, refused under TF32;
+ 18. live ingest and broadcast, after phase 17 on its 1080p30 stream and
+     AAC granules (``ingest_session``), behind ``run_server`` on a
+     ``ProjectHandle`` on cuda: (a) the script's RTMP publisher (the port's
+     client) sends the stream with its AAC-LC to ``cam``, a StreamInput on
+     the VideoMixer's channel B at fader 0 with a 1080p camera on A: one
+     crossfade launch per video tick in a 5 s window (counts set to 0 and
+     read on the engine thread), ingested pictures on the card, 12
+     composites equal decoded pictures exactly, the played PCM within 1e-4
+     of the AAC decoder's, and for information the served tick, the
+     ingest's decode ms per frame, late frames and underruns; (b) a
+     StreamOutput connected by a client op to ``out`` on the same server:
+     Live over the session socket, 1120x700 pictures of a split test
+     picture and the 440 Hz tone back on ``out``, tags a second and drops;
+     (c) a 48 kHz WAV Icecast SOURCE to ``radio`` at 44.1 kHz within 2e-6
+     of ``resample_block_np``.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -2655,15 +2671,19 @@ def kernel_launches(torch, fn, n=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    for _ in range(3):  # a profile whose device rows were all lost is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        rows = [e for e in events
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if rows:
+            break
+        log("kernel_launches: the profile recorded no device kernel; taken again")
     launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
                    and e.key.startswith(("cudaLaunch", "cuLaunch")))
-    rows = [e for e in events
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if len(rows) != 1 or rows[0].count > n:
         raise AssertionError(f"device kernels seen: {[(e.key[:60], e.count) for e in rows]}")
     # without traced launch calls, the device rows count them
@@ -3425,7 +3445,7 @@ def media_mp4(np, units, dcr):
     return bytes(blob), ref, time.perf_counter() - t0, ms_granule, [f[7:] for f in frames]
 
 
-def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
+def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures, mp4=None,
                   then=({"aac": "noop"}, {"aac": "process", "client": "process"})) -> dict:
     """Phase 17 (b): the MP4 uploaded into a ``ProjectHandle`` on the card,
     ``run_server`` on an ephemeral port, and the script's WebSocket client
@@ -3455,7 +3475,6 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
 
     -> the first window's launches and figures."""
     import asyncio
-    from fractions import Fraction
 
     from mixlab_tpu_torch import protocol as p
     from mixlab_tpu_torch.engine import engine as engine_mod
@@ -3467,7 +3486,7 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
 
     from mixlab_tpu_torch.engine.media_player import _upload_planes
 
-    blob, ref_pcm, mp4_wall, ms_granule, raws = media_mp4(np, units, dcr)
+    blob, ref_pcm, mp4_wall, ms_granule, raws = mp4 or media_mp4(np, units, dcr)
     t = time.perf_counter()
     for _ in range(3):
         for pic in pictures:
@@ -3508,8 +3527,8 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
     class CountedFeed(engine_mod.MediaSourceFeed):
         """The MediaSource's feed with the engine thread's reads recorded:
         the samples each tick played (underrun gaps left out) and each
-        released frame's delay behind the feed's clock beyond the first
-        frame's (more than a frame's duration is late)."""
+        released frame's delay on the wall clock behind its pts, beyond the
+        first frame's (more than a frame's duration is late)."""
 
         def __init__(self, cfg):
             super().__init__(cfg)
@@ -3528,16 +3547,18 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
             return out
 
         def take_video(self, n):
-            pos = self.pos
             frame = super().take_video(n)
             if frame is not None:
-                delay = (pos - pts_of.pop(id(frame))).frac
+                # the release's delay on the wall clock behind its pts,
+                # beyond the first frame's (the engine's clock drifts when
+                # it falls behind, so its position is not the reference)
+                delay = time.monotonic() - float(pts_of.pop(id(frame)).frac)
                 if state["offset0"] is None:
                     state["offset0"] = delay
                 win = state["window"]
                 if win is not None and win["open"] and win["launches"] is None:
                     state["released"] += 1
-                    state["late"] += delay - state["offset0"] > Fraction(1, MEDIA_FPS)
+                    state["late"] += delay - state["offset0"] > 1 / MEDIA_FPS
             return frame
     with _PureTier(), ThreadFaults() as faults:
         proj = open_or_create(tmp / "media.mixlab", EngineConfig(sample_rate=RT_RATE),
@@ -3728,18 +3749,19 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
             labels = {"process": "AAC codec process on", "noop": "AAC path a no-op",
                       "inprocess": "AAC encoder on the codec thread"}
             later = []
-            from mixlab_tpu_torch.av import aacdec, h264dec
+            from mixlab_tpu_torch.av import aacdec_worker, h264dec
 
             pcm_of = {raw: ref_pcm[k * 1024:(k + 1) * 1024] for k, raw in enumerate(raws)}
             pic_of = {unit: pic[1:] for unit, pic in zip(units, pictures)}
-            real = aacdec.AacLcDecoder.decode_raw, h264dec.PureH264Decoder.decode
+            real = aacdec_worker.AacDecodeProcess.decode_raw, h264dec.PureH264Decoder.decode
             for variant in then:
                 aac, cached = variant["aac"], set(variant.get("cached", ()))
                 client = variant.get("client", "thread")
                 pipeline._aac = {"process": replaced, "noop": _NoAac(),
                                  "inprocess": _InProcessAac(RT_RATE, 2)}[aac]
                 if "audio" in cached:  # the decode thread looks its PCM up
-                    aacdec.AacLcDecoder.decode_raw = lambda self, raw, sfi: pcm_of[raw]
+                    aacdec_worker.AacDecodeProcess.decode_raw = \
+                        lambda self, raw, sfi: pcm_of[raw]
                 if "video" in cached:  # and its pictures
                     h264dec.PureH264Decoder.decode = \
                         lambda self, packet, pts=0: [(pts, *pic_of[packet])]
@@ -3749,7 +3771,8 @@ def media_session(torch, np, dev, card, tmp: Path, units, dcr, pictures,
                         ", client in a process of its own" if client == "process" else ""),
                         client))
                 finally:
-                    aacdec.AacLcDecoder.decode_raw, h264dec.PureH264Decoder.decode = real
+                    aacdec_worker.AacDecodeProcess.decode_raw, h264dec.PureH264Decoder.decode = \
+                        real
             pipeline._aac = replaced
         finally:
             stop.set()
@@ -3817,6 +3840,139 @@ def media_imdct(torch, np, dev, card):
         raise AssertionError(f"imdct_batch_torch: err {err:.3e}, refused under TF32 {refused}")
 
 
+GIL_SECONDS = 2.0
+
+
+def _gil_share(work, seconds=GIL_SECONDS) -> tuple:
+    """``work()`` called in a loop on a thread for ``seconds`` while this
+    thread counts a pure-Python loop: -> (the share of the interpreter lock
+    the work held, 1 - count / the count alone, the mean of a count before
+    and after; the work's calls a second).  Two threads that never release
+    the lock share it about evenly, so a work of pure Python reads ~0.5."""
+    def count(stop_at):
+        n = 0
+        while time.perf_counter() < stop_at:
+            for _ in range(1000):
+                n += 1
+        return n
+
+    alone = count(time.perf_counter() + seconds)
+    stop, calls = threading.Event(), [0]
+
+    def run():
+        while not stop.is_set():
+            work()
+            calls[0] += 1
+
+    thread = threading.Thread(target=run, name="gil-work")
+    thread.start()
+    time.sleep(0.2)  # the work warmed up
+    c0 = calls[0]
+    t = time.perf_counter()
+    shared = count(t + seconds)
+    rate = (calls[0] - c0) / (time.perf_counter() - t)
+    stop.set()
+    thread.join()
+    alone = (alone + count(time.perf_counter() + seconds)) / 2
+    return 1.0 - shared / alone, rate
+
+
+def gil_attribution() -> int:
+    """For information, not part of ``main``: the share of this process's
+    interpreter lock each piece of phases 17 and 18 holds while it runs
+    flat out on a thread of its own, beside its calls a second (a 1080p30
+    stream needs 30 pictures and 43.07 AAC granules a second): the native
+    1080p H.264 decode, the AAC-LC decode in process and through its codec
+    process, the AAC-LC encode at 160 kb/s through its codec process, the
+    publish tier's picture path (1080p fetched from the card, scaled to
+    1120x700 on the host, CAVLC-encoded) and the upload of a decoded 1080p
+    picture; at the interpreter's switch interval and at 0.5 ms (a thread
+    that gives the lock up waits up to one interval to take it back while a
+    Python thread runs).  Run from the repo's root:
+
+        python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.gil_attribution())'
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from mixlab_tpu_torch import kernels, native
+    from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
+    from mixlab_tpu_torch.av.aacdec import AacLcDecoder
+    from mixlab_tpu_torch.av.aacdec_worker import AacDecodeProcess
+    from mixlab_tpu_torch.av.codecs import STREAM_PICTURE, PureAacStream
+    from mixlab_tpu_torch.av.encode_stream import f32_to_i16
+    from mixlab_tpu_torch.av.h264dec import PureH264Decoder
+    from mixlab_tpu_torch.av.h264enc import PureH264Stream
+    from mixlab_tpu_torch.device import resolve_device
+    from mixlab_tpu_torch.engine.engine import _fetch_tree
+    from mixlab_tpu_torch.engine.media_player import _upload_planes
+    from mixlab_tpu_torch.precision import switch_tf32_off
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+    from mixlab_tpu_torch.video.scale_host import scale_picture_host
+
+    card = card_line()
+    log(card)
+    switch_tf32_off()
+    dev = resolve_device("cuda")
+    kernels.load()
+    if not native.available():
+        raise AssertionError("the port's native library did not build")
+    units, annexb, dcr, _ = media_pictures(torch, np, dev)
+    pictures = _decode_all(annexb)
+    _, _, _, _, raws = media_mp4(np, units, dcr)
+    asc = AudioSpecificConfiguration.lc_stereo(RT_RATE)
+    sfi = asc.sampling_frequency_index
+    rows = {}
+
+    dec, k = PureH264Decoder(dcr), [0]
+
+    def h264():
+        dec.decode(units[k[0] % len(units)])
+        k[0] += 1
+
+    rows["H.264 1080p decode, native tier"] = h264
+    here = AacLcDecoder(asc)
+    rows["AAC-LC decode, in process"] = lambda: here.decode_raw(raws[k[0] % len(raws)], sfi)
+    child = AacDecodeProcess(asc)
+    rows["AAC-LC decode, codec process"] = lambda: child.decode_raw(raws[k[0] % len(raws)], sfi)
+    enc = PureAacStream(RT_RATE, 2, bitrate=160_000)
+    granule = f32_to_i16(np.random.default_rng(3).normal(0, 0.2, 2048).astype(np.float32))
+
+    def aac_encode():
+        enc.feed(granule)
+        enc.poll_frames()
+
+    rows["AAC-LC encode 160 kb/s, codec process"] = aac_encode
+    card_pic = Picture(PictureSettings(*MEDIA_SIZE), _upload_planes(*pictures[0][1:], dev))
+    h264s = PureH264Stream(STREAM_PICTURE, fps=30, profile="stream", qp=32)
+
+    def publish_picture():
+        src = Picture(card_pic.settings, _fetch_tree(dict(card_pic.planes)))
+        h264s.feed(scale_picture_host(src, STREAM_PICTURE))
+        h264s.poll_access_units()
+
+    rows["publish picture: fetch, 1120x700 host scale, CAVLC"] = publish_picture
+    rows["upload of a 1080p picture"] = lambda: _upload_planes(*pictures[0][1:], dev)
+    old = sys.getswitchinterval()
+    try:
+        for switch in (old, 0.0005):
+            sys.setswitchinterval(switch)
+            for name, work in rows.items():
+                share, rate = _gil_share(work)
+                log(f"gil [{card}], switch interval {switch * 1e3:.1f} ms: {name}: holds "
+                    f"{100 * share:.1f}% of the interpreter lock running flat out, {rate:.1f} "
+                    "calls a second")
+    finally:
+        sys.setswitchinterval(old)
+        child.close()
+        enc.close()
+    return 0
+
+
 def media_attribution() -> int:
     """For information, not part of ``main``: phase 17 (b)'s served media
     playback with a window for each variant in turns: the AAC encoder on the
@@ -3856,15 +4012,592 @@ def media_attribution() -> int:
 
 def media_paths(torch, np, dev, card, tmp: Path) -> dict:
     """Phase 17: (a) the decode tiers, (b) the served playback, (c) the
-    IMDCT.  -> (b)'s launches."""
+    IMDCT; then phase 18 on the same 1080p stream and AAC granules.
+    -> {"media": (b)'s launches, "ingest": phase 18 (a)'s launches}."""
     t = time.perf_counter()
     units, annexb, dcr, ms_encode = media_pictures(torch, np, dev)
     frames = media_decode(torch, np, dev, card, annexb)
-    launches = media_session(torch, np, dev, card, tmp, units, dcr, frames)["launches"]
+    mp4 = media_mp4(np, units, dcr)
+    launches = media_session(torch, np, dev, card, tmp, units, dcr, frames, mp4)["launches"]
     media_imdct(torch, np, dev, card)
     log(f"phase 17 (media playback) took {time.perf_counter() - t:.1f} s; the port's CAVLC "
         f"encoder {ms_encode:.1f} ms per 1080p frame")
-    return launches
+    t = time.perf_counter()
+    ingest = ingest_session(torch, np, dev, card, tmp, units, dcr, frames, mp4[4])["launches"]
+    log(f"phase 18 (live ingest and broadcast) took {time.perf_counter() - t:.1f} s")
+    return {"media": launches, "ingest": ingest}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: live ingest and broadcast on the card (RTMP, Icecast, StreamOutput)
+# ---------------------------------------------------------------------------
+
+INGEST_WINDOW_S = 5.0
+INGEST_CHECK_TICKS = 12
+INGEST_PCM_ATOL = 1e-4    # as MEDIA_PCM_ATOL: the feed plays i16 of the decoder's f32
+BROADCAST_SECONDS = 4.0
+BROADCAST_PICTURES = 5
+BROADCAST_TONE_HZ = 15.0  # tests/test_stream_output_media.py:123
+ICECAST_RATE = 48_000
+ICECAST_SECONDS = 1
+ICECAST_ATOL = 2e-6       # as RESAMPLE_ATOL
+
+
+def split_picture(np, w=MEDIA_SIZE[0], h=MEDIA_SIZE[1]):
+    """The broadcast's test picture: luma 210 on the left half and 16 on the
+    right, neutral chroma (tests/test_stream_output_media.py:170-177)."""
+    y = np.full((h, w), 16, np.uint8)
+    y[:, : w // 2] = 210
+    return {"y": y, "u": np.full((h // 2, w // 2), 128, np.uint8),
+            "v": np.full((h // 2, w // 2), 128, np.uint8)}
+
+
+def rtmp_publish(port: int, mount: str, path: str) -> None:
+    """The body of the publisher process (``RtmpPublisher``): the port's
+    RTMP client (``io_host/rtmp/client.py``) publishes to ``mount`` the AAC
+    and AVC sequence headers, then at the wall clock's pace a video tag
+    every 1/30 s (the access units of the pickle at ``path`` cycled, all key
+    frames) and an AAC-LC tag every 1,024 samples (its raw granules cycled)
+    with their 1 kHz timestamps, until its stdin ends.  Prints one JSON
+    line: ``audio``, the granule of each audio tag the client's queue took;
+    ``video``, the count of its video tags; ``refused``, the tags its full
+    queue dropped; ``error``, what ended it early."""
+    import asyncio
+    import pickle
+
+    from mixlab_tpu_torch.av import flv
+    from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
+    from mixlab_tpu_torch.io_host.rtmp import client as rtmp_client
+
+    with open(path, "rb") as f:
+        stream = pickle.load(f)
+    video, audio = stream["video"], stream["audio"]
+    sent = {"audio": [], "video": 0, "refused": 0, "error": None}
+    key, nalu = flv.VideoFrameType.KEY_FRAME, flv.VideoPacketType.NALU
+    stop = threading.Event()
+    threading.Thread(target=lambda: (sys.stdin.read(), stop.set()), daemon=True).start()
+
+    async def go():
+        client = await rtmp_client.start("127.0.0.1", port, mount, "key")
+        asc = AudioSpecificConfiguration.lc_stereo(RT_RATE)
+        client.publish_audio(0, flv.AudioPacket(True, asc.to_bytes()).to_bytes())
+        client.publish_video(0, flv.VideoPacket(
+            key, flv.VideoPacketType.SEQUENCE_HEADER, 0, stream["dcr"]).to_bytes())
+        t0, kv, ka = time.monotonic(), 0, 0
+        while not stop.is_set():
+            now_ms = (time.monotonic() - t0) * 1000
+            while kv * 1000 / MEDIA_FPS <= now_ms:
+                body = flv.VideoPacket(key, nalu, 0, video[kv % len(video)]).to_bytes()
+                if client.publish_video(kv * 1000 // MEDIA_FPS, body):
+                    sent["video"] += 1
+                else:
+                    sent["refused"] += 1
+                kv += 1
+            while ka * 1024 * 1000 / RT_RATE <= now_ms:
+                body = flv.AudioPacket(False, audio[ka % len(audio)]).to_bytes()
+                if client.publish_audio(ka * 1024 * 1000 // RT_RATE, body):
+                    sent["audio"].append(ka % len(audio))
+                else:
+                    sent["refused"] += 1
+                ka += 1
+            await asyncio.sleep(0.002)
+        await client.close()
+
+    try:
+        asyncio.run(go())
+    except Exception as e:  # reported by the phase, which fails on it
+        sent["error"] = f"{type(e).__name__}: {e}"
+    print(json.dumps(sent), flush=True)
+
+
+class RtmpPublisher:
+    """The script's RTMP publisher in a process of its own, as an encoder
+    such as OBS is (``rtmp_publish``): started with the stream's access
+    units, raw AAC granules and DCR; ``stop()`` ends it and returns what it
+    sent."""
+
+    def __init__(self, port: int, mount: str, video, audio, dcr: bytes, tmp: Path):
+        import pickle
+
+        path = tmp / f"publish-{mount}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump({"video": list(video), "audio": list(audio), "dcr": dcr}, f)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as cs; cs.rtmp_publish({port}, "
+             f"{mount!r}, {str(path)!r})"],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def stop(self) -> dict:
+        try:
+            out = self.proc.communicate(input="", timeout=30)[0]  # its stdin ends
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        lines = out.strip().splitlines()
+        sent = json.loads(lines[-1]) if lines else {"audio": [], "video": 0, "refused": 0,
+                                                    "error": None}
+        if self.proc.returncode != 0 and not sent["error"]:
+            sent["error"] = f"the publisher process exited {self.proc.returncode}"
+        return sent
+
+
+class _RecordedRecv:
+    """A mountpoint receiver whose reads are recorded into ``rec``."""
+
+    def __init__(self, recv, rec):
+        self.recv, self.rec = recv, rec
+
+    @property
+    def channel_name(self):
+        return self.recv.channel_name
+
+    def read_audio(self):
+        frame = self.recv.read_audio()
+        if frame is not None:
+            self.rec["audio"].append(frame.data)
+        return frame
+
+    def read_video(self):
+        frame = self.recv.read_video()
+        if frame is not None:
+            self.rec["pts"][id(frame.data)] = frame.source_time
+        return frame
+
+    def close(self):
+        self.recv.close()
+
+
+def ingest_session(torch, np, dev, card, tmp: Path, units, dcr, pictures, raws) -> dict:
+    """Phase 18: live ingest and broadcast, on a ``ProjectHandle`` on the card
+    behind ``run_server`` (an ephemeral port), the Monitor's codec thread
+    live (pure tier).  The script's WebSocket client builds
+    ``flagship.realtime_video_ops`` with a 1080p camera (fed at 60 fps: the
+    bars, then in (b) a split test picture) on the VideoMixer's channel A
+    and a StreamInput (RTMP, ``cam``) on channel B at fader 0, which shows
+    channel B (``crossfade(A, B, 0) = B``), as phase 17's MediaSource; a
+    StreamOutput takes the mixer's composite and ``cam``'s audio;
+    StreamInputs listen on ``out`` (RTMP) and ``radio`` (Icecast).
+
+      (a) RTMP ingest: the script's publisher (``RtmpPublisher``, a process
+          of its own) sends
+          phase 17's 1080p30 CAVLC stream with its 44.1 kHz stereo AAC-LC to
+          ``rtmp://127.0.0.1:<port>/cam``.  In a window of INGEST_WINDOW_S,
+          with the launch counts set to 0 and read on the engine thread and
+          a client on the Monitor, one crossfade launch per video tick; the
+          ingested pictures are tensors on the card; INGEST_CHECK_TICKS
+          composites at fader 0 holding an ingested picture equal decoded
+          pictures exactly; the PCM the feed played (every granule it read)
+          is within 1e-4 of the AAC decoder's on the granules published;
+          for information the served tick p50/p99 and share over 16.667 ms,
+          the ingest's decode ms per frame, the feed's frames late on the
+          wall clock and its underrun ticks;
+      (b) broadcast: camera A turns to the split picture and a client op
+          sets the fader to 1 (the composite is camera A's picture); once
+          the mixer holds it, a client op connects the StreamOutput to
+          ``rtmp://127.0.0.1:<port>/out`` on the same server; its Live
+          indication must come over the session socket; in
+          BROADCAST_SECONDS, ``out``'s pictures arrive on the card at
+          1120x700, each the split picture's bright and dark halves (or
+          black, where camera A's picture expired in the mixer; the split
+          picture in most), and its audio holds the 440 Hz tone within 15
+          Hz; for information the published video and AAC tags a second,
+          the encode queue's dropped frames and the pipe's dropped ticks;
+      (c) Icecast: a 48 kHz WAV SOURCE to ``radio`` reaches the feed at
+          44.1 kHz, equal within 2e-6 to ``resample_block_np`` of the whole
+          file with the listener's i16 conversion.
+
+    Any exception in a server, codec, IO or engine thread, any ERROR log and
+    any decode failure the ingest counts fails the phase.  -> (a)'s
+    launches and figures."""
+    import asyncio
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
+    from mixlab_tpu_torch.av.aacdec import AacLcDecoder
+    from mixlab_tpu_torch.dsp.resampler import context_len, resample_block_np
+    from mixlab_tpu_torch.engine import engine as engine_mod
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.project import open_or_create
+    from mixlab_tpu_torch.flagship import realtime_video_ops
+    from mixlab_tpu_torch.io_host.wav import write_wav
+    from mixlab_tpu_torch.protocol import wire
+    from mixlab_tpu_torch.server.app import run_server
+
+    cams = ("ingest-a", "cam")
+    pool = [cam_frames(torch, np, dev, i, sizes=CAM_SIZES[:1]) for i in range(4)]
+    split = split_picture(np)
+    counters = launch_counters()
+    ref_y = {pic[1].tobytes(): i for i, pic in enumerate(pictures)}
+    rec = {}  # mountpoint -> what its feed read
+    clock = {"offset0": None}
+    state = {"window": None, "check": None, "walls": [], "stats0": None}
+
+    class RecordedFeed(engine_mod.StreamInputFeed):
+        """A StreamInput's feed with the engine thread's reads recorded by
+        mountpoint: the audio frames, the pictures released (the first few
+        kept), the frames late on the wall clock beyond the first one's
+        delay, and the ticks whose PCM ran out (underruns)."""
+
+        def set_recv(self, recv):
+            if recv is not None:
+                self.rec = rec.setdefault(recv.channel_name, {
+                    "audio": [], "pictures": [], "pts": {}, "released": 0, "late": 0,
+                    "underrun": 0})
+                recv = _RecordedRecv(recv, self.rec)
+            super().set_recv(recv)
+
+        def fill_tick(self, t, n):
+            pcm, video = super().fill_tick(t, n)
+            r = getattr(self, "rec", None)
+            if r is None:
+                return pcm, video
+            if r["audio"] and not pcm[-1].any():
+                r["underrun"] += 1
+            if video is not None:
+                r["released"] += 1
+                if len(r["pictures"]) < (240 if self.recv.channel_name == "out" else 4):
+                    r["pictures"].append(video)
+                # the release's delay on the wall clock behind the frame's
+                # stream time, beyond the first frame's
+                delay = time.monotonic() - float(r["pts"].pop(id(video)).frac)
+                if self.recv.channel_name == "cam":
+                    if clock["offset0"] is None:
+                        clock["offset0"] = delay
+                    r["late"] += delay - clock["offset0"] > 1 / MEDIA_FPS
+            return pcm, video
+
+    geo = p.WindowGeometry()
+    on_card = torch.device(dev.type, torch.cuda.current_device() if dev.index is None
+                           else dev.index) if dev.type == "cuda" else dev
+    with _PureTier(), ThreadFaults() as faults:
+        proj = open_or_create(tmp / "ingest.mixlab", EngineConfig(sample_rate=RT_RATE),
+                              block_ticks=1, device=str(dev))
+        eng = proj.engine
+        tick_once = eng.tick_once
+
+        def timed_tick(*args):
+            t = time.perf_counter()
+            out = tick_once(*args)
+            state["walls"].append(time.perf_counter() - t)
+            return out
+
+        eng.tick_once = timed_tick
+        cameras, stop, tcp, publisher = None, threading.Event(), None, None
+        sent = {"audio": [], "video": 0, "refused": 0, "error": "not started"}
+        loop = asyncio.new_event_loop()
+        server_thread = threading.Thread(target=loop.run_forever, name="server-loop")
+        server_thread.start()
+        try:
+            tcp, server = asyncio.run_coroutine_threadsafe(
+                run_server(proj, "127.0.0.1", 0), loop).result(60)
+            port = tcp.sockets[0].getsockname()[1]
+            ops, ids = realtime_video_ops(p, cams, fader=0.0)
+            first = int(ids["mixer"].value) + 1
+            so, out_in, radio = (p.ModuleId(first + i) for i in range(3))
+            ops += [
+                p.CreateModule(p.ModuleParams("StreamOutput", p.StreamOutputParams()), geo),
+                p.CreateModule(p.ModuleParams("StreamInput", p.StreamInputParams(
+                    p.StreamProtocol.RTMP, "out")), geo),
+                p.CreateModule(p.ModuleParams("StreamInput", p.StreamInputParams(
+                    p.StreamProtocol.ICECAST, "radio")), geo),
+                p.CreateConnection(p.InputId(so, 0), p.OutputId(ids["mixer"], 0)),
+                p.CreateConnection(p.InputId(so, 1), p.OutputId(ids["cams"][1], 1)),
+            ]
+            session = {"seq": 0}
+
+            async def client_ops(op_list, until_live=False):
+                """The ops over a session socket of their own (a session
+                left unread is dropped once its queue fills); with
+                ``until_live``, then read it for the StreamOutput's
+                indications until one says live.  -> (updates, lives)."""
+                reader, writer = await ws_open(port, "/session")
+                await ws_read(reader)  # WorkspaceState
+                await ws_read(reader)  # MediaLibrary
+                updates = []
+                for op in op_list:
+                    session["seq"] += 1
+                    updates += await ws_op(reader, writer, session["seq"], op)
+                lives = [u["indication"]["value"]["live"] for u in updates
+                         if u["t"] == "SUUpdateModuleIndication" and u["module_id"] == so.value]
+                t0 = time.monotonic()
+                while until_live and "live" not in lives and time.monotonic() < t0 + 30:
+                    kind, body = wire.parse_envelope(await ws_read(reader))
+                    if kind == "Update" and body["t"] == "SUUpdateModuleIndication" \
+                            and body["module_id"] == so.value:
+                        lives.append(body["indication"]["value"]["live"])
+                writer.close()
+                return updates, lives
+
+            engine_mod.StreamInputFeed = RecordedFeed  # the feeds the ops create
+            try:
+                updates, _ = asyncio.run_coroutine_threadsafe(client_ops(ops), loop).result(120)
+            finally:
+                engine_mod.StreamInputFeed = RecordedFeed.__mro__[1]
+            for up in updates:
+                if up["t"] == "SUCreateModule" and up["params"]["kind"] == "Monitor":
+                    session["socket_id"] = up["indication"]["value"]["socket_id"]
+            if sorted(rec) != ["cam", "ingest-a", "out", "radio"]:
+                raise AssertionError(f"the StreamInputs listen on {sorted(rec)}")
+            cameras = Cameras(("ingest-a",), sizes=CAM_SIZES[:1])
+
+            def feeder():
+                """Camera A at 60 fps: the bars, then the split picture."""
+                start, k = time.monotonic(), 0
+                while not stop.is_set():
+                    planes, pcm = pool[k % len(pool)]
+                    cameras.publish(k, ([split if state.get("split") else planes[0]], pcm))
+                    k += 1
+                    stop.wait(max(0.0, start + k / 60 - time.monotonic()))
+
+            feed_thread = threading.Thread(target=feeder, name="ingest-feeder")
+            feed_thread.start()
+            publisher = RtmpPublisher(port, "cam", units, raws, dcr, tmp)
+            pipeline = eng._monitor_pipelines[ids["monitor"]]
+            mixer = eng._video_mixers[ids["mixer"]]
+            pipe = eng.monitor_pipe(ids["monitor"])
+            push = pipe.push
+
+            def counted_push(item):
+                win, chk = state["window"], state["check"]
+                if win is not None:
+                    if win["armed"] and not win["open"]:
+                        for fn in counters.values():
+                            fn.launches = 0
+                        win["open"] = True
+                        state["walls"].clear()
+                        state["stats0"] = server.rtmp_stats.snapshot(), dict(rec["cam"])
+                        win["dropped0"] = pipe.dropped
+                    elif win["open"] and win["launches"] is None:
+                        win["video"] += item[2] is not None
+                        win["items"] += 1
+                        if not win["armed"]:
+                            win["launches"] = {k: fn.launches for k, fn in counters.items()}
+                            win["stats1"] = server.rtmp_stats.snapshot(), dict(rec["cam"])
+                elif chk is not None and len(chk) < INGEST_CHECK_TICKS \
+                        and item[2] is not None and mixer.channels[1].stored is not None:
+                    chk.append(item[2].picture.to_numpy())  # on the engine thread
+                return push(item)
+
+            pipe.push = counted_push
+            if not pipeline.broadcast.ready.wait(60):
+                raise AssertionError("the monitor's codecs were not ready in 60 s")
+            deadline = time.monotonic() + 30
+            while (not rec["cam"]["pictures"] or not rec["cam"]["audio"]) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            if not publisher.alive() or not rec["cam"]["pictures"]:
+                raise AssertionError("no ingested picture reached the feed (publisher alive: "
+                                     f"{publisher.alive()})")
+            devices = {pl.device for pl in rec["cam"]["pictures"][0].picture.planes.values()}
+            if devices != {on_card}:
+                raise AssertionError(f"ingested pictures are on {devices}, not {dev}")
+
+            # (a) the window
+            win = {"armed": False, "open": False, "video": 0, "items": 0, "launches": None}
+            state["window"] = win
+            segments, elapsed = asyncio.run_coroutine_threadsafe(monitor_segments(
+                port, session["socket_id"], INGEST_WINDOW_S, lambda: win.update(armed=True)),
+                loop).result(INGEST_WINDOW_S + 60)
+            win["armed"] = False
+            deadline = time.monotonic() + 10
+            while win["launches"] is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            state["window"] = None
+            if win["launches"] is None:
+                raise AssertionError("the ingest window did not close on the engine thread")
+            w = np.sort(np.asarray(state["walls"][:win["items"]]) * 1e3)
+            (s0, c0), (s1, c1) = state["stats0"], win["stats1"]
+            frames = s1.get("video_frames", 0) - s0.get("video_frames", 0)
+            res = {"launches": win["launches"], "video": win["video"], "ticks": win["items"],
+                   "p50": float(np.percentile(w, 50)), "p99": float(np.percentile(w, 99)),
+                   "over": float((w > TICK_BUDGET_MS).mean()),
+                   "dropped": pipe.dropped - win["dropped0"],
+                   "decode_ms": 1e3 * (s1.get("video_decode_s", 0) - s0.get("video_decode_s", 0))
+                   / max(frames, 1), "frames": frames,
+                   "released": c1["released"] - c0["released"],
+                   "late": c1["late"] - c0["late"], "underrun": c1["underrun"] - c0["underrun"]}
+            log(f"ingest window [{card}]: {res['ticks']} ticks, {res['video']} with video, "
+                f"{segments} monitor segments in {elapsed:.3f} s; served tick_once p50 "
+                f"{res['p50']:.3f} ms, p99 {res['p99']:.3f} ms, over {TICK_BUDGET_MS:.3f} ms "
+                f"{100 * res['over']:.2f}%; pipe dropped {res['dropped']}; RTMP ingest "
+                f"{frames} 1080p frames decoded at {res['decode_ms']:.3f} ms a frame on the "
+                f"decode worker; cam frames released {res['released']}, late on the wall "
+                f"clock {res['late']}; audio underrun ticks {res['underrun']}; launches "
+                f"{res['launches']}")
+            state["check"] = chk = []
+            deadline = time.monotonic() + 20
+            while len(chk) < INGEST_CHECK_TICKS and time.monotonic() < deadline:
+                time.sleep(0.01)
+            state["check"] = None
+            if len(chk) < INGEST_CHECK_TICKS:
+                raise AssertionError(f"only {len(chk)} composites copied for the check")
+            shown = set()
+            for comp in chk:
+                i = ref_y.get(comp["y"].tobytes())
+                if i is None or not all(np.array_equal(comp[k], pictures[i][j])
+                                        for j, k in ((2, "u"), (3, "v"))):
+                    raise AssertionError("a composite at fader 0 is not a decoded picture")
+                shown.add(i)
+
+            # (b) the broadcast: camera A's split picture through the mixer
+            # at fader 1, then the connect
+            ctl = eng._stream_outputs[so]
+            state["split"] = True
+            asyncio.run_coroutine_threadsafe(client_ops([p.UpdateModuleParams(
+                ids["mixer"], p.ModuleParams("VideoMixer", p.VideoMixerParams(
+                    a=0, b=1, fader=1.0)))]), loop).result(60)
+            deadline = time.monotonic() + 20  # camera A's ring drained of its bars
+            while time.monotonic() < deadline:
+                stored = mixer.channels[0].stored
+                y = None if stored is None else stored.planes["y"][MEDIA_SIZE[1] // 2]
+                if y is not None and int(y[8]) == 210 and int(y[-8]) == 16:
+                    break
+                time.sleep(0.02)
+            else:
+                raise AssertionError("the mixer never stored camera A's split picture")
+            _, seen = asyncio.run_coroutine_threadsafe(client_ops([p.UpdateModuleParams(
+                so, p.ModuleParams("StreamOutput", p.StreamOutputParams(
+                    seq=2, connect_seq=2, rtmp_url=f"rtmp://127.0.0.1:{port}/out",
+                    rtmp_stream_key="key")))], until_live=True), loop).result(60)
+            if "live" not in seen:
+                raise AssertionError(f"the StreamOutput's indications {seen} never said live")
+            b0, d0, t0 = dict(ctl.stats), eng.monitor_pipe(so).dropped, time.monotonic()
+            n0 = len(rec["out"]["audio"])
+            time.sleep(BROADCAST_SECONDS)
+            b1, d1, bt = dict(ctl.stats), eng.monitor_pipe(so).dropped, time.monotonic() - t0
+            deadline = time.monotonic() + 20  # and at least BROADCAST_PICTURES back
+            while len(rec["out"]["pictures"]) < BROADCAST_PICTURES \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            pics = list(rec["out"]["pictures"])
+            out_pcm = np.concatenate(rec["out"]["audio"][n0:] or [np.zeros((0, 2), np.int16)])
+
+            # (c) Icecast
+            ts = np.arange(ICECAST_RATE * ICECAST_SECONDS) / ICECAST_RATE
+            wav_pcm = (np.stack([np.sin(2 * np.pi * 700 * ts), np.sin(2 * np.pi * 300 * ts)], 1)
+                       * 16000).astype(np.int16)
+            write_wav(tmp / "radio.wav", ICECAST_RATE, wav_pcm)
+            want_wav = resample_block_np(
+                wav_pcm.astype(np.float32), np.zeros((context_len(ICECAST_RATE, RT_RATE), 2),
+                                                     np.float32), ICECAST_RATE, RT_RATE)[0]
+            want_wav = np.clip(want_wav, -32768, 32767).astype(np.int16)
+
+            async def source():
+                reader, writer = await asyncio.open_connection("127.0.0.1", port)
+                writer.write(b"SOURCE /radio HTTP/1.0\r\nContent-Type: audio/wav\r\n\r\n"
+                             + (tmp / "radio.wav").read_bytes())
+                await writer.drain()
+                status = await reader.read(64)
+                t = time.monotonic()
+                while sum(map(len, rec["radio"]["audio"])) < len(want_wav) \
+                        and time.monotonic() < t + 30:
+                    await asyncio.sleep(0.02)
+                writer.close()
+                return status
+
+            status = asyncio.run_coroutine_threadsafe(source(), loop).result(60)
+            radio = np.concatenate(rec["radio"]["audio"] or [np.zeros((0, 2), np.int16)])
+        finally:
+            stop.set()
+            if publisher is not None:
+                sent = publisher.stop()
+            if cameras is not None:
+                feed_thread.join(timeout=5)
+            eng.stop()
+
+            async def shut_down():
+                if tcp is not None:
+                    tcp.close()
+                tasks = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+
+            asyncio.run_coroutine_threadsafe(shut_down(), loop).result(30)
+            loop.call_soon_threadsafe(loop.stop)
+            server_thread.join(timeout=10)
+            loop.close()
+            if cameras is not None:
+                cameras.close()
+            proj.close()
+        faults.check("live ingest and broadcast")
+    failures = {k: v for k, v in server.rtmp_stats.snapshot().items()
+                if k.endswith("failures") and v}
+    if failures or sent["error"]:
+        raise AssertionError(f"the RTMP ingest counted {failures}; publisher: {sent['error']}")
+
+    # (a) the played PCM against the AAC decoder on the granules published
+    played = np.concatenate(rec["cam"]["audio"]).astype(np.float32) / 32768.0
+    asc = AudioSpecificConfiguration.lc_stereo(RT_RATE)
+    dec = AacLcDecoder(asc)
+    n = len(played) // 1024
+    if n > len(sent["audio"]):
+        raise AssertionError(f"the feed read {n} granules of {len(sent['audio'])} published")
+    ref = np.concatenate([dec.decode_raw(raws[k], asc.sampling_frequency_index)
+                          for k in sent["audio"][:n]])
+    pcm_err = float(np.abs(played[:n * 1024] - ref).max())
+    log(f"ingest checks [{card}]: {INGEST_CHECK_TICKS} composites at fader 0 are decoded "
+        f"pictures exactly ({len(shown)} distinct); ingested pictures on {dev}; played PCM "
+        f"{n} granules, max abs err {pcm_err:.3e} against the AAC decoder's (atol "
+        f"{INGEST_PCM_ATOL}); publisher sent {sent['video']} video and {len(sent['audio'])} "
+        f"audio tags, its queue refused {sent['refused']}")
+    if n * 1024 < RT_RATE * INGEST_WINDOW_S or pcm_err > INGEST_PCM_ATOL:
+        raise AssertionError(f"the ingested PCM ({n} granules) is {pcm_err:.3e} from the AAC "
+                             "decoder's")
+    if res["launches"]["crossfade"] != res["video"] or res["video"] < 60:
+        raise AssertionError(f"the ingest window launched the crossfade kernel "
+                             f"{res['launches']['crossfade']} times in {res['video']} video ticks")
+
+    # (b) what came back on "out": each picture the split one, or black
+    # where camera A's picture had expired in the mixer (a stalled source)
+    if not pics:
+        raise AssertionError("no picture of the broadcast came back on the out mountpoint")
+    halves, sizes = [], set()
+    for pic in pics:
+        y = pic.picture.planes["y"]
+        if y.device != on_card:
+            raise AssertionError(f"the broadcast's pictures came back on {y.device}")
+        y = y.cpu().numpy().astype(np.float64)
+        hh, ww = y.shape
+        sizes.add((ww, hh))
+        mid = y[hh // 2 - 50: hh // 2 + 50]
+        halves.append((float(mid[:, : ww // 4].mean()), float(mid[:, 3 * ww // 4:].mean())))
+    n_split = sum(abs(b - 210) < 15 and abs(d - 16) < 15 for b, d in halves)
+    n_black = sum(b == d == 0 for b, d in halves)
+    bright, dark = halves[-1]
+    body = out_pcm[2048:, 0].astype(np.float64)
+    spec = np.abs(np.fft.rfft(body * np.hanning(len(body)))) if len(body) > 4096 else None
+    peak = float((np.argmax(spec[1:]) + 1) * RT_RATE / len(body)) if spec is not None else 0.0
+    rates = {k: (b1[k] - b0[k]) / bt for k in ("video_tags", "audio_tags", "video_refused",
+                                                 "audio_refused")}
+    log(f"broadcast [{card}]: indications {seen}; out mountpoint {sorted(sizes)}, "
+        f"{len(pics)} pictures: {n_split} the split picture, {n_black} black; the last's mid "
+        f"rows bright half {bright:.1f}, dark half {dark:.1f}; tone peak {peak:.2f} Hz over "
+        f"{len(body)} samples; published {rates['video_tags']:.2f} video and "
+        f"{rates['audio_tags']:.2f} AAC tags/s in {bt:.3f} s, the client's full queue refused "
+        f"{rates['video_refused']:.2f} and {rates['audio_refused']:.2f} a second; "
+        f"{b1['video_dropped'] - b0['video_dropped']} video frames dropped by the encode "
+        f"queue; the StreamOutput pipe dropped {d1 - d0} ticks")
+    if sizes != {(1120, 700)} or n_split + n_black < len(pics) or 2 * n_split <= len(pics) \
+            or abs(peak - 440.0) >= BROADCAST_TONE_HZ:
+        raise AssertionError(f"the broadcast came back as {sorted(sizes)}, {n_split} of "
+                             f"{len(pics)} pictures split ({n_black} black), tone {peak:.2f} Hz")
+
+    # (c) the Icecast SOURCE
+    m = min(len(radio), len(want_wav))
+    radio_err = float(np.abs(radio[:m].astype(np.float32) - want_wav[:m]).max()) / 32768.0 \
+        if m else float("inf")
+    status_line = status.split(b"\r\n")[0]
+    log(f"icecast [{card}]: {status_line!r}; {len(radio)} samples at {RT_RATE} Hz "
+        f"of {len(want_wav)} from {len(wav_pcm)} at {ICECAST_RATE} Hz, max abs err "
+        f"{radio_err:.3e} against resample_block_np (atol {ICECAST_ATOL})")
+    if b"200 OK" not in status or len(radio) != len(want_wav) or radio_err > ICECAST_ATOL:
+        raise AssertionError(f"the Icecast ingest gave {len(radio)} samples, err {radio_err:.3e}")
+    return res
 
 
 def main() -> int:
@@ -3930,7 +4663,7 @@ def main() -> int:
             errs[key] = max(errs[key], err)
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)
-        paths["media"] = media_paths(torch, np, dev, card, tmp)
+        paths.update(media_paths(torch, np, dev, card, tmp))
         served_subprocess(tmp)
 
     # each kernel's launches on the main path that carries it

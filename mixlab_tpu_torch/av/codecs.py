@@ -35,17 +35,16 @@ import os
 import shutil
 import struct
 import subprocess
-import sys
 import threading
 import time
 import weakref
 import zlib
 from dataclasses import dataclass
-from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 
+from mixlab_tpu_torch.av import codec_process
 from mixlab_tpu_torch.av.aac import AudioSpecificConfiguration
 from mixlab_tpu_torch.video.colorspace import picture_yuv420_to_rgb
 from mixlab_tpu_torch.video.frame import Picture, PictureSettings
@@ -345,19 +344,6 @@ def _split_adts(buf) -> tuple:
     return frames, used
 
 
-def _end_process(proc: subprocess.Popen):
-    """Close the child's stdin, wait for it, kill it if it lingers."""
-    try:
-        proc.stdin.close()
-    except OSError:
-        pass
-    try:
-        proc.wait(timeout=5)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-
-
 class PureAacStream:
     """Zero-dependency AAC-LC encode (av/aacenc.py): the duck type of the
     JAX package's ShimAacStream — feed interleaved i16, poll ADTS frames.
@@ -400,18 +386,12 @@ class PureAacStream:
         self.asc = AudioSpecificConfiguration(
             object_type=AudioObjectType.LOW_COMPLEXITY,
             sampling_frequency_index=sfi, channel_configuration=channels)
-        root = str(Path(__file__).resolve().parents[2])
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "mixlab_tpu_torch.av.aac_worker",
-             str(sample_rate), str(channels), str(quality), str(bitrate or 0)],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env, close_fds=True)
+        self.proc = codec_process.spawn("mixlab_tpu_torch.av.aac_worker", sample_rate,
+                                        channels, quality, bitrate or 0)
         self.out = _DrainThread(self.proc.stdout)
         self._fed = 0       # samples per channel written to the child
         self._returned = 0  # frames handed out
-        self._closer = weakref.finalize(self, _end_process, self.proc)
+        self._closer = weakref.finalize(self, codec_process.end_process, self.proc)
 
     def feed(self, pcm_i16: np.ndarray):
         pcm = np.asarray(pcm_i16, dtype="<i2").reshape(-1, self.channels)

@@ -32,9 +32,6 @@ Differences from the JAX engine, each deliberate:
     A block of n ticks therefore gives the video of n one-tick blocks
     (the ``.mp4`` export runs 60-tick blocks); at one tick a block, the
     default, both engines do the same.
-  * Not ported yet (ROADMAP.md queue 1, StreamOutputController): the
-    StreamOutput controller (a StreamOutput in the workspace raises
-    ``NotImplementedError``).
 
 Each MediaSource with a ``media_id`` gets its decode thread
 (``engine/media_player.py`` ``MediaPlayer``) when ``media_opener`` is
@@ -47,6 +44,15 @@ Each Monitor gets its codec thread (``server/monitor.py``
 ``MonitorPipeline``), started with the module and stopped when it goes or
 the engine stops; the Monitor's indication carries the pipeline's socket id,
 which the web client subscribes to at ``/_monitor/<id>``.
+
+Each StreamOutput gets a tick pipe like a Monitor's and its controller
+(``server/stream_output.py`` ``StreamOutputController``: the connection
+state machine, the RTMP publish IO thread and its encoders), stopped when
+the module goes or the engine stops.  The controller may refuse a params
+update (a stale ``seq``, or a change while live); the engine then keeps the
+old params and echoes them.  Its state changes come from its IO thread and
+reach the workspace through the command queue (``_post_indication``): the
+engine thread alone writes the workspace.
 
 DSP-state checkpoints (``checkpoint`` / ``restore_dsp_state``) are the JAX
 package's format (``convert.py``), so a checkpoint moves between engines.
@@ -84,11 +90,6 @@ from mixlab_tpu_torch.protocol import (
 from mixlab_tpu_torch.video.engine import VideoMixerState, video_mixer_tick
 
 log = logging.getLogger(__name__)
-
-NOT_PORTED_STREAM_OUTPUT = (
-    "the StreamOutput controller (RTMP publish) is not ported to "
-    "mixlab_tpu_torch yet: ROADMAP.md queue 1, StreamOutputController")
-
 
 # ---------------------------------------------------------------------------
 # events / sessions
@@ -266,6 +267,7 @@ class Engine:
         self._stream_feeds: Dict[ModuleId, StreamInputFeed] = {}
         self._monitor_pipes: Dict[ModuleId, _MonitorPipe] = {}
         self._monitor_pipelines: Dict[ModuleId, object] = {}
+        self._stream_outputs: Dict[ModuleId, object] = {}
         self._media_feeds: Dict[ModuleId, MediaSourceFeed] = {}
         self._media_players: Dict[ModuleId, object] = {}
         self._plotter_counts: Dict[ModuleId, int] = {}
@@ -307,26 +309,39 @@ class Engine:
         live = set(self.ws.modules)
         for mid, entry in self.ws.modules.items():
             kind = entry.params.kind
-            if kind == "StreamOutput":
-                raise NotImplementedError(NOT_PORTED_STREAM_OUTPUT)
             if kind == "VideoMixer" and mid not in self._video_mixers:
                 self._video_mixers[mid] = VideoMixerState()
             if kind == "StreamInput" and mid not in self._stream_feeds:
                 self._stream_feeds[mid] = StreamInputFeed(self.cfg)
                 self._listen_mountpoint(mid, entry.params.params)
-            if kind == "Monitor" and mid not in self._monitor_pipes:
+            if kind in ("Monitor", "StreamOutput") and mid not in self._monitor_pipes:
                 pipe = _MonitorPipe()
                 self._monitor_pipes[mid] = pipe
-                # spawn the codec thread + socket registration and expose
-                # the socket id as the module indication (monitor.rs:24-66)
-                from mixlab_tpu_torch.server.monitor import MonitorPipeline
+                if kind == "Monitor":
+                    # spawn the codec thread + socket registration and expose
+                    # the socket id as the module indication (monitor.rs:24-66)
+                    from mixlab_tpu_torch.server.monitor import MonitorPipeline
 
-                pipeline = MonitorPipeline(pipe, self.cfg)
-                pipeline.start()
-                self._monitor_pipelines[mid] = pipeline
-                self.ws.indications[mid] = Indication(
-                    "Monitor", p.MonitorIndication(pipeline.socket_id)
-                )
+                    pipeline = MonitorPipeline(pipe, self.cfg)
+                    pipeline.start()
+                    self._monitor_pipelines[mid] = pipeline
+                    self.ws.indications[mid] = Indication(
+                        "Monitor", p.MonitorIndication(pipeline.socket_id)
+                    )
+                else:  # StreamOutput: the connection state machine controller
+                    from mixlab_tpu_torch.server.stream_output import (
+                        StreamOutputController,
+                    )
+
+                    def _indicate(ind, mid=mid):
+                        self._post_indication(mid, ind)
+
+                    ctl = StreamOutputController(pipe, self.cfg, _indicate)
+                    ctl.params = entry.params.params
+                    self._stream_outputs[mid] = ctl
+                    self.ws.indications[mid] = Indication(
+                        "StreamOutput", ctl.indication()
+                    )
             if kind == "MediaSource" and mid not in self._media_feeds:
                 self._media_feeds[mid] = MediaSourceFeed(self.cfg)
                 self._start_media_player(mid, entry.params.params)
@@ -339,6 +354,7 @@ class Engine:
             self._stream_feeds,
             self._monitor_pipes,
             self._monitor_pipelines,
+            self._stream_outputs,
             self._media_feeds,
             self._media_players,
             self._plotter_counts,
@@ -349,7 +365,8 @@ class Engine:
             for mid in [m for m in d_ if m not in live]:
                 if d_ is self._stream_feeds:
                     d_[mid].set_recv(None)
-                if d_ is self._monitor_pipelines or d_ is self._media_players:
+                if any(d_ is x for x in (self._monitor_pipelines, self._stream_outputs,
+                                         self._media_players)):
                     d_[mid].stop()
                 if d_ is self._audio_streams and d_[mid] is not None:
                     d_[mid].close()
@@ -488,10 +505,16 @@ class Engine:
             pipeline.stop()
         for player in self._media_players.values():
             player.stop()
+        for ctl in self._stream_outputs.values():
+            ctl.stop()
         # a codec thread ends its AAC codec process as it leaves
         for pipeline in self._monitor_pipelines.values():
             if isinstance(pipeline, threading.Thread) and pipeline.is_alive():
                 pipeline.join(timeout=5.0)
+        # each controller's IO thread ends its connection, its encode thread
+        # and its AAC codec process as it leaves
+        for ctl in self._stream_outputs.values():
+            ctl.join(timeout=10.0)
         # join the decode threads so a later ProjectBase.close() cannot race
         # an in-flight blob read
         for player in self._media_players.values():
@@ -553,10 +576,32 @@ class Engine:
         elif cmd[0] == "workspace":
             _, session_id, msg = cmd
             self.client_update(session_id, msg)
+        elif cmd[0] == "indicate":
+            self._apply_indication(cmd[1], cmd[2])
         elif cmd[0] == "checkpoint":
             cmd[1].put(self.checkpoint())
         elif cmd[0] == "restore":
             cmd[2].put(self.restore_dsp_state(cmd[1]))
+
+    def _post_indication(self, mid: ModuleId, ind: Indication):
+        """Apply an indication made by a host worker thread (a
+        StreamOutput controller's state machine).  The engine thread owns
+        ``ws`` (src/engine/workspace.rs:148-170), so from another thread the
+        indication goes through the command queue, and is dropped when the
+        queue is full: indications are status refreshes, not ops.  Without
+        an engine thread (direct drive) it is applied at once."""
+        if self._thread is not None and threading.current_thread() is not self._thread:
+            try:
+                self._cmd.put_nowait(("indicate", mid, ind))
+            except queue.Full:
+                pass
+            return
+        self._apply_indication(mid, ind)
+
+    def _apply_indication(self, mid: ModuleId, ind: Indication):
+        if mid in self.ws.modules:  # the module may have gone meanwhile
+            self.ws.indications[mid] = ind
+            self._log_op(p.SUUpdateModuleIndication(mid, ind))
 
     def _dump_state(self) -> p.WorkspaceState:
         state = p.WorkspaceState()
@@ -617,10 +662,20 @@ class Engine:
         elif isinstance(op, p.UpdateModuleParams):
             entry = self.ws.modules.get(op.module_id)
             if entry is not None:
-                old_params = entry.params
-                self.ws.update_params(op.module_id, op.params)
-                self._on_params_updated(op.module_id, old_params, op.params)
-                self._rebuild()
+                # a module may refuse an update (stream_output.rs:62-80: a
+                # stale seq, or a change on a live output); the echo is the
+                # module's params after the update (engine.rs:301-309)
+                accepted = True
+                if op.params.kind == "StreamOutput":
+                    ctl = self._stream_outputs.get(op.module_id)
+                    if ctl is not None:
+                        ctl.update(op.params.params)
+                        accepted = ctl.params is op.params.params
+                if accepted:
+                    old_params = entry.params
+                    self.ws.update_params(op.module_id, op.params)
+                    self._on_params_updated(op.module_id, old_params, op.params)
+                    self._rebuild()
                 self._log_op(
                     p.SUUpdateModuleParams(
                         op.module_id, self.ws.modules[op.module_id].params
@@ -761,7 +816,7 @@ class Engine:
             if entry is None:
                 continue
             kind = entry.params.kind
-            if kind == "Monitor":
+            if kind in ("Monitor", "StreamOutput"):
                 pipe = self._monitor_pipes.get(mid)
                 if pipe is not None:
                     # a one-tick block's item carries its picture; a block

@@ -24,6 +24,13 @@ Differences from the JAX package, each deliberate:
     copies is waited on before the frame is pushed, so a frame reaches the
     feed only once its planes are complete on the card, and the planes
     belong to the stream the engine reads them on (no ``record_stream``).
+  * An MP4's AAC-LC granules are decoded in a codec process
+    (``av/aacdec_worker.py`` ``AacDecodeProcess``), one per stream, ended
+    as this thread ends: the Python decoder takes milliseconds a granule,
+    which under this process's interpreter lock came out of the engine
+    thread's tick.  This thread waits for each granule's PCM on the pipe
+    with the lock released; the PCM is the in-process decoder's, bit for
+    bit, and a granule it refuses is skipped as before.
   * The JAX package's libavcodec shim tier is not ported (ROADMAP.md queue
     1, Shim codec tier).  An MP4 takes the pure demux and decoders, the JAX
     package's own path when the shim is absent; a file that only the shim
@@ -125,6 +132,7 @@ class MediaPlayer(threading.Thread):
         self.device = torch.device(device)  # the engine's: pictures go there
         self._stop_evt = threading.Event()
         self._warned_aac = False
+        self._children = []  # codec processes, ended as the thread leaves
 
     def stop(self):
         self._stop_evt.set()
@@ -138,6 +146,9 @@ class MediaPlayer(threading.Thread):
             # project closed while we were mid-read: clean end-of-stream,
             # not an error (see ProjectBase._check_open)
             log.debug("media_source: project closed during decode; exiting")
+        finally:
+            for child in self._children:
+                child.close()
 
     def _run_dispatch(self):
         header = self.stream.read(64 * 1024)
@@ -431,13 +442,17 @@ class MediaPlayer(threading.Thread):
         is_aac = audio_ok and at.codec == "aac"
         try:
             from mixlab_tpu_torch.av.aac import AacError, AudioSpecificConfiguration
-            from mixlab_tpu_torch.av.aacdec import AacDecodeError, AacLcDecoder
+            from mixlab_tpu_torch.av.aacdec import AacDecodeError
+            from mixlab_tpu_torch.av.aacdec_worker import AacDecodeProcess
 
             vdec = PureH264Decoder(vt.dcr) if video_ok else None
             fdec = adec = asc = None
             if is_aac:
                 asc = AudioSpecificConfiguration.parse(at.asc)
-                adec = AacLcDecoder(asc)
+                # the decode runs in a codec process, off this process's
+                # interpreter lock; the thread ends it as it leaves
+                adec = AacDecodeProcess(asc)
+                self._children.append(adec)
             elif audio_ok:
                 fdec = FlacDecoder(at.streaminfo)
         except (H264DecodeError, FlacError, AvcError, AacError, ValueError,

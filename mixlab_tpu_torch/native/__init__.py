@@ -1,8 +1,9 @@
 """ctypes bindings for the port's host C++ (``mixlab_native.cpp``): the
-WebSocket unmask, the CAVLC intra frame encoder and the H.264 decoders
+WebSocket unmask, the CAVLC intra frame encoder, the H.264 decoders
 (``h264_parse_slice``, ``h264_dc_recon``, ``h264_decode_islice``,
-``h264_decode_islice_cabac``, ``h264_decode_inter``): the parts of
-``mixlab_tpu/native`` that the served session and media playback run.
+``h264_decode_islice_cabac``, ``h264_decode_inter``) and the banded host
+resize (``scale_plane_banded``): the parts of ``mixlab_tpu/native`` that
+the served session, media playback, ingest and the broadcast run.
 
 The library is built with ``g++`` at first use into ``mixlab_tpu_torch/_build/``
 under a name that carries a hash of the source and the flags.  The build is
@@ -15,7 +16,8 @@ This is host code, not a device kernel.  Every entry point has a fallback,
 as in the JAX package: ``ws_unmask`` XORs in numpy, ``h264_encode_frame``
 returns ``None`` (the caller takes the numpy encoder), and each decoder
 returns ``None`` (or ``False``) so that the caller takes its Python tier
-(``av/h264dec_fast.py``, ``av/h264cabac.py``, ``av/h264dec.py``).
+(``av/h264dec_fast.py``, ``av/h264cabac.py``, ``av/h264dec.py``), and
+``scale_plane_banded`` returns ``None`` (the caller takes numpy).
 ``available()`` says which path is active.
 """
 
@@ -129,6 +131,14 @@ def _load() -> Optional[ctypes.CDLL]:
         + [ctypes.c_void_p] * 4         # mv/ridx/rpid/rpoc motion export
         + [ctypes.c_void_p]             # out_state
     )
+    lib.scale_plane_banded.restype = None
+    lib.scale_plane_banded.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
     lib.h264_encode_frame.restype = ctypes.c_int64
     lib.h264_encode_frame.argtypes = (
         [ctypes.c_void_p] * 3           # py, pu, pv
@@ -302,3 +312,26 @@ def h264_encode_frame(py: np.ndarray, pu: np.ndarray, pv: np.ndarray,
     if n < 0:
         raise RuntimeError("h264_encode_frame: output buffer overflow")
     return out[:n].tobytes()
+
+
+def scale_plane_banded(plane: np.ndarray, out_h: int, out_w: int,
+                       yidx: np.ndarray, yw: np.ndarray,
+                       xidx: np.ndarray, xw: np.ndarray) -> Optional[np.ndarray]:
+    """Banded separable resize of a u8 plane (weights packed by
+    ``video/scale_host.py`` from ``video/scale.py``'s resize_matrix).
+    Returns None when the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    plane = np.ascontiguousarray(plane, dtype=np.uint8)
+    yidx, xidx = (np.ascontiguousarray(a, np.int32) for a in (yidx, xidx))
+    yw, xw = (np.ascontiguousarray(a, np.float32) for a in (yw, xw))
+    out = np.empty((out_h, out_w), dtype=np.uint8)
+    tmp = np.empty(plane.shape[1], dtype=np.float32)
+    lib.scale_plane_banded(
+        plane.ctypes.data, plane.shape[0], plane.shape[1],
+        out.ctypes.data, out_h, out_w,
+        yidx.ctypes.data, yw.ctypes.data, yidx.shape[1],
+        xidx.ctypes.data, xw.ctypes.data, xidx.shape[1],
+        tmp.ctypes.data)
+    return out

@@ -4097,3 +4097,55 @@ int64_t h264_decode_inter(
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Banded separable bicubic resize (the port's copy of scale_plane_banded
+// in mixlab_tpu/native/mixlab_native.cpp).
+//
+// The dense resize matrix of video/scale.py is ~99% zeros, which a host CPU
+// pays for.  The publish tier (server/stream_output.py) scales each
+// picture to 1120x700 on the host, so this twin applies the SAME resize
+// weights (packed banded by Python from resize_matrix — scale.py stays the
+// single source of truth) as two banded passes with an f32 intermediate:
+// ~K MACs per output sample instead of n_in.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// dst[out_h, out_w] u8 <- src[in_h, in_w] u8.
+// yidx/yw: [out_h, yk] source-row indices (pre-clamped) and weights;
+// xidx/xw: [out_w, xk] source-col indices and weights.
+void scale_plane_banded(const uint8_t* src, int64_t in_h, int64_t in_w,
+                        uint8_t* dst, int64_t out_h, int64_t out_w,
+                        const int32_t* yidx, const float* yw, int64_t yk,
+                        const int32_t* xidx, const float* xw, int64_t xk,
+                        float* tmp /* [in_w] scratch, caller-allocated */) {
+    for (int64_t o = 0; o < out_h; ++o) {
+        // vertical pass for this output row -> tmp[in_w]
+        {
+            const int32_t* idx = yidx + o * yk;
+            const float* w = yw + o * yk;
+            const uint8_t* r0 = src + (int64_t)idx[0] * in_w;
+            float w0 = w[0];
+            for (int64_t x = 0; x < in_w; ++x) tmp[x] = w0 * r0[x];
+            for (int64_t k = 1; k < yk; ++k) {
+                const uint8_t* rk = src + (int64_t)idx[k] * in_w;
+                float wk = w[k];
+                if (wk == 0.0f) continue;
+                for (int64_t x = 0; x < in_w; ++x) tmp[x] += wk * rk[x];
+            }
+        }
+        // horizontal pass -> dst row (round-half-away, clamp to u8)
+        uint8_t* out = dst + o * out_w;
+        for (int64_t x = 0; x < out_w; ++x) {
+            const int32_t* idx = xidx + x * xk;
+            const float* w = xw + x * xk;
+            float acc = 0.0f;
+            for (int64_t k = 0; k < xk; ++k) acc += w[k] * tmp[idx[k]];
+            int v = (int)(acc + 0.5f);
+            out[x] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+        }
+    }
+}
+
+}  // extern "C"

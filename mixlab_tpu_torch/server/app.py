@@ -19,10 +19,11 @@ Session loop semantics (server.rs:197-342):
     broadcast pushes a None sentinel when a session queue overflows;
   * performance info and media library updates stream to every session.
 
-One difference from the JAX package: the port has no ingest listeners yet,
-so an Icecast SOURCE or RTMP connection, told apart by the first bytes
-(``io_host/listen.py``), is closed and logged as refused
-(``NOT_PORTED_INGEST``).
+An Icecast SOURCE or RTMP connection, told apart by the first bytes
+(``io_host/listen.py``), goes to the port's listeners
+(``io_host/icecast.py``, ``io_host/rtmp/server.py``).  One difference from
+the JAX package: the RTMP listener is given the engine's device, to which it
+uploads the pictures it decodes.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from mixlab_tpu_torch.engine.engine import Busy, Engine, SyncEvent, UpdateEvent
 from mixlab_tpu_torch.engine.project import ProjectHandle
 from mixlab_tpu_torch.io_host import listen
 from mixlab_tpu_torch.io_host.listen import PeekStreamReader, Protocol
+from mixlab_tpu_torch.io_host.rtmp import server as rtmp_server
 from mixlab_tpu_torch.protocol import wire
 from mixlab_tpu_torch.server import monitor as monitor_mod
 from mixlab_tpu_torch.server import ws as ws_mod
@@ -49,15 +51,12 @@ INDEX_HTML = (Path(__file__).parent / "static" / "index.html")
 
 log = logging.getLogger(__name__)
 
-NOT_PORTED_INGEST = (
-    "the Icecast and RTMP ingest listeners are not ported to mixlab_tpu_torch "
-    "yet: ROADMAP.md queue 1, Ingest listeners")
-
 
 class Server:
     def __init__(self, project: ProjectHandle):
         self.project = project
         self.engine: Engine = project.engine
+        self.rtmp_stats = rtmp_server.IngestStats()  # over this server's publishers
 
     # -- connection dispatch ----------------------------------------------
 
@@ -66,8 +65,12 @@ class Server:
     ):
         if proto == Protocol.HTTP:
             await self.handle_http(reader, writer)
-        else:  # Icecast SOURCE or RTMP: refused, the connection closes
-            log.warning("refused a %s connection: %s", proto.name, NOT_PORTED_INGEST)
+        elif proto == Protocol.ICECAST:
+            from mixlab_tpu_torch.io_host import icecast
+
+            await icecast.accept(reader, writer)
+        elif proto == Protocol.RTMP:
+            await rtmp_server.accept(reader, writer, self.engine.device, self.rtmp_stats)
 
     async def handle_http(self, reader, writer):
         """Persistent-connection request loop (HTTP/1.1 keep-alive); a

@@ -6,12 +6,13 @@ zeros, which a host CPU pays for.  This module applies the SAME weights
 (``scale.resize_matrix`` stays the single source of truth) as two banded
 separable passes: per output sample, only its K nonzero source taps.
 
-The JAX package's first choice here is a C++ twin
-(``mixlab_tpu/native``, ``scale_plane_banded``), with this numpy path as
-its fallback.  The port imports nothing of that package and runs the numpy
-path only; its copy of the C++ twin comes with ``StreamOutputController``
-(ROADMAP.md queue 1, StreamOutputController), the only caller of the host scale
-(``mixlab_tpu/server/stream_output.py:344-360``).
+Paths: the port's C++ twin (``native/mixlab_native.cpp``
+``scale_plane_banded``, the JAX package's copy) first, with this vectorized
+numpy path as its fallback where the native library cannot be built; the
+C++ rounds half away from zero and sums in its own order, so the two agree
+within 1 u8 LSB (``tests/test_torch_alsa_out.py`` holds the C++ to the JAX
+package's C++, byte for byte).  The publish tier
+(``server/stream_output.py``) is the caller.
 """
 
 from __future__ import annotations
@@ -43,13 +44,19 @@ def banded_weights(n_in: int, n_out: int):
 
 def resize_plane_host(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """[H, W] u8 -> [out_h, out_w] u8 on the host CPU (banded bicubic, K
-    gather-multiply-add passes per axis in f32)."""
+    gather-multiply-add passes per axis in f32: the C++ twin, else numpy)."""
     plane = np.ascontiguousarray(plane, dtype=np.uint8)
     in_h, in_w = plane.shape
     if (in_h, in_w) == (out_h, out_w):
         return plane
     yidx, yw = banded_weights(in_h, out_h)
     xidx, xw = banded_weights(in_w, out_w)
+
+    from mixlab_tpu_torch import native
+
+    out = native.scale_plane_banded(plane, out_h, out_w, yidx, yw, xidx, xw)
+    if out is not None:
+        return out
     tmp = np.zeros((out_h, in_w), dtype=np.float32)
     for k in range(yidx.shape[1]):
         tmp += yw[:, k:k + 1] * plane[yidx[:, k], :]

@@ -555,3 +555,63 @@ def test_media_player_uploads_complete_pictures_to_the_card(dev):
     got = imdct_batch_torch(specs, device=dev)
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), imdct_batch(specs), atol=2e-3)
+
+
+def test_rtmp_ingest_uploads_pictures_to_the_card(dev):
+    """The RTMP ingest's pure tier, given the card, hands the mountpoint
+    pictures on it, complete: the port's CAVLC intra stream of two 1080p
+    pictures over loopback RTMP, each picture equal to the decoder's."""
+    import asyncio
+
+    from mixlab_tpu_torch.av import flv
+    from mixlab_tpu_torch.av.h264dec import PureH264Decoder
+    from mixlab_tpu_torch.av.h264enc import PureH264Stream
+    from mixlab_tpu_torch.io_host import source
+    from mixlab_tpu_torch.io_host.rtmp import client, server
+    from mixlab_tpu_torch.video.frame import Picture, PictureSettings
+
+    w, h = 1920, 1080
+    rng = np.random.default_rng(5)
+    enc = PureH264Stream(PictureSettings(w, h), mode="cavlc", qp=30)
+    units = []
+    for _ in range(2):
+        enc.feed(Picture(PictureSettings(w, h), {
+            k: rng.integers(0, 256, s, dtype=np.uint8)
+            for k, s in (("y", (h, w)), ("u", (h // 2, w // 2)), ("v", (h // 2, w // 2)))}))
+        ((_key, avcc),) = enc.poll_access_units()
+        units.append(avcc)
+    dec = PureH264Decoder(enc.dcr)
+    want = [dec.decode(u)[-1][1:] for u in units]
+    recv = source.RTMP_MOUNTPOINTS.listen("card-ingest")
+    key = flv.VideoFrameType.KEY_FRAME
+
+    async def go():
+        async def on_conn(reader, writer):
+            try:
+                await server.accept(reader, writer, dev)
+            finally:
+                writer.close()
+
+        srv = await asyncio.start_server(on_conn, "127.0.0.1", 0)
+        pub = await client.start("127.0.0.1", srv.sockets[0].getsockname()[1], "card-ingest", "k")
+        pub.publish_video(0, flv.VideoPacket(key, flv.VideoPacketType.SEQUENCE_HEADER, 0,
+                                             enc.dcr).to_bytes())
+        for i, avcc in enumerate(units):
+            pub.publish_video(33 * (i + 1), flv.VideoPacket(key, flv.VideoPacketType.NALU, 0,
+                                                            avcc).to_bytes())
+        await pub.close()
+        srv.close()
+        await srv.wait_closed()
+
+    try:
+        asyncio.run(go())
+        got = []
+        while (f := recv.read_video()) is not None:
+            got.append(f.data.picture.planes)
+    finally:
+        recv.close()
+    assert len(got) == len(want)
+    for planes, ref in zip(got, want):
+        for k, plane in zip("yuv", ref):
+            assert planes[k].device.type == "cuda"
+            assert torch.equal(planes[k].cpu(), torch.from_numpy(plane)), k

@@ -283,35 +283,97 @@ def test_client_ops_broadcast_byte_identical():
 
 
 def test_engine_left_out_parts_raise_or_stay_silent():
-    """What the port's engine leaves out raises naming its ROADMAP.md item,
-    and a MediaSource whose opener finds no media is a silent feed, as in
-    the JAX engine (the engine takes a ``media_opener`` since the
-    MediaPlayer was ported)."""
+    """Nothing of the engine is left out now: a StreamOutput, which raised
+    until its controller was ported, builds with its controller offline, in
+    a workspace and by a client op; and a MediaSource whose opener finds no
+    media is a silent feed, as in the JAX engine (the engine takes a
+    ``media_opener`` since the MediaPlayer was ported)."""
     ws = tgraph.Workspace()
-    ws.create_module(tp.ModuleParams("StreamOutput", tp.StreamOutputParams()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, StreamOutputController"):
-        Engine(workspace=ws, cfg=CFG, device="cpu")
+    mid = ws.create_module(tp.ModuleParams("StreamOutput", tp.StreamOutputParams()))
+    eng = Engine(workspace=ws, cfg=CFG, device="cpu")
+    assert eng.ws.indications[mid] == tp.Indication(
+        "StreamOutput", tp.StreamOutputIndication(tp.StreamOutputLiveStatus.OFFLINE, False))
+    assert eng._stream_outputs[mid].params == tp.StreamOutputParams()
+    sid, _, events = eng.connect_session()
+    eng.update(sid, tp.WorkspaceMessage(1, tp.DeleteModule(mid)))
+    assert eng.ws.modules == {} and eng._stream_outputs == {}
+    eng.stop()
 
     opened = []
     eng = Engine(cfg=CFG, device="cpu", media_opener=lambda media_id: opened.append(media_id))
     sid, _, events = eng.connect_session()
     geo = tp.WindowGeometry()
-    # a client op that would add a StreamOutput is rolled back, Sync still sent
+    # a client op adds a StreamOutput (module 1), which the MediaSource's
+    # chain does not touch
     eng.update(sid, tp.WorkspaceMessage(1, tp.CreateModule(
         tp.ModuleParams("StreamOutput", tp.StreamOutputParams()), geo)))
-    assert eng.ws.modules == {} and isinstance(_drain(events)[-1], SyncEvent)
+    assert list(eng._stream_outputs) == [tp.ModuleId(1)]
+    assert isinstance(_drain(events)[-1], SyncEvent)
     for seq, op in enumerate((
         tp.CreateModule(tp.ModuleParams("MediaSource", tp.MediaSourceParams(tp.MediaId(3))), geo),
         tp.CreateModule(tp.ModuleParams("Monitor", None), geo),
-        tp.CreateConnection(tp.InputId(tp.ModuleId(2), 1), tp.OutputId(tp.ModuleId(1), 1)),
-        tp.CreateConnection(tp.InputId(tp.ModuleId(2), 0), tp.OutputId(tp.ModuleId(1), 0)),
+        tp.CreateConnection(tp.InputId(tp.ModuleId(3), 1), tp.OutputId(tp.ModuleId(2), 1)),
+        tp.CreateConnection(tp.InputId(tp.ModuleId(3), 0), tp.OutputId(tp.ModuleId(2), 0)),
     ), 2):
         eng.update(sid, tp.WorkspaceMessage(seq, op))
-    eng.tick_once()  # the rollback also rolled back the id: MediaSource is 1
-    t0, audio, video = eng.monitor_pipe(tp.ModuleId(2)).q.get(timeout=2)
+    eng.tick_once()
+    t0, audio, video = eng.monitor_pipe(tp.ModuleId(3)).q.get(timeout=2)
     assert t0 == 0 and video is None and not audio.any()
     assert opened == [tp.MediaId(3)] and eng._media_players == {}
     eng.stop()
+
+
+def _stream_output_script(p):
+    """A StreamOutput's life: made, a stale update (refused, the old params
+    echoed), a connect to a port where nothing listens (Connecting, then
+    Failed with the error flag), params changed while offline, deleted."""
+    url = "rtmp://127.0.0.1:1/nope"
+    so = p.ModuleId(1)
+    params = lambda seq, **kw: p.UpdateModuleParams(so, p.ModuleParams(  # noqa: E731
+        "StreamOutput", p.StreamOutputParams(seq=seq, rtmp_url=url, rtmp_stream_key="k", **kw)))
+    return [
+        p.CreateModule(p.ModuleParams("StreamOutput", p.StreamOutputParams()),
+                       p.WindowGeometry()),
+        params(1),
+        params(2, connect_seq=2),
+        params(3, disconnect_seq=0),
+        p.DeleteModule(so),
+    ]
+
+
+def test_stream_output_indications_match_jax():
+    """A workspace with a StreamOutput builds in both engines, and its
+    controller's indications (made on its IO thread) and the params echoes
+    go out on the wire byte-equal to the JAX engine's."""
+    sides = []
+    try:
+        for p, eng in ((jp, JaxEngine(cfg=CFG_J)), (tp, Engine(cfg=CFG, device="cpu"))):
+            sid, _, events = eng.connect_session()
+            for seq, op in enumerate(_stream_output_script(p), 1):
+                eng.update(sid, p.WorkspaceMessage(seq, op))
+                if seq == 3:  # the connect: wait for the IO thread's failure
+                    ctl = eng._stream_outputs[p.ModuleId(1)]
+                    deadline = time.monotonic() + 10
+                    while ctl.state.value != "failed" and time.monotonic() < deadline:
+                        time.sleep(0.02)
+                    assert ctl.state.value == "failed" and ctl.error
+                    ctl._io_thread.join(10)
+            sides.append((eng, _drain(events)))
+        (ej, ev_j), (et, ev_t) = sides
+        assert [type(e).__name__ for e in ev_j] == [type(e).__name__ for e in ev_t]
+        wire_j = [jwire.dumps(e.update) for e in ev_j if not isinstance(e, JaxSyncEvent)]
+        wire_t = [twire.dumps(e.update) for e in ev_t if not isinstance(e, SyncEvent)]
+        assert wire_t == wire_j
+        inds = [e.update.indication.value for e in ev_t if isinstance(e, UpdateEvent)
+                and type(e.update).__name__ == "SUUpdateModuleIndication"]
+        assert inds == [tp.StreamOutputIndication(tp.StreamOutputLiveStatus.CONNECTING, False),
+                        tp.StreamOutputIndication(tp.StreamOutputLiveStatus.OFFLINE, True)]
+        echoes = [e.update.params.params.seq for e in ev_t if isinstance(e, UpdateEvent)
+                  and type(e.update).__name__ == "SUUpdateModuleParams"]
+        assert echoes == [1, 2, 3]  # the stale seq 1 echoes the module's own params
+    finally:
+        for eng, _ in sides:
+            eng.stop()
 
 
 # -- the flagship with live video, and checkpoints across engines ---------------

@@ -84,6 +84,13 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "engine.media_player", "io_host.throttle", "av.y4m", "av.jpeg", "av.flacdec",
         "av.ogg", "av.vorbis", "av.mp4read", "av.aacdec", "av.h264mc", "av.cabac_tables",
         "av.h264cabac", "av.h264dec_fast", "av.h264dec", "av.aac_worker")} <= names
+    # live ingest and broadcast: the FLV and MP3 layers, the RTMP stack, the
+    # Icecast listener, the StreamOutput controller and the AAC decode process
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "av.flv", "av.mp3", "av.codec_process", "av.aacdec_worker", "io_host.icecast",
+        "io_host.rtmp", "io_host.rtmp.amf0", "io_host.rtmp.chunk", "io_host.rtmp.handshake",
+        "io_host.rtmp.server", "io_host.rtmp.client", "io_host.rtmp.ffmpeg_decode",
+        "server.stream_output")} <= names
 
 
 _CONCURRENT_BUILD = r"""
@@ -96,7 +103,8 @@ print(native.build())
 assert native.available()
 lib = native._load()
 for name in ("ws_unmask", "h264_encode_frame", "h264_parse_slice", "h264_dc_recon",
-             "h264_decode_islice", "h264_decode_islice_cabac", "h264_decode_inter"):
+             "h264_decode_islice", "h264_decode_islice_cabac", "h264_decode_inter",
+             "scale_plane_banded"):
     getattr(lib, name)
 """
 

@@ -362,11 +362,15 @@ def test_fused_tight_on_smooth_content_and_pure_at_the_ends():
 
 
 def test_resize_plane_host_equals_jax_numpy_path(monkeypatch):
-    """The JAX package's numpy path (its C++ twin switched off) and the
-    port's, on the same weights: exact."""
+    """The JAX package's numpy path and the port's, each with its C++ twin
+    switched off (the port's is its first choice since it was ported;
+    ``tests/test_torch_alsa_out.py`` holds the two C++ twins to each
+    other), on the same weights: exact."""
     from mixlab_tpu import native
+    from mixlab_tpu_torch import native as tnative
 
     monkeypatch.setattr(native, "scale_plane_banded", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
     rng = np.random.default_rng(3)
     for (h, w), (oh, ow) in (((200, 320), (700, 1120)), ((72, 128), (54, 96)),
                              ((36, 52), (36, 104))):

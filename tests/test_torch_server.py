@@ -22,6 +22,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,7 @@ from mixlab_tpu_torch.engine.config import EngineConfig
 from mixlab_tpu_torch.engine.project import open_or_create
 from mixlab_tpu_torch.protocol import wire as twire
 from mixlab_tpu_torch.server import ws as ws_mod
-from mixlab_tpu_torch.server.app import NOT_PORTED_INGEST, run_server
+from mixlab_tpu_torch.server.app import run_server
 from tests.loophelp import drain_and_close
 from tests.test_server import mask_frame, ws_connect, ws_recv
 
@@ -144,6 +145,12 @@ class Served:
 def both(tmp_path_factory):
     """Both servers on the CPU in one loop, after the scripted session;
     yields (loop, {"jax": Served, "torch": Served}, session messages)."""
+    from mixlab_tpu_torch import native
+
+    # the port's host C++ (the WebSocket unmask on the server's loop, the
+    # frame encoder) built before the session's timed reads: in a fresh
+    # checkout the first load builds it, under a lock other test files share
+    native.available()
     tmp = tmp_path_factory.mktemp("served")
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MIXLAB_CODEC_TIER", "pure")
@@ -310,21 +317,125 @@ def test_upload_is_read_back_by_the_jax_project_base(both, tmp_path):
 
 @pytest.mark.parametrize("first_bytes", [b"SOURCE /live ICE/1.0\r\n\r\n", b"\x03" + bytes(1536)],
                          ids=["icecast", "rtmp"])
-def test_ingest_first_bytes_are_refused(both, first_bytes, caplog):
+def test_ingest_first_bytes_are_refused(both, first_bytes):
+    """The first bytes of an Icecast SOURCE or an RTMP handshake, told apart
+    by the sniffer, reach the port's listeners (until they were ported the
+    connection was closed at once), which refuse a mountpoint nobody
+    listens on: the SOURCE gets 403 Forbidden; the handshake is answered
+    (S0, S1, S2) and a publisher is refused with NetStream.Publish.BadName."""
+    from mixlab_tpu_torch.io_host.rtmp import client as rtmp_client
+
     loop, servers, _ = both
+    port = servers["torch"].port
 
     async def go():
-        reader, writer = await asyncio.open_connection("127.0.0.1", servers["torch"].port)
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
         writer.write(first_bytes)
         await writer.drain()
-        data = await asyncio.wait_for(reader.read(-1), 10)  # closed by the server
+        if first_bytes.startswith(b"SOURCE"):
+            data = await asyncio.wait_for(reader.read(-1), 10)  # closed by the server
+        else:
+            s012 = await asyncio.wait_for(reader.readexactly(1 + 2 * 1536), 10)
+            writer.write(s012[1:1537])  # C2 echoes S1
+            writer.write_eof()
+            data = s012[:1] + await asyncio.wait_for(reader.read(-1), 10)
         writer.close()
         return data
 
-    with caplog.at_level("WARNING", logger="mixlab_tpu_torch.server.app"):
-        assert loop.run_until_complete(go()) == b""
-    assert NOT_PORTED_INGEST in caplog.text
-    assert "ROADMAP.md queue 1, Ingest listeners" in NOT_PORTED_INGEST
+    data = loop.run_until_complete(go())
+    if first_bytes.startswith(b"SOURCE"):
+        assert data.startswith(b"HTTP/1.1 403 Forbidden") and data.endswith(b"unavailable")
+    else:
+        assert data == b"\x03"
+        with pytest.raises(Exception):
+            loop.run_until_complete(rtmp_client.start("127.0.0.1", port, "nosuch", "key"))
+
+
+def test_ingest_reaches_stream_inputs_through_run_server(tmp_path, monkeypatch):
+    """Behind the port's ``run_server`` (what ``python -m mixlab_tpu_torch``
+    runs), an RTMP publisher and an Icecast SOURCE reach their StreamInputs:
+    the engine's feeds get the decoded pictures as tensors on the engine's
+    device (the CPU here), equal to the port's decoder's, and the PCM."""
+    from mixlab_tpu_torch.av.h264dec import PureH264Decoder
+    from mixlab_tpu_torch.engine import engine as engine_mod
+    from mixlab_tpu_torch.io_host.rtmp import client as rtmp_client
+    from mixlab_tpu_torch.io_host.wav import write_wav
+    from tests.test_torch_rtmp_icecast import _aac_tags, _x264_tags
+    from tests import torch_h264_streams as streams
+
+    from mixlab_tpu_torch import native
+
+    assert native.available()  # built before the timed waits below
+    monkeypatch.setenv("MIXLAB_CODEC_TIER", "pure")
+    seen = {"video": [], "pcm": {}}
+
+    class RecordingFeed(engine_mod.StreamInputFeed):
+        def fill_tick(self, t, n):
+            pcm, video = super().fill_tick(t, n)
+            seen["pcm"].setdefault(id(self), []).append(pcm)
+            if video is not None:
+                seen["video"].append(video)
+            return pcm, video
+
+    monkeypatch.setattr(engine_mod, "StreamInputFeed", RecordingFeed)
+    proj = open_or_create(tmp_path / "ingest.mixlab", EngineConfig(sample_rate=44_100),
+                          device="cpu")
+    loop = asyncio.new_event_loop()
+    tcp = None
+    try:
+        tcp, _ = loop.run_until_complete(run_server(proj, "127.0.0.1", 0))
+        port = tcp.sockets[0].getsockname()[1]
+        eng = proj.engine
+        sid, _, _ = eng.connect_session()
+        for seq, (proto, mount) in enumerate(((tp.StreamProtocol.RTMP, "cam"),
+                                              (tp.StreamProtocol.ICECAST, "radio")), 1):
+            eng.update(sid, tp.WorkspaceMessage(seq, tp.CreateModule(tp.ModuleParams(
+                "StreamInput", tp.StreamInputParams(mountpoint=mount, protocol=proto)),
+                tp.WindowGeometry())))
+        deadline = time.monotonic() + 10
+        while len(eng._stream_feeds) < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        vtags, dcr, units = _x264_tags(streams.load("cavlc_p"))
+        atags, _, _ = _aac_tags(0.5)
+        t = np.arange(4410) / 44_100
+        tone = (np.sin(2 * np.pi * 500 * t) * 20000).astype(np.int16)
+        write_wav(tmp_path / "in.wav", 44_100, np.stack([tone, tone], -1))
+
+        async def publish():
+            client = await rtmp_client.start("127.0.0.1", port, "cam", "key")
+            for kind, ms, body in sorted(vtags + atags, key=lambda x: x[1]):
+                (client.publish_audio if kind == "audio" else client.publish_video)(ms, body)
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"SOURCE /radio HTTP/1.0\r\nContent-Type: audio/wav\r\n\r\n"
+                         + (tmp_path / "in.wav").read_bytes())
+            await writer.drain()
+            assert b"200 OK" in await reader.read(64)
+            for _ in range(3000):
+                pcm = [np.concatenate(v) for v in seen["pcm"].values()]
+                if len(seen["video"]) >= 3 and len(pcm) == 2 and all(
+                        np.abs(x).max() > 10_000 for x in pcm):
+                    break
+                await asyncio.sleep(0.01)
+            writer.close()
+            await client.close()
+
+        loop.run_until_complete(publish())
+    finally:
+        proj.engine.stop()
+        if tcp is not None:
+            tcp.close()
+        drain_and_close(loop)
+        proj.close()
+    dec = PureH264Decoder(dcr)
+    want = [dec.decode(u) for u in units]
+    want = [f[-1][1:] for f in want if f]
+    assert len(seen["video"]) >= 3
+    for frame in seen["video"][:3]:
+        got = [frame.picture.planes[k] for k in "yuv"]
+        assert all(isinstance(g, torch.Tensor) and g.device.type == "cpu" for g in got)
+        assert any(all(np.array_equal(g.numpy(), w) for g, w in zip(got, ws)) for ws in want)
+    assert len(seen["pcm"]) == 2
+    assert all(np.abs(np.concatenate(v)).max() > 10_000 for v in seen["pcm"].values())
 
 
 def _free_port() -> int:
