@@ -180,7 +180,31 @@ imports no jax.  Phases, any failure of which exits non-zero:
      Live over the session socket, 1120x700 pictures of a split test
      picture and the 440 Hz tone back on ``out``, tags a second and drops;
      (c) a 48 kHz WAV Icecast SOURCE to ``radio`` at 44.1 kHz within 2e-6
-     of ``resample_block_np``.
+     of ``resample_block_np``;
+ 19. scale-out, after phase 16 and before phase 15's threads, each path with
+     the launch counts set to 0 just before and read just after: (a) the
+     flagship's stems at 48 kHz over meshes of 1, 2 and 4 entries on the
+     card (and 2 and 4 distinct cards where there are), 5 stems and 8, in
+     16- and 41-tick blocks: the master within 2e-4 of the one-entry
+     mesh's, the batched eq kernel once a shard a block, the batched
+     envelope kernel once a shard where its gate opens; (b) the fleet at N
+     = 8,192 over a 4-entry mesh: every session's taps equal to the
+     one-device fleet's bit for bit, one eq launch a shard, the wall a
+     block of each for information; (c) ``row_sharded_blend`` over 4
+     entries at 1080p and heights that do not divide by 4: equal to the
+     twin, one crossfade launch a shard; (d) the live ``Engine`` with
+     ``StemsPatch.compiler`` over a 2-entry mesh, 60 ticks in direct drive
+     with a structural edit at tick 30: taps 5 x the one-device engine's
+     within 1e-6; (e) two processes in a ``gloo`` group (``mesh_worker``),
+     each a 2-entry mesh on the card: the master's checksum within 1e-3
+     relative of one process's 4-entry mesh, and over ``nccl`` across
+     distinct cards where there are two; (f) ``python -m
+     mixlab_tpu_torch.server.fleet``: a controller and two agents with
+     ``--device cuda``; a workspace placed, built by one session (an
+     oscillator into an EqThree), migrated to the other agent, whose worker
+     resumes from the checkpoint (the EqThree's state equal to the source
+     worker's checkpoint continued on the card to the same tick), then
+     SIGTERM: every process exits 0.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -3256,6 +3280,502 @@ def batched_paths(torch, np, dev, card):
     return errs, times, paths, info
 
 
+# ---------------------------------------------------------------------------
+# phase 19: scale-out (the stems, the fleet, the blend and the live engine
+# over a mesh; two processes as one mesh; the fleet controller and agents)
+# ---------------------------------------------------------------------------
+
+MESH_TICKS = (16, 41)      # 12,800 samples at 48 kHz (the eq kernel's gate open), 32,800 (both)
+MESH_SHARDS = (1, 2, 4)
+MESH_STEMS = (5, 8)
+MESH_FLEET_SHARDS = 4
+BLEND_SIZES = ((1080, 1920), (1081, 1920), (1082, 1920), (1083, 1920))
+BLEND_FADES = (0, 128, 255)
+ENGINE_STEMS = 5
+ENGINE_TICKS = 60
+ENGINE_TOL = 1e-6          # tests/test_engine_multichip.py:87
+CHECKSUM_RTOL = 1e-3       # tests/test_distributed.py:99-104
+WORKER_WAIT_S = 180
+
+
+def _reset(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    return {name: c.launches for name, c in counters.items()}
+
+
+def mesh_stems(torch, np, dev, card):
+    """(a) the flagship's stems at 48 kHz over meshes of 1, 2 and 4 entries
+    on the card (and of 2 and 4 distinct cards where there are), 5 stems
+    (pad stems on the last shards) and 8, in 16- and 41-tick blocks: the
+    master within MIX_ATOL of the same step over a one-entry CPU mesh on the
+    same inputs (the kernels' plain twins, so each kernel is held to its
+    twin at the shard shapes of this path: B of 2-8 rows at 12,800 and
+    32,800 samples) and of the one-entry card mesh's, the batched eq kernel
+    once a shard a block, the batched envelope kernel once a shard where
+    its gate opens (counts set to 0 just before the step, read just
+    after)."""
+    from mixlab_tpu_torch.dsp.envelope import PALLAS_THRESHOLD as ENV_GATE
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import stem_parallel_step
+
+    ws, mon = build_16_module_graph()
+    cfg = EngineConfig(sample_rate=48_000)
+    counters = launch_counters()
+    meshes = [(f"{k} x {dev}", f"{k}", lambda k=k: make_mesh(k, devices=[str(dev)]))
+              for k in MESH_SHARDS]
+    meshes += [(f"{k} cards", f"{k}cards", lambda k=k: make_mesh(k)) for k in (2, 4)
+               if k <= torch.cuda.device_count()]
+    paths = {}
+    for ticks in MESH_TICKS:
+        block = BlockSpec(ticks)
+        env_on = block.n_samples(cfg) >= ENV_GATE
+        for n_stems in MESH_STEMS:
+            fn, make_args, _ = stem_parallel_step(ws, cfg, block, str(mon.value),
+                                                  n_stems=n_stems, device="cpu")
+            twin = fn(*make_args(0))[1]
+            want = None
+            for name, key, make in meshes:
+                mesh = make()
+                fn, make_args, _ = stem_parallel_step(ws, cfg, block, str(mon.value),
+                                                      n_stems=n_stems, mesh=mesh)
+                args = make_args(0)
+                fn(*args)  # first call: allocations
+                torch.cuda.synchronize()
+                _reset(counters)
+                t = time.perf_counter()
+                _, master = fn(*args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                launches = _read(counters)
+                want = master if want is None else want
+                err = (master.to(want.device) - want).abs().max().item()
+                err_twin = (master.cpu() - twin).abs().max().item()
+                log(f"mesh stems [{card}]: {n_stems} stems over {name}, {ticks}-tick blocks: "
+                    f"master vs the twins' (one CPU entry) max err {err_twin:.3e}, vs the "
+                    f"one-entry card mesh's {err:.3e} (atol {MIX_ATOL}), "
+                    f"{wall * 1e3:.3f} ms a step, launches {launches}")
+                if not (err <= MIX_ATOL and err_twin <= MIX_ATOL
+                        and bool(torch.isfinite(master).all())
+                        and launches["eq_cascade"] == len(mesh)
+                        and launches["envelope"] == (len(mesh) if env_on else 0)):
+                    raise AssertionError(f"mesh stems over {name}: err {err}, vs the twins "
+                                         f"{err_twin}, launches "
+                                         f"{launches} (want {len(mesh)} a kernel)")
+                paths[f"mesh_stems_{key}_{ticks}"] = launches
+    return paths
+
+
+def mesh_fleet(torch, np, dev, card):
+    """(b) the fleet as phase 16 (b) runs it, N = 8,192 sessions with their
+    own params in 15-tick blocks, over a 4-entry mesh on the card: one
+    batched eq launch a shard a block (counts set to 0 just before the
+    block, read just after), every session's taps equal to the one-device
+    fleet's bit for bit over two carried blocks; for information the wall
+    per block of each."""
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(FLEET_TICKS)
+    spb, n = block.n_samples(cfg), FLEET_N[-1]
+    counters = launch_counters()
+    t = time.perf_counter()
+    wss = fleet_workspaces(n)
+    one = Fleet.build(wss[0], n, cfg, block, per_instance_params=wss, device=str(dev))
+    mesh = make_mesh(MESH_FLEET_SHARDS, axis="fleet", devices=[str(dev)])
+    four = Fleet.build(wss[0], n, cfg, block, per_instance_params=wss, mesh=mesh, axis="fleet")
+    built = time.perf_counter() - t
+    worst, same = 0.0, True
+    for b in range(2):
+        want = one.run_block(b * spb)
+        torch.cuda.synchronize()
+        _reset(counters)
+        got = four.run_block(b * spb)
+        torch.cuda.synchronize()
+        launches = _read(counters)
+        for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
+            same = same and torch.equal(g, w)
+            worst = max(worst, (g - w).abs().max().item())
+        if launches["eq_cascade"] != MESH_FLEET_SHARDS or launches["envelope"] != 0:
+            raise AssertionError(f"mesh fleet block {b} launched {launches}")
+    walls = {}
+    for name, fleet in (("one device", one), (f"{MESH_FLEET_SHARDS} x {dev}", four)):
+        w = []
+        for b in range(2, 6):
+            t = time.perf_counter()
+            fleet.run_block(b * spb)
+            torch.cuda.synchronize()
+            w.append(time.perf_counter() - t)
+        walls[name] = float(np.median(w))
+    log(f"mesh fleet [{card}]: N={n} over {MESH_FLEET_SHARDS} shards of {dev} (built with the "
+        f"one-device fleet in {built:.2f} s): taps equal bit for bit {same} (max err "
+        f"{worst:.3e}), launches a block {launches}; wall a block "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+        + " (median of 4, for information)")
+    if not same:
+        raise AssertionError(f"mesh fleet taps differ from the one-device fleet's: {worst}")
+    del one, four
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_blend(torch, np, dev, card):
+    """(c) ``row_sharded_blend`` over a 4-entry mesh on the card at 1080p
+    and at heights that do not divide by 4: equal to the crossfade twin on
+    the same planes, one crossfade launch a shard (counts set to 0 just
+    before each blend, read just after)."""
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import row_sharded_blend
+    from mixlab_tpu_torch.video.blend import crossfade_torch
+
+    counters = launch_counters()
+    mesh = make_mesh(4, devices=[str(dev)])
+    blend = row_sharded_blend(mesh)
+    rng = np.random.default_rng(19)
+    launches = None
+    for h, w in BLEND_SIZES:
+        a = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)).to(dev)
+        for fade in BLEND_FADES:
+            _reset(counters)
+            out = blend(a, b, fade)
+            torch.cuda.synchronize()
+            launches = _read(counters)
+            if not torch.equal(out, crossfade_torch(a, b, fade)) or launches["crossfade"] != 4:
+                raise AssertionError(f"row-sharded blend {h}x{w} fade {fade}: launches "
+                                     f"{launches}, equal {torch.equal(out, crossfade_torch(a, b, fade))}")
+    ms = time_ms(torch, lambda: blend(a, b, 128), n=50, warmup=5)
+    log(f"mesh blend [{card}]: {[s for s in BLEND_SIZES]} over 4 shards of {dev}, fades "
+        f"{BLEND_FADES}: equal to the twin, one crossfade launch a shard; "
+        f"{ms:.3f} ms a {BLEND_SIZES[-1][0]}x{BLEND_SIZES[-1][1]} blend (for information)")
+    return launches
+
+
+def mesh_engine(torch, np, dev, card):
+    """(d) the live ``Engine`` (48 kHz, 2-tick blocks, the graph of
+    ``tests/test_engine_multichip.py``: an oscillator through an amplifier
+    into the Monitor) with ``StemsPatch.compiler`` over a 2-entry mesh on
+    the card, 5 stems, 60 ticks in direct drive with a structural edit at
+    tick 30 (a saw oscillator into the Monitor), beside the one-device
+    engine taking the same ops in a run of its own before it: every block's
+    taps 5 x the one-device engine's within ENGINE_TOL; the counts are set
+    to 0 just before the mesh engine's run and read just after.  The
+    Monitor's codec thread is stubbed."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.engine import Engine
+    from mixlab_tpu_torch.engine.graph import Workspace
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import StemsPatch
+    from mixlab_tpu_torch.server import monitor
+
+    def template():
+        ws = Workspace()
+        o = ws.create_module(p.ModuleParams("Oscillator", p.OscillatorParams(440.0, p.Waveform.SINE)))
+        a = ws.create_module(p.ModuleParams("Amplifier", p.AmplifierParams(amplitude=0.5)))
+        m = ws.create_module(p.ModuleParams("Monitor", None))
+        ws.connect(p.InputId(a, 0), p.OutputId(o, 1))
+        ws.connect(p.InputId(m, 1), p.OutputId(a, 0))
+        return ws, m
+
+    def drive(compiler):
+        """One engine over ``compiler`` for ENGINE_TICKS ticks with the
+        edit at half time: -> (engine, its taps a block)."""
+        ws, mon = template()
+        eng = Engine(workspace=ws, cfg=cfg, block_ticks=2, device=str(dev),
+                     patch_compiler=compiler)
+        sid, got, orig = eng.connect_session()[0], [], eng._route_taps
+
+        def route(t0, S, tp, buffers):
+            got.append((t0, _fetch(tp, mon)))
+            return orig(t0, S, tp, buffers)
+
+        eng._route_taps = route
+        while eng.tick < ENGINE_TICKS:
+            if eng.tick == ENGINE_TICKS // 2:
+                eng.client_update(sid, p.WorkspaceMessage(1, p.CreateModule(
+                    p.ModuleParams("Oscillator", p.OscillatorParams(220.0, p.Waveform.SAW)),
+                    p.WindowGeometry())))
+                new = max(eng.ws.modules, key=lambda m: m.value)
+                eng.client_update(sid, p.WorkspaceMessage(2, p.CreateConnection(
+                    p.InputId(mon, 1), p.OutputId(new, 1))))
+            eng.tick_once()
+        torch.cuda.synchronize()
+        return eng, got
+
+    cfg = EngineConfig(sample_rate=48_000)
+    counters = launch_counters()
+    real, monitor.MonitorPipeline = monitor.MonitorPipeline, NoCodec
+    try:
+        _, one_taps = drive(None)
+        compiler = StemsPatch.compiler(make_mesh(2, devices=[str(dev)]), ENGINE_STEMS)
+        _reset(counters)
+        mesh_eng, mesh_taps = drive(compiler)
+        launches = _read(counters)
+    finally:
+        monitor.MonitorPipeline = real
+    taps = (mesh_taps, one_taps)
+    worst = 0.0
+    for (t0m, gm), (t0s, gs) in zip(*taps):
+        if t0m != t0s:
+            raise AssertionError(f"mesh engine blocks at t0 {t0m} and {t0s}")
+        for m, s in zip(gm, gs):
+            np.testing.assert_allclose(m, ENGINE_STEMS * s, rtol=ENGINE_TOL, atol=ENGINE_TOL)
+            worst = max(worst, float(np.abs(m - ENGINE_STEMS * s).max()))
+    shards = {len(st) for st in mesh_eng._state.values()}
+    log(f"mesh engine [{card}]: {len(taps[0])} blocks of 2 ticks over 2 shards of {dev}, a saw "
+        f"oscillator added at tick {ENGINE_TICKS // 2}: taps vs {ENGINE_STEMS} x the one-device "
+        f"engine's max err {worst:.3e} (rtol = atol = {ENGINE_TOL}); state on {shards} shards "
+        f"a module; launches {launches}")
+    if len(mesh_taps) != ENGINE_TICKS // 2 or len(one_taps) != len(mesh_taps) \
+            or shards != {2}:
+        raise AssertionError(f"mesh engine ran {len(mesh_taps)} blocks (one device "
+                             f"{len(one_taps)}), state shards {shards}")
+    return launches
+
+
+def _fetch(tp, mon):
+    """The Monitor tap's (L, R) of a block as host arrays."""
+    return [x.cpu().numpy() for x in tp[str(mon.value)]["audio"]]
+
+
+def mesh_worker(pid: int, port: int, devices: str, backend: str) -> int:
+    """Not in ``main`` alone: one process of phase 19 (e).  Joins the group
+    of 2 at ``127.0.0.1:port`` as ``pid`` with the comma-separated
+    ``devices`` as its mesh, runs the flagship's 8 stems at 48 kHz in
+    16-tick blocks over the global mesh, and prints one JSON line: the
+    master's checksum, rms and shape, and this process's launches (counts
+    set to 0 just before the step, read just after)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel.distributed import bring_up, distributed_stems_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = bring_up(f"127.0.0.1:{port}", 2, pid, devices=devices.split(","), backend=backend)
+    ws, mon = build_16_module_graph()
+    fn, make_args, _ = distributed_stems_step(ws, EngineConfig(sample_rate=48_000),
+                                              BlockSpec(MESH_TICKS[0]), mesh, str(mon.value),
+                                              n_stems=8)
+    args = make_args(0)
+    fn(*args)
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    _reset(counters)
+    _, master = fn(*args)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    m = master.cpu().double().numpy()
+    print(json.dumps({"checksum": float(m.sum()), "rms": float((m ** 2).mean() ** 0.5),
+                      "shape": list(m.shape), "launches": launches,
+                      "mesh": [str(d) for d in mesh], "size": mesh.size}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def mesh_processes(torch, np, dev, card):
+    """(e) two processes in a ``gloo`` group, each a 2-entry mesh on the
+    card (``mesh_worker``): the master's checksum within CHECKSUM_RTOL of
+    this process's 4-entry mesh's, each process's eq kernel once a shard;
+    with two or more cards, again over ``nccl`` with each process on its
+    own card."""
+    import socket
+
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import stem_parallel_step
+
+    ws, mon = build_16_module_graph()
+    fn, make_args, _ = stem_parallel_step(ws, EngineConfig(sample_rate=48_000),
+                                          BlockSpec(MESH_TICKS[0]), str(mon.value), n_stems=8,
+                                          mesh=make_mesh(4, devices=[str(dev)]))
+    want = float(fn(*make_args(0))[1].cpu().double().numpy().sum())
+    runs = [("gloo", [f"{dev},{dev}"] * 2)]
+    if torch.cuda.device_count() > 1:
+        runs.append(("nccl", [f"cuda:{i},cuda:{i}" for i in range(2)]))
+    paths = {}
+    for backend, devices in runs:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.mesh_worker("
+             f"{pid}, {port}, {devices[pid]!r}, {backend!r}))"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        try:
+            outs = [proc.communicate(timeout=WORKER_WAIT_S) for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(10)
+        wall = time.perf_counter() - t
+        for proc, (out, err) in zip(procs, outs):
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh worker ({backend}) exited {proc.returncode}:\n"
+                                     + err[-3000:])
+        res = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+        rel = max(abs(r["checksum"] - want) / max(1.0, abs(want)) for r in res)
+        log(f"mesh processes [{card}] ({backend}): 2 processes x {res[0]['mesh']} = "
+            f"{res[0]['size']} shards, 8 stems: checksum {res[0]['checksum']:.6f} vs one "
+            f"process's 4-entry mesh {want:.6f}, rel err {rel:.3e} (limit {CHECKSUM_RTOL}), "
+            f"rms {res[0]['rms']:.4f}, launches {[r['launches'] for r in res]}; {wall:.2f} s "
+            "with the processes' start")
+        if not rel <= CHECKSUM_RTOL or not res[0]["rms"] > 0.01 \
+                or res[0]["checksum"] != res[1]["checksum"]:
+            raise AssertionError(f"mesh processes ({backend}): {res} vs {want}")
+        for r in res:
+            if r["launches"]["eq_cascade"] != 2:
+                raise AssertionError(f"mesh worker launched {r['launches']}")
+        paths[f"mesh_processes_{backend}"] = res[0]["launches"]
+    return paths
+
+
+def mesh_controller(torch, np, dev, card, tmp: Path):
+    """(f) ``python -m mixlab_tpu_torch.server.fleet``: a controller and two
+    agents with ``--device cuda``, each in a process group of its own.  A
+    workspace is placed, one session builds an oscillator into an EqThree
+    (whose poles are DSP state), the workspace migrates to the other agent,
+    whose worker must report ``restored``; its checkpoint a moment later
+    must equal the source worker's checkpoint from before the migration
+    continued by an engine on the card to the same tick (EQ_TOL).  SIGTERM
+    stops the agents (each stops its worker) and the controller."""
+    import asyncio
+    import os
+    import signal
+    import socket
+
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.engine import Engine
+    from mixlab_tpu_torch.engine.graph import Workspace
+    from mixlab_tpu_torch.engine.project import ProjectBase
+    from mixlab_tpu_torch.server.fleet import decode_checkpoint, http_call
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    url = f"http://127.0.0.1:{port}"
+    cmd = [sys.executable, "-m", "mixlab_tpu_torch.server.fleet"]
+    roles = [cmd + ["controller", "--listen", f"127.0.0.1:{port}"]] + [
+        cmd + ["agent", "--controller", url, "--host-id", h, "--data", str(tmp / h),
+               "--device", str(dev)] for h in ("agent-a", "agent-b")]
+    procs = []
+    t_start = time.perf_counter()
+
+    async def drive():
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                status, body = await http_call(url + "/fleet", timeout=5.0)
+                if len(procs) == 1:
+                    procs.extend(subprocess.Popen(r, cwd=ROOT, start_new_session=True,
+                                                  stdout=subprocess.DEVNULL,
+                                                  stderr=subprocess.PIPE) for r in roles[1:])
+                elif sum(a["live"] for a in json.loads(body)["agents"].values()) == 2:
+                    break
+            except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError):
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("the controller saw no two live agents")
+            await asyncio.sleep(0.2)
+        t = time.perf_counter()
+        status, body = await http_call(url + "/workspaces/w", "POST", timeout=180.0)
+        if status != 200:
+            raise AssertionError(f"placement answered {status}: {body[:300]!r}")
+        placed = json.loads(body)
+        t_place = time.perf_counter() - t
+        reader, writer = await ws_open(int(placed["url"].rsplit(":", 1)[1]), "/session")
+        await ws_read(reader)
+        await ws_read(reader)
+        for seq, op in enumerate([
+                p.CreateModule(p.ModuleParams("Oscillator", p.OscillatorParams(
+                    440.0, p.Waveform.SINE)), p.WindowGeometry()),
+                p.CreateModule(p.ModuleParams("EqThree", p.EqThreeParams(
+                    p.Decibel(4.0), p.Decibel(-2.0), p.Decibel(3.0))), p.WindowGeometry()),
+                p.CreateConnection(p.InputId(p.ModuleId(2), 0),
+                                   p.OutputId(p.ModuleId(1), 0))], 1):
+            await ws_op(reader, writer, seq, op)
+        writer.close()
+        await asyncio.sleep(0.5)
+        status, blob = await http_call(placed["url"] + "/_checkpoint", timeout=30.0)
+        before = decode_checkpoint(blob)
+        other = "agent-b" if placed["host"] == "agent-a" else "agent-a"
+        t = time.perf_counter()
+        status, body = await http_call(url + "/migrate/w", "POST",
+                                       json.dumps({"to": other}).encode(), timeout=180.0)
+        if status != 200:
+            raise AssertionError(f"migration answered {status}: {body[:300]!r}")
+        moved = json.loads(body)
+        t_move = time.perf_counter() - t
+        status, blob = await http_call(moved["url"] + "/_checkpoint", timeout=30.0)
+        route = json.loads((await http_call(url + "/route/w"))[1])
+        return placed, moved, route, before, decode_checkpoint(blob), t_place, t_move
+
+    try:
+        procs.append(subprocess.Popen(roles[0], cwd=ROOT, start_new_session=True,
+                                      stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+        placed, moved, route, before, after, t_place, t_move = asyncio.run(drive())
+        rcs = []
+        for proc in reversed(procs):
+            proc.send_signal(signal.SIGTERM)
+            rcs.append(proc.wait(60))
+    finally:
+        for proc in procs:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)  # the role and any worker it left
+            except ProcessLookupError:
+                pass
+            if proc.poll() is None:
+                proc.wait(10)
+    with ProjectBase(tmp / moved["host"] / "w.mixlab") as base:
+        ws = Workspace.from_persist(base.read_workspace())
+    ref = Engine(workspace=ws, device=str(dev))
+    if not ref.restore_dsp_state(before):
+        raise AssertionError("the checkpoint does not fit the migrated workspace")
+    while ref.tick < after["tick"]:
+        ref.tick_once()
+    ref_state = ref.checkpoint()["dsp_state"]
+    worst = max(float(np.abs(g - w).max()) for g, w in zip(ref_state, after["dsp_state"]))
+    ok = all(np.allclose(g, w, **EQ_TOL) for g, w in zip(ref_state, after["dsp_state"]))
+    log(f"fleet controller [{card}]: placed on {placed['host']} in {t_place:.2f} s, migrated to "
+        f"{moved['host']} in {t_move:.2f} s (restored {moved.get('restored')}), route "
+        f"{route['host']}; tick {before['tick']} before, {after['tick']} after; the EqThree's "
+        f"state vs the checkpoint continued on the card: max err {worst:.3e} (EQ_TOL); exits "
+        f"{rcs[::-1]}; {time.perf_counter() - t_start:.2f} s in all")
+    if not (moved.get("restored") is True and route["host"] == moved["host"] != placed["host"]
+            and after["tick"] >= before["tick"] > 0 and len(ref_state) == len(after["dsp_state"])
+            and ok and any(np.abs(w).max() > 0 for w in after["dsp_state"])
+            and rcs == [0, 0, 0]):
+        raise AssertionError(f"fleet controller: {placed}, {moved}, {route}, ticks "
+                             f"{before['tick']} -> {after['tick']}, state err {worst}, exits {rcs}")
+
+
+def scale_out(torch, np, dev, card, tmp: Path):
+    """Phase 19: -> {path: launches}."""
+    t = time.perf_counter()
+    paths = mesh_stems(torch, np, dev, card)
+    paths["mesh_fleet"] = mesh_fleet(torch, np, dev, card)
+    paths["mesh_blend"] = mesh_blend(torch, np, dev, card)
+    paths["mesh_engine"] = mesh_engine(torch, np, dev, card)
+    paths.update(mesh_processes(torch, np, dev, card))
+    mesh_controller(torch, np, dev, card, tmp)
+    log(f"phase 19 (scale-out) took {time.perf_counter() - t:.1f} s")
+    return paths
+
 
 def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
                                "envelope_kernel", "envelope_seq_kernel")):
@@ -4661,6 +5181,7 @@ def main() -> int:
         paths.update(batched_launches)
         for key, err in batched_errs.items():
             errs[key] = max(errs[key], err)
+        paths.update(scale_out(torch, np, dev, card, tmp))
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)
         paths.update(media_paths(torch, np, dev, card, tmp))

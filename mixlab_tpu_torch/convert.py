@@ -12,8 +12,8 @@ lists and ``None`` keep their structure.
 Stacked trees (a fleet's or the stems' ``aux`` and state, every leaf
 [n, ...] on a leading instance axis) convert the same way, leaf by leaf: the
 JAX ``Fleet``'s host-numpy ``aux`` and device state become the port's
-``Fleet.aux`` (numpy, as there) and ``Fleet.state`` (tensors) with
-``fleet_from_jax`` and go back with ``fleet_to_numpy``.
+``Fleet.aux`` (numpy, as there) and ``Fleet.state`` (tensors, a stacked
+tree a shard) with ``fleet_from_jax`` and go back with ``fleet_to_numpy``.
 """
 
 from __future__ import annotations
@@ -84,20 +84,29 @@ def stack(trees, xp=None):
 def fleet_from_jax(jax_fleet, fleet) -> None:
     """Give the port's ``fleet`` (``parallel.fleet.Fleet``) the aux and DSP
     state of the JAX package's ``jax_fleet`` (same workspace, same n):
-    ``aux`` as host numpy, the state as tensors on the fleet's device."""
+    ``aux`` as host numpy, each shard's rows of the state as tensors on its
+    device."""
     fleet.aux = tree_map(lambda mine, theirs: np.asarray(theirs).astype(mine.dtype),
                          fleet.aux, jax_fleet.aux)
     fleet.aux_changed()
-    fleet.state = tree_map(
-        lambda mine, theirs: _leaf_to_torch(np.asarray(theirs), mine.device).to(mine.dtype),
-        fleet.state, jax_fleet.state)
+    fleet.state = [tree_map(
+        lambda mine, theirs, sh=sh: _leaf_to_torch(np.asarray(theirs)[sh.lo:sh.hi],
+                                                   mine.device).to(mine.dtype),
+        st, jax_fleet.state) for sh, st in zip(fleet.shards, fleet.state)]
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def fleet_to_numpy(fleet):
-    """A fleet's ``(aux, state)`` as numpy trees (either package's fleet)."""
-    return (tree_map(np.asarray, fleet.aux),
-            tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                     else np.asarray(x), fleet.state))
+    """A fleet's ``(aux, state)`` as numpy trees (either package's fleet:
+    the port's state, one stacked tree a shard, joined in instance
+    order)."""
+    state = fleet.state
+    if isinstance(state, list):
+        state = tree_map(lambda *xs: np.concatenate([_host(x) for x in xs]), *state)
+    return tree_map(np.asarray, fleet.aux), tree_map(_host, state)
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +156,11 @@ def state_leaves_to_numpy(state) -> list:
             else np.asarray(leaf) for leaf in tree_leaves(state)]
 
 
-def state_from_leaves(template, leaves, device: torch.device):
+def state_from_leaves(template, leaves):
     """A checkpoint's ``dsp_state`` (numpy leaves from either engine) -> the
-    port's state with ``template``'s structure, dtypes and device, or None
-    if the leaves do not fit the template (count or shapes)."""
+    port's state with ``template``'s structure, dtypes and devices (each
+    leaf on its template leaf's), or None if the leaves do not fit the
+    template (count or shapes)."""
     slots = tree_leaves(template)
     if len(slots) != len(leaves):
         return None
@@ -160,5 +170,5 @@ def state_from_leaves(template, leaves, device: torch.device):
         if tuple(a.shape) != tuple(slot.shape):
             return None
         dtype = torch.empty(0, dtype=slot.dtype).numpy().dtype
-        new.append(torch.from_numpy(a.astype(dtype)).to(device))
+        new.append(torch.from_numpy(a.astype(dtype)).to(slot.device))
     return tree_unflatten(template, new)

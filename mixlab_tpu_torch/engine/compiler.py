@@ -46,12 +46,18 @@ def _mid_key(mid: ModuleId) -> str:
     return str(mid.value)
 
 
+def _host_tensor(v) -> torch.Tensor:
+    """A numpy array as a CPU tensor; a read-only one (a broadcast view)
+    copied, as torch tensors are writable."""
+    a = np.ascontiguousarray(v)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def upload(host_aux: Optional[Dict[str, np.ndarray]], device: torch.device):
     """A module's numpy ``host_aux`` dict -> tensors on ``device``."""
     if host_aux is None:
         return None
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in host_aux.items()}
+    return {k: _host_tensor(v).to(device) for k, v in host_aux.items()}
 
 
 @dataclass

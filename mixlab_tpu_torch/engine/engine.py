@@ -249,8 +249,9 @@ class Engine:
         self.media_opener = media_opener
         self.block = BlockSpec(block_ticks)
         # the graph's lowering: (ws, cfg, block, device) -> a CompiledPatch-
-        # shaped object; parallel/stems.py StemsPatch.compiler(n) runs the
-        # whole live engine over n stems mixed down on the card
+        # shaped object; parallel/stems.py StemsPatch.compiler(mesh, n) runs
+        # the whole live engine over n stems on a mesh, mixed down onto its
+        # first device
         self._patch_compiler = patch_compiler or compile_patch
 
         self._cmd: queue.Queue = queue.Queue(maxsize=8)
@@ -470,7 +471,7 @@ class Engine:
     def restore_dsp_state(self, ckpt: dict) -> bool:
         """Adopt a checkpoint's DSP state (from either engine) if its leaves
         fit the running program's state; False otherwise."""
-        state = state_from_leaves(self._state, ckpt["dsp_state"], self.device)
+        state = state_from_leaves(self._state, ckpt["dsp_state"])
         if state is None:
             return False
         self._state = state

@@ -1,23 +1,29 @@
-"""Fleet: N independent sessions of one patch as one batched block program
-on one card (port of ``mixlab_tpu/parallel/fleet.py``).
+"""Fleet: N independent sessions of one patch as one batched block program,
+split over a mesh of devices (port of ``mixlab_tpu/parallel/fleet.py``).
 
 A ``Fleet`` runs N instances of one compiled patch — the same graph
 structure, each instance with its own params (aux), DSP state and host
 arrays — as the patch's regular block program mapped over a leading
-instance axis (``engine.compiler.batched_program``): one call renders a
-block for every session, and each kernel on the path (the EqThree's, the
-Envelope's at offline block sizes) launches once a block for all of them.
+instance axis (``engine.compiler.batched_program``).  The instances are
+split into contiguous shards, one a mesh entry (``parallel.Mesh``), as the
+JAX package's ``P(axis)`` splits them; each shard's program runs on its own
+device, so one call renders a block for every session and each kernel on
+the path (the EqThree's, the Envelope's at offline block sizes) launches
+once a block a shard.  The taps come back in instance order on the first
+shard's device.
 
 A param edit of one instance writes its row of the stacked aux, which is
 kept in host memory as numpy (as the JAX package keeps it) and shipped to
-the card once a leaf at the next block after an edit; nothing is rebuilt.
-The host arrays of a block (oscillator phase bases) are computed for all
-instances in one vectorized pass where the module defines
-``host_prepare_batched``, broadcast where every instance has the same
-params, and looped otherwise.
+the instance's own shard once a leaf at the next block after an edit;
+nothing is rebuilt.  The host arrays of a block (oscillator phase bases)
+are computed for all instances in one vectorized pass where the module
+defines ``host_prepare_batched``, broadcast where every instance has the
+same params, and looped otherwise.
 
-``build`` takes ``device=`` where the JAX package takes ``mesh=``: a mesh,
-or more than one device, raises naming ROADMAP.md queue 1, Multi-device.
+``build`` takes ``mesh=`` (a ``Mesh`` or a sequence of devices) or, as a
+one-entry mesh, ``device=``.  A fleet's sessions stay in one process
+(``distributed.fleet_owner`` places sessions on processes), so a mesh
+joined to a process group is refused.
 """
 
 from __future__ import annotations
@@ -32,21 +38,21 @@ from mixlab_tpu_torch.convert import stack, to_numpy, to_torch, tree_leaves, tre
 from mixlab_tpu_torch.device import resolve_device
 from mixlab_tpu_torch.dsp.base import ModuleDef
 from mixlab_tpu_torch.dsp.registry import get_def
-from mixlab_tpu_torch.engine.compiler import (
-    CompiledPatch,
-    batched_program,
-    compile_patch,
-    upload_all,
-)
+from mixlab_tpu_torch.engine.compiler import CompiledPatch, compile_patch, upload_all
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
-from mixlab_tpu_torch.parallel import one_device
+from mixlab_tpu_torch.parallel import as_mesh, gather_rows, shard_programs
 
 _CPU = torch.device("cpu")
 
 
 def _key(mid) -> str:
     return str(mid.value)
+
+
+def _rows(tree, shard):
+    """A shard's rows of a stacked tree (views)."""
+    return tree_map(lambda x: x[shard.lo:shard.hi], tree)
 
 
 def host_aux_row(patch: CompiledPatch, ws: Workspace) -> Dict[str, Any]:
@@ -88,19 +94,33 @@ def reset_rows(state, init, rows) -> None:
 
 
 @dataclass
+class Shard:
+    """One mesh entry of a fleet: its device, its instances' rows
+    ``[lo, hi)``, the patch compiled for its device and its batched
+    program."""
+
+    device: torch.device
+    lo: int
+    hi: int
+    patch: CompiledPatch
+    fn: Callable
+
+
+@dataclass
 class Fleet:
-    """N instances of one patch, batched on the leading axis."""
+    """N instances of one patch, batched on the leading axis, one stacked
+    tree a shard."""
 
     cfg: EngineConfig
     block: BlockSpec
     n: int
-    patch: CompiledPatch
-    _fn: Callable
+    patch: CompiledPatch  # the first shard's
+    shards: List[Shard]
     aux: Any  # stacked [n, ...] host numpy
-    state: Any  # stacked [n, ...] tensors on the device
+    state: List[Any]  # a shard's stacked [hi - lo, ...] tensors on its device
     _params: List[Dict[str, Any]] = field(default_factory=list)  # per instance
     tap_transform: Optional[Callable] = None
-    _dev_aux: Any = None  # aux on the device, None after an edit
+    _dev_aux: List[Any] = field(default_factory=list)  # a shard's aux, None after an edit
 
     @property
     def device(self) -> torch.device:
@@ -116,17 +136,22 @@ class Fleet:
         per_instance_params: Optional[List[Workspace]] = None,
         device="cuda",
         mesh=None,
+        axis: str = "fleet",
         tap_transform: Optional[Callable] = None,
     ) -> "Fleet":
-        """One program, n stacked instances on ``device``.
+        """One program a device, n stacked instances split over ``mesh``
+        (``n`` a multiple of its size), or on ``device`` alone.
 
         ``per_instance_params``: n workspaces of the SAME structural
         fingerprint with their own continuous params.  ``tap_transform``: a
-        device-side pass over the stacked taps (e.g. f32 -> i16 PCM).
-        ``mesh`` (or several devices) raises: ROADMAP.md queue 1,
-        Multi-device."""
-        dev = resolve_device(str(one_device(device, mesh)))
-        patch = compile_patch(ws, cfg, block, dev, mega=False)
+        device-side pass over each shard's stacked taps (e.g. f32 -> i16
+        PCM)."""
+        m = as_mesh(device, mesh, axis)
+        if m.group is not None:
+            raise ValueError("a fleet runs in one process: place sessions on processes "
+                             "with distributed.fleet_owner, and give each a local mesh")
+        patches, programs, bounds = shard_programs(ws, cfg, block, m, n)
+        patch = patches[m[0]]
         if per_instance_params is None:
             # identical instances share ONE params view (host_aux then
             # computes once and broadcasts)
@@ -135,22 +160,31 @@ class Fleet:
         else:
             if len(per_instance_params) != n:
                 raise ValueError(f"{len(per_instance_params)} instance workspaces for n={n}")
-            views = [compile_patch(w, cfg, block, dev, mega=False) for w in per_instance_params]
+            views = [compile_patch(w, cfg, block, m[0], mega=False) for w in per_instance_params]
             if {v.structural_fingerprint for v in views} != {patch.structural_fingerprint}:
                 raise ValueError("fleet instances must share the structural fingerprint")
             params = [instance_params(v) for v in views]
             sources = per_instance_params
-        # the rows built on the host, each stacked state leaf uploaded once
+        shards = [Shard(d, lo, hi, patches[d], programs[d]) for d, (lo, hi) in zip(m, bounds)]
+        # the rows built on the host, each shard's stacked state leaf
+        # uploaded once
         aux = stack([host_aux_row(patch, w) for w in sources])
-        state = to_torch(stack([host_state_row(patch, w) for w in sources]), dev)
-        return cls(cfg=cfg, block=block, n=n, patch=patch, _fn=batched_program(patch),
-                   aux=aux, state=state, _params=params, tap_transform=tap_transform)
+        rows = stack([host_state_row(patch, w) for w in sources])
+        state = [to_torch(_rows(rows, sh), sh.device) for sh in shards]
+        return cls(cfg=cfg, block=block, n=n, patch=patch, shards=shards, aux=aux,
+                   state=state, _params=params, tap_transform=tap_transform,
+                   _dev_aux=[None] * len(shards))
+
+    def shard_of(self, index: int) -> int:
+        """The shard that holds instance ``index``."""
+        return next(i for i, sh in enumerate(self.shards) if sh.lo <= index < sh.hi)
 
     # -- per-instance edits (no rebuild) ---------------------------------------
 
     def update_instance_aux(self, index: int, ws: Workspace):
         """Swap one instance's continuous params: host-memory writes, shipped
-        by the next block.  A structural change raises ``ValueError``."""
+        to its shard by the next block.  A structural change raises
+        ``ValueError``."""
         view = compile_patch(ws, self.cfg, self.block, self.device, mega=False)
         if view.structural_fingerprint != self.patch.structural_fingerprint:
             raise ValueError("instance edit changed the structural fingerprint")
@@ -163,16 +197,31 @@ class Fleet:
 
         tree_map(put, self.aux, row)
         self._params[index] = params
-        self.aux_changed()
+        self._dev_aux[self.shard_of(index)] = None
 
     def aux_changed(self):
-        """The host aux was written: the next block ships it."""
-        self._dev_aux = None
+        """The host aux was written: the next block ships it to every
+        shard."""
+        self._dev_aux = [None] * len(self.shards)
+
+    def init_state(self, ws: Workspace) -> List[Any]:
+        """``ws``'s initial DSP state, single-instance, on each shard's
+        device."""
+        return [sh.patch.init_state(ws) for sh in self.shards]
+
+    def reset_rows(self, state: List[Any], init: List[Any], rows) -> None:
+        """Rows ``rows`` (instance indices) of ``state`` (one stacked tree a
+        shard) set to ``init`` (``init_state``), in place, on each row's
+        shard."""
+        for sh, st, i in zip(self.shards, state, init):
+            reset_rows(st, i, [r - sh.lo for r in rows if sh.lo <= r < sh.hi])
 
     def reset_instance_state(self, index: int, ws: Workspace):
         """Reset one instance's DSP state to init (session join / leave): one
-        multi-tensor write on the device."""
-        reset_rows(self.state, self.patch.init_state(ws), [index])
+        multi-tensor write on its shard's device."""
+        s = self.shard_of(index)
+        sh = self.shards[s]
+        reset_rows(self.state[s], sh.patch.init_state(ws), [index - sh.lo])
 
     # -- execution -----------------------------------------------------------
 
@@ -224,18 +273,26 @@ class Fleet:
         pp = [d.host_prepare(p, t0, self.block, self.cfg) or {} for p in plist]
         return {name: np.stack([np.asarray(x[name]) for x in pp]) for name in pp[0]}
 
-    def device_aux(self):
-        """The stacked aux on the device (uploaded after an edit)."""
-        if self._dev_aux is None:
-            self._dev_aux = to_torch(self.aux, self.device)
-        return self._dev_aux
+    def device_aux(self, s: int):
+        """Shard ``s``'s rows of the stacked aux on its device (uploaded
+        after an edit)."""
+        if self._dev_aux[s] is None:
+            sh = self.shards[s]
+            self._dev_aux[s] = to_torch(_rows(self.aux, sh), sh.device)
+        return self._dev_aux[s]
 
     def step(self, host_aux, state):
-        """``(state', taps)`` of one block from the stacked host arrays."""
-        state, taps = self._fn(self.device_aux(), upload_all(host_aux, self.device), state)
-        if self.tap_transform is not None:
-            taps = self.tap_transform(taps)
-        return state, taps
+        """``(state', taps)`` of one block from the stacked host arrays:
+        each shard's program launched in shard order, the taps gathered in
+        instance order on the first shard's device."""
+        new_state, taps = [], []
+        for s, (sh, st) in enumerate(zip(self.shards, state)):
+            st, tp = sh.fn(self.device_aux(s), upload_all(_rows(host_aux, sh), sh.device), st)
+            if self.tap_transform is not None:
+                tp = self.tap_transform(tp)
+            new_state.append(st)
+            taps.append(tp)
+        return new_state, tree_map(lambda *xs: gather_rows(xs, self.device), *taps)
 
     def run_block(self, t0: int, ext_feeds_per_instance=None):
         """One batched block for the whole fleet; returns the stacked taps."""

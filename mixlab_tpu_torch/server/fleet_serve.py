@@ -17,7 +17,7 @@ fleet's slots, serving N real sessions:
 
 A join or a leave is host work: the slot's aux row goes back to the
 template's, and the next block resets the slot's DSP state inside the step
-(``reset_rows`` on the slots of the reset mask).  The loop issues one block
+(``Fleet.reset_rows`` on the slots of the reset mask).  The loop issues one block
 ahead: a block's taps are copied to pinned host memory with
 ``non_blocking=True`` behind a CUDA event and fanned out one block later, so
 the copy overlaps the next block's work.  The loop measures itself as the
@@ -47,7 +47,7 @@ from mixlab_tpu_torch.convert import to_numpy, tree_leaves, tree_map
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.engine.timing import EngineStat
-from mixlab_tpu_torch.parallel.fleet import Fleet, instance_params, reset_rows
+from mixlab_tpu_torch.parallel.fleet import Fleet, instance_params
 from mixlab_tpu_torch.protocol import wire
 from mixlab_tpu_torch.server import ws as ws_mod
 from mixlab_tpu_torch.server.http import Request, read_request, response
@@ -144,7 +144,7 @@ class FleetEngine:
         self.template = template
         self.fleet = Fleet.build(template, capacity, cfg, self.block, device=device,
                                  tap_transform=_i16_taps)
-        self._init = self.fleet.patch.init_state(template)
+        self._init = self.fleet.init_state(template)
         self._reset_mask = np.ones(capacity, dtype=bool)  # the first block inits
         # issue-ahead, depth 1: a block's tap copy overlaps the next block
         self._inflight: List = []
@@ -169,7 +169,7 @@ class FleetEngine:
     def _step(self, host_aux, state, reset_mask):
         """One block: the slots of ``reset_mask`` back to their initial state
         (in place), then the batched program; taps as i16."""
-        reset_rows(state, self._init, np.flatnonzero(reset_mask).tolist())
+        self.fleet.reset_rows(state, self._init, np.flatnonzero(reset_mask).tolist())
         return self.fleet.step(host_aux, state)
 
     def _warm(self):

@@ -615,3 +615,50 @@ def test_rtmp_ingest_uploads_pictures_to_the_card(dev):
         for k, plane in zip("yuv", ref):
             assert planes[k].device.type == "cuda"
             assert torch.equal(planes[k].cpu(), torch.from_numpy(plane)), k
+
+
+# -- the mesh paths: two shards on the one card --------------------------------------
+
+
+def test_stems_over_two_shards_of_the_card_match_one_device(dev):
+    """The flagship's 5 stems over [cuda:0] x 2 (a pad stem on the second
+    shard), 16-tick blocks at 48 kHz (the eq kernel's gate open): the
+    master equals the one-device step's within 2e-4, one batched eq launch
+    a shard."""
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import stem_parallel_step
+
+    ws, mon = build_16_module_graph()
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(16)
+    fn1, args1, _ = stem_parallel_step(ws, cfg, block, str(mon.value), n_stems=5, device="cuda")
+    _, want = fn1(*args1(0))
+    fn, make_args, _ = stem_parallel_step(ws, cfg, block, str(mon.value), n_stems=5,
+                                          mesh=make_mesh(2, devices=["cuda:0"]))
+    args = make_args(0)
+    eqc.eq_cascade_cuda.launches = 0
+    _, got = fn(*args)
+    torch.cuda.synchronize()
+    assert eqc.eq_cascade_cuda.launches == 2
+    assert (got - want).abs().max().item() <= 2e-4
+
+
+def test_fleet_over_two_shards_of_the_card_matches_one_device(dev):
+    """8 flagship sessions with their own params over [cuda:0] x 2, 15-tick
+    blocks: every session's taps equal the one-device fleet's bit for bit,
+    over two carried blocks."""
+    import chip_smoke
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(15)
+    wss = chip_smoke.fleet_workspaces(8)
+    one = Fleet.build(wss[0], 8, cfg, block, per_instance_params=wss, device="cuda")
+    two = Fleet.build(wss[0], 8, cfg, block, per_instance_params=wss,
+                      mesh=make_mesh(2, devices=["cuda:0"]))
+    for b in range(2):
+        want, got = one.run_block(b * 12_000), two.run_block(b * 12_000)
+        for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
+            assert torch.equal(g, w)

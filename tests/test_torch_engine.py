@@ -15,6 +15,7 @@ another order (``tests/test_video.py:197``).
 """
 
 import queue
+import socket
 import threading
 import time
 
@@ -323,11 +324,12 @@ def test_engine_left_out_parts_raise_or_stay_silent():
     eng.stop()
 
 
-def _stream_output_script(p):
+def _stream_output_script(p, port):
     """A StreamOutput's life: made, a stale update (refused, the old params
-    echoed), a connect to a port where nothing listens (Connecting, then
-    Failed with the error flag), params changed while offline, deleted."""
-    url = "rtmp://127.0.0.1:1/nope"
+    echoed), a connect to ``port``, whose listener drops the connection
+    once the op is applied (Connecting, then Failed with the error flag),
+    params changed while offline, deleted."""
+    url = f"rtmp://127.0.0.1:{port}/nope"
     so = p.ModuleId(1)
     params = lambda seq, **kw: p.UpdateModuleParams(so, p.ModuleParams(  # noqa: E731
         "StreamOutput", p.StreamOutputParams(seq=seq, rtmp_url=url, rtmp_stream_key="k", **kw)))
@@ -346,12 +348,18 @@ def test_stream_output_indications_match_jax():
     controller's indications (made on its IO thread) and the params echoes
     go out on the wire byte-equal to the JAX engine's."""
     sides = []
+    # the connect's failure comes from the IO thread: the listener drops the
+    # connection only after the op (and its Sync) went out, so the Failed
+    # indication's place among the events is the same in both engines
+    listener = socket.create_server(("127.0.0.1", 0))
+    listener.settimeout(10)
     try:
         for p, eng in ((jp, JaxEngine(cfg=CFG_J)), (tp, Engine(cfg=CFG, device="cpu"))):
             sid, _, events = eng.connect_session()
-            for seq, op in enumerate(_stream_output_script(p), 1):
+            for seq, op in enumerate(_stream_output_script(p, listener.getsockname()[1]), 1):
                 eng.update(sid, p.WorkspaceMessage(seq, op))
-                if seq == 3:  # the connect: wait for the IO thread's failure
+                if seq == 3:  # the connect: drop it, wait for the IO thread's failure
+                    listener.accept()[0].close()
                     ctl = eng._stream_outputs[p.ModuleId(1)]
                     deadline = time.monotonic() + 10
                     while ctl.state.value != "failed" and time.monotonic() < deadline:
@@ -372,6 +380,7 @@ def test_stream_output_indications_match_jax():
                   and type(e.update).__name__ == "SUUpdateModuleParams"]
         assert echoes == [1, 2, 3]  # the stale seq 1 echoes the module's own params
     finally:
+        listener.close()
         for eng, _ in sides:
             eng.stop()
 

@@ -31,6 +31,7 @@ from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 from mixlab_tpu_torch.engine.compiler import compile_patch
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
+from mixlab_tpu_torch.parallel import make_mesh
 from mixlab_tpu_torch.parallel.fleet import Fleet
 from mixlab_tpu_torch.protocol import InputId, OutputId
 
@@ -127,12 +128,29 @@ def test_fleet_rejects_mismatched_structure():
 
 @pytest.mark.parametrize("where", ["mesh", "devices"])
 def test_fleet_refuses_several_devices(where):
-    """The JAX fleet shards over a mesh (tests/test_fleet.py); the port's
-    refuses, naming the ROADMAP item."""
-    base, _ = patch_ws()
-    kw = {"mesh": object()} if where == "mesh" else {"device": ["cpu", "cpu"]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, Multi-device"):
-        Fleet.build(base, n=8, cfg=CFG44, **kw)
+    """Once a refusal, now the sharded fleet (tests/test_fleet.py:68-75):
+    8 instances over 4 shards (a ``Mesh``, or a device list) give every
+    instance's taps exactly as the one-device fleet, in instance order; an
+    edit and a state reset land on the instance's own shard."""
+    base, mon = patch_ws()
+    kw = ({"mesh": make_mesh(4, axis="fleet", devices=["cpu"])} if where == "mesh"
+          else {"mesh": ["cpu"] * 4})
+    freqs = [110.0 * (i + 1) for i in range(8)]
+    inst = [patch_ws(f)[0] for f in freqs]
+    fleet = Fleet.build(base, n=8, cfg=CFG44, per_instance_params=inst, **kw)
+    one = Fleet.build(base, n=8, cfg=CFG44, per_instance_params=inst, device="cpu")
+    assert [(sh.lo, sh.hi) for sh in fleet.shards] == [(0, 2), (2, 4), (4, 6), (6, 8)]
+    for f in (fleet, one):
+        f.update_instance_aux(5, patch_ws(440.0, 0.0)[0])
+        f.run_block(0)
+        f.reset_instance_state(5, base)
+    assert fleet._dev_aux[2] is not None
+    for t0 in (735, 1470):
+        got = to_numpy(fleet.run_block(t0))[str(mon.value)]["audio"]
+        want = to_numpy(one.run_block(t0))[str(mon.value)]["audio"]
+        for g, w in zip(got, want):
+            assert g.shape == (8, 1, 735) and np.array_equal(g, w)
+        assert np.abs(got[0][5]).max() == 0.0 and np.abs(got[0][4]).max() > 0.4
 
 
 # -- against the JAX fleet -----------------------------------------------------

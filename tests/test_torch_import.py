@@ -91,6 +91,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
         "io_host.rtmp", "io_host.rtmp.amf0", "io_host.rtmp.chunk", "io_host.rtmp.handshake",
         "io_host.rtmp.server", "io_host.rtmp.client", "io_host.rtmp.ffmpeg_decode",
         "server.stream_output")} <= names
+    # scale-out: the mesh, several processes as one mesh, the fleet
+    # controller with its host agents
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "parallel", "parallel.distributed", "server.fleet")} <= names
 
 
 _CONCURRENT_BUILD = r"""

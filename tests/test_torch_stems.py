@@ -1,8 +1,9 @@
-"""Stems on one card (``mixlab_tpu_torch/parallel/stems.py``) on the CPU:
-the mixdown against n x the one-stem render (``tests/test_multichip.py``),
-against the JAX ``stem_parallel_step`` on a 4-device virtual CPU mesh with
-uneven stem counts (the port pads to the same multiple), ``StemsPatch``
-through the port's ``Engine(patch_compiler=...)`` (``tests/
+"""Stems (``mixlab_tpu_torch/parallel/stems.py``) on the CPU: the mixdown
+against n x the one-stem render (``tests/test_multichip.py``), against the
+JAX ``stem_parallel_step`` on a 4-device virtual CPU mesh with uneven stem
+counts (the port over a 4-entry CPU mesh pads to the same multiple), the
+sharded step over a mesh against one device, ``StemsPatch`` through the
+port's ``Engine(patch_compiler=...)`` over an 8-entry CPU mesh (``tests/
 test_engine_multichip.py``), and ``row_sharded_blend`` against the crossfade
 twin."""
 
@@ -24,6 +25,7 @@ from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.engine import Engine
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.flagship import build_16_module_graph
+from mixlab_tpu_torch.parallel import make_mesh as torch_mesh
 from mixlab_tpu_torch.parallel.stems import StemsPatch, row_sharded_blend, stem_parallel_step
 from mixlab_tpu_torch.protocol import InputId, OutputId
 from mixlab_tpu_torch.video.blend import crossfade_torch
@@ -52,16 +54,17 @@ def test_stem_parallel_mixdown_matches_serial():
 @pytest.mark.parametrize("n_stems", [5, 9, 3, 1])
 def test_stem_counts_match_jax_mesh(n_stems):
     """The JAX step over a 4-device mesh pads the stems to a multiple of 4
-    and masks the pads; the port pads to the same multiple on one device."""
+    and masks the pads; the port over a 4-entry CPU mesh pads to the same
+    multiple, each shard's mask from its position."""
     ws_j, mon = jax_flagship()
     ws = Workspace.from_persist(json.loads(json.dumps(ws_j.to_persist())))
     fn_j, args_j, _ = jax_stem_parallel_step(
         ws_j, JaxEngineConfig(sample_rate=48_000), JaxBlockSpec(2), make_mesh(4),
         monitor_key=str(mon.value), n_stems=n_stems)
     fn, make_args, _ = stem_parallel_step(ws, CFG, BlockSpec(2), str(mon.value),
-                                          n_stems=n_stems, device="cpu", pad_to=4)
+                                          n_stems=n_stems, mesh=torch_mesh(4, devices=["cpu"]))
     args, a_j = make_args(0), args_j(0)
-    assert np.array_equal(args[3].numpy(), np.asarray(a_j[3]))
+    assert np.array_equal(torch.cat(args[3]).numpy(), np.asarray(a_j[3]))
     _, master = fn(*args)
     _, want = fn_j(*a_j)
     np.testing.assert_allclose(master.numpy(), np.asarray(want), atol=MIX_ATOL)
@@ -70,12 +73,24 @@ def test_stem_counts_match_jax_mesh(n_stems):
 
 
 def test_stems_refuse_a_mesh():
+    """Once a refusal, now the sharded result: over a 2-entry mesh (the
+    ``mesh=`` form and a device list) the master equals the one-device
+    step's within MIX_ATOL, and the live StemsPatch's taps equal it too."""
     ws, mon = build_16_module_graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, Multi-device"):
-        stem_parallel_step(ws, CFG, BlockSpec(2), str(mon.value), device="cpu",
-                           mesh=object())
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        StemsPatch.compiler(4, mesh=object())(ws, CFG, BlockSpec(2), CPU)
+    fn, make_args, _ = stem_parallel_step(ws, CFG, BlockSpec(2), str(mon.value), n_stems=3,
+                                          device="cpu")
+    _, want = fn(*make_args(0))
+    for kw in ({"mesh": torch_mesh(2, devices=["cpu"])}, {"mesh": ["cpu", "cpu"]}):
+        fn2, make_args2, _ = stem_parallel_step(ws, CFG, BlockSpec(2), str(mon.value),
+                                                n_stems=3, **kw)
+        args = make_args2(0)
+        assert [m.tolist() for m in args[3]] == [[1.0, 1.0], [1.0, 0.0]]
+        _, got = fn2(*args)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=MIX_ATOL)
+    sp = StemsPatch.compiler(torch_mesh(2, devices=["cpu"]), 3)(ws, CFG, BlockSpec(2), CPU)
+    _, taps = sp.run(sp.prepare_aux(ws), sp.host_aux(0), sp.init_state(ws))
+    got = torch.stack(taps[str(mon.value)]["audio"], dim=-1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=MIX_ATOL)
 
 
 def template():
@@ -102,7 +117,7 @@ def capture_taps(eng):
 
 def test_mixdown_tap_matches_single_engine():
     eng_multi = Engine(workspace=template()[0], cfg=CFG, block_ticks=2, device="cpu",
-                       patch_compiler=StemsPatch.compiler(N_STEMS, pad_to=8))
+                       patch_compiler=StemsPatch.compiler(torch_mesh(8, devices=["cpu"]), N_STEMS))
     eng_single = Engine(workspace=template()[0], cfg=CFG, block_ticks=2, device="cpu")
     taps_m, taps_s = capture_taps(eng_multi), capture_taps(eng_single)
     for _ in range(3):
@@ -120,7 +135,7 @@ def test_mixdown_tap_matches_single_engine():
 def test_structural_edit_mid_run_direct_drive():
     ws, o, a, m = template()
     eng = Engine(workspace=ws, cfg=CFG, block_ticks=2, device="cpu",
-                 patch_compiler=StemsPatch.compiler(N_STEMS, pad_to=8))
+                 patch_compiler=StemsPatch.compiler(torch_mesh(8, devices=["cpu"]), N_STEMS))
     captured = capture_taps(eng)
     sid, _, _ = eng.connect_session()
     eng.tick_once()
