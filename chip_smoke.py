@@ -186,9 +186,11 @@ imports no jax.  Phases, any failure of which exits non-zero:
      flagship's stems at 48 kHz over meshes of 1, 2 and 4 entries on the
      card (and 2 and 4 distinct cards where there are), 5 stems and 8, in
      16- and 41-tick blocks: the master within 2e-4 of the one-entry
-     mesh's, the batched eq kernel once a shard a block, the batched
-     envelope kernel once a shard where its gate opens; (b) the fleet at N
-     = 8,192 over a 4-entry mesh: every session's taps equal to the
+     mesh's, at 16 ticks the batched region kernel once a shard a block
+     and no eq launch (the block qualifies for the region program, as the
+     JAX stems take it), at 41 the batched eq kernel once a shard a block,
+     the batched envelope kernel once a shard where its gate opens; (b) the
+     fleet at N = 8,192 over a 4-entry mesh: every session's taps equal to the
      one-device fleet's bit for bit, one eq launch a shard, the wall a
      block of each for information; (c) ``row_sharded_blend`` over 4
      entries at 1080p and heights that do not divide by 4: equal to the
@@ -197,14 +199,36 @@ imports no jax.  Phases, any failure of which exits non-zero:
      with a structural edit at tick 30: taps 5 x the one-device engine's
      within 1e-6; (e) two processes in a ``gloo`` group (``mesh_worker``),
      each a 2-entry mesh on the card: the master's checksum within 1e-3
-     relative of one process's 4-entry mesh, and over ``nccl`` across
+     relative of one process's 4-entry mesh, the region kernel twice a
+     process at 16 ticks, and over ``nccl`` across
      distinct cards where there are two; (f) ``python -m
      mixlab_tpu_torch.server.fleet``: a controller and two agents with
      ``--device cuda``; a workspace placed, built by one session (an
      oscillator into an EqThree), migrated to the other agent, whose worker
      resumes from the checkpoint (the EqThree's state equal to the source
      worker's checkpoint continued on the card to the same tick), then
-     SIGTERM: every process exits 0.
+     SIGTERM: every process exits 0;
+ 20. the batched region, after phase 16 (the profiler), each path with the
+     launch counts set to 0 just before and read just after: (a) the
+     region kernel against its batched twin in both forms (the cooperative
+     grid with gridDim.y = B, one CTA a row; the plan's choice, and one CTA
+     a row forced where the plan takes the grid) at B = 1, 2, where B x G
+     just fits at L = 4, the largest grid and one past it, 1,024 and 8,192
+     (B x S at most 8,192 x 12,800) and S = 8,192, 12,800, 38,400 and
+     204,800 (two parts), 3 carried blocks: the flagship's plan, the same
+     with one operand every row shares (row stride 0), the sink zoo's plan
+     and a PEAK plan with a NaN, taps and exits within 2e-5, scalar taps
+     exact; its time a call and device time a launch at 1,024 and 8,192 x
+     12,800 beside its bound and its twin; (b) the fleet at 48 kHz with
+     per-instance params on the region program, 16 ticks (N = 1,024 and
+     8,192) and 48 ticks (N = 1,024): region 1, eq 0, envelope 0 (48 ticks:
+     1) a block; taps and state within 2e-5 of the same fleet on the
+     regular program and four slots of single-patch region renders; then,
+     in turns, the wall, device time with its top kernels, busy share and
+     peak memory of both programs; (c) fleet serving in 16-tick blocks: one
+     region launch a block, slot PCM within 1 LSB of dedicated renders;
+     (d) the fleet of 8,192 over a 4-entry mesh at 16 ticks: 4 region
+     launches a block, taps bit-equal to one device's.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -510,9 +534,9 @@ class HoldRegion:
 
         self.mod, self.kernel = region_cuda, region_cuda.region_part_cuda
 
-        def both(plan, operands, pf, sf, S):
-            got = self.kernel(plan, operands, pf, sf, S)
-            want = region_cuda.region_part_torch(plan, operands, pf, sf, S)
+        def both(plan, operands, pf, sf, S, consts=None):
+            got = self.kernel(plan, operands, pf, sf, S, consts)
+            want = region_cuda.region_part_torch(plan, operands, pf, sf, S, consts)
             self.torch.cuda.synchronize()
             for name, g, w in zip(("taps", "stap", "ef"), got, want):
                 err = (g - w).abs().max().item() if g.numel() else 0.0
@@ -521,7 +545,9 @@ class HoldRegion:
                                          f"max abs err {err} > {self.atol}")
                 self.worst = max(self.worst, err)
             self.launches += 1
-            self.captured.append((plan, list(operands), pf, sf, S))
+            # the parameter row with the constants, as a single part takes it
+            row = pf if consts is None else self.torch.cat([pf, consts])
+            self.captured.append((plan, list(operands), row, sf, S))
             return got
 
         # the wrapper counts into whatever the module's name points at: these
@@ -752,14 +778,16 @@ def eq_flops(S: int) -> int:
     return (8 * 3 + 2 * 2 + 5) * S
 
 
-def region_work(plan, operands, S: int):
-    """(bytes, flops) of one part: every distinct operand read once, the
-    taps written once, the scalar rows; the elementwise ops per sample and
-    the eq's recurrence."""
+def region_work(plan, operands, S: int, batch: int = 1):
+    """(bytes, flops) of one part over ``batch`` rows: every distinct operand
+    read once (an operand the rows share once), the taps written once, the
+    scalar rows, the constants once; the elementwise ops per sample and the
+    eq's recurrence, each row."""
     from mixlab_tpu_torch.dsp import base
 
     nbytes = sum(v.numel() * v.element_size() for v in operands)
-    nbytes += 4 * (plan.n_taps * S + plan.n_stap + plan.n_pf + plan.n_consts + 2 * plan.n_ef)
+    nbytes += 4 * (batch * (plan.n_taps * S + plan.n_stap + plan.n_pf + 2 * plan.n_ef)
+                   + plan.n_consts)
     per_sample = {base.OP_AMP: 1, base.OP_AMP_MOD: 4, base.OP_I16: 1, base.OP_PEAK: 3}
     flops = 0
     for code, a in plan.ops():
@@ -769,7 +797,7 @@ def region_work(plan, operands, S: int):
             flops += eq_flops(S)
         else:
             flops += per_sample.get(code, 0) * S
-    return nbytes, flops
+    return nbytes, flops * batch
 
 
 def timing(torch, np, dev, card, proj: Path):
@@ -2689,7 +2717,9 @@ def kernel_launches(torch, fn, n=10):
     profiler over ``n`` calls of ``fn``: the launches are the CUDA runtime's
     launch calls traced on the host (the device rows of a profile in this
     process have come up short), and every device kernel seen
-    must be the one named."""
+    must be the one named.  Where three profiles in a row recorded no device
+    row at all but traced the launch calls, the device time and the name are
+    None ("not recorded"): the launches a call still come from the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2708,11 +2738,21 @@ def kernel_launches(torch, fn, n=10):
         log("kernel_launches: the profile recorded no device kernel; taken again")
     launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
                    and e.key.startswith(("cudaLaunch", "cuLaunch")))
+    if not rows and launches:
+        return launches / n, None, None
     if len(rows) != 1 or rows[0].count > n:
         raise AssertionError(f"device kernels seen: {[(e.key[:60], e.count) for e in rows]}")
     # without traced launch calls, the device rows count them
     per_call = (launches or rows[0].count) / n
     return per_call, rows[0].self_device_time_total / rows[0].count, rows[0].key
+
+
+def _us(us) -> str:
+    return "not recorded" if us is None else f"{us:.1f}"
+
+
+def _share(bound_ms, us) -> str:
+    return "not recorded" if us is None else f"{bound_ms * 1e3 / us:.3f}"
 
 
 def _close(torch, got, want, tol):
@@ -2812,10 +2852,10 @@ def batched_kernels(torch, np, dev, card):
                 x, xd, poles, gains, *f), n=3, warmup=1),
             "bound_ms": eq_bound[0], "bound_by": eq_bound[1],
             "form": "one CTA a block" if eqc.batch_plan(S, B, eq_r)[0] else "grid"}
-        log(f"batched eq B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {eq_dev:.1f} us "
+        log(f"batched eq B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {_us(eq_dev)} us "
             f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
             f"{eq_bound[0] * 1e3:.1f} us ({eq_bound[1]}), share of the bound "
-            f"{eq_bound[0] * 1e3 / eq_dev:.3f}")
+            f"{_share(eq_bound[0], eq_dev)}")
         gate = (rand(B, S) > 0.9998).to(torch.float32)
         st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
               "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
@@ -2832,10 +2872,10 @@ def batched_kernels(torch, np, dev, card):
                 gate, st, prm, 1000 / 48_000), n=3, warmup=1),
             "bound_ms": env_bound[0], "bound_by": env_bound[1],
             "form": "one CTA a block" if envc.batch_plan(S, B, env_r)[0] else "grid"}
-        log(f"batched envelope B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {env_dev:.1f} us "
-            f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
-            f"{env_bound[0] * 1e3:.1f} us (bytes), share of the bound "
-            f"{env_bound[0] * 1e3 / env_dev:.3f}")
+        log(f"batched envelope B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, "
+            f"{_us(env_dev)} us device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, "
+            f"bound {env_bound[0] * 1e3:.1f} us (bytes), share of the bound "
+            f"{_share(env_bound[0], env_dev)}")
         del x, xd, gate
     return worst, times
 
@@ -2943,11 +2983,13 @@ def fleet_path(torch, np, dev, card):
     return launches, info
 
 
-def fleet_served(torch, np, dev, card):
+def fleet_served(torch, np, dev, card, ticks_a_block=FLEET_TICKS):
     """(c) fleet serving: a FleetEngine of capacity 1,024 on the card (the
-    flagship, 15-tick blocks) behind a FleetServeApp on an ephemeral port,
-    16 WebSocket clients for 5 s; counts set to 0 just before the clients
-    start and read just after they end."""
+    flagship, 15-tick blocks; phase 20 (c) at 16, on the region program)
+    behind a FleetServeApp on an ephemeral port, 16 WebSocket clients for
+    5 s; counts set to 0 just before the clients start and read just after
+    they end: one launch a block of the block program's kernel (the
+    region's where it was chosen, else the eq's)."""
     import asyncio
 
     from mixlab_tpu_torch.engine.compiler import compile_patch
@@ -2960,9 +3002,11 @@ def fleet_served(torch, np, dev, card):
     counters = launch_counters()
     with ThreadFaults() as faults:
         t = time.perf_counter()
-        eng = FleetEngine(template, SERVED_SLOTS, cfg, block_ticks=FLEET_TICKS, device=str(dev))
-        log(f"fleet serving: FleetEngine of {SERVED_SLOTS} slots built and warmed in "
-            f"{time.perf_counter() - t:.2f} s")
+        eng = FleetEngine(template, SERVED_SLOTS, cfg, block_ticks=ticks_a_block,
+                          device=str(dev))
+        kernel = "region" if eng.fleet.patch._mega else "eq_cascade"
+        log(f"fleet serving: FleetEngine of {SERVED_SLOTS} slots, {ticks_a_block}-tick blocks "
+            f"({kernel} kernel), built and warmed in {time.perf_counter() - t:.2f} s")
         app = FleetServeApp(eng)
 
         async def client(port, k):
@@ -3013,15 +3057,17 @@ def fleet_served(torch, np, dev, card):
         finally:
             eng.stop()
         faults.check("fleet serving")
-    blocks = ticks // FLEET_TICKS
+    blocks = ticks // ticks_a_block
     log(f"fleet serving [{card}]: {SERVED_CLIENTS} clients for {elapsed:.3f} s, {blocks} "
-        f"blocks ({blocks / elapsed:.3f} blocks/s, 4 = the 60 Hz schedule), on schedule "
-        f"{status['on_schedule_fraction']}, over the 250 ms budget "
-        f"{1 - status['on_schedule_fraction']:.4f}, max late {status['max_late_ms']} ms, "
-        f"launches {launches}")
-    if abs(launches["eq_cascade"] - blocks) > 1:  # a block may straddle either end
-        raise AssertionError(f"served fleet: {launches['eq_cascade']} eq launches in {blocks} "
-                             "blocks")
+        f"blocks ({blocks / elapsed:.3f} blocks/s, {60 / ticks_a_block:g} = the 60 Hz "
+        f"schedule), on schedule {status['on_schedule_fraction']}, over the "
+        f"{ticks_a_block * 1000 / 60:g} ms budget {1 - status['on_schedule_fraction']:.4f}, max "
+        f"late {status['max_late_ms']} ms, launches {launches}")
+    other = "eq_cascade" if kernel == "region" else "region"
+    # a block may straddle either end
+    if abs(launches[kernel] - blocks) > 1 or launches[other]:
+        raise AssertionError(f"served fleet: {launches[kernel]} {kernel} launches in {blocks} "
+                             f"blocks, {launches[other]} {other}")
     slots = [r[0] for r in results]
     if len(set(slots)) != SERVED_CLIENTS or any(len(r[1]) < 3 for r in results):
         raise AssertionError(f"served fleet: slots {slots}, packets {[len(r[1]) for r in results]}")
@@ -3030,7 +3076,7 @@ def fleet_served(torch, np, dev, card):
     # every unedited session against a dedicated render from its join (the
     # edit of client 0 must not reach them); client 0's PCM after its Sync
     # is another render
-    patch = compile_patch(template, cfg, BlockSpec(FLEET_TICKS), dev)
+    patch = compile_patch(template, cfg, BlockSpec(ticks_a_block), dev)
     renders = {}
 
     def render(t_join, n):
@@ -3270,6 +3316,80 @@ def single_ab(parent: str) -> int:
     return 0
 
 
+def region_ab(parent: str) -> int:
+    """Not in ``main``: the single-block region launch of the parent
+    (``parent``: a checkout's root from before the batch axis, e.g. unpacked
+    by ``git archive`` into a listed directory) and of this checkout, in
+    turns (parent, change, change, parent, three times), on the flagship's
+    48 kHz block, device time per launch by the profiler; both launches'
+    taps and exits must be equal.  The parent's ``region.cu`` is built with
+    this checkout's flags and called through its own C signature.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.region_ab("<dir>"))'``"""
+    import ctypes
+    import os
+
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.dsp.eq_cuda import scan_plan
+    from mixlab_tpu_torch.engine import region_cuda as rc
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda")
+    kernels.load()
+    src = Path(parent) / "mixlab_tpu_torch" / "csrc"
+    lib_path = Path(parent) / "_ab_build" / "parent_region.so"
+    lib_path.parent.mkdir(exist_ok=True)
+    subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(src), "-o",
+                    str(lib_path), str(src / "region.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.mixlab_region_part.argtypes = [P, I, P, P, P, P, P, I, P, I, I, I, I, P]
+    ws = build_16_module_graph()[0]
+    patch = compile_patch(ws, EngineConfig(sample_rate=48_000), BlockSpec(60), dev)
+    with HoldRegion(torch) as hold:
+        patch.run(patch.prepare_aux(ws), patch.host_aux(0), patch.init_state(ws))
+    plan, ops, pf, sf, S = hold.captured[0]
+    n_scratch = plan.n_slots - plan.n_operands
+    scratch = torch.empty((n_scratch, S), device=dev)
+    slots = torch.tensor([v.data_ptr() for v in ops] + [x.data_ptr() for x in scratch],
+                         dtype=torch.int64, device=dev)
+    words = torch.tensor(plan.words, dtype=torch.int32, device=dev)
+    run, tiles = scan_plan(S, rc.resident_tiles(0), rc.CHUNK, rc.RUN)
+    taps = torch.empty((plan.n_taps, S), device=dev)
+    stap, ef = torch.empty(max(plan.n_stap, 1), device=dev), torch.empty(plan.n_ef, device=dev)
+    raw = torch._C._cuda_getCurrentRawStream
+
+    def parent_call():
+        rc_ = lib.mixlab_region_part(words.data_ptr(), words.numel(), slots.data_ptr(),
+                                     pf.data_ptr(), sf.data_ptr(), taps.data_ptr(),
+                                     stap.data_ptr(), plan.n_stap, ef.data_ptr(), S, run, tiles,
+                                     0, raw(0))
+        if rc_:
+            raise RuntimeError(f"parent region launch: CUDA error {rc_}")
+
+    change_call = lambda: rc.region_part_cuda(plan, ops, pf, sf, S)
+    parent_call()
+    got = change_call()
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], taps) and torch.equal(got[2], ef)):
+        raise AssertionError("the parent's and this checkout's region launches differ")
+    res = {}
+    for _ in range(3):
+        for who in ("parent", "change", "change", "parent"):
+            found = _device_us(torch, parent_call if who == "parent" else change_call, "region",
+                               n=100)
+            res.setdefault(who, []).append(found[0][1])
+    for k, v in res.items():
+        log(f"A/B single region launch S={S} (run {run}, {tiles} CTAs) [{card}] {k}: device us "
+            "per launch " + " ".join(f"{u:.3f}" for u in v) + f"; median {np.median(v):.3f}")
+    return 0
+
+
 def batched_paths(torch, np, dev, card):
     """Phase 16: -> (errors, times, {path: launches}, information)."""
     errs, times = batched_kernels(torch, np, dev, card)
@@ -3278,6 +3398,356 @@ def batched_paths(torch, np, dev, card):
     paths["fleet_served"], info["fleet_served"] = fleet_served(torch, np, dev, card)
     paths["stems"], info["stems"] = stems_path(torch, np, dev, card)
     return errs, times, paths, info
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the batched region (the region kernel over a batch; the fleet,
+# fleet serving and the mesh on the whole-graph region program under vmap)
+# ---------------------------------------------------------------------------
+
+REGION_FLEET_TICKS = (16, 48)    # 12,800 samples at 48 kHz (100 chunks), 38,400 (the envelope's gate open)
+REGION_EDGE_S = (8192, 12_800, 38_400, 204_800)  # 204,800: two parts of 102,400
+REGION_EDGE_B = (1, 2, 1024, 8192)
+# the edges' batches stop at the fleet's largest block (8,192 rows of 12,800)
+REGION_MAX_SAMPLES = 8192 * 12_800
+REGION_TIMED = ((1024, 12_800), (8192, 12_800))
+
+
+def region_plans(torch):
+    """{name: (plan, param row, consts)}: the flagship's and the sink zoo's
+    region plans at 48 kHz, taken from one 16-tick block of each program on
+    the CPU (the twin: no launch), and a plan of one PEAK and one TAP."""
+    from mixlab_tpu_torch.dsp.base import OP_PEAK, OP_TAP, RegionPlan
+    from mixlab_tpu_torch.engine import region_cuda
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+
+    cfg, cpu, out = EngineConfig(sample_rate=48_000), torch.device("cpu"), {}
+    real = region_cuda.region_part_cuda
+    for name, ws in (("flagship", build_16_module_graph()[0]), ("sink zoo", sink_zoo()[0])):
+        patch = compile_patch(ws, cfg, BlockSpec(16), cpu)
+
+        def grab(plan, operands, pf, sf, S, consts=None, *rest, _name=name):
+            out.setdefault(_name, (plan, *region_cuda._split(plan, pf, consts)))
+            return real(plan, operands, pf, sf, S, consts, *rest)
+
+        region_cuda.region_part_cuda = grab
+        try:
+            patch.run(patch.prepare_aux(ws), patch.host_aux(0), patch.init_state(ws))
+        finally:
+            region_cuda.region_part_cuda = real
+    plan = RegionPlan(2, n_pf=0, n_ef=0)
+    plan.add(OP_PEAK, 0, 0, 1)
+    plan.add(OP_TAP, 0, 0)
+    plan.n_taps, plan.n_stap = 1, 1
+    out["peak"] = (plan, torch.zeros(0), torch.zeros(0))
+    return out
+
+
+def _region_inputs(torch, g, plan, row, B, S, dev, shared=(), nan=False):
+    """One block's random inputs for B rows of ``plan``: operands [B, S]
+    (i16 where the plan reads i16; the operands in ``shared`` one [S] row that
+    every row reads), the param rows the captured row times U(0.5, 1.5)."""
+    from mixlab_tpu_torch.engine import region_cuda
+
+    ops = []
+    for i, dt in enumerate(region_cuda.operand_dtypes(plan)):
+        shape = (S,) if i in shared else (B, S)
+        if dt == torch.int16:
+            ops.append(torch.randint(-32768, 32767, shape, generator=g, device=dev,
+                                     dtype=torch.int16))
+        else:
+            ops.append(torch.rand(shape, generator=g, device=dev) * 2 - 1)
+    if nan:  # one sample of the last row, in its middle tile, above every other
+        ops[0][-1, S // 2 + 7] = float("nan")
+        ops[1][0, S // 2 + 100] = 1e30
+    pf = row.to(dev) * (torch.rand((B, row.numel()), generator=g, device=dev) + 0.5)
+    return ops, pf
+
+
+def _rows_err(torch, got, want):
+    """Max |got - want| where both are numbers; inf if their NaNs differ."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        return float("inf")
+    d = (got - want).abs().nan_to_num(nan=0.0)
+    return d.max().item() if d.numel() else 0.0
+
+
+def _same_bits(torch, got, want):
+    return torch.equal(got.nan_to_num(nan=-1.0), want.nan_to_num(nan=-1.0)) and torch.equal(
+        got.isnan(), want.isnan())
+
+
+def _peaks_exact(torch, plan, part, taps, stap):
+    """Whether every scalar tap of a launch is EXACTLY the max of |l|, |r|
+    over the part, NaN winning, with l and r read back from the launch's own
+    taps (or operands): the reduction checked apart from the rounding of the
+    ops before it."""
+    from mixlab_tpu_torch.dsp import base
+
+    tapped = {a[1]: a[0] for code, a in plan.ops() if code == base.OP_TAP}
+    for code, a in plan.ops():
+        if code != base.OP_PEAK:
+            continue
+        vals = [taps[:, tapped[s]] if s in tapped else part[s].float().expand(taps.shape[0], -1)
+                for s in a[1:]]
+        want = torch.maximum(vals[0].abs(), vals[1].abs()).amax(dim=1)
+        if not _same_bits(torch, stap[:, a[0]], want):
+            return False
+    return True
+
+
+def region_edges(torch, np, dev, card):
+    """(a) the region kernel against its batched twin, both forms (the plan's
+    choice, then the other form forced where it can run), at B = 1, 2, where
+    B x G just fits at L = 4, the largest cooperative grid and one past it,
+    1,024 and 8,192 (B x S at most REGION_MAX_SAMPLES) x S of REGION_EDGE_S
+    (204,800 as the program cuts it: two parts, the exits carried from part to
+    part in each row), 3 carried blocks; the flagship's plan, the same with one
+    operand every row shares (row stride 0), the sink zoo's plan and a PEAK
+    plan with a NaN in one row.  Taps, scalar taps and exits within
+    REGION_ATOL of the twin's; each scalar tap EXACTLY the max over the
+    launch's own tapped values (``_peaks_exact``).  -> (max abs err, timing
+    rows)."""
+    from mixlab_tpu_torch.engine import region_cuda as rc
+    from mixlab_tpu_torch.engine.region_graph import _partition
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    plans = region_plans(torch)
+    resident = rc.resident_tiles(dev.index or 0)
+    worst, t0 = 0.0, time.perf_counter()
+    for S in REGION_EDGE_S:
+        parts = _partition(S)
+        P = parts[0][1]
+        fit = resident // -(-P // (rc.CHUNK * rc.RUN))
+        most = resident // -(-P // (rc.CHUNK * 32))
+        edges = sorted({b for b in (*REGION_EDGE_B, fit, fit + 1, most, most + 1)
+                        if 0 < b and b * S <= REGION_MAX_SAMPLES})
+        for name, key, shared, nan, bs in (
+                ("flagship", "flagship", (), False, edges),
+                ("flagship, operand 0 shared", "flagship", (0,), False,
+                 [b for b in edges if b in (2, most + 1, 1024)]),
+                ("sink zoo", "sink zoo", (), False,
+                 [b for b in edges if b in (1, 2, most, most + 1)]),
+                ("peak with a NaN", "peak", (), True, [b for b in edges if b in (2, most + 1)])):
+            plan, row, consts = plans[key]
+            consts = consts.to(dev)
+            n_scratch = plan.n_slots - plan.n_operands
+            for B in bs:
+                chosen = rc.batch_plan(P, B, resident, n_scratch)
+                # where the plan picks one CTA a row, no cooperative grid holds the rows
+                forms = [None] if chosen[0] else [None, True]
+                s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+                sf = {f: s0.clone() for f in ("twin", *forms)}
+                errs, staps = [], True
+                for blk in range(3):
+                    ops, pf = _region_inputs(torch, g, plan, row, B, S, dev, shared,
+                                             nan and blk == 1)
+                    for a, b in parts:
+                        part = [v[..., a:b] for v in ops]
+                        want = rc.region_part_torch_batched(plan, part, pf, sf["twin"], b - a,
+                                                            consts, B)
+                        sf["twin"] = want[2]
+                        for f in forms:
+                            got = rc.region_part_batched(plan, part, pf, sf[f], b - a, consts,
+                                                         B, sequential=f)
+                            sf[f] = got[2]
+                            errs.append(max(_rows_err(torch, g, w) for g, w in zip(got, want)))
+                            staps = staps and _peaks_exact(torch, plan, part, got[0], got[1])
+                err = max(errs)
+                names = {None: "the plan's", True: "one CTA a row, forced"}
+                log(f"batched region kernel vs twin, {name}, B={B} S={S} ({len(parts)} part(s); "
+                    f"plan: {'one CTA a row' if chosen[0] else f'grid {chosen[2]} x {B}'}, "
+                    f"L={chosen[1]}; forms {[names[f] for f in forms]}), 3 blocks: max abs err "
+                    f"{err:.3e}, scalar taps exact {staps}")
+                if not (err <= REGION_ATOL and staps):
+                    raise AssertionError(f"batched region {name} B={B} S={S}: max err {err}, "
+                                         f"scalar taps exact {staps}")
+                worst = max(worst, err)
+    log(f"phase 20 (a) took {time.perf_counter() - t0:.1f} s")
+
+    times = {}
+    plan, row, consts = plans["flagship"]
+    consts = consts.to(dev)
+    for B, S in REGION_TIMED:
+        ops, pf = _region_inputs(torch, g, plan, row, B, S, dev)
+        sf = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+        call = lambda: rc.region_part_batched(plan, ops, pf, sf, S, consts, B)
+        n = rc.region_part_cuda.launches
+        # the profile may come up short of records (phase 16); the launches
+        # a call are the wrapper's count, the device time the rows' mean
+        found = _device_us(torch, call, "region", n=5)
+        if len(found) > 1 or rc.region_part_cuda.launches - n != 6:
+            raise AssertionError(f"batched region B={B}: device kernels {found}, "
+                                 f"{rc.region_part_cuda.launches - n} launches in 6 calls")
+        device_us = found[0][1] if found else None  # None: the profile recorded no row
+        nbytes, flops = region_work(plan, ops, S, B)
+        b_ms, b_by = bound(nbytes, flops)
+        seq = rc.batch_plan(S, B, resident, plan.n_slots - plan.n_operands)[0]
+        times[f"{B}x{S}"] = r = {
+            "ms": time_ms(torch, call, n=20, warmup=3), "device_us": device_us,
+            "plain_ms": time_ms(torch, lambda: rc.region_part_torch_batched(
+                plan, ops, pf, sf, S, consts, B), n=3, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "form": "one CTA a row" if seq else "grid"}
+        log(f"batched region B={B} S={S} [{card}]: {r['ms']:.4f} ms a call, "
+            f"{_us(device_us)} us device a launch ({r['form']}), twin {r['plain_ms']:.3f} ms, "
+            f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes} B), share of the bound "
+            f"{_share(b_ms, device_us)}")
+        del ops
+    return worst, times
+
+
+def _fleet_block_profile(torch, fleet, spb, first):
+    """(device seconds a block, top six rows) over 3 blocks from ``first``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in range(first, first + 3):
+            fleet.run_block(b * spb)
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    if not rows:  # the profile recorded no device row
+        return None, []
+    return sum(e.self_device_time_total for e in rows) / 3 / 1e6, rows[:6]
+
+
+def region_fleet(torch, np, dev, card):
+    """(b) the fleet at 48 kHz with per-instance params on the region program
+    (16 ticks: N = 1,024 and 8,192; 48 ticks: N = 1,024) beside the same
+    fleet on the regular batched program (``mega=False``): one block's
+    launches with the counts set to 0 just before and read just after
+    (region 1, eq 0, envelope 1 where its gate opens), taps and state
+    within REGION_ATOL of the regular fleet's over 2 blocks, four slots
+    within REGION_ATOL of single-patch region renders; then, in turns, the
+    wall a block (median of 6), device ms a block with the top six kernels,
+    busy share and peak device memory of each.  -> ({path: launches}, info)."""
+    from mixlab_tpu_torch.convert import tree_leaves
+    from mixlab_tpu_torch.dsp.envelope import PALLAS_THRESHOLD as ENV_GATE
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.engine.region_graph import _partition
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    cfg, counters = EngineConfig(sample_rate=48_000), launch_counters()
+    paths, info = {}, {}
+    for ticks, ns in zip(REGION_FLEET_TICKS, (FLEET_N, FLEET_N[:1])):
+        block = BlockSpec(ticks)
+        spb = block.n_samples(cfg)
+        parts = len(_partition(spb))
+        for n in ns:
+            t = time.perf_counter()
+            wss = fleet_workspaces(n)
+            fleets = {"region": Fleet.build(wss[0], n, cfg, block, per_instance_params=wss,
+                                            device=str(dev)),
+                      "regular": Fleet.build(wss[0], n, cfg, block, per_instance_params=wss,
+                                             device=str(dev), mega=False)}
+            built = time.perf_counter() - t
+            if not fleets["region"].patch._mega or fleets["regular"].patch._mega:
+                raise AssertionError(f"fleet at {ticks} ticks: region program chosen "
+                                     f"{fleets['region'].patch._mega}")
+            for fl in fleets.values():
+                fl.run_block(0)
+            torch.cuda.synchronize()
+            _reset(counters)
+            taps = fleets["region"].run_block(spb)
+            torch.cuda.synchronize()
+            launches = _read(counters)
+            env = 1 if spb >= ENV_GATE else 0
+            log(f"region fleet N={n} at {ticks} ticks: one block launched {launches}")
+            if (launches["region"], launches["eq_cascade"], launches["envelope"]) != (parts, 0, env):
+                raise AssertionError(f"region fleet block launched {launches} (want region "
+                                     f"{parts}, eq_cascade 0, envelope {env})")
+            paths[f"fleet_region_{ticks}_{n}"] = launches
+            ref = fleets["regular"].run_block(spb)
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(taps["16"]["audio"], ref["16"]["audio"]))
+            st_err = max((a.double() - b.double()).abs().max().item() for a, b in zip(
+                tree_leaves(fleets["region"].state), tree_leaves(fleets["regular"].state)))
+            slot_err = 0.0
+            for i in (0, 1, n // 2, n - 1):
+                patch = compile_patch(wss[i], cfg, block, dev)
+                aux, st = patch.prepare_aux(wss[i]), patch.init_state(wss[i])
+                for b in range(2):
+                    st, want = patch.run(aux, patch.host_aux(b * spb), st)
+                for c in range(2):
+                    got_c = taps["16"]["audio"][c][i]
+                    if not bool(torch.isfinite(got_c).all()):
+                        raise AssertionError(f"region fleet slot {i}: not finite")
+                    slot_err = max(slot_err, (got_c - want["16"]["audio"][c]).abs().max().item())
+            log(f"region fleet N={n} at {ticks} ticks (built with the regular fleet in "
+                f"{built:.2f} s): taps vs the regular fleet max err {err:.3e}, state "
+                f"{st_err:.3e}; four slots vs single-patch region renders {slot_err:.3e} "
+                f"(2 blocks, atol {REGION_ATOL})")
+            if not max(err, st_err, slot_err) <= REGION_ATOL:
+                raise AssertionError(f"region fleet N={n}: vs regular {err} / {st_err}, vs "
+                                     f"single renders {slot_err}")
+            walls = {k: [] for k in fleets}
+            for b in range(2, 8):
+                for k, fl in fleets.items():
+                    t = time.perf_counter()
+                    fl.run_block(b * spb)
+                    torch.cuda.synchronize()
+                    walls[k].append(time.perf_counter() - t)
+            for k, fl in fleets.items():
+                wall = float(np.median(walls[k]))
+                dev_s, rows = _fleet_block_profile(torch, fl, spb, 8)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fl.run_block(11 * spb)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                info[f"{k}_{ticks}_{n}"] = r = {
+                    "wall_ms": wall * 1e3, "device_ms": dev_s and dev_s * 1e3,
+                    "busy": dev_s and dev_s / wall, "peak_gib": peak / 2**30,
+                    "block_gib": (peak - before) / 2**30, "realtime": ticks / 60 / wall}
+                device = ("not recorded" if dev_s is None else
+                          f"{r['device_ms']:.3f} ms a block = busy share {r['busy']:.3f}")
+                log(f"fleet N={n} at {ticks} ticks, {k} program [{card}]: wall "
+                    f"{r['wall_ms']:.3f} ms a block (median of 6, in turns), "
+                    f"{r['realtime']:.2f} x realtime, device {device}, peak device memory "
+                    f"{r['peak_gib']:.2f} GiB (both fleets resident; {r['block_gib']:.2f} GiB "
+                    f"above it during the block)")
+                for e in rows:
+                    log(f"  {e.self_device_time_total / 3e3:9.3f} ms a block {e.count / 3:6.0f}x  "
+                        f"{e.key[:90]}")
+            del fleets, taps, ref
+            torch.cuda.empty_cache()
+    return paths, info
+
+
+def batched_region(torch, np, dev, card):
+    """Phase 20: -> (max abs err, timing rows, {path: launches}, info)."""
+    t = time.perf_counter()
+    err, times = region_edges(torch, np, dev, card)
+    paths, info = region_fleet(torch, np, dev, card)
+    paths["fleet_served_16"], info["fleet_served_16"] = fleet_served(
+        torch, np, dev, card, ticks_a_block=REGION_FLEET_TICKS[0])
+    paths["mesh_fleet_16"] = mesh_fleet(torch, np, dev, card, ticks=REGION_FLEET_TICKS[0])
+    log(f"phase 20 (batched region) took {time.perf_counter() - t:.1f} s")
+    return err, times, paths, info
+
+
+def region_phase() -> int:
+    """Not in ``main`` alone: phase 20 by itself, after the build, with TF32
+    off as ``main`` sets it.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.region_phase())'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda", torch.cuda.current_device())
+    log(card)
+    kernels.load()
+    batched_region(torch, np, dev, card)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -3336,9 +3806,13 @@ def mesh_stems(torch, np, dev, card):
         block = BlockSpec(ticks)
         env_on = block.n_samples(cfg) >= ENV_GATE
         for n_stems in MESH_STEMS:
-            fn, make_args, _ = stem_parallel_step(ws, cfg, block, str(mon.value),
-                                                  n_stems=n_stems, device="cpu")
+            fn, make_args, patch = stem_parallel_step(ws, cfg, block, str(mon.value),
+                                                      n_stems=n_stems, device="cpu")
             twin = fn(*make_args(0))[1]
+            # the region program where the block qualifies (16 ticks), as the
+            # JAX stems take it: one region launch a shard and no eq launch
+            kernel, other = (("region", "eq_cascade") if patch._mega
+                             else ("eq_cascade", "region"))
             want = None
             for name, key, make in meshes:
                 mesh = make()
@@ -3362,7 +3836,7 @@ def mesh_stems(torch, np, dev, card):
                     f"{wall * 1e3:.3f} ms a step, launches {launches}")
                 if not (err <= MIX_ATOL and err_twin <= MIX_ATOL
                         and bool(torch.isfinite(master).all())
-                        and launches["eq_cascade"] == len(mesh)
+                        and launches[kernel] == len(mesh) and launches[other] == 0
                         and launches["envelope"] == (len(mesh) if env_on else 0)):
                     raise AssertionError(f"mesh stems over {name}: err {err}, vs the twins "
                                          f"{err_twin}, launches "
@@ -3371,18 +3845,21 @@ def mesh_stems(torch, np, dev, card):
     return paths
 
 
-def mesh_fleet(torch, np, dev, card):
+def mesh_fleet(torch, np, dev, card, ticks=FLEET_TICKS):
     """(b) the fleet as phase 16 (b) runs it, N = 8,192 sessions with their
-    own params in 15-tick blocks, over a 4-entry mesh on the card: one
-    batched eq launch a shard a block (counts set to 0 just before the
-    block, read just after), every session's taps equal to the one-device
-    fleet's bit for bit over two carried blocks; for information the wall
-    per block of each."""
+    own params in 15-tick blocks (phase 20 (d): 16, on the region program),
+    over a 4-entry mesh on the card: one launch a shard a block of the block
+    program's kernel (the batched eq's, or the region's where it was chosen;
+    counts set to 0 just before the block, read just after), every session's
+    taps equal to the one-device fleet's bit for bit over two carried blocks
+    where both run the kernel in the same form, else within REGION_ATOL; for
+    information the wall per block of each."""
+    from mixlab_tpu_torch.engine import region_cuda
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.parallel import make_mesh
     from mixlab_tpu_torch.parallel.fleet import Fleet
 
-    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(FLEET_TICKS)
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(ticks)
     spb, n = block.n_samples(cfg), FLEET_N[-1]
     counters = launch_counters()
     t = time.perf_counter()
@@ -3391,6 +3868,12 @@ def mesh_fleet(torch, np, dev, card):
     mesh = make_mesh(MESH_FLEET_SHARDS, axis="fleet", devices=[str(dev)])
     four = Fleet.build(wss[0], n, cfg, block, per_instance_params=wss, mesh=mesh, axis="fleet")
     built = time.perf_counter() - t
+    kernel, other = ("region", "eq_cascade") if one.patch._mega else ("eq_cascade", "region")
+    same_form = True
+    if one.patch._mega:  # the form each side's rows take
+        plan = lambda rows: region_cuda.batch_plan(spb, rows, region_cuda.resident_tiles(
+            dev.index or 0), 0)[0]
+        same_form = plan(n) == plan(n // MESH_FLEET_SHARDS)
     worst, same = 0.0, True
     for b in range(2):
         want = one.run_block(b * spb)
@@ -3402,8 +3885,9 @@ def mesh_fleet(torch, np, dev, card):
         for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
             same = same and torch.equal(g, w)
             worst = max(worst, (g - w).abs().max().item())
-        if launches["eq_cascade"] != MESH_FLEET_SHARDS or launches["envelope"] != 0:
-            raise AssertionError(f"mesh fleet block {b} launched {launches}")
+        if (launches[kernel], launches[other], launches["envelope"]) != (MESH_FLEET_SHARDS, 0, 0):
+            raise AssertionError(f"mesh fleet block {b} launched {launches} (want {kernel} "
+                                 f"{MESH_FLEET_SHARDS})")
     walls = {}
     for name, fleet in (("one device", one), (f"{MESH_FLEET_SHARDS} x {dev}", four)):
         w = []
@@ -3413,12 +3897,13 @@ def mesh_fleet(torch, np, dev, card):
             torch.cuda.synchronize()
             w.append(time.perf_counter() - t)
         walls[name] = float(np.median(w))
-    log(f"mesh fleet [{card}]: N={n} over {MESH_FLEET_SHARDS} shards of {dev} (built with the "
-        f"one-device fleet in {built:.2f} s): taps equal bit for bit {same} (max err "
-        f"{worst:.3e}), launches a block {launches}; wall a block "
+    log(f"mesh fleet [{card}]: N={n} over {MESH_FLEET_SHARDS} shards of {dev}, {ticks}-tick "
+        f"blocks (built with the one-device fleet in {built:.2f} s): taps equal bit for bit "
+        f"{same} (max err {worst:.3e}; the kernel in the same form on both sides {same_form}), "
+        f"launches a block {launches}; wall a block "
         + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
         + " (median of 4, for information)")
-    if not same:
+    if not (same if same_form else worst <= REGION_ATOL):
         raise AssertionError(f"mesh fleet taps differ from the one-device fleet's: {worst}")
     del one, four
     torch.cuda.empty_cache()
@@ -3585,9 +4070,10 @@ def mesh_worker(pid: int, port: int, devices: str, backend: str) -> int:
 def mesh_processes(torch, np, dev, card):
     """(e) two processes in a ``gloo`` group, each a 2-entry mesh on the
     card (``mesh_worker``): the master's checksum within CHECKSUM_RTOL of
-    this process's 4-entry mesh's, each process's eq kernel once a shard;
-    with two or more cards, again over ``nccl`` with each process on its
-    own card."""
+    this process's 4-entry mesh's, each process's block-program kernel once
+    a shard (at 16 ticks the region's, as the stems take the region program
+    there, and no eq launch); with two or more cards, again over ``nccl``
+    with each process on its own card."""
     import socket
 
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
@@ -3596,9 +4082,10 @@ def mesh_processes(torch, np, dev, card):
     from mixlab_tpu_torch.parallel.stems import stem_parallel_step
 
     ws, mon = build_16_module_graph()
-    fn, make_args, _ = stem_parallel_step(ws, EngineConfig(sample_rate=48_000),
-                                          BlockSpec(MESH_TICKS[0]), str(mon.value), n_stems=8,
-                                          mesh=make_mesh(4, devices=[str(dev)]))
+    fn, make_args, patch = stem_parallel_step(ws, EngineConfig(sample_rate=48_000),
+                                              BlockSpec(MESH_TICKS[0]), str(mon.value),
+                                              n_stems=8, mesh=make_mesh(4, devices=[str(dev)]))
+    kernel, other = ("region", "eq_cascade") if patch._mega else ("eq_cascade", "region")
     want = float(fn(*make_args(0))[1].cpu().double().numpy().sum())
     runs = [("gloo", [f"{dev},{dev}"] * 2)]
     if torch.cuda.device_count() > 1:
@@ -3638,8 +4125,8 @@ def mesh_processes(torch, np, dev, card):
                 or res[0]["checksum"] != res[1]["checksum"]:
             raise AssertionError(f"mesh processes ({backend}): {res} vs {want}")
         for r in res:
-            if r["launches"]["eq_cascade"] != 2:
-                raise AssertionError(f"mesh worker launched {r['launches']}")
+            if r["launches"][kernel] != 2 or r["launches"][other]:
+                raise AssertionError(f"mesh worker launched {r['launches']} (want {kernel} 2)")
         paths[f"mesh_processes_{backend}"] = res[0]["launches"]
     return paths
 
@@ -3778,7 +4265,7 @@ def scale_out(torch, np, dev, card, tmp: Path):
 
 
 def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
-                               "envelope_kernel", "envelope_seq_kernel")):
+                               "region_seq_kernel", "envelope_kernel", "envelope_seq_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
     bytes)} from the build log's ``-Xptxas -v`` lines."""
     import re
@@ -5181,6 +5668,9 @@ def main() -> int:
         paths.update(batched_launches)
         for key, err in batched_errs.items():
             errs[key] = max(errs[key], err)
+        err, batched_times["region"], region_launches, _ = batched_region(torch, np, dev, card)
+        errs["region"] = max(errs["region"], err)
+        paths.update(region_launches)
         paths.update(scale_out(torch, np, dev, card, tmp))
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)

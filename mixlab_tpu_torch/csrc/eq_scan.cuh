@@ -246,7 +246,8 @@ struct Entry {
 
 // Before the grid barrier; every thread of the CTA calls it.  Pass 1 over
 // the thread's run (xs staged, lg = log2 L), the CTA's scan, the CTA's
-// aggregate to agg[blockIdx.x] (8 floats, 16-byte aligned).
+// aggregate to agg[blockIdx.x] (8 floats, 16-byte aligned) unless agg is
+// null (a CTA that carries its own entry state reads no aggregate).
 __device__ __forceinline__ Entry scan_up(const float* xs, int lg, const Coeffs& c,
                                          Shared& sh, float* agg) {
   const int i = threadIdx.x, lane = i & 31, w = i >> 5;
@@ -275,7 +276,7 @@ __device__ __forceinline__ Entry scan_up(const float* xs, int lg, const Coeffs& 
       if (lane >= (1 << r)) absorb(t, up, tab, lg + 5 + r);
     }
     if (lane < W) store_state(sh.warp[lane], t);
-    if (lane == W - 1) {
+    if (agg != nullptr && lane == W - 1) {
       float4* p = reinterpret_cast<float4*>(agg + 8 * blockIdx.x);
       p[0] = make_float4(t.y[0][0], t.y[0][1], t.y[0][2], t.y[0][3]);
       p[1] = make_float4(t.y[1][0], t.y[1][1], t.y[1][2], t.y[1][3]);

@@ -131,6 +131,20 @@ class RegionPlan:
             return np.zeros(0, np.float32)
         return np.concatenate(self.consts)
 
+    def meta(self) -> List[int]:
+        """The plan's sizes as ints (``from_words`` rebuilds the plan from
+        them and its words, without its constants)."""
+        return [self.n_operands, self.n_slots, self.n_pf, self.n_ef, self.n_taps, self.n_stap,
+                self.n_consts]
+
+    @classmethod
+    def from_words(cls, words: Sequence[int], meta: Sequence[int]) -> "RegionPlan":
+        n_operands, n_slots, n_pf, n_ef, n_taps, n_stap, n_consts = meta
+        plan = cls(n_operands, n_pf, n_ef)
+        plan.words = list(words)
+        plan.n_slots, plan.n_taps, plan.n_stap, plan.n_consts = n_slots, n_taps, n_stap, n_consts
+        return plan
+
     def ops(self):
         """Yields ``(code, args)`` in order."""
         pc = 0

@@ -22,10 +22,11 @@ everything downstream of it as one kernel launch per part.  ``mega=None``
 takes the region program where the graph and block qualify, ``mega=True``
 requires it (``ValueError`` otherwise), ``mega=False`` keeps the regular one.
 
-``batched_program`` maps the regular program over a leading instance axis
-(the fleet's sessions, the stems): ``torch.func.vmap`` over
-``run_modules``, so the EqThree and Envelope kernels launch once a block for
-all instances through their custom ops' batching rules.
+``batched_program`` maps the chosen program over a leading instance axis
+(the fleet's sessions, the stems) with ``torch.func.vmap``, as the JAX fleet
+runs ``jax.vmap(patch._fn)``: the region program's part launches, and the
+regular program's EqThree and Envelope kernels, launch once a block for all
+instances through their custom ops' batching rules.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class CompiledPatch:
     structural_fingerprint: Any  # equal for workspaces one program serves
     entries: Dict[ModuleId, ModuleEntry]
     connections: Dict[InputId, OutputId]
-    _fn: Callable  # (aux, host_aux (numpy), state) -> (state, taps)
+    _fn: Callable  # (aux, host_aux on the device, state) -> (state, taps)
     _ext_specs: Dict[str, Dict[str, Tuple[tuple, Any]]]
     _mega: bool  # the region program was chosen
 
@@ -115,7 +116,7 @@ class CompiledPatch:
     def run(self, aux, host_aux, state):
         """Render one block: ``(aux, host_aux (numpy), state) -> (state',
         taps)``; taps map module id key -> tap name -> tensor(s)."""
-        return self._fn(aux, host_aux, state)
+        return self._fn(aux, upload_all(host_aux, self.device), state)
 
 
 def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, device):
@@ -148,8 +149,7 @@ def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, dev
 
 
 def _regular_program(order, entries, connections, cfg, block, device):
-    def program(aux, host_aux, state):
-        dev_aux = upload_all(host_aux, device)
+    def program(aux, dev_aux, state):
         _, new_state, taps = run_modules(order, entries, connections, aux, dev_aux,
                                          state, cfg, block, device)
         return new_state, taps
@@ -165,24 +165,22 @@ def upload_all(host_aux, device: torch.device):
 
 
 def batched_program(patch: CompiledPatch) -> Callable:
-    """The regular block program of ``patch`` over a leading instance axis:
-    ``(aux, dev_host_aux, state) -> (state', taps)`` with every tensor leaf
-    stacked [n, ...] and ``dev_host_aux`` already on the device
-    (``upload_all``).  ``None`` leaves (modules without state, aux or
-    host arrays) stay out of the mapped arguments and are put back inside."""
+    """The block program of ``patch`` (the region program where it was
+    chosen, else the regular one) over a leading instance axis: ``(aux,
+    dev_host_aux, state) -> (state', taps)`` with every tensor leaf stacked
+    [n, ...] and ``dev_host_aux`` already on the device (``upload_all``).
+    ``None`` leaves (modules without state, aux or host arrays) stay out of
+    the mapped arguments and are put back inside."""
     from mixlab_tpu_torch.convert import tree_leaves, tree_unflatten
 
-    order, entries, connections = patch.order, patch.entries, patch.connections
-    cfg, block, device = patch.cfg, patch.block, patch.device
+    fn = patch._fn
 
     def program(aux, dev_aux, state):
         args = (aux, dev_aux, state)
         structure = []
 
         def one(*leaves):
-            a, h, s = tree_unflatten(args, leaves)
-            _, new_state, taps = run_modules(order, entries, connections, a, h, s, cfg,
-                                             block, device)
+            new_state, taps = fn(*tree_unflatten(args, leaves))
             structure.append((new_state, taps))
             return tuple(tree_leaves((new_state, taps)))
 

@@ -1,5 +1,5 @@
 """One part of the whole-graph region program: the CUDA kernel's wrapper and
-its plain twin, both over one part and one plan.
+its plain twin, over one part and one plan, for one block or a batch.
 
 ``region_part_cuda`` replaces the TPU kernel built by
 ``mixlab_tpu/engine/pallas_graph.py:build_mega_program`` / ``_make_kernel``
@@ -12,24 +12,38 @@ modules emitted — over one part of ``S`` samples:
 
 ``operands`` are the plan's first slots (f32, or i16 where an ``OP_I16``
 reads them), ``pf`` the parameter row (param scalars, then the plan's
-constants), ``sf`` the state row; ``ef`` comes back laid out like ``sf``
-(the layout law), so it is the next part's state row.  The kernel is
-``csrc/region.cu``: one cooperative launch per part that walks the plan,
-each CTA over ``RUN`` contiguous chunks of 128 samples (a longer run when
-the CTAs would not fit on the card at once, ``eq_cuda.scan_plan``), its EQ
-through the core the eq kernel uses (``csrc/eq_scan.cuh``); see the
-source's header note for what bounds it.
+constants, unless ``consts`` holds those), ``sf`` the state row; ``ef`` comes
+back laid out like ``sf`` (the layout law), so it is the next part's state
+row.  The kernel is ``csrc/region.cu``: one cooperative launch per part that
+walks the plan, each CTA over ``RUN`` contiguous chunks of 128 samples (a
+longer run when the CTAs would not fit on the card at once,
+``eq_cuda.scan_plan``), its EQ through the core the eq kernel uses
+(``csrc/eq_scan.cuh``); see the source's header note for what bounds it.
 
-``region_part_torch`` is the plain PyTorch twin: the same plan, op by op,
-in the JAX emit's order and rounding, with EqThree through
-``eq_cuda.eq_cascade_torch``.  The wrapper uses it only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+``region_part_batched`` is the same part over B rows, what ``jax.vmap`` of
+the TPU kernel computes for the fleet's sessions and the stems: each operand
+``[B, S]`` (any row stride, unit sample stride) or ``[S]`` (one row every
+instance shares, read with row stride 0, never expanded), ``pf`` ``[B, n_pf]``
+or ``[n_pf]``, ``sf`` ``[B, n_ef]`` or ``[n_ef]``, the plan's constants one
+row -> ``(taps [B, n_taps, S], stap [B, n_stap], ef [B, n_ef])``.  ONE launch
+whatever B, in one of two forms (``batch_plan``): the cooperative grid with
+``gridDim.y = B`` where B x its CTAs fit on the card, else one CTA a row
+walking its tiles.  Under ``torch.func.vmap`` (the batched program of
+``engine.compiler.batched_program``) ``region_part_cuda`` becomes the custom
+op ``mixlab_tpu_torch::region_part``, whose batching rule makes that one
+call.
+
+``region_part_torch`` / ``region_part_torch_batched`` are the plain PyTorch
+twins: the same plan, op by op, in the JAX emit's order and rounding, with
+EqThree through ``eq_cuda.eq_cascade_torch_batched``; the single twin is the
+batched one at B = 1.  The wrappers use them only for tensors on the CPU;
+for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,7 +60,7 @@ from mixlab_tpu_torch.dsp.base import (
     OP_TAP,
     RegionPlan,
 )
-from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_torch, scan_plan
+from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_torch_batched, scan_plan
 from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 
 CHUNK = 128  # samples per chunk = threads per CTA of the kernel
@@ -55,53 +69,88 @@ CHUNK = 128  # samples per chunk = threads per CTA of the kernel
 RUN = 4
 # chunks one launch takes; the region program's parts stay below
 MAX_CHUNKS = 4096
+# the one-CTA-a-row form: chunks a tile, and the dynamic shared memory it may
+# ask for (the EQ's staged tile and a tile of each scratch slot; a Hopper CTA
+# may have 227 KB; csrc/region.cu kSeqShared)
+SEQ_RUN = 4
+SEQ_SHARED = 200 * 1024
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def region_part_torch(plan: RegionPlan, operands: Sequence[torch.Tensor],
-                      pf: torch.Tensor, sf: torch.Tensor, S: int) -> Result:
-    """Plain PyTorch run of ``plan`` over one part of ``S`` samples."""
-    dev = pf.device
-    slots = list(operands) + [None] * (plan.n_slots - plan.n_operands)
-    taps = torch.empty((plan.n_taps, S), dtype=torch.float32, device=dev)
-    stap = torch.empty((plan.n_stap,), dtype=torch.float32, device=dev)
-    ef = torch.empty((plan.n_ef,), dtype=torch.float32, device=dev)
+def region_part_torch_batched(plan: RegionPlan, operands: Sequence[torch.Tensor],
+                              pf: torch.Tensor, sf: torch.Tensor, S: int,
+                              consts: torch.Tensor, batch: int) -> Result:
+    """Plain PyTorch run of ``plan`` over ``batch`` rows of one part of
+    ``S`` samples (shapes as ``region_part_batched``'s)."""
+    B, dev = batch, pf.device
+    rows = lambda t, n: t.expand(B, n) if t.dim() == 1 else t
+    prm = torch.cat([rows(pf, plan.n_pf), rows(consts.to(dev), consts.shape[-1])], dim=1)
+    sfr = rows(sf, plan.n_ef)
+    slots: List[Optional[torch.Tensor]] = (
+        [v.expand(B, S) if v.dim() == 1 else v for v in operands]
+        + [None] * (plan.n_slots - plan.n_operands))
+    taps = torch.empty((B, plan.n_taps, S), dtype=torch.float32, device=dev)
+    stap = torch.empty((B, plan.n_stap), dtype=torch.float32, device=dev)
+    ef = torch.empty((B, plan.n_ef), dtype=torch.float32, device=dev)
+
+    def col(i):  # parameter i of every row, [B, 1]
+        return prm[:, i, None]
+
     for code, a in plan.ops():
         if code == OP_SYNC:
             continue
         if code == OP_FILL:
-            slots[a[0]] = torch.zeros(S, dtype=torch.float32, device=dev) + pf[a[1]]
+            slots[a[0]] = torch.zeros((B, S), dtype=torch.float32, device=dev) + col(a[1])
         elif code == OP_AMP:
-            slots[a[0]] = slots[a[1]] * pf[a[2]]
+            slots[a[0]] = slots[a[1]] * col(a[2])
         elif code == OP_AMP_MOD:
-            md = pf[a[4]]
-            scale = ((1.0 - md) + md * slots[a[2]]) * pf[a[3]]
+            md = col(a[4])
+            scale = ((1.0 - md) + md * slots[a[2]]) * col(a[3])
             slots[a[0]] = slots[a[1]] * scale
         elif code == OP_MIX:
             n = a[1]
             # Python's sum, left to right from 0, as the JAX emit mixes
-            slots[a[0]] = sum(pf[a[2 + n + j]] * slots[a[2 + j]] for j in range(n))
+            slots[a[0]] = sum(col(a[2 + n + j]) * slots[a[2 + j]] for j in range(n))
         elif code == OP_I16:
             slots[a[0]] = slots[a[1]].to(torch.float32) * (1.0 / 32768.0)
         elif code == OP_TAP:
-            taps[a[0]] = slots[a[1]]
+            taps[:, a[0]] = slots[a[1]]
         elif code == OP_PEAK:
-            stap[a[0]] = torch.maximum(slots[a[1]].abs(), slots[a[2]].abs()).max()
+            # amax lets a NaN through, as jnp.max does
+            stap[:, a[0]] = torch.maximum(slots[a[1]].abs(), slots[a[2]].abs()).amax(dim=1)
         elif code == OP_EQ:
             dst, x, _, s0, g0, _, e0, sample_rate = a
             xs = slots[x]
-            xd = torch.cat([sf[s0 + 8:s0 + 11], xs])[:S]  # eq_three.rs:71-79
-            out, poles = eq_cascade_torch(
-                xs, xd, sf[s0:s0 + 8].reshape(4, 2), pf[g0:g0 + 3],
+            xd = torch.cat([sfr[:, s0 + 8:s0 + 11], xs], dim=1)[:, :S]  # eq_three.rs:71-79
+            out, poles = eq_cascade_torch_batched(
+                xs, xd, sfr[:, s0:s0 + 8].reshape(B, 4, 2), prm[:, g0:g0 + 3],
                 _filter_coeff(FREQ_LO, sample_rate), _filter_coeff(FREQ_HI, sample_rate),
                 VSA)
-            ef[e0:e0 + 8] = poles.reshape(-1)
-            ef[e0 + 8:e0 + 11] = xs[S - 3:]
+            ef[:, e0:e0 + 8] = poles.reshape(B, 8)
+            ef[:, e0 + 8:e0 + 11] = xs[:, S - 3:]
             slots[dst] = out
         else:
             raise ValueError(f"region plan: unknown op code {code}")
     return taps, stap, ef
+
+
+def _split(plan: RegionPlan, pf: torch.Tensor, consts):
+    """``(param scalars, constants)``: ``consts`` where given, else the tail
+    of ``pf`` (a single part's row)."""
+    if consts is None:
+        return pf[:plan.n_pf], pf[plan.n_pf:]
+    return pf, consts
+
+
+def region_part_torch(plan: RegionPlan, operands: Sequence[torch.Tensor],
+                      pf: torch.Tensor, sf: torch.Tensor, S: int,
+                      consts: Optional[torch.Tensor] = None) -> Result:
+    """Plain PyTorch run of ``plan`` over one part of ``S`` samples: the
+    batched twin at B = 1."""
+    pf, consts = _split(plan, pf, consts)
+    taps, stap, ef = region_part_torch_batched(plan, operands, pf, sf, S, consts, 1)
+    return taps[0], stap[0], ef[0]
 
 
 def operand_dtypes(plan: RegionPlan):
@@ -116,8 +165,40 @@ def operand_dtypes(plan: RegionPlan):
 
 @functools.lru_cache(maxsize=None)
 def resident_tiles(index: int) -> int:
-    """CTAs of the region kernel that card ``index`` holds at once."""
+    """CTAs of the region kernel's cooperative form that card ``index``
+    holds at once."""
     return kernels.query("mixlab_region_resident_tiles", "region occupancy query", index)
+
+
+def seq_shared_bytes(n_scratch: int, run: int) -> int:
+    """Dynamic shared memory of the one-CTA-a-row form: the EQ's staged
+    tile (x and xd) and a tile of each of ``n_scratch`` scratch slots."""
+    return 4 * (2 * CHUNK * (run + 1) + n_scratch * CHUNK * run)
+
+
+def seq_run(n_scratch: int, run: int = SEQ_RUN) -> int:
+    """The tile's chunks of the one-CTA-a-row form: ``run``, halved while
+    the tiles of the plan's scratch slots would not fit ``SEQ_SHARED``."""
+    while run > 1 and seq_shared_bytes(n_scratch, run) > SEQ_SHARED:
+        run //= 2
+    if seq_shared_bytes(n_scratch, run) > SEQ_SHARED:
+        raise ValueError(f"region_part: {n_scratch} scratch slots do not fit a CTA's shared "
+                         "memory")
+    return run
+
+
+def batch_plan(S: int, batch: int, resident: int, n_scratch: int):
+    """``(sequential, run, tiles)`` for ``batch`` rows of one part of S
+    samples in one launch: the cooperative grid of ``scan_plan`` (``tiles``
+    x ``batch`` CTAs of ``run`` chunks) where it fits the card
+    (``sequential`` False), else one CTA a row walking its ``tiles`` tiles
+    of ``run`` chunks (``seq_run``) in order (``sequential`` True: no grid
+    barrier, any ``batch``)."""
+    try:
+        return (False, *scan_plan(S, resident, CHUNK, RUN, batch))
+    except ValueError:
+        run = seq_run(n_scratch)
+        return True, run, -(-S // (CHUNK * run))
 
 
 @functools.lru_cache(maxsize=64)
@@ -125,53 +206,135 @@ def _device_ops(words: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int32).to(device)
 
 
-def _check_tensor(t, what, dtype, dtype_text, n, index) -> None:
-    if not (isinstance(t, torch.Tensor) and t.is_cuda and t.get_device() == index
-            and t.dtype == dtype and t.shape == (n,) and t.is_contiguous()):
-        raise ValueError(
-            f"region_part: {what}: expected a contiguous {dtype_text} tensor of shape ({n},) on "
-            f"{torch.device('cuda', index)}, got {getattr(t, 'dtype', type(t))} "
-            f"{tuple(getattr(t, 'shape', ()))} on {getattr(t, 'device', None)}")
+def _check_tensor(t, what, dtype, n, batch, index) -> int:
+    """The row stride in bytes of ``t``: ``[batch, n]`` rows of unit element
+    stride (any row stride), or ``[n]`` contiguous, one row every instance
+    reads (row stride 0)."""
+    if (isinstance(t, torch.Tensor) and t.is_cuda and t.get_device() == index
+            and t.dtype == dtype and t.dim() in (1, 2) and t.shape[-1] == n
+            and (t.dim() == 1 or t.shape[0] == batch) and (n <= 1 or t.stride(-1) == 1)):
+        return t.stride(0) * t.element_size() if t.dim() == 2 else 0
+    raise ValueError(
+        f"region_part: {what}: expected a {dtype} tensor of shape ({n},) or ({batch}, {n}) "
+        f"with unit element stride on {torch.device('cuda', index)}, got "
+        f"{getattr(t, 'dtype', type(t))} {tuple(getattr(t, 'shape', ()))} on "
+        f"{getattr(t, 'device', None)}")
 
 
-def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
-                     pf: torch.Tensor, sf: torch.Tensor, S: int, run: int = RUN) -> Result:
-    """One part of the region: the CUDA kernel for CUDA tensors, the plain
-    twin for CPU tensors.  ``run``: chunks a CTA owns at the least."""
-    if pf.is_cpu:
-        return region_part_torch(plan, operands, pf, sf, S)
-    index = kernels.cuda_index(pf, "region_part")
+def _launch(plan, operands, pf, sf, S, consts, batch, index, run=RUN, sequential=None) -> Result:
+    """One launch over ``batch`` rows (shapes as ``region_part_batched``'s):
+    ``batch_plan``'s form unless ``sequential`` forces one (with ``run``)."""
     if not (S > 0 and S % CHUNK == 0 and S // CHUNK <= MAX_CHUNKS):
         raise ValueError(f"region_part: S = {S} must be a positive multiple of {CHUNK} of at "
                          f"most {MAX_CHUNKS} chunks")
     if len(operands) != plan.n_operands:
         raise ValueError(f"region_part: {len(operands)} operands for a plan of "
                          f"{plan.n_operands}")
-    for i, (v, dt) in enumerate(zip(operands, operand_dtypes(plan))):
-        _check_tensor(v, f"operand {i}", dt, dt, S, index)
-    _check_tensor(pf, "pf", torch.float32, "float32", plan.n_pf + plan.n_consts, index)
-    _check_tensor(sf, "sf", torch.float32, "float32", plan.n_ef, index)
+    strides = [_check_tensor(v, f"operand {i}", dt, S, batch, index)
+               for i, (v, dt) in enumerate(zip(operands, operand_dtypes(plan)))]
+    pf_stride = _check_tensor(pf, "pf", torch.float32, plan.n_pf, batch, index)
+    sf_stride = _check_tensor(sf, "sf", torch.float32, plan.n_ef, batch, index)
+    if not (isinstance(consts, torch.Tensor) and consts.dim() == 1):
+        raise ValueError("region_part: consts: the plan's constants are one 1-D row")
+    _check_tensor(consts, "consts", torch.float32, plan.n_consts, batch, index)
 
+    n_scratch = plan.n_slots - plan.n_operands
+    if sequential is None:
+        sequential, run, tiles = batch_plan(S, batch, resident_tiles(index), n_scratch)
+    elif sequential:
+        run = seq_run(n_scratch, run)
+        tiles = -(-S // (CHUNK * run))
+    else:
+        run, tiles = scan_plan(S, resident_tiles(index), CHUNK, run, batch)
     dev = pf.device
-    run, tiles = scan_plan(S, resident_tiles(index), CHUNK, run)
     ops = _device_ops(tuple(plan.words), dev)
-    scratch = torch.empty((plan.n_slots - plan.n_operands, S), dtype=torch.float32,
-                          device=dev)
+    table = [(v.data_ptr(), s) for v, s in zip(operands, strides)]
+    if sequential:  # the scratch slots are tiles in shared memory
+        table += [(0, 0)] * n_scratch
+    else:
+        scratch = torch.empty((batch, n_scratch, S), dtype=torch.float32, device=dev)
+        table += [(scratch[0, i].data_ptr(), 4 * n_scratch * S) for i in range(n_scratch)]
     # pinned, so the upload does not wait for the work already queued
-    ptrs = torch.tensor([v.data_ptr() for v in operands]
-                        + [scratch[i].data_ptr() for i in range(scratch.shape[0])],
-                        dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
-    taps = torch.empty((plan.n_taps, S), dtype=torch.float32, device=dev)
-    stap = torch.empty((plan.n_stap,), dtype=torch.float32, device=dev)
-    ef = torch.empty((plan.n_ef,), dtype=torch.float32, device=dev)
+    slots = torch.tensor(table, dtype=torch.int64).reshape(-1, 2).pin_memory().to(
+        dev, non_blocking=True)
+    taps = torch.empty((batch, plan.n_taps, S), dtype=torch.float32, device=dev)
+    stap = torch.empty((batch, plan.n_stap), dtype=torch.float32, device=dev)
+    ef = torch.empty((batch, plan.n_ef), dtype=torch.float32, device=dev)
     kernels.launch(
         "mixlab_region_part", "region kernel launch", index,
-        ops.data_ptr(), ops.numel(), ptrs.data_ptr(), pf.data_ptr(),
-        sf.data_ptr(), taps.data_ptr(), stap.data_ptr(), plan.n_stap,
-        ef.data_ptr(), S, run, tiles,
+        ops.data_ptr(), ops.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
+        pf.data_ptr(), pf_stride // 4, plan.n_pf, consts.data_ptr(), sf.data_ptr(),
+        sf_stride // 4, taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap,
+        ef.data_ptr(), plan.n_ef, S, batch, int(sequential), run, tiles,
     )
     region_part_cuda.launches += 1
     return taps, stap, ef
 
 
+def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
+                     pf: torch.Tensor, sf: torch.Tensor, S: int,
+                     consts: Optional[torch.Tensor] = None, run: int = RUN) -> Result:
+    """One part of the region: the CUDA kernel for CUDA tensors, the plain
+    twin for CPU tensors.  ``consts``: the plan's constants (None: the tail
+    of ``pf``); ``run``: chunks a CTA owns at the least.  Under
+    ``torch.func.vmap`` it is the custom op ``mixlab_tpu_torch::region_part``,
+    whose batching rule makes one ``region_part_batched`` call over the
+    whole batch (the constants then one row every instance reads)."""
+    if kernels.is_batched(pf, sf, *operands):
+        pf, consts = _split(plan, pf, consts)
+        return torch.ops.mixlab_tpu_torch.region_part(
+            list(plan.words), plan.meta(), consts, list(operands), pf, sf, S)
+    if pf.is_cpu:
+        return region_part_torch(plan, operands, pf, sf, S, consts)
+    index = kernels.cuda_index(pf, "region_part")
+    if consts is not None:  # one row: the kernel reads the constants after the params
+        pf = torch.cat([pf, consts])
+    pf, consts = _split(plan, pf, None)
+    taps, stap, ef = _launch(plan, operands, pf, sf, S, consts, 1, index, run, False)
+    return taps[0], stap[0], ef[0]
+
+
 region_part_cuda.launches = 0
+
+
+def region_part_batched(plan: RegionPlan, operands: Sequence[torch.Tensor],
+                        pf: torch.Tensor, sf: torch.Tensor, S: int, consts: torch.Tensor,
+                        batch: int, run: int = RUN, sequential: Optional[bool] = None) -> Result:
+    """One part of the region over ``batch`` rows, what ``jax.vmap`` of the
+    TPU kernel computes: ONE kernel launch for CUDA tensors, whatever the
+    batch (``batch_plan``, or the form ``sequential`` forces, with
+    ``run``); the batched twin for CPU tensors."""
+    if pf.is_cpu:
+        return region_part_torch_batched(plan, operands, pf, sf, S, consts, batch)
+    index = kernels.cuda_index(pf, "region_part")
+    return _launch(plan, operands, pf, sf, S, consts, batch, index, run, sequential)
+
+
+@torch.library.custom_op("mixlab_tpu_torch::region_part", mutates_args=())
+def _region_part_op(words: List[int], meta: List[int], consts: torch.Tensor,
+                    operands: List[torch.Tensor], pf: torch.Tensor, sf: torch.Tensor,
+                    S: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    taps, stap, ef = region_part_cuda(RegionPlan.from_words(words, meta), operands, pf, sf, S,
+                                      consts)
+    return taps.clone(), stap.clone(), ef.clone()  # a custom op's outputs alias nothing
+
+
+def _batch_first(t: torch.Tensor, dim) -> torch.Tensor:
+    """A batched argument with its batch axis first and unit element
+    stride; an unbatched one as it is (read with row stride 0)."""
+    if dim is None:
+        return t
+    t = t.movedim(dim, 0)
+    return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
+
+
+@_region_part_op.register_vmap
+def _region_part_vmap(info, in_dims, words, meta, consts, operands, pf, sf, S):
+    if in_dims[2] is not None:
+        raise ValueError("region_part: the plan's constants must be one row for every instance")
+    out = region_part_batched(
+        RegionPlan.from_words(words, meta),
+        [_batch_first(v, d) for v, d in zip(operands, in_dims[3])],
+        _batch_first(pf, in_dims[4]), _batch_first(sf, in_dims[5]), S, consts,
+        info.batch_size)
+    return out, (0, 0, 0)

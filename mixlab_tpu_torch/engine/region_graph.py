@@ -24,8 +24,12 @@ The region's modules emit one :class:`~mixlab_tpu_torch.dsp.base.RegionPlan`
 launch each; part N's exit row (the eq poles and delay history) is part
 N+1's state row by the layout law.  Taps are concatenated over the parts
 and reshaped to ``[T, spt]``; scalar taps combine with max.  The program is
-a drop-in ``program(aux, host_aux, state)`` for the regular one, with taps
-and state of the same structure and dtypes.
+a drop-in ``program(aux, dev_aux, state)`` for the regular one, with taps
+and state of the same structure and dtypes.  As the JAX fleet runs
+``jax.vmap`` of its region program, ``engine.compiler.batched_program``
+maps this program over the instances with ``torch.func.vmap``: each part is
+then one launch for every instance (``region_cuda.region_part_cuda``'s custom
+op), the operands an instance shares read once.
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from mixlab_tpu_torch import kernels
 from mixlab_tpu_torch.dsp.base import OP_PEAK, OP_TAP, EmitCtx, MegaSpec, Peak, RegionPlan
 from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine import region_cuda
-from mixlab_tpu_torch.engine.compiler import _mid_key, run_modules, upload_all
+from mixlab_tpu_torch.engine.compiler import _mid_key, run_modules
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.protocol import InputId, LineType, OutputId
 
@@ -131,10 +136,11 @@ def _flat(items) -> List[torch.Tensor]:
 
 
 def build_mega_program(ws, cfg: EngineConfig, block: BlockSpec, device: torch.device):
-    """Returns ``program(aux, host_aux, state) -> (new_state, taps)`` with
+    """Returns ``program(aux, dev_aux, state) -> (new_state, taps)`` with
     the region run as one launch per part, or None if the graph / block
     doesn't qualify.  Drop-in for the regular program of
-    ``engine.compiler.compile_patch``; ``host_aux`` is numpy, uploaded here."""
+    ``engine.compiler.compile_patch``; ``dev_aux`` is the block's host
+    arrays on the device (``compiler.upload_all``)."""
     S = block.n_samples(cfg)
     parts = _partition(S)
     if parts is None:
@@ -167,8 +173,7 @@ def build_mega_program(ws, cfg: EngineConfig, block: BlockSpec, device: torch.de
         exit_at[mid] = (n_ef, d["exit_f"])
         n_ef += d["exit_f"]
 
-    def program(aux, host_aux, state):
-        dev_aux = upload_all(host_aux, device)
+    def program(aux, dev_aux, state):
         # the prelude: the modules outside the region, through run_block
         buffers, new_state, taps_all = run_modules(
             prelude_order, entries, connections, aux, dev_aux, state, cfg, block, device)
@@ -265,16 +270,20 @@ def build_mega_program(ws, cfg: EngineConfig, block: BlockSpec, device: torch.de
                     tap_slots.append((mid, name, c if chans == 2 else None))
         plan.n_taps, plan.n_stap = len(tap_slots), len(stap_slots)
 
-        pf = torch.cat(pf_items + [torch.from_numpy(plan.const_row()).to(device)])
-        sf = (torch.cat(sf_items) if sf_items
-              else torch.zeros(0, dtype=torch.float32, device=device))
+        empty = torch.zeros(0, dtype=torch.float32, device=device)
+        sf = torch.cat(sf_items) if sf_items else empty
+        consts = torch.from_numpy(plan.const_row()).to(device)
+        if kernels.is_batched(*pf_items):  # under vmap: one row of constants for all
+            pf, consts = (torch.cat(pf_items) if pf_items else empty), (consts,)
+        else:  # the parameter row: the param scalars, then the constants
+            pf, consts = torch.cat(pf_items + [consts]), ()
 
         # ---- one launch per part -------------------------------------------
         part_taps: List[torch.Tensor] = []
         stap = ef = None
         for a, b in parts:
             taps_p, stap_p, ef = region_cuda.region_part_cuda(
-                plan, [v[a:b] for v in operand_vals], pf, sf, b - a)
+                plan, [v[a:b] for v in operand_vals], pf, sf, b - a, *consts)
             part_taps.append(taps_p)
             stap = stap_p if stap is None else torch.maximum(stap, stap_p)
             sf = ef  # exits ARE the next part's state scalars (layout law)

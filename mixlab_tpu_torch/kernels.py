@@ -54,6 +54,7 @@ NVCC_FLAGS = (
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
+_c_llong = ctypes.c_longlong
 _c_float = ctypes.c_float
 
 # C entry points: name -> argtypes (every function returns a cudaError_t int);
@@ -77,9 +78,12 @@ _SIGNATURES = {
         _c_int, _c_ptr,                                  # device, stream
     ],
     "mixlab_region_part": [
-        _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr,  # ops, n_words, slots, pf, sf
-        _c_ptr, _c_ptr, _c_int, _c_ptr,          # taps, stap, n_stap, ef
-        _c_int, _c_int, _c_int,                  # S, run, tiles
+        _c_ptr, _c_int, _c_ptr, _c_int, _c_int,  # ops, n_words, slots, n_operands, n_slots
+        _c_ptr, _c_llong, _c_int, _c_ptr,        # pf, pf_stride, n_pf, consts
+        _c_ptr, _c_llong,                        # sf, sf_stride
+        _c_ptr, _c_int, _c_ptr, _c_int,          # taps, n_taps, stap, n_stap
+        _c_ptr, _c_int,                          # ef, n_ef
+        _c_int, _c_int, _c_int, _c_int, _c_int,  # S, batch, sequential, run, tiles
         _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_crossfade": [

@@ -6,11 +6,12 @@ a mesh of devices (port of ``mixlab_tpu/parallel/``): the fleet
 The JAX package runs one program over a ``jax.sharding.Mesh`` with
 ``shard_map``.  The port's ``Mesh`` is the sequence of ``torch.device``s
 this process drives, one shard each, in order.  Each shard runs the patch's
-batched program (``engine.compiler.batched_program``) on its own device;
-launches are asynchronous, so distinct cards overlap.  The same device may
-appear more than once: a mesh of 8 CPU entries is the port's counterpart of
-the JAX tests' 8 virtual CPU devices, and 2 or 4 entries on one card run the
-sharded paths there.
+batched program (``engine.compiler.batched_program``) on its own device:
+the region program where the block qualifies, else the regular one, as the
+JAX package's ``compile_patch`` chooses; launches are asynchronous, so
+distinct cards overlap.  The same device may appear more than once: a mesh
+of 8 CPU entries is the port's counterpart of the JAX tests' 8 virtual CPU
+devices, and 2 or 4 entries on one card run the sharded paths there.
 
 An optional ``torch.distributed`` process group joins the meshes of several
 processes into one (``distributed.bring_up``): this process's shards are
@@ -103,15 +104,15 @@ def as_mesh(device="cuda", mesh=None, axis: str = "stems") -> Mesh:
     return make_mesh(axis=axis, devices=[device] if mesh is None else list(mesh))
 
 
-def shard_programs(ws, cfg, block, mesh: Mesh, n: int):
-    """``ws``'s patch compiled once a distinct device of ``mesh``, its batched
-    program, and the rows ``[lo, hi)`` of ``n`` that each of this process's
-    shards holds: -> ``(patches, programs, bounds)``, the first two keyed
-    by device."""
+def shard_programs(ws, cfg, block, mesh: Mesh, n: int, mega: Optional[bool] = None):
+    """``ws``'s patch compiled once a distinct device of ``mesh`` (the
+    program ``compile_patch`` chooses by ``mega``), its batched program, and
+    the rows ``[lo, hi)`` of ``n`` that each of this process's shards holds:
+    -> ``(patches, programs, bounds)``, the first two keyed by device."""
     patches: Dict[torch.device, CompiledPatch] = {}
     for dev in mesh:
         if dev not in patches:
-            patches[dev] = compile_patch(ws, cfg, block, dev, mega=False)
+            patches[dev] = compile_patch(ws, cfg, block, dev, mega)
     programs = {dev: batched_program(p) for dev, p in patches.items()}
     return patches, programs, mesh.bounds(n)
 

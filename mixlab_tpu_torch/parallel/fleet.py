@@ -3,14 +3,18 @@ split over a mesh of devices (port of ``mixlab_tpu/parallel/fleet.py``).
 
 A ``Fleet`` runs N instances of one compiled patch — the same graph
 structure, each instance with its own params (aux), DSP state and host
-arrays — as the patch's regular block program mapped over a leading
-instance axis (``engine.compiler.batched_program``).  The instances are
-split into contiguous shards, one a mesh entry (``parallel.Mesh``), as the
-JAX package's ``P(axis)`` splits them; each shard's program runs on its own
-device, so one call renders a block for every session and each kernel on
-the path (the EqThree's, the Envelope's at offline block sizes) launches
-once a block a shard.  The taps come back in instance order on the first
-shard's device.
+arrays — as the patch's block program mapped over a leading instance axis
+(``engine.compiler.batched_program``): the region program where the block
+qualifies (e.g. 16 ticks at 48 kHz: one region launch a part a shard), as
+the JAX fleet runs ``jax.vmap`` of its chosen program, else the regular
+one.  The instances are split into contiguous shards, one a mesh entry
+(``parallel.Mesh``), as the JAX package's ``P(axis)`` splits them; each
+shard's program runs on its own device, so one call renders a block for
+every session and each kernel on the path (the region's, or the EqThree's;
+the Envelope's at offline block sizes) launches once a block a shard.  The
+region program keeps the regular program's state and tap structure, so
+edits, resets and checkpoints are the same on both.  The taps come back in
+instance order on the first shard's device.
 
 A param edit of one instance writes its row of the stacked aux, which is
 kept in host memory as numpy (as the JAX package keeps it) and shipped to
@@ -138,6 +142,7 @@ class Fleet:
         mesh=None,
         axis: str = "fleet",
         tap_transform: Optional[Callable] = None,
+        mega: Optional[bool] = None,
     ) -> "Fleet":
         """One program a device, n stacked instances split over ``mesh``
         (``n`` a multiple of its size), or on ``device`` alone.
@@ -145,12 +150,13 @@ class Fleet:
         ``per_instance_params``: n workspaces of the SAME structural
         fingerprint with their own continuous params.  ``tap_transform``: a
         device-side pass over each shard's stacked taps (e.g. f32 -> i16
-        PCM)."""
+        PCM).  ``mega``: the program choice of ``compile_patch`` (None: the
+        region program where the block qualifies)."""
         m = as_mesh(device, mesh, axis)
         if m.group is not None:
             raise ValueError("a fleet runs in one process: place sessions on processes "
                              "with distributed.fleet_owner, and give each a local mesh")
-        patches, programs, bounds = shard_programs(ws, cfg, block, m, n)
+        patches, programs, bounds = shard_programs(ws, cfg, block, m, n, mega)
         patch = patches[m[0]]
         if per_instance_params is None:
             # identical instances share ONE params view (host_aux then
@@ -160,6 +166,7 @@ class Fleet:
         else:
             if len(per_instance_params) != n:
                 raise ValueError(f"{len(per_instance_params)} instance workspaces for n={n}")
+            # params views: their programs never run, so no region is built
             views = [compile_patch(w, cfg, block, m[0], mega=False) for w in per_instance_params]
             if {v.structural_fingerprint for v in views} != {patch.structural_fingerprint}:
                 raise ValueError("fleet instances must share the structural fingerprint")

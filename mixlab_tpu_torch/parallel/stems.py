@@ -2,11 +2,12 @@
 
 N copies of a patch ("stems", e.g. config 3's 16 stereo stems) are split
 into contiguous shards, one a mesh entry (``parallel.Mesh``).  Each shard
-runs the patch's regular block program mapped over its stems on its own
-device (``engine.compiler.batched_program``: each kernel launches once a
-block a shard), and the cross-stem mixdown, a ``psum`` over the mesh in the
-JAX package, is the masked sum over each shard's stems, then the sum over
-the shards (``parallel.psum``).  The stems are padded up to a multiple of
+runs the patch's block program mapped over its stems on its own device
+(``engine.compiler.batched_program``: the region program where the block
+qualifies, as the JAX stems' ``compile_patch``, else the regular one; each
+kernel launches once a block a shard), and the cross-stem mixdown, a
+``psum`` over the mesh in the JAX package, is the masked sum over each
+shard's stems, then the sum over the shards (``parallel.psum``).  The stems are padded up to a multiple of
 the mesh size; the pad stems run and add exact zeros, their mask built from
 the shard's position, so ``n_stems`` need not divide anything.
 

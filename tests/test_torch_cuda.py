@@ -211,6 +211,81 @@ def test_region_wrapper_rejects_bad_tensors_and_counts_launches(dev):
     assert region_cuda.region_part_cuda.launches == n + 1
 
 
+
+def test_batched_region_kernel_matches_twin_in_both_forms(dev):
+    """The flagship's region plan over 3 rows of 12,800 samples cut into two
+    parts of 6,400, 2 carried blocks, operand 0 one row every row reads
+    (row stride 0): the cooperative grid and one CTA a row each within 2e-5
+    of the batched twin, one launch a call."""
+    import chip_smoke
+    from mixlab_tpu_torch.engine import region_cuda as rc
+
+    plan, row, consts = chip_smoke.region_plans(torch)["flagship"]
+    consts = consts.to(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, half = 3, 6_400
+    s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+    sf = {f: s0.clone() for f in ("twin", False, True)}
+    for _ in range(2):
+        ops, pf = chip_smoke._region_inputs(torch, g, plan, row, B, 2 * half, dev, shared=(0,))
+        for a in (0, half):
+            part = [v[..., a:a + half] for v in ops]
+            want = rc.region_part_torch_batched(plan, part, pf, sf["twin"], half, consts, B)
+            sf["twin"] = want[2]
+            for form in (False, True):
+                n = rc.region_part_cuda.launches
+                got = rc.region_part_batched(plan, part, pf, sf[form], half, consts, B,
+                                             sequential=form)
+                torch.cuda.synchronize()
+                assert rc.region_part_cuda.launches == n + 1
+                sf[form] = got[2]
+                for x, y in zip(got, want):  # the flagship has no scalar tap: stap is empty
+                    assert chip_smoke._rows_err(torch, x, y) <= chip_smoke.REGION_ATOL
+
+
+def test_batched_region_wrapper_rejects_bad_tensors(dev):
+    from mixlab_tpu_torch.engine import region_cuda
+
+    plan, x, _, _ = _region_case(dev)
+    rows, none = torch.stack([x, -x]), torch.zeros((2, 0), device=dev)
+    consts = torch.zeros(0, device=dev)
+    n = region_cuda.region_part_cuda.launches
+    for op in (rows, x):  # two rows, and one row both rows read
+        taps, _, _ = region_cuda.region_part_batched(plan, [op], none, none, 4096, consts, 2)
+        torch.cuda.synchronize()
+        assert torch.equal(taps[:, 0], op.expand(2, -1))
+    wide = torch.zeros((2, 8192), device=dev)
+    for bad, c in (([rows[:1]], consts), ([wide[:, ::2]], consts), ([rows.cpu()], consts),
+                   ([rows.double()], consts), ([rows], consts[None])):
+        with pytest.raises(ValueError):
+            region_cuda.region_part_batched(plan, bad, none, none, 4096, c, 2)
+    assert region_cuda.region_part_cuda.launches == n + 2
+
+
+def test_fleet_region_block_launches_the_region_kernel_once(dev):
+    """4 sessions of the flagship at 48 kHz in 16-tick blocks on the card:
+    one region launch a block and no eq launch, taps within 2e-5 of the
+    same fleet on the CPU (the batched twin)."""
+    import chip_smoke
+    from mixlab_tpu_torch.engine import region_cuda
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(16)
+    wss = chip_smoke.fleet_workspaces(4)
+    fleets = [Fleet.build(wss[0], 4, cfg, block, per_instance_params=wss, device=d)
+              for d in ("cuda", "cpu")]
+    assert fleets[0].patch._mega
+    for b in range(2):
+        n, e = region_cuda.region_part_cuda.launches, eqc.eq_cascade_cuda.launches
+        got = fleets[0].run_block(b * 12_800)
+        torch.cuda.synchronize()
+        assert region_cuda.region_part_cuda.launches == n + 1
+        assert eqc.eq_cascade_cuda.launches == e
+        want = fleets[1].run_block(b * 12_800)
+        for x, y in zip(got["16"]["audio"], want["16"]["audio"]):
+            assert (x.cpu() - y).abs().max().item() <= chip_smoke.REGION_ATOL
+
 # n % 16 of 0, 1, 11 and 15; 1025x16 and 540x960 leave the last CTA of the
 # vector range ragged (chip_smoke phase 8)
 CROSSFADE_SHAPES = [(1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13), (17, 31), (5, 13),
@@ -622,9 +697,11 @@ def test_rtmp_ingest_uploads_pictures_to_the_card(dev):
 
 def test_stems_over_two_shards_of_the_card_match_one_device(dev):
     """The flagship's 5 stems over [cuda:0] x 2 (a pad stem on the second
-    shard), 16-tick blocks at 48 kHz (the eq kernel's gate open): the
-    master equals the one-device step's within 2e-4, one batched eq launch
-    a shard."""
+    shard), 16-tick blocks at 48 kHz (12,800 samples: the stems take the
+    region program, as the JAX stems do): the master equals the one-device
+    step's within 2e-4, one batched region launch a shard and no eq
+    launch."""
+    from mixlab_tpu_torch.engine import region_cuda
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.flagship import build_16_module_graph
     from mixlab_tpu_torch.parallel import make_mesh
@@ -637,10 +714,10 @@ def test_stems_over_two_shards_of_the_card_match_one_device(dev):
     fn, make_args, _ = stem_parallel_step(ws, cfg, block, str(mon.value), n_stems=5,
                                           mesh=make_mesh(2, devices=["cuda:0"]))
     args = make_args(0)
-    eqc.eq_cascade_cuda.launches = 0
+    eqc.eq_cascade_cuda.launches = region_cuda.region_part_cuda.launches = 0
     _, got = fn(*args)
     torch.cuda.synchronize()
-    assert eqc.eq_cascade_cuda.launches == 2
+    assert (region_cuda.region_part_cuda.launches, eqc.eq_cascade_cuda.launches) == (2, 0)
     assert (got - want).abs().max().item() <= 2e-4
 
 

@@ -5,7 +5,7 @@ the fleet's 15-tick blocks with per-instance params over carried blocks
 (both fleets start from the same state, carried by ``convert.py``), every
 slot against the port's own single-patch render, the batched twins of the
 eq and envelope kernels against their single twins, and a 16-tick case where
-the JAX fleet takes its region program."""
+both fleets take their region programs."""
 
 import json
 
@@ -229,20 +229,29 @@ def test_flagship_fleet_slots_equal_single_renders(flagship_fleets):
                 assert np.array_equal(g[i], w), (i, b)
 
 
-def test_region_blocks_match_jax_region_program():
+def test_region_blocks_match_jax_region_program(monkeypatch):
     """At 16 ticks (12,800 samples, a multiple of 128) the JAX fleet takes
-    its region program under vmap; the port's batched program stays the
-    regular one and agrees within REGION_ATOL.  The JAX fleet's program runs
-    unjitted here (op by op, the region in Pallas interpret mode), as
-    tests/test_torch_region.py runs it: jitted, XLA's fused FmSine phase
-    alone moves the taps by up to TAP_ATOL."""
+    its region program under vmap, and so does the port's: its batched
+    program is the region program under ``torch.func.vmap``, the region's
+    batched twin called once a part (one part a block), and it agrees within
+    REGION_ATOL.  The JAX fleet's program runs unjitted here (op by op, the
+    region in Pallas interpret mode), as tests/test_torch_region.py runs it:
+    jitted, XLA's fused FmSine phase alone moves the taps by up to
+    TAP_ATOL."""
+    from mixlab_tpu_torch.engine import region_cuda
+
     n = 2
     ws_j = jax_instances(n)
     fj = JaxFleet.build(ws_j[0], n, CFG48_J, JaxBlockSpec(16), per_instance_params=ws_j)
     assert fj.patch._mega
     fp = Fleet.build(_port(ws_j[0]), n, CFG48, BlockSpec(16),
                      per_instance_params=[_port(w) for w in ws_j], device="cpu")
+    assert fp.patch._mega
     fleet_from_jax(fj, fp)
+    parts = []
+    real = region_cuda.region_part_torch_batched
+    monkeypatch.setattr(region_cuda, "region_part_torch_batched",
+                        lambda *a: parts.append(a[-1]) or real(*a))
     program, state_j = jax.vmap(fj.patch._fn), fj.state
     spb = 16 * CFG48.samples_per_tick
     for b in range(2):
@@ -250,6 +259,7 @@ def test_region_blocks_match_jax_region_program():
         got = to_numpy(fp.run_block(b * spb))
         for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
             np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=REGION_ATOL)
+    assert parts == [n, n]  # one part a block, every session in one call
     for g, w in zip(tree_leaves(fleet_to_numpy(fp)[1]),
                     tree_leaves(jax.tree.map(np.asarray, state_j))):
         np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64), rtol=0,

@@ -15,7 +15,7 @@ from mixlab_tpu_torch.device import resolve_device
 from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_batched, envelope_block_cuda
 from mixlab_tpu_torch.dsp.eq_cuda import eq_cascade_batched, eq_cascade_cuda
 from mixlab_tpu_torch.dsp.registry import get_def
-from mixlab_tpu_torch.engine.region_cuda import region_part_cuda
+from mixlab_tpu_torch.engine.region_cuda import region_part_batched, region_part_cuda
 from mixlab_tpu_torch.tools.profile_env_eq import passthrough_cuda
 from mixlab_tpu_torch.video.blend import crossfade_cuda, crossfade_picture
 from mixlab_tpu_torch.video.resize_cuda import resize_picture_polyphase, resize_plane_polyphase
@@ -167,7 +167,8 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("wrapper", ["envelope", "eq", "region", "crossfade", "resize",
-                                     "passthrough", "envelope_batched", "eq_batched"])
+                                     "passthrough", "envelope_batched", "eq_batched",
+                                     "region_batched"])
 def test_wrappers_refuse_other_devices(wrapper):
     """Only CPU tensors take the plain twin; any other device launches the
     kernel or raises — here a meta tensor must raise, not fall back."""
@@ -210,9 +211,14 @@ def test_wrappers_refuse_other_devices(wrapper):
         plan = RegionPlan(n_operands=1, n_pf=0, n_ef=0)
         plan.add(OP_TAP, 0, 0)
         plan.n_taps = 1
+        empty = torch.empty(0, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
-            region_part_cuda(plan, [x], torch.empty(0, device="meta"),
-                             torch.empty(0, device="meta"), 4096)
+            if wrapper == "region":
+                region_part_cuda(plan, [x], empty, empty, 4096)
+            else:
+                region_part_batched(plan, [torch.empty((2, 4096), device="meta")],
+                                    torch.empty((2, 0), device="meta"),
+                                    torch.empty((2, 0), device="meta"), 4096, empty, 2)
 
 
 def test_kernel_library_name_tracks_sources():
