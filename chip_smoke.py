@@ -228,7 +228,31 @@ imports no jax.  Phases, any failure of which exits non-zero:
      peak memory of both programs; (c) fleet serving in 16-tick blocks: one
      region launch a block, slot PCM within 1 LSB of dedicated renders;
      (d) the fleet of 8,192 over a 4-entry mesh at 16 ticks: 4 region
-     launches a block, taps bit-equal to one device's.
+     launches a block, taps bit-equal to one device's;
+ 21. the live engine's edit path, after phase 10 and before phase 16 (and
+     phase 15's threads), each path with the launch counts set to 0 just
+     before and read just after: (a) the threaded realtime engine (the
+     flagship, 1080p and 720p cameras fed at 60 fps, the VideoMixer, the
+     crossfade kernel) for a 5 s quiet window, then 5 s of 10 structural
+     ops a second (create an oscillator, connect it to the Mixer, delete
+     it) and 30 VideoMixer fader edits a second: for each window the ticks,
+     the fewest in a second (at least 30), those over 16.667 ms and late on
+     the schedule, the tick wall's p50 and p99, ticks without exactly one
+     crossfade launch (none allowed); op to adoption p50 and max, no stale
+     program adopted, the final program the final workspace's; then, for
+     information, the same storm in direct drive (every op compiled and
+     adopted at once on the thread that ticks); (b) the 48 kHz stems
+     engine over a 2-entry mesh in 16-tick blocks, threaded, one structural
+     edit with the compile worker's warm held 0.6 s: one region launch a
+     shard every block before, during and after the warm, two on the
+     compile thread; (c) ``pipeline_depth`` 0, 1 and 2 on the realtime
+     engine in direct drive for 120 ticks: the routed Monitor audio and
+     composites identical, each d ticks later; (d) whether the libavcodec
+     shim builds here and the codec tier taken; where it does, the phase 17
+     clip through ``MediaPlayer._run_shim``.  Not in ``main``:
+     ``edit_attribution`` (the storm as the engine runs, with the warm beside
+     the ticks, with the warm a no-op and with every edit adopted at once,
+     in turns).
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -1152,7 +1176,8 @@ class Cameras:
         self.sizes = sizes
         self.sends = [source.RTMP_MOUNTPOINTS.connect(name) for name in names]
 
-    def publish(self, tick, frames) -> bool:
+    def publish(self, tick, frames, hold: int = 1) -> bool:
+        """``hold``: the frames' duration in ticks."""
         from mixlab_tpu_torch.utils.mtime import MediaDuration, MediaTime
         from mixlab_tpu_torch.video.frame import Picture, PictureSettings, VideoFrame
 
@@ -1161,7 +1186,7 @@ class Cameras:
         ok = True
         for send, size, pl in zip(self.sends, self.sizes, planes):
             vf = VideoFrame(Picture(PictureSettings(*size), pl),
-                            duration_hint=MediaDuration.new(1, 60))
+                            duration_hint=MediaDuration.new(hold, 60))
             ok = send.write_audio(t, pcm) and send.write_video(t, vf) and ok
         return ok
 
@@ -1186,7 +1211,7 @@ class NoCodec:
         pass
 
 
-def realtime_engine(device, cams):
+def realtime_engine(device, cams, pipeline_depth=0):
     """The port's ``Engine`` at 44.1 kHz, ``block_ticks=1``, built by one
     session's client ops: the flagship graph and, with ``cams``, two
     StreamInputs on those RTMP mountpoints and a VideoMixer(a=0, b=1,
@@ -1199,7 +1224,8 @@ def realtime_engine(device, cams):
     from mixlab_tpu_torch.flagship import realtime_video_ops
     from mixlab_tpu_torch.server import monitor
 
-    eng = Engine(cfg=EngineConfig(sample_rate=RT_RATE), block_ticks=1, device=device)
+    eng = Engine(cfg=EngineConfig(sample_rate=RT_RATE), block_ticks=1, device=device,
+                 pipeline_depth=pipeline_depth)
     sid, _, events = eng.connect_session()
     ops, ids = realtime_video_ops(p, cams)
     real, monitor.MonitorPipeline = monitor.MonitorPipeline, NoCodec
@@ -4264,6 +4290,573 @@ def scale_out(torch, np, dev, card, tmp: Path):
     return paths
 
 
+# --------------------------------------------------------------------------
+# phase 21: the live engine's edit path
+
+EDIT_WINDOW_S = 5.0
+EDIT_STRUCT_HZ = 10        # structural ops a second: create, connect, delete an oscillator
+EDIT_FADER_HZ = 30         # VideoMixer fader edits a second (param-only)
+EDIT_MIN_TICKS_A_S = 30
+EDIT_HOLD_TICKS = 6        # the storm's camera frames last 6 ticks: a feeder's jitter
+                           # never leaves the mixer without a picture
+EDIT_MESH_TICKS = 16       # 12,800 samples at 48 kHz: the region program
+EDIT_MESH_HOLD_S = 0.6     # the mesh engine's warm held this long, as a long compile
+EDIT_DEPTHS = (0, 1, 2)
+EDIT_DEPTH_TICKS = 120
+TICK_BUDGET_S = 1.0 / 60
+
+
+def _ms(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) * 1e3 if len(xs) else float("nan")
+
+
+class EditProbe:
+    """Records an engine's ticks (through its ``EngineStat.record_tick``:
+    start, end, deadline, the crossfade launches made in the tick), its
+    rebuilds (after each client op's rebuild: the time, the compile
+    generation and whether a compile is pending) and its adoptions (the
+    time, the generation, and whether the adopted program runs the
+    workspace as it stands)."""
+
+    def __init__(self, eng):
+        from mixlab_tpu_torch.engine.engine import Engine
+        from mixlab_tpu_torch.video.blend import crossfade_cuda
+
+        self.ticks, self.rebuilds, self.adoptions = [], [], []
+        record, rebuild = eng._stat.record_tick, eng._rebuild
+
+        def record_tick(deadline, fn):
+            n, t = crossfade_cuda.launches, time.monotonic()
+            out = record(deadline, fn)
+            self.ticks.append((t, time.monotonic(), deadline, crossfade_cuda.launches - n))
+            return out
+
+        def rebuild_(full):
+            rebuild(full)
+            self.rebuilds.append((time.monotonic(), eng._compile_gen,
+                                  eng._compiling is not None))
+
+        def adopt(patch):
+            self.adoptions.append((time.monotonic(), eng._compile_gen, patch.serves(eng.ws)))
+            Engine._adopt_patch(eng, patch)
+
+        eng._stat.record_tick, eng._rebuild, eng._adopt_patch = record_tick, rebuild_, adopt
+
+    def window(self, t0, t1):
+        """The ticks that started in [t0, t1): (start, end, deadline, crossfades)."""
+        return [x for x in self.ticks if t0 <= x[0] < t1]
+
+
+def _storm_ops(p, ids, first_id, seconds, struct_hz, fader_hz):
+    """The storm's ops in time order: (seconds from its start, op, structural).
+    Each structural cycle creates an oscillator, connects it to the Mixer's
+    input 7 and deletes it; the fader edits move the VideoMixer's fader."""
+    from mixlab_tpu_torch.flagship import MIXER
+
+    geo = p.WindowGeometry()
+    ops = []
+    for k in range(int(seconds * struct_hz)):
+        n, step = first_id + k // 3, k % 3
+        if step == 0:
+            op = p.CreateModule(p.ModuleParams("Oscillator", p.OscillatorParams(
+                220.0 + 10 * (k // 3), p.Waveform.SINE)), geo)
+        elif step == 1:
+            op = p.CreateConnection(p.InputId(p.ModuleId(MIXER), 7), p.OutputId(p.ModuleId(n), 1))
+        else:
+            op = p.DeleteModule(p.ModuleId(n))
+        ops.append((k / struct_hz, op, True))
+    for k in range(int(seconds * fader_hz)):
+        ops.append((k / fader_hz, p.UpdateModuleParams(ids["mixer"], p.ModuleParams(
+            "VideoMixer", p.VideoMixerParams(a=0, b=1, fader=0.3 + 0.4 * (k % 2)))), False))
+    return sorted(ops, key=lambda x: x[0])
+
+
+def _send(eng, sid, seq, op):
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.engine import Busy
+
+    deadline = time.monotonic() + 5.0
+    while True:
+        try:
+            return eng.update(sid, p.WorkspaceMessage(seq, op))
+        except Busy:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.002)
+
+
+def _window_stats(ticks, seconds):
+    """Ticks, ticks over the budget, late ticks, wall p50/p99 (ms), the
+    fewest ticks in any second of the window, and ticks without exactly
+    one crossfade launch."""
+    walls = [end - start for start, end, _, _ in ticks]
+    t0 = ticks[0][0] if ticks else 0.0
+    per_s = [sum(1 for x in ticks if t0 + s <= x[0] < t0 + s + 1) for s in range(int(seconds))]
+    return {"ticks": len(ticks), "over": sum(w > TICK_BUDGET_S for w in walls),
+            "late": sum(end > deadline for _, end, deadline, _ in ticks),
+            "p50": _ms(walls, 50), "p99": _ms(walls, 99), "min_a_s": min(per_s, default=0),
+            "missed": sum(n != 1 for *_, n in ticks)}
+
+
+def threaded_storm(torch, np, dev, pool, variant=None):
+    """The threaded realtime engine (flagship, 1080p and 720p cameras fed at
+    60 fps by a feeder thread, the VideoMixer, the monitor pipe read by a
+    thread) for a quiet window, then a storm window of structural ops and
+    fader edits.  ``variant(engine)``, for the attribution, changes the
+    engine before it starts.  -> the windows' stats, each structural op's
+    seconds to its adoption, stale adoptions, whether the final program is
+    the final workspace's, the launches of both windows."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.compiler import compile_patch
+
+    eng, ids, sid = realtime_engine(str(dev), ("e-cam1", "e-cam2"))
+    cams = Cameras(("e-cam1", "e-cam2"))
+    pipe = eng.monitor_pipe(ids["monitor"])
+    probe = EditProbe(eng)
+    if variant is not None:
+        variant(eng)
+    stop = threading.Event()
+    counters = launch_counters()
+
+    def feeder():
+        start, k = time.monotonic(), 0
+        while not stop.is_set():
+            cams.publish(k, pool[k % len(pool)], hold=EDIT_HOLD_TICKS)
+            k += 1
+            stop.wait(max(0.0, start + k / 60 - time.monotonic()))
+
+    def reader():
+        while not stop.is_set():
+            try:
+                pipe.q.get(timeout=0.2)
+            except queue.Empty:
+                pass
+
+    threads = [threading.Thread(target=f, name=f.__name__) for f in (feeder, reader)]
+    ops = _storm_ops(p, ids, eng.ws.module_seq + 1, EDIT_WINDOW_S, EDIT_STRUCT_HZ, EDIT_FADER_HZ)
+    sent = []
+    try:
+        for th in threads:
+            th.start()
+        eng.start()
+        time.sleep(1.0)  # the first ticks
+        _reset(counters)
+        q0 = time.monotonic()
+        time.sleep(EDIT_WINDOW_S)
+        s0 = time.monotonic()
+        for seq, (at, op, structural) in enumerate(ops, 1):
+            time.sleep(max(0.0, s0 + at - time.monotonic()))
+            sent.append((time.monotonic(), structural))
+            _send(eng, sid, 10_000 + seq, op)
+        time.sleep(max(0.0, s0 + EDIT_WINDOW_S - time.monotonic()))
+        s1 = time.monotonic()
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and (eng._pending_patch is not None
+                                               or len(probe.rebuilds) < len(sent)
+                                               or not eng._patch.serves(eng.ws)):
+            time.sleep(0.05)
+        launches = _read(counters)
+        final_ok = (eng._patch.structural_fingerprint
+                    == compile_patch(eng.ws, eng.cfg, eng.block, dev).structural_fingerprint)
+    finally:
+        stop.set()
+        eng.stop()
+        for th in threads:
+            th.join(timeout=5)
+        cams.close()
+    if len(probe.rebuilds) != len(sent):
+        raise AssertionError(f"{len(sent)} ops sent, {len(probe.rebuilds)} rebuilds")
+    to_adopt = []
+    for (t_sent, structural), (t_done, gen, pending) in zip(sent, probe.rebuilds):
+        if structural:
+            # with a compile pending, the first adoption of this op's
+            # generation or a later one; else (the op netted out to the
+            # running program, or was adopted at once) the op's own end
+            t_adopt = t_done if not pending else min(
+                (t for t, g, _ in probe.adoptions if g >= gen and t >= t_sent), default=None)
+            to_adopt.append(float("inf") if t_adopt is None else t_adopt - t_sent)
+    return {"quiet": _window_stats(probe.window(q0, s0), EDIT_WINDOW_S),
+            "storm": _window_stats(probe.window(s0, s1), EDIT_WINDOW_S),
+            "to_adopt": to_adopt, "adoptions": len(probe.adoptions),
+            "stale": sum(not serves for _, _, serves in probe.adoptions),
+            "final_ok": final_ok, "launches": launches,
+            "structural": sum(s for _, s in sent), "faders": sum(not s for _, s in sent)}
+
+
+def _log_storm(np, card, label, r):
+    for window in ("quiet", "storm"):
+        w = r[window]
+        log(f"edit path (a) {label}, {window} window {EDIT_WINDOW_S:.0f} s [{card}]: "
+            f"{w['ticks']} ticks (fewest in a second {w['min_a_s']}), {w['over']} over "
+            f"16.667 ms, {w['late']} late on the schedule, tick wall p50 {w['p50']:.3f} ms, "
+            f"p99 {w['p99']:.3f} ms, {w['missed']} ticks without one crossfade launch")
+    log(f"edit path (a) {label}, storm [{card}]: {r['structural']} structural ops "
+        f"({EDIT_STRUCT_HZ}/s) and {r['faders']} fader edits ({EDIT_FADER_HZ}/s); "
+        f"{r['adoptions']} adoptions, {r['stale']} of a stale program; op to adoption p50 "
+        f"{np.median(r['to_adopt']) * 1e3:.3f} ms, max {max(r['to_adopt']) * 1e3:.3f} ms; "
+        f"final program = the final workspace's: {r['final_ok']}; launches {r['launches']}")
+
+
+def edit_storm(torch, np, dev, card):
+    """(a) ``threaded_storm`` as the engine runs; then, for information, the
+    same storm in direct drive (each op compiled and adopted at once on
+    the thread that ticks), its ops and tick in one 1/60 s slot."""
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    r = threaded_storm(torch, np, dev, pool)
+    _log_storm(np, card, "threaded", r)
+    quiet, storm = r["quiet"], r["storm"]
+    if (quiet["min_a_s"] < EDIT_MIN_TICKS_A_S or storm["min_a_s"] < EDIT_MIN_TICKS_A_S
+            or r["stale"] or not r["final_ok"] or quiet["missed"] or storm["missed"]
+            or not np.isfinite(max(r["to_adopt"]))):
+        raise AssertionError(f"edit path (a): quiet {quiet}, storm {storm}, stale adoptions "
+                             f"{r['stale']}, final program matches {r['final_ok']}, op to "
+                             f"adoption max {max(r['to_adopt'])}")
+    direct_storm(torch, np, dev, card, pool)
+    return r["launches"]
+
+
+def _no_warm(eng):
+    """The attribution's variant: the compile worker stages each program
+    without running it."""
+    def stage(patch, gen, warm_args):
+        with eng._pending_lock:
+            if gen == eng._compile_gen:
+                patch.first_inputs = warm_args[:2]
+                eng._pending_patch = (patch, gen)
+        return True
+
+    eng._warm_and_stage = stage
+
+
+def _beside_ticks(eng):
+    """The attribution's variant: the compile worker's warm runs beside the
+    ticks (the engine's tick lock a no-op)."""
+    class _NoLock:
+        def acquire(self, timeout=-1):
+            return True
+
+        def release(self):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    eng._tick_lock = _NoLock()
+
+
+def _synchronous(eng):
+    """The attribution's variant: every edit compiled and adopted on the
+    engine thread at once, with no compile worker: the compile worker's queue adopts
+    each job as it is put, with its first inputs."""
+    class AdoptAtOnce(queue.Queue):
+        def put(self, job, block=True, timeout=None):
+            patch, _, warm_args = job
+            eng._compiling = None
+            patch.first_inputs = warm_args[:2]
+            eng._adopt_patch(patch)
+
+    eng._compile_q = AdoptAtOnce()
+
+
+def edit_attribution() -> int:
+    """Not in ``main``: phase 21 (a)'s threaded storm in turns as the engine
+    runs, with the compile worker's warm beside the ticks (no tick lock),
+    with the warm a no-op, and with every edit adopted at once on the engine
+    thread, twice each.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.edit_attribution())'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+
+    card, dev = card_line(), torch.device("cuda", torch.cuda.current_device())
+    log(card)
+    kernels.load()
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    variants = (("as it runs", None), ("warm beside the ticks", _beside_ticks),
+                ("warm a no-op", _no_warm),
+                ("adopted at once", _synchronous))
+    for _ in range(2):
+        for label, variant in variants:
+            _log_storm(np, card, label, threaded_storm(torch, np, dev, pool, variant))
+    return 0
+
+
+def direct_storm(torch, np, dev, card, pool):
+    """For information: the storm in direct drive, every edit compiled and
+    adopted at once on the thread that ticks: each 1/60 s slot
+    applies the ops due, publishes the cameras and runs ``tick_once``."""
+    from mixlab_tpu_torch import protocol as p
+
+    eng, ids, sid = realtime_engine(str(dev), ("d-cam1", "d-cam2"))
+    cams = Cameras(("d-cam1", "d-cam2"))
+    pipe = eng.monitor_pipe(ids["monitor"])
+    ops = _storm_ops(p, ids, eng.ws.module_seq + 1, EDIT_WINDOW_S, EDIT_STRUCT_HZ, EDIT_FADER_HZ)
+    slots, op_ms = [], []
+    try:
+        start, k, i = time.monotonic(), 0, 0
+        while k < EDIT_WINDOW_S * 60:
+            t = time.monotonic()
+            while i < len(ops) and ops[i][0] <= k / 60:
+                t_op = time.monotonic()
+                eng.update(sid, p.WorkspaceMessage(20_000 + i, ops[i][1]))
+                if ops[i][2]:
+                    op_ms.append(time.monotonic() - t_op)
+                i += 1
+            cams.publish(eng.tick, pool[k % len(pool)], hold=EDIT_HOLD_TICKS)
+            eng.tick_once()
+            slots.append(time.monotonic() - t)
+            pipe.q.get_nowait()
+            k += 1
+            time.sleep(max(0.0, start + k / 60 - time.monotonic()))
+    finally:
+        eng.stop()
+        cams.close()
+    log(f"edit path (a) direct drive, the storm [{card}]: {len(slots)} slots, "
+        f"{sum(s > TICK_BUDGET_S for s in slots)} over 16.667 ms (the slot's ops and tick), "
+        f"p50 {_ms(slots, 50):.3f} ms, p99 {_ms(slots, 99):.3f} ms; a structural op "
+        f"(compiled and adopted at once) p50 {_ms(op_ms, 50):.3f} ms, max "
+        f"{max(op_ms) * 1e3:.3f} ms")
+
+
+def edit_mesh(torch, np, dev, card):
+    """(b) the 48 kHz stems engine (the flagship, one stem an entry) over a
+    2-entry mesh on the card in 16-tick blocks, threaded, takes one
+    structural edit; the compile worker's warm is held EDIT_MESH_HOLD_S
+    first, as a long compile: the running program's blocks go on with one
+    region launch a shard each, the warm makes one a shard on the compile
+    thread, and the blocks after the adoption one a shard again."""
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine import region_cuda
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.engine import Engine
+    from mixlab_tpu_torch.flagship import build_16_module_graph
+    from mixlab_tpu_torch.parallel import make_mesh
+    from mixlab_tpu_torch.parallel.stems import StemsPatch
+    from mixlab_tpu_torch.server import monitor
+
+    by_thread = {}
+    real_launch = region_cuda._launch
+
+    def launch(*a, **k):
+        name = threading.current_thread().name
+        by_thread[name] = by_thread.get(name, 0) + 1
+        return real_launch(*a, **k)
+
+    counters = launch_counters()
+    real_monitor, monitor.MonitorPipeline = monitor.MonitorPipeline, NoCodec
+    region_cuda._launch = launch
+    eng = None
+    try:
+        eng = Engine(workspace=build_16_module_graph()[0], cfg=EngineConfig(sample_rate=48_000),
+                     block_ticks=EDIT_MESH_TICKS, device=str(dev),
+                     patch_compiler=StemsPatch.compiler(make_mesh(2, devices=[str(dev)])))
+        sid = eng.connect_session()[0]
+        blocks, warm = [], {}
+
+        record = eng._stat.record_tick
+
+        def record_tick(deadline, fn):
+            n = by_thread.get("engine", 0)
+            out = record(deadline, fn)
+            blocks.append((time.monotonic(), by_thread.get("engine", 0) - n, eng._patch))
+            return out
+
+        def warm_and_stage(patch, gen, warm_args):
+            warm["start"] = time.monotonic()
+            time.sleep(EDIT_MESH_HOLD_S)
+            n = by_thread.get("compile", 0)
+            ok = Engine._warm_and_stage(eng, patch, gen, warm_args)
+            warm.update(end=time.monotonic(), launches=by_thread.get("compile", 0) - n)
+            return ok
+
+        eng._stat.record_tick, eng._warm_and_stage = record_tick, warm_and_stage
+        _reset(counters)
+        eng.start()
+        while len(blocks) < 3:
+            time.sleep(0.05)
+        first = eng._patch
+        eng.update(sid, p.WorkspaceMessage(1, p.CreateModule(p.ModuleParams(
+            "Oscillator", p.OscillatorParams(330.0, p.Waveform.SAW)), p.WindowGeometry())))
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline and (eng._patch is first or sum(
+                b[2] is not first for b in blocks) < 3):
+            time.sleep(0.05)
+    finally:
+        if eng is not None:
+            eng.stop()
+        region_cuda._launch = real_launch
+        monitor.MonitorPipeline = real_monitor
+    launches = _read(counters)
+    during = [b for b in blocks if warm.get("start", 0) <= b[0] <= warm.get("end", 0)]
+    after = [b for b in blocks if b[2] is not first]
+    log(f"edit path (b) stems engine over 2 entries of {dev}, {EDIT_MESH_TICKS}-tick blocks, "
+        f"threaded [{card}]: {len(blocks)} blocks, region launches a block on the engine "
+        f"thread {[n for _, n, _ in blocks]}; {len(during)} blocks while the warm (held "
+        f"{EDIT_MESH_HOLD_S} s) ran, its launches on the compile thread "
+        f"{warm.get('launches')}; {len(after)} blocks after the adoption; launches "
+        f"{launches}")
+    if not (after and len(during) >= 1 and all(n == 2 for _, n, _ in blocks)
+            and warm.get("launches") == 2 and launches["eq_cascade"] == 0):
+        raise AssertionError(f"edit path (b): blocks {[(n, b is first) for _, n, b in blocks]}, "
+                             f"warm {warm}, launches {launches}")
+    return launches
+
+
+def edit_depth(torch, np, dev, card):
+    """(c) ``pipeline_depth`` 0, 1 and 2 on the realtime engine in direct
+    drive for EDIT_DEPTH_TICKS ticks on the same ingest: the routed Monitor
+    items (audio and composite) identical to depth 0's, each d ticks later,
+    ``flush_inflight`` routing the last d; each depth's tick wall for
+    information."""
+    pool = [cam_frames(torch, np, dev, i) for i in range(8)]
+    counters = launch_counters()
+    base, walls, paths = None, {}, {}
+    for d in EDIT_DEPTHS:
+        names = (f"p{d}-cam1", f"p{d}-cam2")
+        eng, ids, _ = realtime_engine(str(dev), names, pipeline_depth=d)
+        cams = Cameras(names)
+        pipe = eng.monitor_pipe(ids["monitor"])
+        items, w = [], []
+        try:
+            _reset(counters)
+            for tick in range(EDIT_DEPTH_TICKS):
+                cams.publish(tick, pool[tick % len(pool)])
+                t = time.perf_counter()
+                eng.tick_once()
+                w.append(time.perf_counter() - t)
+                got = []
+                while not pipe.q.empty():
+                    got.append(pipe.q.get_nowait())
+                if len(got) != (tick >= d):
+                    raise AssertionError(f"depth {d}: {len(got)} items after tick {tick}")
+                items += got
+            eng.flush_inflight()
+            while not pipe.q.empty():
+                items.append(pipe.q.get_nowait())
+            torch.cuda.synchronize()
+            paths[f"edit_depth_{d}"] = _read(counters)
+        finally:
+            eng.stop()
+            cams.close()
+        if [t0 for t0, _, _ in items] != [k * RT_SPT for k in range(EDIT_DEPTH_TICKS)]:
+            raise AssertionError(f"depth {d}: routed t0s {[t0 for t0, _, _ in items][:5]}...")
+        if base is None:
+            base = items
+        else:
+            for (t0, a, v), (_, a0, v0) in zip(items, base):
+                if not (np.array_equal(a, a0) and all(
+                        torch.equal(v.picture.planes[k], v0.picture.planes[k]) for k in "yuv")):
+                    raise AssertionError(f"depth {d}: the item at t0 {t0} differs from depth 0's")
+        walls[d] = w
+    log(f"edit path (c) pipeline_depth {'/'.join(map(str, EDIT_DEPTHS))}, {EDIT_DEPTH_TICKS} "
+        f"ticks in direct drive [{card}]: routed monitor audio and composites identical to "
+        f"depth 0's, each d ticks later; tick_once p50 " + ", ".join(
+            f"{_ms(w, 50):.3f}" for w in walls.values()) + " ms; launches " + ", ".join(
+            f"{paths[f'edit_depth_{d}']['crossfade']}" for d in EDIT_DEPTHS) + " crossfades")
+    return paths
+
+
+def edit_codecs(torch, np, dev, card):
+    """(d) whether the libavcodec shim builds and loads here, and the codec
+    tier the port takes; where the shim is, the phase 17 clip (1080p30
+    CAVLC intra and AAC-LC, 10 s) played through ``MediaPlayer._run_shim``
+    onto ``dev``, unthrottled: its first pictures equal the port's H.264
+    decoder's on the same access units, and its PCM the AAC decoder's within
+    MEDIA_PCM_ATOL."""
+    import io
+
+    from mixlab_tpu_torch.av.codecs import codec_tier
+    from mixlab_tpu_torch.av.h264dec import PureH264Decoder
+    from mixlab_tpu_torch.engine.config import EngineConfig
+    from mixlab_tpu_torch.engine.feeds import MediaSourceFeed
+    from mixlab_tpu_torch.engine.media_player import MediaPlayer
+    from mixlab_tpu_torch.io_host import throttle
+    from mixlab_tpu_torch.native import avshim
+
+    available, tier = avshim.available(), codec_tier()
+    reason = avshim.unavailable_reason()
+    log(f"edit path (d) codecs [{card}]: libavcodec shim available {available}"
+        + ("" if available else f" ({' '.join((reason or '').split())[:240]})") + f"; codec tier {tier}")
+    if not available:
+        if tier == "shim":
+            raise AssertionError("the codec tier is the shim, which is unavailable")
+        return
+    units, _, dcr, _ = media_pictures(torch, np, dev)
+    blob, ref, *_ = media_mp4(np, units, dcr)
+    cfg = EngineConfig(sample_rate=RT_RATE)
+    feed = MediaSourceFeed(cfg)
+    player = MediaPlayer(io.BytesIO(blob), feed, cfg, dev)
+    taken, real_run = [], MediaPlayer._run_shim
+    saved = (throttle.AudioThrottle.send_samples, throttle.MediaThrottle.wait_until)
+    MediaPlayer._run_shim = lambda self: taken.append(1) or real_run(self)
+    throttle.AudioThrottle.send_samples = lambda self, n: None
+    throttle.MediaThrottle.wait_until = lambda self, t: None
+    audio, video = [], []
+    try:
+        player.start()
+        deadline = time.monotonic() + 60
+        while (sum(map(len, audio)) < RT_RATE or len(video) < MEDIA_CHECK_TICKS) \
+                and time.monotonic() < deadline:
+            for q, out in ((feed.queue, audio), (feed.video_q, video)):
+                try:
+                    out.append(q.get(timeout=0.01))
+                except queue.Empty:
+                    pass
+    finally:
+        player.stop()
+        player.join(timeout=10)
+        MediaPlayer._run_shim = real_run
+        throttle.AudioThrottle.send_samples, throttle.MediaThrottle.wait_until = saved
+    dec = PureH264Decoder(dcr)
+    want = [dec.decode(u)[-1] for u in units[:MEDIA_CHECK_TICKS]]
+    same = sum(all(np.array_equal(frame.picture.planes[k].cpu().numpy(), w[1 + i])
+                   for i, k in enumerate("yuv")) and frame.picture.planes["y"].device == dev
+               for (_, frame), w in zip(video, want))
+    pcm = np.concatenate(audio)[:RT_RATE] if audio else np.zeros((0, 2), np.float32)
+    err = float(np.abs(pcm - ref[:len(pcm)]).max()) if len(pcm) else float("inf")
+    log(f"edit path (d) the phase 17 clip through _run_shim on {dev} [{card}]: "
+        f"{len(video)} pictures, {same} of the first {len(want)} equal to the port's decoder's; "
+        f"{len(pcm)} samples within {err:.3e} of the AAC decoder's (atol {MEDIA_PCM_ATOL})")
+    if taken != [1] or same != len(want) or len(pcm) < RT_RATE or err > MEDIA_PCM_ATOL:
+        raise AssertionError(f"edit path (d): _run_shim taken {taken}, {same} pictures equal, "
+                             f"{len(pcm)} samples, err {err}")
+
+
+def edit_phase() -> int:
+    """Not in ``main`` alone: phase 21 by itself, after the build, with TF32
+    off as ``main`` sets it.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.edit_phase())'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda", torch.cuda.current_device())
+    log(card)
+    kernels.load()
+    edit_path(torch, np, dev, card)
+    return 0
+
+
+def edit_path(torch, np, dev, card):
+    """Phase 21: -> {path: launches}."""
+    t = time.perf_counter()
+    paths = {"edit_storm": edit_storm(torch, np, dev, card),
+             "edit_mesh": edit_mesh(torch, np, dev, card)}
+    paths.update(edit_depth(torch, np, dev, card))
+    edit_codecs(torch, np, dev, card)
+    log(f"phase 21 (the edit path) took {time.perf_counter() - t:.1f} s")
+    return paths
+
+
 def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
                                "region_seq_kernel", "envelope_kernel", "envelope_seq_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
@@ -5662,6 +6255,7 @@ def main() -> int:
         times = timing(torch, np, dev, card, proj)
         times.update(realtime_timing(torch, np, dev, card))
         times.update(video_timing(torch, np, dev, card))
+        paths.update(edit_path(torch, np, dev, card))
         # phase 16 before phase 15: after the served session's threads the
         # profiler in this process has recorded no device kernel
         batched_errs, batched_times, batched_launches, _ = batched_paths(torch, np, dev, card)

@@ -1,10 +1,13 @@
 """Codec backends (gated on availability): the port's copy of
-``mixlab_tpu/av/codecs.py`` without the shim tier.
+``mixlab_tpu/av/codecs.py``.
 
 The reference links fdk-aac and x264 via FFI (``codec/src/avc/encode.rs``,
 ``src/video/encode.rs:146-308``).  Codecs here are a pluggable backend
 interface, in preference order:
 
+  * ``ShimAacStream`` / ``ShimH264Stream`` — in-process libavcodec/libx264
+    via the C++ shim (native/avshim.py): the reference's architecture.
+    Real AAC-ADTS / AVC feeding the fMP4 mux for true MSE monitor parity.
   * ``FfmpegAacStream`` / ``FfmpegH264Stream`` — AAC-ADTS / AVC via an
     ``ffmpeg`` CLI binary (subprocess pipes with drain threads), when one
     exists.
@@ -20,9 +23,9 @@ interface, in preference order:
     passthrough + zlib PNG frames; the web client plays these via
     WebAudio/img when MSE is unavailable.
 
-The JAX package's first tier, the in-process libavcodec shim
-(``native/avshim.cpp``), is not ported: ``MIXLAB_CODEC_TIER=shim`` raises
-(ROADMAP.md queue 1, Shim codec tier).
+Without the shim's libraries (``native.avshim.unavailable_reason()`` says
+why, and the log names it once) the tier is the one the JAX package takes
+there: ffmpeg, else pure.
 
 Operating points mirror the reference profiles:
   monitor:  560x350, all-key-frames, low latency (monitor.rs:21-22)
@@ -57,31 +60,46 @@ def ffmpeg_available() -> bool:
     return shutil.which("ffmpeg") is not None
 
 
-NOT_PORTED_SHIM = (
-    "the libavcodec shim codec tier (native/avshim.cpp) is not ported to "
-    "mixlab_tpu_torch yet: ROADMAP.md queue 1, Shim codec tier")
+def avshim_codecs_available() -> bool:
+    """True when the ffmpeg-libraries shim (native/avshim.py) provides real
+    AAC + H.264 encoders — the same FFI surface the reference links
+    (codec/src/avc/encode.rs, fdk-aac)."""
+    from mixlab_tpu_torch.native import avshim
+
+    return (
+        avshim.available()
+        and avshim.have_encoder("libx264")
+        and avshim.have_encoder("aac")
+    )
 
 
 def codec_tier() -> str:
     """Best available monitor codec backend:
+      * "shim"   — in-process libavcodec/libx264 (AAC + H.264)
       * "ffmpeg" — CLI subprocess pipes (AAC + H.264)
       * "pure"   — zero-dependency encoders: CAVLC intra H.264
                    (av/h264cavlc.py) + AAC-LC (av/aacenc.py)
 
-    ``MIXLAB_CODEC_TIER`` overrides the auto-selection, as in the JAX
-    package; an override naming an unavailable tier raises rather than
-    silently auto-selecting, and ``shim`` always raises here.
+    ``MIXLAB_CODEC_TIER`` overrides the auto-selection (deployment
+    debugging, or exercising the pure tier on an image that has the
+    libraries); an override naming an unavailable tier raises rather than
+    silently auto-selecting.
     """
     forced = os.environ.get("MIXLAB_CODEC_TIER", "").strip().lower()
     if forced:
         if forced not in ("shim", "ffmpeg", "pure"):
             raise ValueError(f"MIXLAB_CODEC_TIER={forced!r}: expected "
                              "shim|ffmpeg|pure")
-        if forced == "shim":
-            raise RuntimeError(f"MIXLAB_CODEC_TIER=shim: {NOT_PORTED_SHIM}")
+        if forced == "shim" and not avshim_codecs_available():
+            from mixlab_tpu_torch.native import avshim
+
+            raise RuntimeError("MIXLAB_CODEC_TIER=shim but the libavcodec shim is "
+                               f"unavailable: {avshim.unavailable_reason() or 'no libx264 or aac encoder'}")
         if forced == "ffmpeg" and not ffmpeg_available():
             raise RuntimeError("MIXLAB_CODEC_TIER=ffmpeg but no ffmpeg CLI")
         return forced
+    if avshim_codecs_available():
+        return "shim"
     if ffmpeg_available():
         return "ffmpeg"
     return "pure"
@@ -342,6 +360,95 @@ def _split_adts(buf) -> tuple:
         frames.append(bytes(buf[used:used + n]))
         used += n
     return frames, used
+
+
+# ---------------------------------------------------------------------------
+# shim-backed codec streams (native/avshim.py): same duck-type interfaces as
+# the Ffmpeg* CLI streams, but in-process via libavcodec — the reference's
+# architecture (ffmpeg FFI + pure byte layers around it)
+# ---------------------------------------------------------------------------
+
+
+class ShimAacStream:
+    """AAC-LC via libavcodec's native encoder; ADTS framing from av/aac.py
+    (the reference wraps fdk output in its own pure-Rust ADTS the same way,
+    monitor.rs:187-191 + aac/adts.rs)."""
+
+    codec = "aac"
+
+    def __init__(self, sample_rate: int = 44100, channels: int = 2,
+                 bitrate: Optional[int] = 160_000):
+        from mixlab_tpu_torch.native import avshim
+
+        self._enc = avshim.AacEncoder(sample_rate, channels, bitrate)
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.asc = AudioSpecificConfiguration.parse(self._enc.extradata()[:2])
+
+    def feed(self, pcm_i16: np.ndarray):
+        self._enc.send(np.asarray(pcm_i16).reshape(-1, self.channels))
+
+    def poll_frames(self) -> List[bytes]:
+        from mixlab_tpu_torch.av.aac import adts_frame
+
+        return [adts_frame(raw, self.asc) for _, raw in self._enc.receive()]
+
+    def configuration_data(self) -> bytes:
+        return self._enc.extradata()
+
+    def close(self):
+        self._enc.close()
+
+
+class ShimH264Stream:
+    """H.264 via libx264 (libavcodec), avcc access units + DCR out.
+
+    Matches FfmpegH264Stream's interface; profiles mirror the reference
+    (monitor: CRF30/veryfast/zerolatency/gop1, monitor.rs:21-22;
+    stream: CBR 1.5 Mbps slow/film gop60, stream_output.rs:23-24).  A
+    picture on a device is copied to the host at ``feed``."""
+
+    codec = "h264"
+
+    def __init__(self, picture: PictureSettings, fps: int = 60,
+                 profile: str = "monitor"):
+        from mixlab_tpu_torch.av.avc import (
+            DecoderConfigurationRecord,
+            UnitType,
+            annexb_to_avcc,
+        )
+        from mixlab_tpu_torch.av.sps import parse_sps
+        from mixlab_tpu_torch.native import avshim
+
+        self.picture = picture
+        self._enc = avshim.VideoEncoder(picture.width, picture.height,
+                                        max(fps, 1), profile)
+        self._annexb_to_avcc = annexb_to_avcc
+        # extradata is Annex-B SPS/PPS with GLOBAL_HEADER
+        _, params = annexb_to_avcc(self._enc.extradata())
+        sps = next(u for u in params if u.kind == UnitType.SEQUENCE_PARAMETER_SET)
+        pps = next(u for u in params if u.kind == UnitType.PICTURE_PARAMETER_SET)
+        info = parse_sps(sps.data)
+        self.dcr = DecoderConfigurationRecord(
+            1, info.profile_idc, 0, info.level_idc, 4, [sps], [pps]
+        ).to_bytes()
+        self._pts = 0
+
+    def feed(self, pic: Picture):
+        pl = pic.to_numpy()
+        self._enc.send(pl["y"], pl["u"], pl["v"], self._pts)
+        self._pts += 1
+
+    def poll_access_units(self) -> List[tuple]:
+        out = []
+        for pts, dts, key, annexb in self._enc.receive():
+            payload, _params = self._annexb_to_avcc(annexb)
+            if payload:
+                out.append((key, payload))
+        return out
+
+    def close(self):
+        self._enc.close()
 
 
 class PureAacStream:

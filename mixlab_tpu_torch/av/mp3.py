@@ -4,10 +4,9 @@
 Icecast sources in the wild overwhelmingly send MP3; the reference rejects
 them (lewton-only, ``src/icecast/mod.rs``).  This layer segments a raw
 MPEG-audio byte stream into self-delimiting frames (the header encodes the
-frame length) so each frame can be handed to a decoder as one packet.  The
-port has no MP3 decoder yet: the JAX package decodes these frames through
-its libavcodec shim, which the port has not ported (ROADMAP.md queue 1,
-Shim codec tier), so ``io_host/icecast.py`` refuses an MP3 source.
+frame length) so each frame can be handed to a decoder as one packet: the
+libavcodec shim's (``native/avshim.py``), in ``io_host/icecast.py`` and the
+RTMP ingest.
 
 Tables are the normative ISO/IEC 11172-3 / 13818-3 header fields.
 """

@@ -111,6 +111,21 @@ class CompiledPatch:
             out[k] = h or None
         return out
 
+    def serves(self, ws: Workspace) -> bool:
+        """Whether this program runs ``ws`` as it stands: the same
+        structural fingerprint, so an edit from the compiled workspace to
+        ``ws`` changed continuous params only."""
+        order = ws.run_order()
+        return self.structural_fingerprint == structural_fingerprint(
+            order, {m: ws.modules[m] for m in order}, ws.connections)
+
+    def refresh_params(self, ws: Workspace) -> None:
+        """Take ``ws``'s params (a param-only edit, ``serves(ws)``) into
+        the frozen entries, in place: ``host_aux`` (an oscillator's phase
+        bases) and the regular program read them from there."""
+        for mid, e in self.entries.items():
+            self.entries[mid] = ModuleEntry(ws.modules[mid].params, e.inputs, e.outputs)
+
     # -- the program ------------------------------------------------------
 
     def run(self, aux, host_aux, state):

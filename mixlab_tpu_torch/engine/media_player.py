@@ -8,10 +8,13 @@ media_source.rs:246-292).
 
 Codec note (documented): the reference decodes any ffmpeg-supported media;
 this build decodes WAV (io_host/wav.py), FLAC (av/flacdec.py), Ogg/Vorbis
-(av/vorbis.py), Y4M raw video (av/y4m.py), JPEG stills (av/jpeg.py) and MP4
-(av/mp4read.py) with H.264 video (av/h264dec.py, its native tier in
-native/) and FLAC or AAC-LC audio (av/aacdec.py) — all with no codec
-libraries — resampling audio to the engine rate on the decode thread.
+(av/vorbis.py), Y4M raw video (av/y4m.py) and JPEG stills (av/jpeg.py) with
+no codec libraries, resampling audio to the engine rate on the decode
+thread; every other container and codec, and every MP4, plays through the
+in-process libavcodec shim (native/avshim.py, ``_run_shim``) where the
+libraries exist.  Without them an MP4 takes the pure demux (av/mp4read.py)
+with H.264 video (av/h264dec.py, its native tier in native/) and FLAC or
+AAC-LC audio (av/aacdec.py), as in the JAX package.
 The reference's media_source emits only video (media_source.rs:52-55); this
 build adds an audio output — WAV playback would otherwise be silent — as a
 documented extension.
@@ -31,12 +34,14 @@ Differences from the JAX package, each deliberate:
     thread's tick.  This thread waits for each granule's PCM on the pipe
     with the lock released; the PCM is the in-process decoder's, bit for
     bit, and a granule it refuses is skipped as before.
-  * The JAX package's libavcodec shim tier is not ported (ROADMAP.md queue
-    1, Shim codec tier).  An MP4 takes the pure demux and decoders, the JAX
-    package's own path when the shim is absent; a file that only the shim
-    could decode (a non-WAV file no pure reader takes, a JPEG outside the
-    pure decoder's scope) is logged as undecodable, naming that item, and
-    plays nothing.
+  * ``_run_shim`` loops an input that libavformat cannot seek back to its
+    start (a fragmented MP4 without an index) by opening it again from the
+    stream; the JAX package's loop there reads nothing more and spins until
+    the player stops.
+  * Without the shim's libraries, a file that only the shim could decode
+    (a non-WAV file no pure reader takes, a JPEG outside the pure decoder's
+    scope) is logged as undecodable, saying that the libraries are absent,
+    and plays nothing (the JAX package logs the pure decoder's error).
 """
 
 from __future__ import annotations
@@ -58,7 +63,8 @@ log = logging.getLogger(__name__)
 
 DECODE_CHUNK_FRAMES = 4096
 
-NO_SHIM = "the libavcodec shim is not ported: ROADMAP.md queue 1, Shim codec tier"
+NO_SHIM = ("no libavcodec shim: the ffmpeg libraries (libavcodec, libavformat, "
+           "libavutil, libswscale, libswresample) or their headers are absent")
 
 
 def _upload_planes(y, u, v, device: torch.device):
@@ -165,12 +171,23 @@ class MediaPlayer(threading.Thread):
             self._run_jpeg_still()
             return
         if len(header) >= 8 and header[4:8] in (b"ftyp", b"styp", b"moov"):
-            # the JAX package's path when its shim is absent
-            self._run_mp4()
+            from mixlab_tpu_torch.native import avshim
+
+            # the shim demuxes MP4 with full codec support (incl. AAC);
+            # the pure demux+decode path is the zero-dependency fallback
+            if avshim.available():
+                self._run_shim()
+            else:
+                self._run_mp4()
             return
         try:
             fmt, data_off, data_size = parse_header(header)
         except WavError as e:
+            from mixlab_tpu_torch.native import avshim
+
+            if avshim.available():
+                self._run_shim()
+                return
             log.warning("media_source: cannot decode media (%s); %s", e, NO_SHIM)
             return
 
@@ -354,7 +371,16 @@ class MediaPlayer(threading.Thread):
             y, u, v = decode_jpeg(bytes(data))
         except JpegError as e:
             # arithmetic-coded/12-bit JPEGs exceed the pure decoder's scope
-            # (baseline AND progressive decode pure)
+            # (baseline AND progressive decode pure): fall back to the
+            # libavcodec shim when present
+            from mixlab_tpu_torch.native import avshim
+
+            if avshim.available():
+                log.info("media_source: pure jpeg decode failed (%s); "
+                         "using the codec shim", e)
+                self.stream.seek(0)
+                self._run_shim()
+                return
             log.warning("media_source: jpeg decode failed (%s); %s", e, NO_SHIM)
             return
         h, w = y.shape
@@ -546,3 +572,76 @@ class MediaPlayer(threading.Thread):
             if end == 0:
                 return  # nothing played: don't spin
             epoch += end  # loop with epoch accumulation
+
+    def _run_shim(self):
+        """Any-container playback through the ffmpeg-libs shim
+        (native/avshim.py): the reference's ffmpeg decode loop
+        (media_source.rs:185-292) — audio AND video, realtime-paced,
+        looping with epoch accumulation (media_source.rs:246-292).
+
+        Demuxes straight from the project blob stream via callback IO
+        (avshim_media_open_io; the reference's IoReader->AVIO bridge,
+        codec/src/ffmpeg/ioctx.rs:15-100 + src/project/stream.rs:113-190)
+        — no temp-file spool.  Decoded pictures go to the engine's device
+        through ``_upload_planes``."""
+        from fractions import Fraction
+
+        from mixlab_tpu_torch.io_host.throttle import MediaThrottle
+        from mixlab_tpu_torch.native import avshim
+        from mixlab_tpu_torch.utils.mtime import MediaDuration, MediaTime
+        from mixlab_tpu_torch.video.frame import Picture, PictureSettings, VideoFrame
+
+        self.stream.seek(0)
+        try:
+            reader = avshim.MediaReader.from_reader(self.stream)
+        except avshim.ShimError as e:
+            log.warning("media_source: cannot open media: %s", e)
+            return
+        try:
+            a_rate = reader.audio["rate"] if reader.audio else None
+            pusher = _PcmPusher(self, a_rate) if a_rate else None
+            throttle = MediaThrottle()
+            epoch = Fraction(0)  # accumulated loop offset, seconds
+            last_pts = Fraction(0)
+            while not self._stop_evt.is_set():
+                item = reader.read()
+                if item is None:
+                    # loop: seek to start, accumulate epoch
+                    epoch = last_pts
+                    if reader.seek_start() < 0:
+                        # not seekable: open the stream again from its start
+                        reader.close()
+                        self.stream.seek(0)
+                        reader = avshim.MediaReader.from_reader(self.stream)
+                    if pusher is not None:
+                        pusher.reset()
+                    continue
+                kind, pts, payload = item
+                if kind == "audio":
+                    tb = Fraction(*reader.audio["time_base"])
+                    t = epoch + (pts * tb if pts >= 0 else last_pts - epoch)
+                    last_pts = max(last_pts, t + Fraction(len(payload), a_rate))
+                    throttle.wait_until(MediaTime(t))
+                    pusher.push(payload.astype(np.float32) / 32768.0)
+                else:  # video
+                    tb = Fraction(*reader.video["time_base"])
+                    t = epoch + (pts * tb if pts >= 0 else last_pts - epoch)
+                    last_pts = max(last_pts, t)
+                    throttle.wait_until(MediaTime(t))
+                    y, u, v = payload
+                    h, w = y.shape
+                    pic = Picture(
+                        PictureSettings(w, h),
+                        _upload_planes(y, u, v, self.device),
+                    )
+                    fps_n, fps_d = reader.video["fps"]
+                    frame = VideoFrame(
+                        picture=pic,
+                        duration_hint=MediaDuration.new(fps_d, fps_n),
+                    )
+                    pts_mt = MediaTime(t)
+                    while not self._stop_evt.is_set():
+                        if self.feed.push_video(pts_mt, frame, block=True, timeout=0.25):
+                            break
+        finally:
+            reader.close()

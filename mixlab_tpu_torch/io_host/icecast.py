@@ -16,11 +16,12 @@ Ogg/Vorbis via lewton and rejects non-44.1 kHz streams with a TODO
   * ANY sample rate is accepted — the polyphase resampler converts to the
     engine rate on the ingest thread (the reference's missing feature).
 
-One difference from the JAX package: its MP3 and ADTS-AAC sources decode
-through its libavcodec shim, which the port has not ported (ROADMAP.md
-queue 1, Shim codec tier).  ``_ShimAudioDecoder`` refuses, the refusal is
-logged naming that item, and the mount closes; a JAX package without the
-shim cannot decode these sources either.
+  * MP3 and ADTS-AAC decode through the in-process libavcodec shim
+    (``native/avshim.py``, ``_ShimAudioDecoder``), our pure frame
+    splitters (``av/mp3.py``, ``av/aac.py``) cutting the stream into
+    packets.  Where the shim's libraries are absent, the source is refused
+    with a log line that says so, and the mount closes (the JAX package
+    raises out of its handler there).
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ async def accept(reader, writer):
                 # sniff: SOURCE clients don't always set content-type
                 try:
                     decoder = _pick_decoder(content_type, chunk)
-                except NotImplementedError as e:
+                except RuntimeError as e:
                     log.warning("icecast: source on /%s refused, the mount closes: %s",
                                 mountpoint, e)
                     break
@@ -243,8 +244,64 @@ class _OggVorbisDecoder(_PcmDecoder):
 
 
 class _ShimAudioDecoder(_PcmDecoder):
-    """MP3 / ADTS-AAC ingest, which the JAX package decodes through its
-    libavcodec shim: not ported, refused (``NO_SHIM``)."""
+    """MP3 / ADTS-AAC ingest: our pure frame splitters (av/mp3.py, av/aac.py)
+    segment the raw stream into packets for the in-process libavcodec
+    decoder — real-world Icecast sources mostly send MP3, which the
+    reference rejects outright (icecast/mod.rs)."""
 
     def __init__(self, content_type: str, engine_rate: int, codec: str):
-        raise NotImplementedError(f"no {codec} decoder: {NO_SHIM}")
+        super().__init__(content_type, engine_rate)
+        from mixlab_tpu_torch.native import avshim
+
+        if not avshim.available():
+            raise RuntimeError(f"icecast: no {codec} decoder: {NO_SHIM}")
+        if not avshim.have_decoder(codec):
+            raise RuntimeError(f"icecast: no {codec} decoder in this libavcodec")
+        self._dec = avshim.AudioDecoder(codec)
+        self._codec = codec
+        if codec == "mp3":
+            from mixlab_tpu_torch.av.mp3 import Mp3FrameSplitter
+
+            self._split = Mp3FrameSplitter().feed
+        else:
+            self._adts_buf = bytearray()
+            self._split = self._split_adts
+
+    def _split_adts(self, data: bytes):
+        from mixlab_tpu_torch.av.aac import parse_adts_header
+
+        self._adts_buf += data
+        out = []
+        while len(self._adts_buf) >= 7:
+            try:
+                hdr = parse_adts_header(bytes(self._adts_buf[:7]))
+            except Exception:
+                del self._adts_buf[0:1]  # resync
+                continue
+            n = hdr["frame_length"]
+            if len(self._adts_buf) < n:
+                break
+            out.append(bytes(self._adts_buf[:n]))
+            del self._adts_buf[:n]
+        return out
+
+    def feed(self, chunk: bytes) -> Optional[np.ndarray]:
+        pcms = []
+        for frame in self._split(chunk):
+            for _pts, pcm, rate in self._dec.decode(frame):
+                if self.fmt is None:
+                    self.fmt = WavFormat(2, rate, 16, 1)
+                    self.throttle = AudioThrottle(rate)
+                if pcm.shape[1] == 1:
+                    pcm = np.repeat(pcm, 2, axis=1)
+                pcms.append(pcm[:, :2])
+        if not pcms:
+            return None
+        frames_pcm = np.ascontiguousarray(np.concatenate(pcms))
+        self.throttle.send_samples(len(frames_pcm))
+        if self.fmt.sample_rate == self.engine_rate:
+            out = frames_pcm
+        else:
+            out = self._resample(frames_pcm)
+        self.samples_out += len(out)
+        return out

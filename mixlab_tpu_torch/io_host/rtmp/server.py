@@ -33,9 +33,10 @@ Differences from the JAX package, each deliberate:
     the loop waits for it, and so reads no more from the publisher's socket.
   * The pure tier's AAC-LC decode runs in a codec process per connection
     (``av/aacdec_worker.py``), ended with the connection.
-  * The JAX package's first tier, the libavcodec shim (``ShimDecoder``),
-    is not ported (ROADMAP.md queue 1, Shim codec tier): ``ShimDecoder``
-    refuses, and the pure tier, like the JAX package's, has no MP3 decoder.
+  * A decode the libavcodec shim (``ShimDecoder``) refuses is logged and
+    counted like the pure tier's, not raised.  Where the shim's libraries
+    are absent, MP3 is dropped with a log line that says so (the pure tier,
+    like the JAX package's, has no MP3 decoder).
 """
 
 from __future__ import annotations
@@ -151,10 +152,83 @@ class NullDecoder(MediaDecoder):
 
 
 class ShimDecoder(MediaDecoder):
-    """The JAX package's libavcodec tier: not ported, refused."""
+    """AAC + H.264 (and MP3) ingest decode via the in-process ffmpeg-libraries
+    shim (native/avshim.py) — the reference's exact shape: fdk-aac/ffmpeg
+    FFI on the blocking receive thread (rtmp/mod.rs:192-338).  Pictures go
+    to ``device``."""
 
-    def __init__(self, device=None):
-        raise NotImplementedError(NO_SHIM)
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._adec = None
+        self._vdec = None
+        self._mp3dec = None
+        self.video_duration_hint = None  # set by _on_video from ts deltas
+
+    def set_audio_config(self, asc: AudioSpecificConfiguration):
+        from mixlab_tpu_torch.native import avshim
+
+        self._adec = avshim.AudioDecoder("aac", asc.to_bytes())
+
+    def set_video_config(self, dcr: DecoderConfigurationRecord):
+        from mixlab_tpu_torch.native import avshim
+
+        self._vdec = avshim.VideoDecoder("h264", dcr.to_bytes())
+
+    def _stereo(self, decoded):
+        out = []
+        for _pts, pcm, _rate in decoded:
+            # force stereo like the reference (rtmp/mod.rs:229-231)
+            if pcm.shape[1] == 1:
+                pcm = np.repeat(pcm, 2, axis=1)
+            out.append(pcm[:, :2])
+        return np.concatenate(out) if out else None
+
+    def decode_audio(self, raw_aac: bytes):
+        if self._adec is None:
+            return None
+        from mixlab_tpu_torch.native.avshim import ShimError
+
+        try:
+            return self._stereo(self._adec.decode(raw_aac))
+        except ShimError as e:
+            self.audio_failures += 1
+            log.warning("rtmp: shim aac decode failed: %s", e)
+            return None
+
+    def decode_mp3(self, frame: bytes):
+        from mixlab_tpu_torch.native import avshim
+
+        if self._mp3dec is None:
+            if not avshim.have_decoder("mp3"):
+                return None
+            self._mp3dec = avshim.AudioDecoder("mp3")
+        try:
+            return self._stereo(self._mp3dec.decode(frame))
+        except avshim.ShimError as e:
+            self.audio_failures += 1
+            log.warning("rtmp: shim mp3 decode failed: %s", e)
+            return None
+
+    def decode_video(self, packet: flv.VideoPacket):
+        if self._vdec is None:
+            return None
+        from mixlab_tpu_torch.native.avshim import ShimError
+
+        try:
+            frames = self._vdec.decode(packet.data)
+        except ShimError as e:
+            self.video_failures += 1
+            log.warning("rtmp: shim h264 decode failed: %s", e)
+            return None
+        if not frames:
+            return None
+        _pts, y, u, v = frames[-1]
+        return _frame_on(self.device, y, u, v, self.video_duration_hint)
+
+    def close(self):
+        for dec in (self._adec, self._vdec, self._mp3dec):
+            if dec is not None:
+                dec.close()
 
 
 def _frame_on(device, y, u, v, hint):
@@ -241,7 +315,14 @@ class PureTierDecoder(MediaDecoder):
 
 def default_decoder_factory(device) -> MediaDecoder:
     from mixlab_tpu_torch.av.codecs import ffmpeg_available
+    from mixlab_tpu_torch.native import avshim
 
+    if (
+        avshim.available()
+        and avshim.have_decoder("aac")
+        and avshim.have_decoder("h264")
+    ):
+        return ShimDecoder(device)
     if ffmpeg_available():
         try:
             from mixlab_tpu_torch.io_host.rtmp.ffmpeg_decode import FfmpegDecoder

@@ -32,6 +32,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -176,10 +177,20 @@ def build() -> Path:
     return path
 
 
-@functools.lru_cache(maxsize=None)
+_load_lock = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declares every C
-    entry point's argument and return types."""
+    entry point's argument and return types.  Once a process: the first
+    caller builds while any other thread (the engine's and its compile
+    worker, say) waits, since ``build`` names its files by process."""
+    with _load_lock:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
         fn = getattr(lib, name)

@@ -1,9 +1,11 @@
 """ctypes bindings for the port's host C++ (``mixlab_native.cpp``): the
-WebSocket unmask, the CAVLC intra frame encoder, the H.264 decoders
-(``h264_parse_slice``, ``h264_dc_recon``, ``h264_decode_islice``,
-``h264_decode_islice_cabac``, ``h264_decode_inter``) and the banded host
-resize (``scale_plane_banded``): the parts of ``mixlab_tpu/native`` that
-the served session, media playback, ingest and the broadcast run.
+SPSC byte ring (``NativeByteRing``), the PCM conversions
+(``pcm_f32_to_i16``, ``pcm_i16_to_f32``), the host crossfade
+(``crossfade_u8``), the WebSocket unmask, the CAVLC intra frame encoder,
+the H.264 decoders (``h264_parse_slice``, ``h264_dc_recon``,
+``h264_decode_islice``, ``h264_decode_islice_cabac``,
+``h264_decode_inter``) and the banded host resize (``scale_plane_banded``):
+the port's copy of ``mixlab_tpu/native``.
 
 The library is built with ``g++`` at first use into ``mixlab_tpu_torch/_build/``
 under a name that carries a hash of the source and the flags.  The build is
@@ -13,7 +15,8 @@ the result into place, and every other process waits on the lock and then
 loads the finished file, so workers that start together build it once.
 
 This is host code, not a device kernel.  Every entry point has a fallback,
-as in the JAX package: ``ws_unmask`` XORs in numpy, ``h264_encode_frame``
+as in the JAX package: the PCM conversions and ``crossfade_u8`` compute in
+numpy, ``NativeByteRing`` raises (it has no fallback), ``ws_unmask`` XORs in numpy, ``h264_encode_frame``
 returns ``None`` (the caller takes the numpy encoder), and each decoder
 returns ``None`` (or ``False``) so that the caller takes its Python tier
 (``av/h264dec_fast.py``, ``av/h264cabac.py``, ``av/h264dec.py``), and
@@ -89,6 +92,27 @@ def _load() -> Optional[ctypes.CDLL]:
     except (RuntimeError, OSError) as e:
         log.info("native library unavailable: %s", e)
         return None
+    lib.ring_create.restype = ctypes.c_void_p
+    lib.ring_create.argtypes = [ctypes.c_uint64]
+    lib.ring_destroy.restype = None
+    lib.ring_destroy.argtypes = [ctypes.c_void_p]
+    lib.ring_size.restype = ctypes.c_uint64
+    lib.ring_size.argtypes = [ctypes.c_void_p]
+    lib.ring_capacity.restype = ctypes.c_uint64
+    lib.ring_capacity.argtypes = [ctypes.c_void_p]
+    lib.ring_push.restype = ctypes.c_uint64
+    lib.ring_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+    lib.ring_pop.restype = ctypes.c_uint64
+    lib.ring_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64]
+    lib.pcm_f32_to_i16.restype = None
+    lib.pcm_f32_to_i16.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64]
+    lib.pcm_i16_to_f32.restype = None
+    lib.pcm_i16_to_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64]
+    lib.crossfade_u8.restype = None
+    lib.crossfade_u8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_uint64, ctypes.c_uint8,
+    ]
     lib.ws_unmask.restype = None
     lib.ws_unmask.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_char_p]
     lib.h264_parse_slice.restype = ctypes.c_int64
@@ -154,6 +178,80 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+class NativeByteRing:
+    """Lock-free SPSC byte ring (C++); capacity rounded up to a power of 2."""
+
+    def __init__(self, capacity: int):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        cap = 1
+        while cap < capacity:
+            cap <<= 1
+        self._lib = lib
+        self._ptr = lib.ring_create(cap)
+        if not self._ptr:
+            raise MemoryError("ring_create failed")
+
+    def push(self, data: bytes) -> bool:
+        return self._lib.ring_push(self._ptr, data, len(data)) == len(data)
+
+    def pop(self, n: int) -> bytes:
+        buf = ctypes.create_string_buffer(n)
+        got = self._lib.ring_pop(self._ptr, buf, n)
+        return buf.raw[:got]
+
+    def __len__(self) -> int:
+        return self._lib.ring_size(self._ptr)
+
+    @property
+    def capacity(self) -> int:
+        return self._lib.ring_capacity(self._ptr)
+
+    def close(self):
+        if self._ptr:
+            self._lib.ring_destroy(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def pcm_f32_to_i16(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    lib = _load()
+    if lib is None:
+        return (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
+    out = np.empty(x.shape, dtype=np.int16)
+    lib.pcm_f32_to_i16(x.ctypes.data, out.ctypes.data, x.size)
+    return out
+
+
+def pcm_i16_to_f32(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.int16)
+    lib = _load()
+    if lib is None:
+        return x.astype(np.float32) / 32768.0
+    out = np.empty(x.shape, dtype=np.float32)
+    lib.pcm_i16_to_f32(x.ctypes.data, out.ctypes.data, x.size)
+    return out
+
+
+def crossfade_u8(a: np.ndarray, b: np.ndarray, fade: int) -> np.ndarray:
+    a = np.ascontiguousarray(a, dtype=np.uint8)
+    b = np.ascontiguousarray(b, dtype=np.uint8)
+    lib = _load()
+    if lib is None:
+        acc = a.astype(np.uint32) * fade + b.astype(np.uint32) * (255 - fade)
+        return (acc // 255).astype(np.uint8)
+    out = np.empty(a.shape, dtype=np.uint8)
+    lib.crossfade_u8(a.ctypes.data, b.ctypes.data, out.ctypes.data, a.size, fade)
+    return out
 
 
 def ws_unmask(payload: bytes, mask: bytes) -> bytes:

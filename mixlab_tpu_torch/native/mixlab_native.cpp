@@ -1,7 +1,13 @@
 // The host C++ of the port's served path and media playback (the port's
-// copy of these parts of mixlab_tpu/native/mixlab_native.cpp, exposed via
-// ctypes, see __init__.py):
+// copy of mixlab_tpu/native/mixlab_native.cpp, exposed via ctypes, see
+// __init__.py):
 //
+//   * lock-free SPSC byte ring buffer — the ingest fabric, equivalent of the
+//     reference's `ringbuf` SPSC rings (src/source.rs:97-98, 65536 slots);
+//   * PCM sample conversion f32<->i16 (clamp+scale semantics of
+//     video/encode.rs:186-199 and stream_input.rs:167-173);
+//   * u8 crossfade with exact (a*f + b*(255-f))/255 semantics
+//     (video_mixer.rs:210-235), a host reference of the crossfade kernel;
 //   * WebSocket XOR unmasking (RFC 6455 §5.3) — per-byte in Python, word-wide
 //     here (server/ws.py);
 //   * the H.264 CAVLC Intra_16x16 frame encoder, the monitor's fastest
@@ -15,12 +21,109 @@
 // Host code, not a device kernel.
 // Build: g++ -O3 -march=native -shared -fPIC -o libmixlab_native.so mixlab_native.cpp
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <cstdlib>
 #include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// SPSC ring buffer (byte-oriented, power-of-two capacity)
+// ---------------------------------------------------------------------------
+
+struct SpscRing {
+    uint8_t* data;
+    uint64_t capacity;  // power of two
+    std::atomic<uint64_t> head;  // written by producer
+    std::atomic<uint64_t> tail;  // written by consumer
+};
+
+SpscRing* ring_create(uint64_t capacity_pow2) {
+    if (capacity_pow2 == 0 || (capacity_pow2 & (capacity_pow2 - 1)) != 0) {
+        return nullptr;
+    }
+    auto* r = new SpscRing();
+    r->data = static_cast<uint8_t*>(std::malloc(capacity_pow2));
+    if (!r->data) { delete r; return nullptr; }
+    r->capacity = capacity_pow2;
+    r->head.store(0, std::memory_order_relaxed);
+    r->tail.store(0, std::memory_order_relaxed);
+    return r;
+}
+
+void ring_destroy(SpscRing* r) {
+    if (r) { std::free(r->data); delete r; }
+}
+
+uint64_t ring_size(const SpscRing* r) {
+    return r->head.load(std::memory_order_acquire) -
+           r->tail.load(std::memory_order_acquire);
+}
+
+uint64_t ring_capacity(const SpscRing* r) { return r->capacity; }
+
+// returns bytes written (0 if insufficient space: all-or-nothing)
+uint64_t ring_push(SpscRing* r, const uint8_t* src, uint64_t n) {
+    uint64_t head = r->head.load(std::memory_order_relaxed);
+    uint64_t tail = r->tail.load(std::memory_order_acquire);
+    if (r->capacity - (head - tail) < n) return 0;
+    uint64_t mask = r->capacity - 1;
+    uint64_t off = head & mask;
+    uint64_t first = off + n <= r->capacity ? n : r->capacity - off;
+    std::memcpy(r->data + off, src, first);
+    if (first < n) std::memcpy(r->data, src + first, n - first);
+    r->head.store(head + n, std::memory_order_release);
+    return n;
+}
+
+// returns bytes read (<= n)
+uint64_t ring_pop(SpscRing* r, uint8_t* dst, uint64_t n) {
+    uint64_t tail = r->tail.load(std::memory_order_relaxed);
+    uint64_t head = r->head.load(std::memory_order_acquire);
+    uint64_t avail = head - tail;
+    if (n > avail) n = avail;
+    if (n == 0) return 0;
+    uint64_t mask = r->capacity - 1;
+    uint64_t off = tail & mask;
+    uint64_t first = off + n <= r->capacity ? n : r->capacity - off;
+    std::memcpy(dst, r->data + off, first);
+    if (first < n) std::memcpy(dst + first, r->data, n - first);
+    r->tail.store(tail + n, std::memory_order_release);
+    return n;
+}
+
+// ---------------------------------------------------------------------------
+// PCM conversion
+// ---------------------------------------------------------------------------
+
+void pcm_f32_to_i16(const float* src, int16_t* dst, uint64_t n) {
+    for (uint64_t i = 0; i < n; i++) {
+        float s = src[i];
+        if (s > 1.0f) s = 1.0f;
+        if (s < -1.0f) s = -1.0f;
+        dst[i] = static_cast<int16_t>(s * 32767.0f);
+    }
+}
+
+void pcm_i16_to_f32(const int16_t* src, float* dst, uint64_t n) {
+    const float k = 1.0f / 32768.0f;
+    for (uint64_t i = 0; i < n; i++) dst[i] = src[i] * k;
+}
+
+// ---------------------------------------------------------------------------
+// crossfade: out = (a*fade + b*(255-fade)) / 255, truncating
+// ---------------------------------------------------------------------------
+
+void crossfade_u8(const uint8_t* a, const uint8_t* b, uint8_t* out,
+                  uint64_t n, uint8_t fade) {
+    uint32_t fa = fade, fb = 255 - fade;
+    for (uint64_t i = 0; i < n; i++) {
+        uint32_t acc = a[i] * fa + b[i] * fb;
+        out[i] = static_cast<uint8_t>((acc * 32897u) >> 23);
+    }
+}
 
 // ---------------------------------------------------------------------------
 // WebSocket unmask (RFC 6455 §5.3): payload[i] ^= mask[i % 4]

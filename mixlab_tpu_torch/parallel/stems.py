@@ -76,9 +76,9 @@ class _Shards:
         self.mesh = mesh
         self.n_stems = mesh.size if n_stems is None else n_stems
         self.n_padded = _padded(self.n_stems, mesh.size)
-        patches, self.programs, self.bounds = shard_programs(ws, cfg, block, mesh,
-                                                             self.n_padded)
-        self.patch = patches[mesh[0]]
+        self.patches, self.programs, self.bounds = shard_programs(ws, cfg, block, mesh,
+                                                                  self.n_padded)
+        self.patch = self.patches[mesh[0]]
         self.masks = [(torch.arange(lo, hi, device=dev) < self.n_stems).to(torch.float32)
                       for dev, (lo, hi) in zip(mesh, self.bounds)]
 
@@ -160,6 +160,13 @@ class StemsPatch:
         StemsPatch`` over ``mesh`` (None: the engine's device alone)."""
         return lambda ws, cfg, block, device: cls(
             ws, cfg, block, [device] if mesh is None else mesh, n_stems, axis)
+
+    def serves(self, ws: Workspace) -> bool:
+        return self._patch.serves(ws)
+
+    def refresh_params(self, ws: Workspace) -> None:
+        for patch in self._shards.patches.values():
+            patch.refresh_params(ws)
 
     def _by_module(self, tree):
         """A single-stem tree keyed by module -> each module's tuple of the

@@ -9,12 +9,12 @@ WebSocket subscribed at ``/_monitor/<uuid>`` (monitor.rs:33-66).
 
 The codec thread always muxes fMP4: audio + AVC into the fragmented-MP4
 mux for MSE (reference parity).  Backends (av/codecs.py codec_tier): the
-ffmpeg CLI when present, else the pure zero-dependency tier (CAVLC intra
-H.264 + AAC-LC), so the stream is always available.  The JAX package's
-libavcodec shim tier is not ported yet (ROADMAP.md queue 1, Shim codec
-tier); its FLAC monitor audio (``MIXLAB_PURE_AUDIO``) and its ``pcm+png``
-preview mode are left out: the pure tier always muxes AAC into fMP4, so no
-caller would reach them.
+in-process libavcodec shim (libx264 + AAC) where its libraries exist, else
+the ffmpeg CLI when present, else the pure zero-dependency tier (CAVLC
+intra H.264 + AAC-LC), so the stream is always available.  The JAX
+package's FLAC monitor audio (``MIXLAB_PURE_AUDIO``) and its ``pcm+png``
+preview mode are left out: every tier muxes AAC into fMP4, so no caller
+would reach them.
 
 Transport packet framing (binary WS message): one JSON header line + b"\\n"
 + raw payload.  The reference's ``MonitorTransportPacket`` bincode enum
@@ -159,13 +159,20 @@ class MonitorPipeline(threading.Thread):
     def _init_fmp4(self):
         """Real audio+AVC into the fragmented-MP4 mux for MSE playback —
         the reference's monitor path (monitor.rs:185-251).  Backend tier
-        (av/codecs.py codec_tier): ffmpeg CLI > pure (zero-dep CAVLC H.264
-        + AAC-LC)."""
+        (av/codecs.py codec_tier): shim (libavcodec) > ffmpeg CLI > pure
+        (zero-dep CAVLC H.264 + AAC-LC)."""
         from mixlab_tpu_torch.av.codecs import codec_tier
         from mixlab_tpu_torch.av.encode_stream import SAMPLES_PER_CHANNEL_PER_FRAGMENT
 
         fps = max(self.cfg.ticks_per_second // VIDEO_TICK_DIVISOR, 1)
-        if codec_tier() == "ffmpeg":
+        tier = codec_tier()
+        if tier == "shim":
+            # in-process libavcodec/libx264 (the reference's FFI shape)
+            from mixlab_tpu_torch.av.codecs import ShimAacStream, ShimH264Stream
+
+            self._aac = ShimAacStream(self.cfg.sample_rate, bitrate=None)
+            self._h264 = ShimH264Stream(MONITOR_PICTURE, fps=fps, profile="monitor")
+        elif tier == "ffmpeg":
             from mixlab_tpu_torch.av.codecs import FfmpegAacStream, FfmpegH264Stream
 
             self._aac = FfmpegAacStream(self.cfg.sample_rate, bitrate=None)
@@ -236,10 +243,12 @@ class MonitorPipeline(threading.Thread):
                 else:
                     self._encode_tick_fmp4(t0, audio, video)
         finally:
-            # the pure tier's AAC codec process ends with this thread
-            close = getattr(getattr(self, "_aac", None), "close", None)
-            if close is not None:
-                close()
+            # the pure tier's AAC codec process, or the shim's encoders, end
+            # with this thread
+            for enc in (getattr(self, "_aac", None), getattr(self, "_h264", None)):
+                close = getattr(enc, "close", None)
+                if close is not None:
+                    close()
 
     def _encode_tick_fmp4(self, t0: int, audio: np.ndarray, video):
         self._ensure_codecs()

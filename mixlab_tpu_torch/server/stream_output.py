@@ -14,19 +14,22 @@ Rebuild of ``src/module/stream_output.rs``:
     sends FLV tags over the RTMP client with 1 kHz timestamps
     (stream_output.rs:373-406).
 
-Codecs: the pure tier, the JAX package's tier where its libavcodec shim is
-absent.  Audio is AAC-LC at CBR 160 kb/s (the reference operating point,
-stream_output.rs:337-345) from ``PureAacStream``, whose encoder runs in its
-codec process; if that cannot start, audio goes out as linear-PCM FLV tags.
-Video is intra H.264 at 1120x700 (stream_output.rs:23-24) from
-``PureH264Stream`` on its own encode thread, at 30 fps on the native CAVLC
-tier and 5 fps on the numpy one, behind a depth-2 drop-on-lag queue (the
-reference's codec-thread shape, monitor.rs:154-176), so a slow frame costs a
-dropped frame, never an audio stall.
+Codecs: where the libavcodec shim has its encoders
+(``av/codecs.py`` ``avshim_codecs_available``), AAC CBR 160 kb/s
+(``ShimAacStream``) and x264 CBR 1.5 Mbps at 1120x700, 30 fps
+(``ShimH264Stream``), the reference operating point
+(stream_output.rs:23-24, 337-345); else the pure tier: AAC-LC at CBR 160
+kb/s from ``PureAacStream``, whose encoder runs in its codec process (if
+that cannot start, audio goes out as linear-PCM FLV tags), and intra H.264
+at 1120x700 from ``PureH264Stream``, at 30 fps on the native CAVLC tier and
+5 fps on the numpy one.  Video is encoded on its own encode thread behind a
+depth-2 drop-on-lag queue (the reference's codec-thread shape,
+monitor.rs:154-176), so a slow frame costs a dropped frame, never an audio
+stall.
 
 Differences from the JAX package, each deliberate:
-  * the JAX package's shim tier (``ShimAacStream``, ``ShimH264Stream``) is
-    not ported (ROADMAP.md queue 1, Shim codec tier);
+  * the shim's video also runs on the encode thread, scaled on the host
+    (the JAX package scales on its device and encodes on the IO thread);
   * the video item is the engine's picture on its device.  The encode
     thread copies its planes to the host with one wait on its stream
     (``engine/engine.py`` ``_fetch_tree``), the stream the engine issues on,
@@ -178,21 +181,22 @@ class StreamOutputController:
             log.warning("stream_output: connection failed: %s", e)
             self._set_state(ConnState.FAILED, error=True)
         finally:
-            self._end_video_thread()
-            self._close_encoders()
+            self._close_encoders(video_done=self._end_video_thread())
             loop.close()
             self._loop = None
 
-    def _end_video_thread(self):
+    def _end_video_thread(self) -> bool:
+        """-> whether no encode thread runs any more."""
         thread, q = self._venc_thread, self._venc_q
         self._venc_thread = self._venc_q = None
         if thread is None:
-            return
+            return True
         try:
             q.put(None, timeout=5.0)
         except queue.Full:
             pass  # the thread also exits on self._stop
         thread.join(timeout=5.0)
+        return not thread.is_alive()
 
     async def _io_main(self):
         host, port, app = parse_rtmp_url(self.params.rtmp_url)
@@ -243,16 +247,31 @@ class StreamOutputController:
             self._set_state(ConnState.OFFLINE)
 
     def _setup_encoders(self):
-        """AAC-LC CBR 160 kb/s in its codec process (PCM-FLV audio if it
-        cannot start) and intra H.264 at 1120x700: 30 fps on the native
-        CAVLC tier, 5 fps on the numpy one."""
-        from mixlab_tpu_torch.av.codecs import STREAM_PICTURE, PureAacStream
+        """The shim's AAC CBR 160 kb/s and x264 CBR 1.5 Mbps at 1120x700, 30
+        fps, where it has them; else AAC-LC CBR 160 kb/s in its codec process
+        (PCM-FLV audio if it cannot start) and intra H.264 at 1120x700: 30
+        fps on the native CAVLC tier, 5 fps on the numpy one."""
+        from mixlab_tpu_torch.av.codecs import (
+            STREAM_PICTURE,
+            PureAacStream,
+            avshim_codecs_available,
+        )
         from mixlab_tpu_torch.av.h264cavlc_fast import NativeCavlcIntraEncoder
         from mixlab_tpu_torch.av.h264enc import PureH264Stream
 
         self._aac = self._h264 = None
         self._last_pic = None
         self._video_fps = 30
+        if avshim_codecs_available():
+            from mixlab_tpu_torch.av.codecs import ShimAacStream, ShimH264Stream
+
+            try:
+                self._aac = ShimAacStream(self.cfg.sample_rate, bitrate=AUDIO_BITRATE)
+                self._h264 = ShimH264Stream(STREAM_PICTURE, fps=30, profile="stream")
+                return
+            except Exception as e:
+                log.warning("stream_output: codec init failed: %s", e)
+                self._close_encoders()
         try:
             self._aac = PureAacStream(self.cfg.sample_rate, 2, bitrate=AUDIO_BITRATE)
         except Exception as e:
@@ -266,10 +285,15 @@ class StreamOutputController:
             log.warning("stream_output: pure video init failed: %s", e)
             self._h264 = None
 
-    def _close_encoders(self):
+    def _close_encoders(self, video_done: bool = True):
+        """End the audio encoder, and the shim's video encoder once no
+        encode thread can feed it (``video_done``)."""
         if self._aac is not None:
             self._aac.close()
         self._aac = None
+        close = getattr(self._h264, "close", None)
+        if video_done and close is not None:
+            close()
 
     def _pipe_get(self, timeout):
         try:

@@ -262,6 +262,7 @@ def test_media_player_skips_a_bad_granule_once_and_ends_its_child(caplog):
     from mixlab_tpu_torch.engine.feeds import MediaSourceFeed
     from mixlab_tpu_torch.engine.media_player import MediaPlayer
     from mixlab_tpu_torch.io_host import throttle
+    from mixlab_tpu_torch.native import avshim
 
     blob = bytearray(mp4_bytes("aac", seconds=0.4, n_video=4))
     r = Mp4Reader(bytes(blob))
@@ -275,6 +276,7 @@ def test_media_player_skips_a_bad_granule_once_and_ends_its_child(caplog):
     with caplog.at_level("WARNING", logger="mixlab_tpu_torch.engine.media_player"), \
             pytest.MonkeyPatch.context() as m:
         m.setattr(throttle.MediaThrottle, "wait_until", lambda self, t: None)
+        m.setattr(avshim, "available", lambda: False)  # the pure tier's codec process
         player.start()
         audio, frames = [], 0
         deadline = time.monotonic() + 60

@@ -185,7 +185,13 @@ def test_png_preview_is_identical():
 
 
 def test_codec_tier_without_the_shim(monkeypatch):
-    """The port chooses ffmpeg, then pure; ``shim`` names its ROADMAP item."""
+    """Without the libavcodec shim the port chooses ffmpeg, then pure, as the
+    JAX package does; a forced ``shim`` raises, saying why it is absent."""
+    from mixlab_tpu_torch.native import avshim
+
+    monkeypatch.setattr(avshim, "available", lambda: False)
+    monkeypatch.setattr(avshim, "unavailable_reason",
+                        lambda: "g++ failed on avshim.cpp (the ffmpeg libraries ...)")
     monkeypatch.setattr(codecs.shutil, "which", lambda name: None)
     monkeypatch.delenv("MIXLAB_CODEC_TIER", raising=False)
     assert codecs.codec_tier() == "pure" and codecs.fmp4_capable()
@@ -194,11 +200,31 @@ def test_codec_tier_without_the_shim(monkeypatch):
     monkeypatch.setenv("MIXLAB_CODEC_TIER", "pure")
     assert codecs.codec_tier() == "pure"
     monkeypatch.setenv("MIXLAB_CODEC_TIER", "shim")
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue 1, Shim codec tier"):
+    with pytest.raises(RuntimeError, match="shim is unavailable: g.. failed on avshim.cpp"):
         codecs.codec_tier()
     monkeypatch.setenv("MIXLAB_CODEC_TIER", "x264")
     with pytest.raises(ValueError):
         codecs.codec_tier()
+
+
+def test_codec_tier_with_the_shim(monkeypatch):
+    """Where the libraries are, the shim comes first in both packages, and
+    ``MIXLAB_CODEC_TIER`` pins a tier."""
+    from mixlab_tpu.av import codecs as jcodecs
+    from mixlab_tpu_torch.native import avshim
+
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    from mixlab_tpu.native import avshim as jax_avshim
+
+    if not jax_avshim.available():
+        pytest.skip("the JAX package's libavcodec shim is unavailable")
+    monkeypatch.delenv("MIXLAB_CODEC_TIER", raising=False)
+    monkeypatch.setattr(codecs.shutil, "which", lambda name: None)
+    assert codecs.codec_tier() == "shim" == jcodecs.codec_tier()
+    for tier in ("shim", "pure"):
+        monkeypatch.setenv("MIXLAB_CODEC_TIER", tier)
+        assert codecs.codec_tier() == tier
 
 
 def test_ws_unmask_matches_the_numpy_xor(monkeypatch):

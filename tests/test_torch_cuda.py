@@ -739,3 +739,77 @@ def test_fleet_over_two_shards_of_the_card_matches_one_device(dev):
         want, got = one.run_block(b * 12_000), two.run_block(b * 12_000)
         for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
             assert torch.equal(g, w)
+
+
+def test_threaded_structural_edit_is_warmed_off_the_engine_thread(dev):
+    """The realtime engine on the card, threaded: a structural edit (an
+    oscillator into the Monitor) is warmed on the compile thread and adopted
+    between ticks; ticks go on meanwhile and the Monitor then hears the
+    oscillator."""
+    import threading
+    import time
+
+    import chip_smoke
+    from mixlab_tpu_torch import protocol as p
+    from mixlab_tpu_torch.engine.engine import Engine
+
+    eng, ids, sid = chip_smoke.realtime_engine("cuda", ())
+    warms = []
+
+    def warm(patch, gen, warm_args):
+        ok = Engine._warm_and_stage(eng, patch, gen, warm_args)
+        warms.append((threading.current_thread().name, ok))
+        return ok
+
+    eng._warm_and_stage = warm
+    pipe = eng.monitor_pipe(ids["monitor"])
+    eng.start()
+    try:
+        time.sleep(0.3)
+        t0, new = eng.tick, p.ModuleId(eng.ws.module_seq + 1)
+        eng.update(sid, p.WorkspaceMessage(100, p.CreateModule(p.ModuleParams(
+            "Oscillator", p.OscillatorParams(1000.0, p.Waveform.SQUARE)), p.WindowGeometry())))
+        deadline = time.time() + 5
+        while time.time() < deadline and new not in eng.ws.modules:
+            time.sleep(0.01)
+        eng.update(sid, p.WorkspaceMessage(101, p.CreateConnection(
+            p.InputId(ids["monitor"], 1), p.OutputId(new, 1))))
+        deadline = time.time() + 10
+        while time.time() < deadline and new not in eng._patch.order:
+            time.sleep(0.01)
+        assert new in eng._patch.order and eng.tick > t0
+        assert warms and all(name == "compile" and ok for name, ok in warms)
+        time.sleep(0.2)
+        while not pipe.q.empty():
+            pipe.q.get_nowait()
+        _, audio, _ = pipe.q.get(timeout=5)
+        assert float(np.abs(audio).max()) > 0.5  # the square wave
+    finally:
+        eng.stop()
+
+
+def test_pipeline_depth_routes_the_same_items_on_the_card(dev):
+    """Depth 2 on the card routes depth 0's monitor audio, two ticks later,
+    through its pinned copies; ``flush_inflight`` routes the last two."""
+    import chip_smoke
+
+    items = {}
+    for d in (0, 2):
+        eng, ids, _ = chip_smoke.realtime_engine("cuda", (), pipeline_depth=d)
+        pipe = eng.monitor_pipe(ids["monitor"])
+        got = []
+        try:
+            for _ in range(6):
+                eng.tick_once()
+                while not pipe.q.empty():
+                    got.append(pipe.q.get_nowait())
+            assert len(got) == 6 - d
+            eng.flush_inflight()
+            while not pipe.q.empty():
+                got.append(pipe.q.get_nowait())
+        finally:
+            eng.stop()
+        items[d] = got
+    assert [t0 for t0, _, _ in items[2]] == [t0 for t0, _, _ in items[0]]
+    for (_, a, _), (_, b, _) in zip(items[2], items[0]):
+        assert np.array_equal(a, b)

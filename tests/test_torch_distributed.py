@@ -37,8 +37,7 @@ from mixlab_tpu_torch.parallel.distributed import (
 
 if init == "tcp":
     mesh = bring_up(f"127.0.0.1:{port}", 2, pid, devices=["cpu"] * 4)
-else:  # as torchrun starts a process
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE="2", RANK=str(pid))
+else:  # started as torchrun starts a process: the group's variables set
     mesh = bring_up(devices=["cpu"] * 4)
 assert (len(mesh), mesh.size, mesh.rank, mesh.world) == (4, 8, pid, 2)
 ws, mon = build_16_module_graph()
@@ -64,13 +63,56 @@ print(f"[p{pid}] done", flush=True)
 
 
 def _free_port():
+    """A loopback port that rank 0's store can bind and no other process
+    is handed meanwhile.  A port merely bound and closed goes back to the
+    pool at once: under a loaded suite another test's server took it
+    before rank 0 (still importing torch) bound it, and rank 0 died with
+    EADDRINUSE while rank 1 waited.  Here one connection is made to the
+    port and its accepted end closed first, which leaves the port in
+    TIME_WAIT: the kernel hands it to no ``bind(0)`` or ``connect()`` for
+    a minute, while the store, which binds with SO_REUSEADDR, may take it."""
     import socket
 
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    with socket.socket() as srv:
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        addr = srv.getsockname()
+        with socket.create_connection(addr) as cli:
+            conn, _ = srv.accept()
+            conn.close()  # the accepted end closes first: TIME_WAIT on addr
+    return addr[1]
+
+
+def _join(procs, timeout):
+    """Each process's output once all have ended.  A process that fails
+    ends the others at once (its peer would wait on the group for ever),
+    so the failing worker's own log is what the test reports."""
+    import threading
+    import time
+
+    logs = [""] * len(procs)
+
+    def read(i):
+        logs[i] = procs[i].stdout.read()
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(10)
+        for r in readers:
+            r.join(10)
+    return logs
 
 
 @pytest.fixture(scope="module")
@@ -93,17 +135,19 @@ def test_two_process_global_mesh_matches_single_process(tmp_path, jax_master, in
     out = tmp_path / "out.json"
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
+
+    def group_env(pid):
+        if init == "tcp":
+            return env
+        return {**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                "WORLD_SIZE": "2", "RANK": str(pid)}
+
     procs = [subprocess.Popen(
         [sys.executable, str(worker), str(pid), str(port), str(out), str(ROOT), init],
-        env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        env=group_env(pid), cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
         for pid in (0, 1)]
-    try:
-        logs = [p.communicate(timeout=WAIT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(10)
+    logs = _join(procs, WAIT_S)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     got = json.loads(out.read_text())

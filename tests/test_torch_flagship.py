@@ -174,8 +174,10 @@ def test_render_cli_writes_wav_for_any_other_extension(tmp_path):
 
 def test_render_cli_refuses_mp4(tmp_path, monkeypatch):
     """An .mp4 export is refused where it cannot be made: a project without
-    a Monitor, and the libavcodec shim tier, which the port does not carry
-    (named by its ROADMAP.md item)."""
+    a Monitor, and the libavcodec shim tier forced where its libraries are
+    absent."""
+    from mixlab_tpu_torch.native import avshim
+
     ws = Workspace()
     ws.create_module(tp.ModuleParams("Oscillator", tp.OscillatorParams()), tp.WindowGeometry())
     proj = tmp_path / "no_monitor.mixlab"
@@ -184,7 +186,8 @@ def test_render_cli_refuses_mp4(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="no Monitor module"):
         render_cli.main([str(proj), str(tmp_path / "x.mp4"), "--device", "cpu"])
     monkeypatch.setenv("MIXLAB_CODEC_TIER", "shim")
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue 1, Shim codec tier"):
+    monkeypatch.setattr(avshim, "available", lambda: False)
+    with pytest.raises(RuntimeError, match="shim is unavailable"):
         render_cli.main([str(proj), str(tmp_path / "x.MP4"), "--device", "cpu"])
     assert not (tmp_path / "x.mp4").exists() and not (tmp_path / "x.MP4").exists()
 
@@ -223,6 +226,41 @@ def test_render_cli_writes_mp4(tmp_path, monkeypatch):
     aac.feed(f32_to_i16(wav.reshape(-1)))
     want = [f[7:] for f in aac.poll_frames()]  # raw blocks: the ADTS header stripped
     assert [reader.sample_data(s) for s in audio.samples] == want
+
+
+def test_render_cli_writes_mp4_through_the_shim(tmp_path, monkeypatch):
+    """The same export on the libavcodec shim tier (x264 and libavcodec's
+    AAC): ``avc1`` at 560x350, 10 key frames, and ``mp4a`` whose samples
+    are the shim's AAC of the offline render of the same second."""
+    import chip_smoke
+    from mixlab_tpu.av.mp4read import Mp4Reader
+    from mixlab_tpu_torch.av.codecs import ShimAacStream
+    from mixlab_tpu_torch.av.encode_stream import f32_to_i16
+    from mixlab_tpu_torch.native import avshim
+
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    monkeypatch.setenv("MIXLAB_CODEC_TIER", "shim")
+    ws, _ = build_16_module_graph()
+    proj = tmp_path / "flagship.mixlab"
+    with ProjectBase(proj) as base:
+        base.write_workspace(ws.to_persist())
+    out = tmp_path / "out.mp4"
+    assert render_cli.main([str(proj), str(out), "--seconds", "1", "--device", "cpu"]) is None
+    data = out.read_bytes()
+    assert sorted(chip_smoke.parse_fmp4(data)["codecs"].values()) == ["avc1", "mp4a"]
+    reader = Mp4Reader(data)
+    video, audio = reader.video_track(), reader.audio_track()
+    assert (video.codec, video.width, video.height) == ("h264", 560, 350)
+    assert len(video.samples) == 10 and all(s.key for s in video.samples)
+    wav = render_cli.main([str(proj), str(tmp_path / "out.wav"), "--seconds", "1",
+                           "--device", "cpu"])
+    aac = ShimAacStream(44_100, 2, bitrate=None)
+    aac.feed(f32_to_i16(wav.reshape(-1)))
+    want = [f[7:] for f in aac.poll_frames()]
+    aac.close()
+    got = [reader.sample_data(s) for s in audio.samples]
+    assert len(got) >= 40 and got == want[:len(got)]
 
 
 def test_render_cli_48k_runs_the_region_and_matches_oracle(tmp_path, monkeypatch):

@@ -95,6 +95,10 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     # controller with its host agents
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "parallel", "parallel.distributed", "server.fleet")} <= names
+    # the last modules: the live engine's edit path, the rest of the host
+    # C++ and the libavcodec shim
+    assert {f"mixlab_tpu_torch.{m}" for m in (
+        "engine.engine", "engine.compiler", "kernels", "native", "native.avshim")} <= names
 
 
 _CONCURRENT_BUILD = r"""
@@ -108,8 +112,20 @@ assert native.available()
 lib = native._load()
 for name in ("ws_unmask", "h264_encode_frame", "h264_parse_slice", "h264_dc_recon",
              "h264_decode_islice", "h264_decode_islice_cabac", "h264_decode_inter",
-             "scale_plane_banded"):
+             "scale_plane_banded", "ring_create", "ring_push", "ring_pop", "pcm_f32_to_i16",
+             "pcm_i16_to_f32", "crossfade_u8"):
     getattr(lib, name)
+"""
+
+_CONCURRENT_SHIM_BUILD = r"""
+import sys
+from pathlib import Path
+from mixlab_tpu_torch.native import avshim
+
+avshim.BUILD_DIR = Path(sys.argv[1])
+print(avshim.build())
+assert avshim.available(), avshim.unavailable_reason()
+assert avshim.have_decoder("h264") and avshim.have_encoder("aac")
 """
 
 
@@ -120,6 +136,25 @@ def test_native_build_is_atomic_under_concurrent_first_use(tmp_path):
     the build several times longer), and no temporary file is left
     behind."""
     procs = [subprocess.Popen([sys.executable, "-c", _CONCURRENT_BUILD, str(tmp_path)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(6)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err for _, err in outs]
+    paths = {out.strip() for out, _ in outs}
+    assert len(paths) == 1
+    (path,) = paths
+    assert sorted(f.name for f in tmp_path.iterdir()) == sorted(
+        [Path(path).name, Path(path).with_suffix(".lock").name])
+
+
+def test_avshim_build_is_atomic_under_concurrent_first_use(tmp_path):
+    """As the host C++: six processes build the libavcodec shim at once into
+    an empty folder, one library results and every process loads it."""
+    from mixlab_tpu_torch.native import avshim
+
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    procs = [subprocess.Popen([sys.executable, "-c", _CONCURRENT_SHIM_BUILD, str(tmp_path)],
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for _ in range(6)]
     outs = [p.communicate(timeout=300) for p in procs]

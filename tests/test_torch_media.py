@@ -3,10 +3,11 @@
 The port's ``MediaPlayer`` (``mixlab_tpu_torch/engine/media_player.py``)
 and the JAX package's play the same upload side by side, with both
 packages' realtime throttles made no-ops so that the decode threads run as
-fast as the test drains their feeds.  The JAX side's libavcodec shim is
-reported absent (as ``tests/test_mp4read.py`` does), so it takes the pure
-demux and decoders the port has, and its native library is patched away so
-that no test here builds it.  The first audio samples match to 1e-6 and the
+fast as the test drains their feeds.  Both packages' libavcodec shims are
+reported absent (as ``tests/test_mp4read.py`` does for the JAX package), so
+both take the pure demux and decoders, and the JAX package's native library
+is patched away so that no test here builds it; where the shims are present,
+an MP4 also plays through both packages' ``_run_shim``.  The first audio samples match to 1e-6 and the
 first video frames exactly, with their pts, past the first loop at EOF.
 
 Then the port's ``Engine`` plays uploads through a ``ProjectHandle``:
@@ -31,6 +32,7 @@ from mixlab_tpu.engine.media_player import MediaPlayer as JaxPlayer
 from mixlab_tpu.io_host import throttle as jax_throttle
 from mixlab_tpu.native import avshim as jax_avshim
 from mixlab_tpu_torch import protocol as tp
+from mixlab_tpu_torch.native import avshim
 from mixlab_tpu_torch.av import mp4
 from mixlab_tpu_torch.av.aac import adts_frame
 from mixlab_tpu_torch.av.aacenc import AacLcEncoder
@@ -158,6 +160,21 @@ def unthrottled(monkeypatch):
         monkeypatch.setattr(mod.AudioThrottle, "send_samples", lambda self, n: None)
         monkeypatch.setattr(mod.MediaThrottle, "wait_until", lambda self, t: None)
     monkeypatch.setattr(jax_avshim, "available", lambda: False)
+    monkeypatch.setattr(avshim, "available", lambda: False)
+    monkeypatch.setattr(jax_native, "_load", lambda: None)
+
+
+@pytest.fixture
+def unthrottled_shim(monkeypatch):
+    """Both packages' players run unthrottled, each with its libavcodec
+    shim (the test skips where either is absent)."""
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    if not jax_avshim.available():
+        pytest.skip("the JAX package's libavcodec shim is unavailable")
+    for mod in (throttle, jax_throttle):
+        monkeypatch.setattr(mod.AudioThrottle, "send_samples", lambda self, n: None)
+        monkeypatch.setattr(mod.MediaThrottle, "wait_until", lambda self, t: None)
     monkeypatch.setattr(jax_native, "_load", lambda: None)
 
 
@@ -257,9 +274,40 @@ def test_mp4_upload_plays_as_in_the_jax_package(audio_codec, unthrottled):
     assert pts[:3] == [Fraction(0), Fraction(1, 10), Fraction(2, 10)] and pts[3] > pts[2]
 
 
+@pytest.mark.parametrize("audio_codec", ["flac", "aac"])
+def test_mp4_upload_plays_through_the_shim_as_in_the_jax_package(audio_codec,
+                                                                  unthrottled_shim):
+    """The same uploads through both packages' ``_run_shim`` (libavcodec's
+    demux and decoders): the same samples and pictures over the clip (3
+    frames, 12 audio frames of 1,024).  The fragmented MP4 cannot be
+    seeked back to its start: the port opens it again and plays on past
+    the loop (7 frames), where the JAX package's loop reads nothing more."""
+    calls = []
+    real = MediaPlayer._run_shim
+    blob = mp4_bytes(audio_codec)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(MediaPlayer, "_run_shim", lambda self: calls.append(1) or real(self))
+        port, jax = play_both(blob, 12 * 1024, 3)
+        assert calls == [1]
+        assert_same_playback(port, jax)
+        cfg = EngineConfig(sample_rate=SR)
+        feed = MediaSourceFeed(cfg)
+        player = MediaPlayer(io.BytesIO(blob), feed, cfg, "cpu")
+        player.start()
+        try:
+            _, looped = collect(feed, 0, 7)
+        finally:
+            player.stop()
+            player.join(timeout=5)
+    pts = [p.frac for p, _ in looped]
+    assert pts[:3] == [Fraction(0), Fraction(1, 10), Fraction(2, 10)] and pts[3] > pts[2]
+    assert all(b > a for a, b in zip(pts, pts[1:]))
+    assert torch.equal(looped[3][1].picture.planes["y"], looped[0][1].picture.planes["y"])
+
+
 def test_undecodable_upload_names_the_shim_item(unthrottled, caplog):
-    """A file only the JAX package's shim could decode plays nothing and
-    says so, naming the ROADMAP.md item."""
+    """Without the shim's libraries, a file only the shim could decode plays
+    nothing and says that the libraries are absent."""
     cfg = EngineConfig(sample_rate=SR)
     feed = MediaSourceFeed(cfg)
     player = MediaPlayer(io.BytesIO(b"\x1aE\xdf\xa3" + bytes(200)), feed, cfg, "cpu")
@@ -267,7 +315,7 @@ def test_undecodable_upload_names_the_shim_item(unthrottled, caplog):
         player.start()
         player.join(timeout=10)
     assert not player.is_alive() and feed.queue.empty() and feed.video_q.empty()
-    assert "ROADMAP.md queue 1, Shim codec tier" in caplog.text
+    assert media_player.NO_SHIM in caplog.text and "absent" in media_player.NO_SHIM
 
 
 def test_player_needs_the_engines_device():

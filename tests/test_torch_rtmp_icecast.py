@@ -562,18 +562,36 @@ def _lame_mp3():
     return frames
 
 
-@pytest.mark.parametrize("kind", ["mp3", "adts"])
-def test_icecast_mp3_ingest(kind, caplog):
-    """An MP3 (libmp3lame) or ADTS-AAC SOURCE, which the JAX package decodes
-    through its libavcodec shim: the port refuses it, naming the ROADMAP
-    item, and the mount closes with no audio."""
-    if kind == "mp3":
-        body, ctype = b"".join(_lame_mp3()[:20]), b"audio/mpeg"
-    else:
-        _, raws, asc = _aac_tags(0.2)
-        from mixlab_tpu_torch.av.aac import adts_frame
+def _shim():
+    from mixlab_tpu.native import avshim as jax_avshim
+    from mixlab_tpu_torch.native import avshim
 
-        body, ctype = b"".join(adts_frame(r, asc) for r in raws), b"audio/aac"
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    if not jax_avshim.available():
+        pytest.skip("the JAX package's libavcodec shim is unavailable")
+    return avshim
+
+
+def _icecast_body(kind):
+    """An MP3 (libmp3lame) or ADTS-AAC SOURCE body and its content type."""
+    if kind == "mp3":
+        return b"".join(_lame_mp3()[:20]), b"audio/mpeg"
+    _, raws, asc = _aac_tags(0.2)
+    from mixlab_tpu_torch.av.aac import adts_frame
+
+    return b"".join(adts_frame(r, asc) for r in raws), b"audio/aac"
+
+
+@pytest.mark.parametrize("kind", ["mp3", "adts"])
+def test_icecast_mp3_ingest(kind, caplog, monkeypatch):
+    """An MP3 (libmp3lame) or ADTS-AAC SOURCE where the libavcodec shim's
+    libraries are absent: the port refuses it, saying so, and the mount
+    closes with no audio."""
+    from mixlab_tpu_torch.native import avshim
+
+    body, ctype = _icecast_body(kind)
+    monkeypatch.setattr(avshim, "available", lambda: False)
     recv = source_mod.ICECAST_MOUNTPOINTS.listen("mp3radio")
     try:
         with caplog.at_level("WARNING", logger="mixlab_tpu_torch.io_host.icecast"):
@@ -581,15 +599,56 @@ def test_icecast_mp3_ingest(kind, caplog):
             assert b"200 OK" in _icecast_source(icecast, "mp3radio", head, body,
                                                 lambda: "refused" in caplog.text)
         assert _drain(recv) == []
-        assert "ROADMAP.md queue 1, Shim codec tier" in caplog.text
+        assert "refused" in caplog.text and "ffmpeg libraries" in caplog.text
     finally:
         recv.close()
 
 
+@pytest.mark.parametrize("kind", ["mp3", "adts"])
+def test_icecast_mp3_ingest_through_the_shim(kind):
+    """The same SOURCE bodies where the shim is: both packages' Icecast
+    ingest decode them through libavcodec into the mountpoint a StreamInput
+    reads, the same i16 PCM at the same times, equal to the port shim's
+    own decode of the frames."""
+    avshim = _shim()
+    body, ctype = _icecast_body(kind)
+    dec = avshim.AudioDecoder("mp3" if kind == "mp3" else "aac")
+    if kind == "mp3":
+        frames = mp3.Mp3FrameSplitter().feed(body)
+    else:
+        frames = icecast._ShimAudioDecoder("audio/aac", 44_100, "aac")._split_adts(body)
+    want = np.concatenate([pcm for f in frames for _, pcm, _ in dec.decode(f)])
+    dec.close()
+    head = b"SOURCE /shimradio HTTP/1.0\r\nContent-Type: " + ctype + b"\r\n\r\n"
+    got = {}
+    for module, reg in ((icecast, source_mod.ICECAST_MOUNTPOINTS),
+                        (jicecast, jsource.ICECAST_MOUNTPOINTS)):
+        recv = reg.listen("shimradio")
+        out = []
+
+        def wait():
+            out.extend(_drain(recv))
+            return sum(len(f.data) for f in out) >= len(want)
+
+        try:
+            assert b"200 OK" in _icecast_source(module, "shimradio", head, body, wait)
+            out.extend(_drain(recv))
+        finally:
+            recv.close()
+        got[module] = out
+    port, jax = got[icecast], got[jicecast]
+    assert len(port) == len(jax) > 0
+    for a, b in zip(port, jax):
+        assert a.source_time.frac == b.source_time.frac and np.array_equal(a.data, b.data)
+    pcm = np.concatenate([f.data for f in port])
+    assert np.array_equal(pcm, want) and np.abs(pcm).max() > 1000
+
+
 def test_rtmp_mp3_audio_ingest(monkeypatch, caplog):
-    """FLV sound format 2 (MP3) over RTMP: the port's pure tier has no MP3
+    """FLV sound format 2 (MP3) over RTMP on the pure tier: it has no MP3
     decoder (the JAX package's pure tier has none either); the audio is
-    dropped with one warning naming the ROADMAP item."""
+    dropped with one warning, which says that the shim's libraries are
+    absent."""
     frames = _lame_mp3()
     monkeypatch.setattr(rtmp_server, "DECODER_FACTORY", rtmp_server.PureTierDecoder)
     recv = source_mod.RTMP_MOUNTPOINTS.listen("mp3cast")
@@ -599,12 +658,50 @@ def test_rtmp_mp3_audio_ingest(monkeypatch, caplog):
                                           for k, f in enumerate(frames[:10])])
         assert _drain(recv) == []
         assert caplog.text.count("has no MP3 decoder") == 1
-        assert "ROADMAP.md queue 1, Shim codec tier" in caplog.text
+        assert "ffmpeg libraries" in caplog.text
     finally:
         recv.close()
 
 
-def test_shim_decoder_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, Shim codec tier"):
-        rtmp_server.ShimDecoder("cpu")
+def test_rtmp_mp3_audio_ingest_through_the_shim():
+    """The same MP3 tags over RTMP into both packages' default decoder (the
+    shim's): the same i16 PCM at the same times, equal to the port shim's
+    own decode of the frames."""
+    avshim = _shim()
+    frames = _lame_mp3()[:10]
+    assert isinstance(rtmp_server.DECODER_FACTORY("cpu"), rtmp_server.ShimDecoder)
+    dec = avshim.AudioDecoder("mp3")
+    want = np.concatenate([pcm for f in frames for _, pcm, _ in dec.decode(f)])
+    dec.close()
+    tags = [("audio", k * 26, bytes([0x2F]) + f) for k, f in enumerate(frames)]
+    got = {}
+    for package, reg in (("torch", source_mod.RTMP_MOUNTPOINTS),
+                         ("jax", jsource.RTMP_MOUNTPOINTS)):
+        recv = reg.listen("shimmp3cast")
+        try:
+            _publish(package, "shimmp3cast", tags, settle=0.5)
+            got[package] = _drain(recv)
+        finally:
+            recv.close()
+    assert len(got["torch"]) == len(got["jax"]) > 0
+    for a, b in zip(got["torch"], got["jax"]):
+        assert a.source_time.frac == b.source_time.frac and np.array_equal(a.data, b.data)
+    pcm = np.concatenate([f.data for f in got["torch"]])
+    assert np.array_equal(pcm, want) and np.abs(pcm).max() > 1000
+
+
+def test_shim_decoder_is_refused(monkeypatch):
+    """Where the shim's libraries are absent (and no ffmpeg CLI) the default
+    decoder is the pure tier's; where they are, the shim's, as in the JAX
+    package."""
+    from mixlab_tpu_torch.av import codecs
+    from mixlab_tpu_torch.native import avshim
+
+    if avshim.available():
+        assert isinstance(rtmp_server.default_decoder_factory("cpu"), rtmp_server.ShimDecoder)
+        dec = rtmp_server.ShimDecoder("cpu")
+        assert dec.device == torch.device("cpu") and dec.decode_audio(b"") is None
+        dec.close()
+    monkeypatch.setattr(avshim, "available", lambda: False)
+    monkeypatch.setattr(codecs.shutil, "which", lambda name: None)
     assert isinstance(rtmp_server.default_decoder_factory("cpu"), rtmp_server.PureTierDecoder)

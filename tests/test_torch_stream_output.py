@@ -36,6 +36,7 @@ from mixlab_tpu_torch.engine.config import EngineConfig
 from mixlab_tpu_torch.engine.engine import _MonitorPipe
 from mixlab_tpu_torch.io_host import source as source_mod
 from mixlab_tpu_torch.io_host.rtmp import server as rtmp_server
+from mixlab_tpu_torch.native import avshim
 from mixlab_tpu_torch.server.stream_output import (
     ConnState,
     StreamOutputController,
@@ -112,14 +113,21 @@ def test_connect_failure_sets_error_indication():
         p.StreamOutputIndication(p.StreamOutputLiveStatus.OFFLINE, True)]
 
 
+@pytest.fixture
+def pure_tier(monkeypatch):
+    """The port's libavcodec shim reported absent: the pure tier."""
+    monkeypatch.setattr(avshim, "available", lambda: False)
+
+
 class _Ingest:
     """An RTMP ingest server of ``package`` on its own loop thread, decoding
-    on its pure tier, with a listener on ``mount``."""
+    on its pure tier (the port: on ``factory``), with a listener on
+    ``mount``."""
 
-    def __init__(self, package, mount, monkeypatch):
+    def __init__(self, package, mount, monkeypatch, factory=rtmp_server.PureTierDecoder):
         self.package = package
         if package == "torch":
-            monkeypatch.setattr(rtmp_server, "DECODER_FACTORY", rtmp_server.PureTierDecoder)
+            monkeypatch.setattr(rtmp_server, "DECODER_FACTORY", factory)
             self.recv = source_mod.RTMP_MOUNTPOINTS.listen(mount)
         else:
             monkeypatch.setattr(jserver, "DECODER_FACTORY", jserver.PureTierDecoder)
@@ -160,7 +168,7 @@ class _Ingest:
         self.recv.close()
 
 
-def _live(ingest) -> StreamOutputController:
+def _live(ingest, streams=(PureAacStream, PureH264Stream)) -> StreamOutputController:
     ctl = StreamOutputController(_MonitorPipe(), CFG)
     ctl.update(p.StreamOutputParams(seq=2, connect_seq=2, rtmp_url=ingest.url,
                                     rtmp_stream_key="key"))
@@ -168,7 +176,7 @@ def _live(ingest) -> StreamOutputController:
     while ctl.state != ConnState.LIVE and time.time() < deadline:
         time.sleep(0.02)
     assert ctl.state == ConnState.LIVE
-    assert isinstance(ctl._aac, PureAacStream) and isinstance(ctl._h264, PureH264Stream)
+    assert isinstance(ctl._aac, streams[0]) and isinstance(ctl._h264, streams[1])
     return ctl
 
 
@@ -188,7 +196,7 @@ def _planes(frame):
 
 
 @pytest.mark.parametrize("package", ["torch", "jax"], ids=["port-ingest", "jax-ingest"])
-def test_stream_output_pure_tier_video_loopback(package, monkeypatch):
+def test_stream_output_pure_tier_video_loopback(package, monkeypatch, pure_tier):
     """Engine ticks -> the port's controller -> RTMP -> an ingest of either
     package: the 440 Hz tone within 15 Hz, and the picture at 1120x700 with
     its bright and dark halves."""
@@ -196,6 +204,27 @@ def test_stream_output_pure_tier_video_loopback(package, monkeypatch):
     ctl = _live(ingest)
     if not isinstance(ctl._h264._cavlc, NativeCavlcIntraEncoder):
         pytest.fail("the port's native CAVLC tier did not build")
+    _tone_and_picture(ctl, ingest)
+    assert ctl._aac is None, "the AAC codec process outlived the connection"
+
+
+def test_stream_output_shim_tier_video_loopback(monkeypatch):
+    """Where the libavcodec shim is, the controller encodes with it (AAC CBR
+    160 kb/s, x264 CBR 1.5 Mbps at 1120x700), and the port's ingest decodes
+    with it: the 440 Hz tone and the picture's halves survive."""
+    if not avshim.available():
+        pytest.skip(f"libavcodec shim unavailable: {avshim.unavailable_reason()}")
+    from mixlab_tpu_torch.av.codecs import ShimAacStream, ShimH264Stream
+
+    ingest = _Ingest("torch", "shimloop", monkeypatch, factory=rtmp_server.ShimDecoder)
+    ctl = _live(ingest, (ShimAacStream, ShimH264Stream))
+    assert ctl._video_fps == 30
+    _tone_and_picture(ctl, ingest)
+
+
+def _tone_and_picture(ctl, ingest):
+    """Feed the tone and the split picture to the live ``ctl`` until the
+    ingest has 40 audio frames and a picture; check both."""
     frame = _split_picture()
     t_base = np.arange(SPT) / CFG.sample_rate
     k = 0
@@ -213,7 +242,6 @@ def test_stream_output_pure_tier_video_loopback(package, monkeypatch):
         ctl.stop()
         ctl.join()
         ingest.close()
-    assert ctl._aac is None, "the AAC codec process outlived the connection"
     assert len(ingest.audio) >= 40, "no audio over RTMP loopback"
     got = np.concatenate([f.data for f in ingest.audio])[:, 0].astype(np.float32) / 32767.0
     body = got[2048:]
@@ -227,7 +255,7 @@ def test_stream_output_pure_tier_video_loopback(package, monkeypatch):
     assert mid[:, : ww // 4].mean() > 120 and mid[:, 3 * ww // 4:].mean() < 60
 
 
-def test_stream_output_pure_tier_publishes_30fps(monkeypatch):
+def test_stream_output_pure_tier_publishes_30fps(monkeypatch, pure_tier):
     """The broadcast's video cadence at the reference's 30 fps, read from the
     published tags' timestamps: of 60 Hz ticks fed two at a time, each
     pair's picture arrives with a timestamp 33 or 34 ms after the last one,
