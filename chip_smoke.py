@@ -8,8 +8,8 @@ imports no jax.  Phases, any failure of which exits non-zero:
 
   1. the card's name and power limit, torch and CUDA versions;
   2. build the hand-written kernels (csrc/*.cu) and print the build time
-     and ptxas's lines, and for the eq and region kernels their registers,
-     stack and spill bytes;
+     and ptxas's lines, and for the eq, region and envelope kernels (the
+     batched rows forms' too) their registers, stack and spill bytes;
   3. envelope kernel vs its plain twin on the card, 3 carried blocks each:
      S = 735, T-1, T, T+1 (T the tile, 512 samples), 44,100, 48,000,
      384,000 and one past the split bound; open / dense / sparse gates, and
@@ -127,11 +127,14 @@ imports no jax.  Phases, any failure of which exits non-zero:
  16. the batched paths, each with the launch counts set to 0 just before and
      read just after: (a) the batched eq kernel (B = 1, 2, 32, 133, 1,024 x
      S = 8,192, 12,000, 44,100, 96,000) and the batched envelope kernel
-     (B = 1, 2, 32, 1,024 x S = 32,768, 48,000, 96,000; dense and sparse
-     gates) against their batched twins over 3 carried blocks (EQ_TOL,
-     ENV_ATOL), exactly one device launch a call for every B (profiler),
-     and each form's time, device time, bound and twin time at B = 1,024 and
-     8,192 x 12,000 and 32 x 96,000; (b) the fleet: the flagship at 48 kHz
+     (B = 1, 2, 32, 1,024 and the B either side of each switch of the
+     plan's form x S = 4,097 (a last tile of one sample), 12,000, 32,768,
+     48,000, 96,000; dense and sparse gates; every form the plan takes: the
+     cooperative grid, one CTA a block, the look-back) against their
+     batched twins over 3 carried blocks (EQ_TOL, ENV_ATOL), exactly one
+     device launch a call for every B (profiler), and each form's time,
+     device time, bound and twin time at B = 1,024 and 8,192 x 12,000 and
+     32 x 96,000 (the envelope also 1,024 x 38,400); (b) the fleet: the flagship at 48 kHz
      in 15-tick blocks, N = 1,024 sessions with their own params, one eq
      launch and no envelope launch a block, four slots against single-patch
      renders on the card (EQ_TOL); for information N = 1,024 and 8,192: wall
@@ -210,21 +213,24 @@ imports no jax.  Phases, any failure of which exits non-zero:
      SIGTERM: every process exits 0;
  20. the batched region, after phase 16 (the profiler), each path with the
      launch counts set to 0 just before and read just after: (a) the
-     region kernel against its batched twin in both forms (the cooperative
-     grid with gridDim.y = B, one CTA a row; the plan's choice, and one CTA
-     a row forced where the plan takes the grid) at B = 1, 2, where B x G
-     just fits at L = 4, the largest grid and one past it, 1,024 and 8,192
-     (B x S at most 8,192 x 12,800) and S = 8,192, 12,800, 38,400 and
-     204,800 (two parts), 3 carried blocks: the flagship's plan, the same
-     with one operand every row shares (row stride 0), the sink zoo's plan
-     and a PEAK plan with a NaN, taps and exits within 2e-5, scalar taps
-     exact; its time a call and device time a launch at 1,024 and 8,192 x
-     12,800 beside its bound and its twin; (b) the fleet at 48 kHz with
+     region kernel against its batched twin in every form its plan takes
+     (the cooperative grid with gridDim.y = B, one CTA a row, the
+     look-back; the rows form forced beside the grid where the plan takes
+     the grid) at B = 1, 2, where B x G just fits at L = 4, either side of
+     each switch of the plan's form, 1,024 and 8,192 (B x S at most 8,192 x
+     12,800) and S = 8,192, 8,320 (a last tile of one chunk), 12,800,
+     38,400 and 204,800 (two parts), 3 carried blocks: the flagship's plan,
+     the same with one operand every row shares (row stride 0), the sink
+     zoo's plan and a PEAK plan with a NaN, taps and exits within 2e-5,
+     scalar taps exact, one launch a call and no memset at every B (the
+     flagship's plan); its time a call and device time a launch at 1,024
+     and 8,192 x 12,800 beside its bound and its twin; (b) the fleet at 48 kHz with
      per-instance params on the region program, 16 ticks (N = 1,024 and
      8,192) and 48 ticks (N = 1,024): region 1, eq 0, envelope 0 (48 ticks:
      1) a block; taps and state within 2e-5 of the same fleet on the
      regular program and four slots of single-patch region renders; then,
-     in turns, the wall, device time with its top kernels, busy share and
+     in turns, the wall, device time with its top kernels (and the batched
+     region and envelope kernels' device time a launch), busy share and
      peak memory of both programs; (c) fleet serving in 16-tick blocks: one
      region launch a block, slot PCM within 1 LSB of dedicated renders;
      (d) the fleet of 8,192 over a 4-entry mesh at 16 ticks: 4 region
@@ -253,6 +259,12 @@ imports no jax.  Phases, any failure of which exits non-zero:
      ``edit_attribution`` (the storm as the engine runs, with the warm beside
      the ticks, with the warm a no-op and with every edit adopted at once,
      in turns).
+
+Not in ``main``: ``batched_ab`` (the parent's batched envelope and region
+launches against this checkout's, in turns, outputs compared),
+``rows_sweep`` (the rows forms' lanes, runs, forms and launch bounds, in
+turns), ``single_ab`` and ``region_ab`` (the single-block launches against
+the parent's), and the attribution helpers named below.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -973,15 +985,19 @@ def scan_kernels_device(torch, dev, card, res, eq_args, region_args):
         ("region", "region_kernel", f"flagship 48 kHz block, S={S48}",
          lambda: region_cuda.region_part_cuda(plan, operands, pf, sf, S48)),
     ):
-        found = _device_us(torch, call, "", n=n)  # every device item of a call
+        for _ in range(3):  # a profile that lost device records is taken again
+            found = _device_us(torch, call, "", n=n)  # every device item of a call
+            kernels_ = [(k, c) for k, _, c in found if not k.startswith(("Memcpy", "Memset"))]
+            per_call = sum(c for _, c in kernels_) / n
+            if per_call >= 1:
+                break
+            log(f"timing {key}: the profile recorded {per_call:g} kernels a call; taken again")
         mine = [(k, us, c) for k, us, c in found if name in k]
         if not mine:
             log(f"timing {key} device time at {shape} [{card}]: not measured")
             continue
         us = mine[0][1]
-        kernels_ = [(k, c) for k, _, c in found if not k.startswith(("Memcpy", "Memset"))]
         copies = [(k, c) for k, _, c in found if k.startswith(("Memcpy", "Memset"))]
-        per_call = sum(c for _, c in kernels_) / n
         share = res[key]["bound_ms"] * 1e3 / us
         res[key].update(device_us=us, device_launches_per_call=per_call)
         log(f"timing {key} kernel at {shape} [{card}]: device time {us:.3f} us per launch, "
@@ -1024,14 +1040,11 @@ def scan_kernels_device(torch, dev, card, res, eq_args, region_args):
     region_breakdown(torch, card, region_args, n)
 
 
-def region_breakdown(torch, card, region_args, n):
-    """Where the region kernel's time goes at the 48 kHz block: a plan of
-    one TAP (the launch, one op), the flagship's plan with its EQ replaced by
-    an AMP of the same input (the elementwise ops), and the flagship's."""
+def region_pieces(plan):
+    """(a plan of one TAP: the launch and one op, ``plan`` with its EQ
+    replaced by an AMP of the same input: the elementwise ops)."""
     from mixlab_tpu_torch.dsp import base
-    from mixlab_tpu_torch.engine import region_cuda
 
-    plan, operands, pf, sf, S = region_args
     tap = base.RegionPlan(n_operands=plan.n_operands, n_pf=plan.n_pf, n_ef=plan.n_ef)
     tap.add(base.OP_TAP, 0, 0)
     tap.n_taps, tap.n_consts, tap.n_stap = plan.n_taps, plan.n_consts, plan.n_stap
@@ -1043,6 +1056,17 @@ def region_breakdown(torch, card, region_args, n):
             no_eq.words += [base.OP_AMP, 5, a[0], a[1], a[4]]
         else:
             no_eq.words += [code, 2 + len(a), *a]
+    return tap, no_eq
+
+
+def region_breakdown(torch, card, region_args, n):
+    """Where the region kernel's time goes at the 48 kHz block: a plan of
+    one TAP (the launch, one op), the flagship's plan with its EQ replaced by
+    an AMP of the same input (the elementwise ops), and the flagship's."""
+    from mixlab_tpu_torch.engine import region_cuda
+
+    plan, operands, pf, sf, S = region_args
+    tap, no_eq = region_pieces(plan)
     row = []
     for what, pl in (("one TAP", tap), ("EQ as an AMP", no_eq), ("flagship", plan)):
         found = _device_us(torch, lambda: region_cuda.region_part_cuda(pl, operands, pf, sf, S),
@@ -1766,18 +1790,26 @@ def resize_work(np, src_planes, dst_planes):
 
 def _device_us(torch, fn, name, n=20):
     """Device time per launch of the kernels whose name holds ``name``,
-    from the profiler over ``n`` calls of ``fn``: [(kernel, us, count)]."""
+    from the profiler over ``n`` calls of ``fn``: [(kernel, us, count)].  A
+    profile that recorded no such row is taken again, up to three in all
+    (a profile in a process that ran many has come up empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.self_device_time_total / e.count, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key and e.self_device_time_total > 0]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        found = [(e.key, e.self_device_time_total / e.count, e.count)
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                 and name in e.key and e.self_device_time_total > 0]
+        if found:
+            break
+        log(f"_device_us: the profile recorded no {name} kernel; taken again")
+    return found
 
 
 def video_timing(torch, np, dev, card):
@@ -1885,7 +1917,8 @@ def envelope_call_pieces(torch, envc, card, x, st, prm):
     buf = torch.empty(S + 4 + 16 * tiles, device=x.device)
     outs = {k: torch.empty_like(v) for k, v in st.items()}
     fn = kernels.load().mixlab_envelope_block
-    args = (x.data_ptr(), buf.data_ptr(), S, 1, 0, lane, tiles, buf.data_ptr() + 4 * (S + 4),
+    args = (x.data_ptr(), buf.data_ptr(), S, 1, envc.FORM_GRID, lane, tiles, tiles,
+            buf.data_ptr() + 4 * (S + 4), 0,
             *(prm[k].data_ptr() for k in envc._PARAMS), MS_PER_SAMPLE,
             *(st[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")),
             *(outs[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")), index)
@@ -2728,9 +2761,13 @@ FLEET_TICKS = 15                      # server/fleet_serve.py: 0.25 s a block at
 FLEET_N = (1024, 8192)
 FLEET_AUDIO_S = FLEET_TICKS / 60
 BATCH_EQ = ((1, 2, 32, 133, 1024), (8192, 12_000, 44_100, 96_000))
-BATCH_ENV = ((1, 2, 32, 1024), (32_768, 48_000, 96_000))
+# the envelope's S: whole tiles of 4,096 (32,768), a last tile of one
+# sample (4,097), cut ones; its B: these and where the plan switches form
+BATCH_ENV = ((1, 2, 32, 1024), (4_097, 12_000, 32_768, 48_000, 96_000))
 # the rows' batched shapes in PERF.md: the fleet's (N x 12,000) and config 3's
 BATCH_TIMED = ((1024, 12_000), (8192, 12_000), (32, 96_000))
+# the envelope's also the 48-tick fleet's (1,024 x 38,400)
+ENV_TIMED = (*BATCH_TIMED, (1024, 38_400))
 RESAMPLE_ATOL = 2e-6
 MIX_ATOL = 2e-4          # tests/test_multichip.py:29
 SERVED_SLOTS = 1024
@@ -2771,6 +2808,29 @@ def kernel_launches(torch, fn, n=10):
     # without traced launch calls, the device rows count them
     per_call = (launches or rows[0].count) / n
     return per_call, rows[0].self_device_time_total / rows[0].count, rows[0].key
+
+
+def launches_a_call(torch, fn, n=3):
+    """(the runtime's kernel launch calls a call, traced on the host; the
+    memsets a call; the device kernels' names) over ``n`` calls of ``fn``
+    after one untimed call.  Copies (the region's slot table upload) are
+    neither."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.device_type == DeviceType.CPU
+                   and e.key.startswith(("cudaLaunch", "cuLaunch")))
+    memsets = sum(e.count for e in events if "memset" in e.key.lower())
+    names = {e.key[:60] for e in events if e.device_type == DeviceType.CUDA
+             and not e.key.startswith(("Memcpy", "Memset"))}
+    return launches / n, memsets / n, names
 
 
 def _us(us) -> str:
@@ -2829,9 +2889,11 @@ def batched_kernels(torch, np, dev, card):
             log(f"batched eq kernel vs twin B={B} S={S} "
                 f"({'one CTA a block' if seq else f'grid {tiles} x {B}'}, L={run}): ok "
                 f"(3 blocks){launch}")
-    for B in BATCH_ENV[0]:
-        for S in BATCH_ENV[1]:
-            seq, lane, tiles = envc.batch_plan(S, B, env_r)
+    for S in BATCH_ENV[1]:
+        env_rows = envc.rows_resident(dev.index or 0, envc.rows_lane(S))
+        plan = lambda b: envc.batch_plan(S, b, env_r, env_rows)
+        for B in sorted({*BATCH_ENV[0], *switch_points(plan, 2 * env_rows)}):
+            chosen = plan(B)
             params = {"attack_ms": rand(B, lo=0.0, hi=30.0), "decay_ms": rand(B, lo=1.0, hi=500.0),
                       "sustain_amplitude": rand(B, lo=0.0, hi=1.0),
                       "release_ms": rand(B, lo=1.0, hi=300.0)}
@@ -2854,7 +2916,7 @@ def batched_kernels(torch, np, dev, card):
                                              f"max err {err}, integer state equal {same}")
                     worst["envelope"] = max(worst["envelope"], err)
             launch = ""
-            if S == BATCH_ENV[1][0]:  # one device launch a call, for every B
+            if S == BATCH_ENV[1][2]:  # one device launch a call, for every B
                 per_call, _, name = kernel_launches(
                     torch, lambda: envc.envelope_block_batched(xs[0], sk, params, 1000 / 48_000))
                 if per_call != 1:
@@ -2862,8 +2924,8 @@ def batched_kernels(torch, np, dev, card):
                                          "launches a call")
                 launch = f", 1 device launch a call ({name})"
             log(f"batched envelope kernel vs twin B={B} S={S} "
-                f"({'one CTA a block' if seq else f'grid {tiles} x {B}'}, C={lane}): ok (dense, "
-                f"sparse; 3 blocks){launch}")
+                f"({form_name(envc, chosen, B)}, C={chosen.lane}): ok (dense, sparse; 3 blocks)"
+                f"{launch}")
 
     times = {"eq_cascade": {}, "envelope": {}}
     for B, S in BATCH_TIMED:
@@ -2882,13 +2944,9 @@ def batched_kernels(torch, np, dev, card):
             f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
             f"{eq_bound[0] * 1e3:.1f} us ({eq_bound[1]}), share of the bound "
             f"{_share(eq_bound[0], eq_dev)}")
-        gate = (rand(B, S) > 0.9998).to(torch.float32)
-        st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
-              "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
-              "off_pos": torch.zeros(B, dtype=torch.int32, device=dev),
-              "off_amp": torch.zeros(B, device=dev)}
-        prm = {k: torch.full((B,), v, device=dev) for k, v in dict(
-            attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
+        del x, xd
+    for B, S in ENV_TIMED:
+        gate, st, prm = _env_batch(torch, dev, B, S, g)
         env_bound = bound(8.0 * B * S, 0.0)
         env_call = lambda: envc.envelope_block_batched(gate, st, prm, 1000 / 48_000)
         _, env_dev, _ = kernel_launches(torch, env_call, n=5)
@@ -2897,12 +2955,13 @@ def batched_kernels(torch, np, dev, card):
             "plain_ms": time_ms(torch, lambda: envc.envelope_block_torch_batched(
                 gate, st, prm, 1000 / 48_000), n=3, warmup=1),
             "bound_ms": env_bound[0], "bound_by": env_bound[1],
-            "form": "one CTA a block" if envc.batch_plan(S, B, env_r)[0] else "grid"}
+            "form": form_name(envc, envc.batch_plan(
+                S, B, env_r, envc.rows_resident(dev.index or 0, envc.rows_lane(S))), B)}
         log(f"batched envelope B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, "
             f"{_us(env_dev)} us device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, "
             f"bound {env_bound[0] * 1e3:.1f} us (bytes), share of the bound "
             f"{_share(env_bound[0], env_dev)}")
-        del x, xd, gate
+        del gate
     return worst, times
 
 
@@ -3214,14 +3273,13 @@ def stems_path(torch, np, dev, card):
 
 
 def batched_sweep() -> int:
-    """Not in ``main``: the one-CTA-a-block forms' run (eq, CTA sizes 64-256)
-    and lane (envelope) at the fleet's and config 3's shapes, each held to
-    its batched twin, device time per launch by the profiler (it chose
-    ``eq_cuda.SEQ_RUN`` and ``envelope_cuda.SEQ_LANE``).
+    """Not in ``main``: the batched eq's one-CTA-a-block run (CTA sizes
+    64-256) at the fleet's and config 3's shapes, each held to its batched
+    twin, device time per launch by the profiler (it chose
+    ``eq_cuda.SEQ_RUN``).
     ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.batched_sweep())'``"""
     import torch
 
-    from mixlab_tpu_torch.dsp import envelope_cuda as envc
     from mixlab_tpu_torch.dsp import eq_cuda as eqc
     from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 
@@ -3243,61 +3301,247 @@ def batched_sweep() -> int:
                     f"device a launch, twin ok {ok}")
                 if not ok:
                     return 1
-        gate = (torch.rand((B, S), generator=g, device=dev) > 0.9995).to(torch.float32)
-        st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
-              "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
-              "off_pos": torch.zeros(B, dtype=torch.int32, device=dev),
-              "off_amp": torch.zeros(B, device=dev)}
-        prm = {k: torch.full((B,), v, device=dev) for k, v in dict(
-            attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
-        want, _ = envc.envelope_block_torch_batched(gate, st, prm, 1000 / 48_000)
-        for C in (2, 4, 8, 16):
-            fn = lambda: envc._launch(gate, 0, st, prm, 1000 / 48_000, C, sequential=True)
-            ok = (fn()[0] - want).abs().max().item() <= ENV_ATOL
-            _, us, _ = kernel_launches(torch, fn, n=5)
-            log(f"sweep envelope one CTA a block B={B} S={S} C={C} [{card}]: {us:.1f} us device "
-                f"a launch, twin ok {ok}")
-            if not ok:
-                return 1
     return 0
 
 
-def single_ab(parent: str) -> int:
-    """Not in ``main``: the single-block eq and envelope launches of the
-    parent (``parent``: a checkout's root, e.g. unpacked by ``git archive``
-    into a listed directory) and of this checkout, in turns (parent, change,
-    change, parent, three times), device time per launch by the profiler at
-    S = 44,100.  The parent's ``csrc`` is built with this checkout's flags
-    and called through its own C signatures (before the batch axis).
-    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.single_ab("<dir>"))'``"""
+# the rows sweep: the kernels' CTAs an SM asked of the compiler (min blocks
+# of __launch_bounds__) by variant, built from this checkout's sources
+ROWS_VARIANTS = {
+    "envelope.cu": ("constexpr int kRowsMinBlocks = 4;", (4, 3)),
+    "region.cu": ("__launch_bounds__(kChunk) region_rows_kernel",
+                  (None, 6)),
+}
+
+
+def variant_libraries(variants):
+    """{tag: (ctypes library, ptxas registers of its rows kernels)} of
+    ``variants`` ({tag: (source name, patched text)}): each a copy of a
+    ``csrc`` source built with this checkout's flags under
+    ``_build/variants``, one nvcc a variant, all started together."""
     import ctypes
-    import os
+    import re
+
+    from mixlab_tpu_torch import kernels
+
+    out = kernels.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, (name, text) in variants.items():
+        (out / f"{tag}.cu").write_text(text)
+        procs[tag] = subprocess.Popen(
+            [kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(kernels.CSRC), "-o",
+             str(out / f"{tag}.so"), str(out / f"{tag}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for tag, proc in procs.items():
+        text = proc.communicate(timeout=900)[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {tag}: {text[-3000:]}")
+        regs = re.findall(r"Compiling entry function '[^']*(rows_kernel|lookback_kernel)[^']*'.*?"
+                          r"Used (\d+) registers", text, re.S)
+        lib = ctypes.CDLL(str((out / f"{tag}.so").resolve()))
+        for fn, args in {**kernels._SIGNATURES, **kernels._QUERIES}.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[tag] = lib, regs
+    return libs
+
+
+def rows_sweep() -> int:
+    """Not in ``main``: the batched rows forms' choices in turns, each held
+    to its batched twin (the envelope bit for bit, the region within 2e-5),
+    device time per launch by the profiler: the envelope's lane (16, 32) and
+    the region's run (4, 8), one CTA a row against the look-back, at the
+    fleet's and config 3's shapes and B where the plans switch form, with
+    the kernels built as they stand and with another count of CTAs an SM
+    asked of the compiler (``ROWS_VARIANTS``).  It chose ``ROWS_LANES``,
+    ``ROWS_RUN``, ``LOOKBACK_COST`` and the kernels' launch bounds.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.rows_sweep())'``"""
+    import ctypes
 
     import numpy as np
     import torch
 
     from mixlab_tpu_torch import kernels
     from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.engine import region_cuda as rc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda")
+    log(card)
+    kernels.load()
+    kernels._raw_stream = torch._C._cuda_getCurrentRawStream
+    variants = {}
+    for name, (line, counts) in ROWS_VARIANTS.items():
+        text = (kernels.CSRC / name).read_text()
+        for n in counts:
+            if n is None:
+                variant = text
+            elif name == "envelope.cu":
+                variant = text.replace(line, f"constexpr int kRowsMinBlocks = {n};")
+            else:
+                variant = text.replace(line, line.replace("(kChunk)", f"(kChunk, {n})")).replace(
+                    "__launch_bounds__(kChunk) region_lookback_kernel",
+                    f"__launch_bounds__(kChunk, {n}) region_lookback_kernel")
+            variants[f"{name.split('.')[0]}_min{n or 0}"] = name, variant
+    libs = {}
+    for tag, (lib, regs) in variant_libraries(variants).items():
+        libs[tag] = lib
+        log(f"rows sweep {tag}: registers {regs}")
+
+    def query(lib, fn, *args):
+        n = ctypes.c_int(0)
+        if getattr(lib, fn)(*args, ctypes.byref(n)):
+            raise RuntimeError(f"{fn} failed")
+        return n.value
+
+    def turns(fns, name):
+        res = {k: [] for k in fns}
+        for who in list(fns) + list(fns)[::-1]:
+            kernels._entries.update(fns[who][0])
+            res[who].append(_device_us(torch, fns[who][1], name, n=5)[0][1])
+        kernels._entries.clear()
+        return {k: float(np.median(v)) for k, v in res.items()}
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    plan, row, consts = region_plans(torch)["flagship"]
+    consts, shape, S = consts.to(dev), rc.plan_shape(plan), 12_800
+    for B in (264, 512, 1024, 8192):
+        ops, pf = _region_inputs(torch, g, plan, row, B, S, dev)
+        sf = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+        want = rc.region_part_torch_batched(plan, ops, pf, sf, S, consts, B) if B <= 1024 else None
+        fns = {}
+        for tag, lib in libs.items():
+            if not tag.startswith("region"):
+                continue
+            for run in (4, 8):
+                tiles = -(-S // (rc.CHUNK * run))
+                look = query(lib, "mixlab_region_rows_resident", rc.FORM_LOOKBACK, run, *shape, 0)
+                for bp in (rc.BatchPlan(rc.FORM_ROWS, run, tiles, B),
+                           rc.BatchPlan(rc.FORM_LOOKBACK, run, tiles, min(look, B * tiles))):
+                    fns[f"{tag} {form_name(rc, bp, B)}"] = (
+                        {"mixlab_region_part": lib.mixlab_region_part},
+                        lambda bp=bp: rc.region_part_batched(plan, ops, pf, sf, S, consts, B,
+                                                             form=bp))
+        for k, (entry, fn) in fns.items():
+            kernels._entries.update(entry)
+            got = fn()
+            torch.cuda.synchronize()
+            kernels._entries.clear()
+            if want is not None and not max(_rows_err(torch, a, b)
+                                            for a, b in zip(got, want)) <= REGION_ATOL:
+                raise AssertionError(f"rows sweep region {B}x{S} {k}: differs from the twin")
+        nbytes, flops = region_work(plan, ops, S, B)
+        b_ms = bound(nbytes, flops)[0]
+        for k, us in sorted(turns(fns, "region").items(), key=lambda kv: kv[1]):
+            log(f"rows sweep region {B}x{S} [{card}] {k}: {us:.1f} us device a launch, share "
+                f"of the bound {b_ms * 1e3 / us:.3f}")
+        if B in (1024, 8192):  # where one CTA a row's time goes: the plan's pieces
+            one_tap, no_eq = region_pieces(plan)
+            bp = rc.rows_plan(S, B, shape, rc.rows_resident(0, shape))
+            pieces = {what: ({}, lambda pl=pl: rc.region_part_batched(pl, ops, pf, sf, S, consts,
+                                                                      B, form=bp))
+                      for what, pl in (("one TAP", one_tap), ("the EQ as an AMP", no_eq),
+                                       ("the flagship's plan", plan))}
+            log(f"rows sweep region {B}x{S} [{card}] {form_name(rc, bp, B)}: device us a launch "
+                + "; ".join(f"{k} {us:.1f}" for k, us in turns(pieces, "region").items()))
+        del ops, want
+    for B, S in ((200, 12_000), (390, 12_000), (1024, 12_000), (8192, 12_000), (1024, 38_400),
+                 (32, 96_000)):
+        gate, st, prm = _env_batch(torch, dev, B, S, g)
+        want, _ = envc.envelope_block_torch_batched(gate, st, prm, 1000 / 48_000)
+        fns = {}
+        for tag, lib in libs.items():
+            if not tag.startswith("envelope"):
+                continue
+            for lane in envc.ROWS_LANES:
+                tiles = -(-S // (envc.THREADS * lane))
+                look = query(lib, "mixlab_envelope_rows_resident", envc.FORM_LOOKBACK,
+                             lane.bit_length() - 1, 0)
+                for bp in (envc.BatchPlan(envc.FORM_ROWS, lane, tiles, B),
+                           envc.BatchPlan(envc.FORM_LOOKBACK, lane, tiles,
+                                          min(look, B * tiles))):
+                    fns[f"{tag} {form_name(envc, bp, B)}"] = (
+                        {"mixlab_envelope_block": lib.mixlab_envelope_block},
+                        lambda bp=bp: envc._launch(gate, 0, st, prm, 1000 / 48_000, plan=bp))
+        for k, (entry, fn) in fns.items():
+            kernels._entries.update(entry)
+            got, _ = fn()
+            torch.cuda.synchronize()
+            kernels._entries.clear()
+            if not torch.equal(got, want):
+                raise AssertionError(f"rows sweep envelope {B}x{S} {k}: differs from the twin")
+        b_ms = bound(8.0 * B * S, 0.0)[0]
+        for k, us in sorted(turns(fns, "envelope").items(), key=lambda kv: kv[1]):
+            log(f"rows sweep envelope {B}x{S} [{card}] {k}: {us:.1f} us device a launch, share "
+                f"of the bound {b_ms * 1e3 / us:.3f}")
+        del gate
+    return 0
+
+
+def parent_library(parent: str, names):
+    """The parent checkout's kernels ``names`` (``csrc`` sources; ``parent``:
+    a checkout's root, e.g. unpacked by ``git archive`` into a listed
+    directory) built with this checkout's flags into one library, one nvcc
+    a source started together, loaded with ``ctypes.CDLL``; the parent's C
+    signatures (before the rows forms) are declared: ``mixlab_eq_cascade``
+    (x, xd, S, batch, sequential, poles0, gains, tables, f_lo, f_hi, vsa,
+    run, threads, tiles, scratch, out, poles_out, device, stream),
+    ``mixlab_envelope_block`` (x, out, S, batch, sequential, C, tiles,
+    scratch, attack..release, msps, state in, state out, device, stream),
+    ``mixlab_region_part`` (ops, n_words, slots, n_operands, n_slots, pf,
+    pf_stride, n_pf, consts, sf, sf_stride, taps, n_taps, stap, n_stap, ef,
+    n_ef, S, batch, sequential, run, tiles, device, stream)."""
+    import ctypes
+    import os
+
+    from mixlab_tpu_torch import kernels
+
+    kernels.load()
+    src = Path(parent) / "mixlab_tpu_torch" / "csrc"
+    out = Path(parent) / "_ab_build"
+    out.mkdir(exist_ok=True)
+    nvcc = kernels.find_nvcc()
+    objs = [str(out / f"{name}.o") for name in names]
+    procs = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", str(src), "-c", "-o", o,
+                               str(src / name)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for name, o in zip(names, objs)]
+    for proc in procs:
+        if proc.wait(timeout=600):
+            raise RuntimeError(f"parent build failed: {proc.stdout.read().decode()[-4000:]}")
+    lib_path = out / f"parent_{'_'.join(n.split('.')[0] for n in names)}.so"
+    subprocess.run([nvcc, *kernels._ARCH, "-shared", "-o", str(lib_path), *objs], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(os.path.abspath(lib_path))
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    sigs = {"mixlab_eq_cascade": [P, P, I, I, I, P, P, P, F, F, F, I, I, I, P, P, P, I, P],
+            "mixlab_envelope_block": [P, P, I, I, I, I, I, P, P, P, P, P, F, *[P] * 8, I, P],
+            "mixlab_region_part": [P, I, P, I, I, P, LL, I, P, P, LL, P, I, P, I, P, I,
+                                   I, I, I, I, I, I, P]}
+    for name, argtypes in sigs.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+def single_ab(parent: str) -> int:
+    """Not in ``main``: the single-block eq and envelope launches of the
+    parent (``parent``: a checkout's root) and of this checkout, in turns
+    (parent, change, change, parent, three times), device time per launch by
+    the profiler at S = 44,100.  The parent's ``csrc`` is built with this
+    checkout's flags and called through its own C signatures
+    (``parent_library``) with a batch of one.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.single_ab("<dir>"))'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
     from mixlab_tpu_torch.dsp import eq_cuda as eqc
     from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 
     card = card_line()
-    kernels.load()
-    out = Path(parent) / "_ab_build"
-    out.mkdir(exist_ok=True)
-    nvcc, objs = kernels.find_nvcc(), []
-    for name in ("eq_cascade.cu", "envelope.cu"):
-        objs.append(str(out / f"{name}.o"))
-        subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-c", "-o", objs[-1],
-                        str(Path(parent) / "mixlab_tpu_torch" / "csrc" / name)],
-                       check=True, capture_output=True)
-    lib_path = str(out / "parent.so")
-    subprocess.run([nvcc, *kernels._ARCH, "-shared", "-o", lib_path, *objs], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(os.path.abspath(lib_path))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mixlab_eq_cascade.argtypes = [P, P, I, P, P, P, F, F, F, I, I, I, P, P, P, I, P]
-    lib.mixlab_envelope_block.argtypes = [P, P, I, I, I, P, P, P, P, P, F, *[P] * 8, I, P]
+    lib = parent_library(parent, ("eq_cascade.cu", "envelope.cu"))
     raw, dev, S = torch._C._cuda_getCurrentRawStream, torch.device("cuda"), 44_100
     f_lo, f_hi = _filter_coeff(FREQ_LO, S), _filter_coeff(FREQ_HI, S)
     x, xd = (torch.rand(S, device=dev) * 2 - 1 for _ in range(2))
@@ -3307,9 +3551,9 @@ def single_ab(parent: str) -> int:
     at = -(-S // 4) * 4
     buf = torch.empty(at + 8 + 8 * tiles, device=dev)
     parent_eq = lambda: lib.mixlab_eq_cascade(
-        x.data_ptr(), xd.data_ptr(), S, poles.data_ptr(), gains.data_ptr(), tables.data_ptr(),
-        f_lo, f_hi, VSA, run, eqc.THREADS, tiles, buf.data_ptr() + 4 * (at + 8), buf.data_ptr(),
-        buf.data_ptr() + 4 * at, 0, raw(0))
+        x.data_ptr(), xd.data_ptr(), S, 1, 0, poles.data_ptr(), gains.data_ptr(),
+        tables.data_ptr(), f_lo, f_hi, VSA, run, eqc.THREADS, tiles,
+        buf.data_ptr() + 4 * (at + 8), buf.data_ptr(), buf.data_ptr() + 4 * at, 0, raw(0))
     change_eq = lambda: eqc._launch(x, xd, poles, gains, f_lo, f_hi, VSA, 0)
     gate = torch.ones(S, device=dev)
     st = {"mode_on": torch.tensor(False, device=dev),
@@ -3322,7 +3566,7 @@ def single_ab(parent: str) -> int:
     ebuf = torch.empty(at + 16 * etiles, device=dev)
     outs = {k: torch.empty_like(v) for k, v in st.items()}
     parent_env = lambda: lib.mixlab_envelope_block(
-        gate.data_ptr(), ebuf.data_ptr(), S, lane, etiles, ebuf.data_ptr() + 4 * at,
+        gate.data_ptr(), ebuf.data_ptr(), S, 1, 0, lane, etiles, ebuf.data_ptr() + 4 * at,
         *(prm[k].data_ptr() for k in envc._PARAMS), 1000 / 44_100,
         *(st[k].data_ptr() for k in envc._STATE), *(outs[k].data_ptr() for k in envc._STATE),
         0, raw(0))
@@ -3330,10 +3574,16 @@ def single_ab(parent: str) -> int:
     if parent_eq() or parent_env():
         return 1
     torch.cuda.synchronize()
+    got_env, _ = change_env()
+    got_eq, _ = change_eq()
+    torch.cuda.synchronize()
+    if not (torch.equal(got_env, ebuf[:S]) and torch.equal(got_eq, buf[:S])):
+        raise AssertionError("the parent's and this checkout's single launches differ")
     res = {}
     for _ in range(3):
         for who in ("parent", "change", "change", "parent"):
-            for kind, fns in (("eq", (parent_eq, change_eq)), ("envelope", (parent_env, change_env))):
+            for kind, fns in (("eq", (parent_eq, change_eq)),
+                              ("envelope", (parent_env, change_env))):
                 found = _device_us(torch, fns[who == "change"], "kernel", n=50)
                 res.setdefault(f"{who} {kind}", []).append(found[0][1])
     for k, v in res.items():
@@ -3344,20 +3594,16 @@ def single_ab(parent: str) -> int:
 
 def region_ab(parent: str) -> int:
     """Not in ``main``: the single-block region launch of the parent
-    (``parent``: a checkout's root from before the batch axis, e.g. unpacked
-    by ``git archive`` into a listed directory) and of this checkout, in
-    turns (parent, change, change, parent, three times), on the flagship's
-    48 kHz block, device time per launch by the profiler; both launches'
-    taps and exits must be equal.  The parent's ``region.cu`` is built with
-    this checkout's flags and called through its own C signature.
+    (``parent``: a checkout's root) and of this checkout, in turns (parent,
+    change, change, parent, three times), on the flagship's 48 kHz block,
+    device time per launch by the profiler; both launches' taps and exits
+    must be equal.  The parent's ``region.cu`` is built with this
+    checkout's flags and called through its own C signature
+    (``parent_library``) with a batch of one, its constants after its params.
     ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.region_ab("<dir>"))'``"""
-    import ctypes
-    import os
-
     import numpy as np
     import torch
 
-    from mixlab_tpu_torch import kernels
     from mixlab_tpu_torch.dsp.eq_cuda import scan_plan
     from mixlab_tpu_torch.engine import region_cuda as rc
     from mixlab_tpu_torch.engine.compiler import compile_patch
@@ -3366,15 +3612,7 @@ def region_ab(parent: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card, dev = card_line(), torch.device("cuda")
-    kernels.load()
-    src = Path(parent) / "mixlab_tpu_torch" / "csrc"
-    lib_path = Path(parent) / "_ab_build" / "parent_region.so"
-    lib_path.parent.mkdir(exist_ok=True)
-    subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I", str(src), "-o",
-                    str(lib_path), str(src / "region.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(os.path.abspath(lib_path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.mixlab_region_part.argtypes = [P, I, P, P, P, P, P, I, P, I, I, I, I, P]
+    lib = parent_library(parent, ("region.cu",))
     ws = build_16_module_graph()[0]
     patch = compile_patch(ws, EngineConfig(sample_rate=48_000), BlockSpec(60), dev)
     with HoldRegion(torch) as hold:
@@ -3382,7 +3620,7 @@ def region_ab(parent: str) -> int:
     plan, ops, pf, sf, S = hold.captured[0]
     n_scratch = plan.n_slots - plan.n_operands
     scratch = torch.empty((n_scratch, S), device=dev)
-    slots = torch.tensor([v.data_ptr() for v in ops] + [x.data_ptr() for x in scratch],
+    slots = torch.tensor([(v.data_ptr(), 0) for v in ops] + [(x.data_ptr(), 0) for x in scratch],
                          dtype=torch.int64, device=dev)
     words = torch.tensor(plan.words, dtype=torch.int32, device=dev)
     run, tiles = scan_plan(S, rc.resident_tiles(0), rc.CHUNK, rc.RUN)
@@ -3391,10 +3629,11 @@ def region_ab(parent: str) -> int:
     raw = torch._C._cuda_getCurrentRawStream
 
     def parent_call():
-        rc_ = lib.mixlab_region_part(words.data_ptr(), words.numel(), slots.data_ptr(),
-                                     pf.data_ptr(), sf.data_ptr(), taps.data_ptr(),
-                                     stap.data_ptr(), plan.n_stap, ef.data_ptr(), S, run, tiles,
-                                     0, raw(0))
+        rc_ = lib.mixlab_region_part(
+            words.data_ptr(), words.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
+            pf.data_ptr(), 0, plan.n_pf, pf.data_ptr() + 4 * plan.n_pf, sf.data_ptr(), 0,
+            taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap, ef.data_ptr(),
+            plan.n_ef, S, 1, 0, run, tiles, 0, raw(0))
         if rc_:
             raise RuntimeError(f"parent region launch: CUDA error {rc_}")
 
@@ -3416,6 +3655,226 @@ def region_ab(parent: str) -> int:
     return 0
 
 
+# the batched A/B's shapes (B, S): the aim's, then where a rows form splits
+# a row or the cooperative grid still holds the batch
+BATCHED_AB = {
+    "envelope": ((1024, 12_000), (8192, 12_000), (1024, 38_400), (32, 96_000),
+                 (200, 12_000), (8, 32_768), (2, 96_000)),
+    "region": ((1024, 12_800), (8192, 12_800), (256, 12_800), (32, 12_800), (8, 102_400)),
+}
+BATCHED_AIM = {"envelope": 4, "region": 2}  # the first shapes of each list: the aim's
+
+
+def _env_batch(torch, dev, B, S, g):
+    """The batched envelope timing inputs: sparse 0/1 gates, zero state,
+    fixed params (phase 16's)."""
+    gate = (torch.rand((B, S), generator=g, device=dev) > 0.9998).to(torch.float32)
+    st = {"mode_on": torch.zeros(B, dtype=torch.bool, device=dev),
+          "on_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+          "off_pos": torch.zeros(B, dtype=torch.int32, device=dev),
+          "off_amp": torch.zeros(B, device=dev)}
+    prm = {k: torch.full((B,), v, device=dev) for k, v in dict(
+        attack_ms=25.0, decay_ms=500.0, sustain_amplitude=0.8, release_ms=200.0).items()}
+    return gate, st, prm
+
+
+def form_name(mod, plan, B) -> str:
+    """What a batched plan of ``mod`` (``envelope_cuda`` or ``region_cuda``,
+    whose ``FORM_*`` agree) launches for B rows."""
+    form, size, tiles, ctas = plan
+    if form == mod.FORM_GRID:
+        return f"grid {tiles} x {B}"
+    tile = size * (mod.CHUNK if hasattr(mod, "CHUNK") else mod.THREADS)  # samples
+    if form == mod.FORM_LOOKBACK:
+        return f"look-back over {ctas} CTAs, {tiles} tiles of {tile} a row"
+    return f"one CTA a row, {tiles} tiles of {tile}"
+
+
+def switch_points(plan, most):
+    """The B (1..most) where ``plan(B)`` takes another form than at B - 1, and
+    each B - 1."""
+    out, last = set(), plan(1).form
+    for b in range(2, most + 1):
+        form = plan(b).form
+        if form != last:
+            out.update((b - 1, b))
+        last = form
+    return sorted(out)
+
+
+def _variants(chosen, others):
+    """{name: plan} of ``others`` that differ from ``chosen`` and each other."""
+    out = {}
+    for name, plan in others.items():
+        if plan != chosen and plan not in out.values():
+            out[name] = plan
+    return out
+
+
+def _turns(torch, fns, name, rounds, n):
+    """{who: [device us per launch]} over ``rounds`` of the callables
+    ``fns`` in turns, forwards then backwards (a, b, b, a for two)."""
+    res = {k: [] for k in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for who in order + order[::-1]:
+            found = _device_us(torch, fns[who], name, n=n)
+            if len(found) != 1:
+                raise AssertionError(f"{who}: device kernels {found}")
+            res[who].append(found[0][1])
+    return res
+
+
+def batched_ab(parent: str, rounds: int = 2) -> int:
+    """Not in ``main``: the batched envelope and region launches of the
+    parent (``parent``: a checkout's root; its forms as its plans took them:
+    the cooperative grid where it fits, else one CTA a row) and of this
+    checkout (its plan's form, and the other forms it has at the shape: its
+    rows form where the plan takes the grid, the other rows form), in turns
+    (forwards then backwards, ``rounds`` times), at ``BATCHED_AB``'s shapes;
+    the envelope's outputs and state bit-equal to the parent's, the region's
+    taps, scalar taps and exits within 2e-5 of the parent's, each scalar tap
+    exactly the max of the launch's own taps (the flagship's plan, and the
+    sink zoo's with a PEAK at 1,024 x 12,800);
+    device us per launch by the profiler, each with its share of the bound.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.batched_ab("<dir>"))'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.engine import region_cuda as rc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda")
+    log(card)
+    lib = parent_library(parent, ("envelope.cu", "region.cu"))
+    raw = torch._C._cuda_getCurrentRawStream
+    g = torch.Generator(device=dev).manual_seed(15)
+    msps = 1000 / 48_000
+    env_r = envc.resident_tiles(0)
+    for B, S in BATCHED_AB["envelope"]:
+        gate, st, prm = _env_batch(torch, dev, B, S, g)
+        try:  # the parent's plan: its grid where it fits, else one CTA a block
+            lane, tiles = envc.tile_plan(S, env_r, envc.LANE, B)
+            seq = 0
+        except ValueError:
+            lane, tiles, seq = 16, -(-S // (envc.THREADS * 16)), 1
+        at = -(-B * S // 4) * 4
+        pbuf = torch.empty(at + (0 if seq else B * tiles * 16), device=dev)
+        pout = {k: torch.empty_like(v) for k, v in st.items()}
+
+        def parent_call():
+            rc_ = lib.mixlab_envelope_block(
+                gate.data_ptr(), pbuf.data_ptr(), S, B, seq, lane, tiles,
+                pbuf.data_ptr() + 4 * at, *(prm[k].data_ptr() for k in envc._PARAMS), msps,
+                *(st[k].data_ptr() for k in envc._STATE),
+                *(pout[k].data_ptr() for k in envc._STATE), 0, raw(0))
+            if rc_:
+                raise RuntimeError(f"parent envelope launch: CUDA error {rc_}")
+
+        env_rows = envc.rows_resident(0, envc.rows_lane(S))
+        chosen = envc.batch_plan(S, B, env_r, env_rows)
+        rows = envc.rows_plan(S, B, env_rows)
+        forms = {"change": chosen, **_variants(chosen, {
+            "rows": rows, "other rows form": rows._replace(
+                form=envc.FORM_ROWS if rows.form == envc.FORM_LOOKBACK else envc.FORM_LOOKBACK,
+                ctas=B if rows.form == envc.FORM_LOOKBACK else min(env_rows, B * rows.tiles))})}
+        fns = {"parent": parent_call, **{
+            who: (lambda f=f: envc._launch(gate, 0, st, prm, msps, plan=f))
+            for who, f in forms.items()}}
+        forms["parent"] = "one CTA a block" if seq else f"grid {tiles} x {B}"
+        parent_call()
+        for who, fn in fns.items():
+            if who == "parent":
+                continue
+            out, new = fn()
+            torch.cuda.synchronize()
+            same = torch.equal(out.reshape(-1), pbuf[:B * S]) and all(
+                torch.equal(new[k], pout[k]) for k in envc._STATE)
+            if not same:
+                raise AssertionError(f"batched envelope {B}x{S} {who}: differs from the parent")
+        res = _turns(torch, fns, "envelope", rounds, 10)
+        b_ms = bound(8.0 * B * S, 0.0)[0]
+        for who, us in res.items():
+            label = forms[who] if who == "parent" else form_name(envc, forms[who], B)
+            log(f"A/B batched envelope {B}x{S} [{card}] {who} ({label}): device us per "
+                "launch " + " ".join(f"{u:.1f}" for u in us) + f"; median {np.median(us):.1f}, "
+                f"share of the bound {b_ms * 1e3 / np.median(us):.3f} (bound "
+                f"{b_ms * 1e3:.1f} us, bytes); outputs bit-equal to the parent's")
+        del gate, pbuf
+    plans = region_plans(torch)
+    resident = rc.resident_tiles(0)
+    for B, S in BATCHED_AB["region"]:
+        for key in ("flagship", "sink zoo") if (B, S) == BATCHED_AB["region"][0] else ("flagship",):
+            plan, row, consts = plans[key]
+            consts = consts.to(dev)
+            shape = rc.plan_shape(plan)
+            ops, pf = _region_inputs(torch, g, plan, row, B, S, dev)
+            sf = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+            try:  # the parent's plan: its grid where it fits, else one CTA a row
+                run, tiles = rc.scan_plan(S, resident, rc.CHUNK, rc.RUN, B)
+                seq = 0
+            except ValueError:  # its tiles of 512 samples (at most 97 scratch slots)
+                run, tiles, seq = 4, 0, 1
+            scratch = torch.empty((B, max(shape.n_scratch, 1), S) if not seq else (1,),
+                                  device=dev)
+            table = [(v.data_ptr(), v.stride(0) * v.element_size() if v.dim() == 2 else 0)
+                     for v in ops]
+            table += ([(scratch[0, i].data_ptr(), 4 * shape.n_scratch * S)
+                       for i in range(shape.n_scratch)] if not seq else [(0, 0)] * shape.n_scratch)
+            slots = torch.tensor(table, dtype=torch.int64, device=dev)
+            words = torch.tensor(plan.words, dtype=torch.int32, device=dev)
+            ptaps = torch.empty((B, plan.n_taps, S), device=dev)
+            pstap = torch.empty((B, max(plan.n_stap, 1)), device=dev)
+            pef = torch.empty((B, plan.n_ef), device=dev)
+
+            def parent_call():
+                rc_ = lib.mixlab_region_part(
+                    words.data_ptr(), words.numel(), slots.data_ptr(), plan.n_operands,
+                    plan.n_slots, pf.data_ptr(), plan.n_pf, plan.n_pf, consts.data_ptr(),
+                    sf.data_ptr(), plan.n_ef, ptaps.data_ptr(), plan.n_taps, pstap.data_ptr(),
+                    plan.n_stap, pef.data_ptr(), plan.n_ef, S, B, seq, run, tiles, 0, raw(0))
+                if rc_:
+                    raise RuntimeError(f"parent region launch: CUDA error {rc_}")
+
+            rows_res = rc.rows_resident(0, shape)
+            chosen = rc.batch_plan(S, B, resident, shape, rows_res)
+            rows = rc.rows_plan(S, B, shape, rows_res)
+            forms = {"change": chosen, **_variants(chosen, {
+                "rows": rows, "other rows form": rows._replace(
+                    form=rc.FORM_ROWS if rows.form == rc.FORM_LOOKBACK else rc.FORM_LOOKBACK,
+                    ctas=B if rows.form == rc.FORM_LOOKBACK else min(rows_res, B * rows.tiles))})}
+            fns = {"parent": parent_call, **{
+                who: (lambda f=f: rc.region_part_batched(plan, ops, pf, sf, S, consts, B, form=f))
+                for who, f in forms.items()}}
+            forms["parent"] = "one CTA a row" if seq else f"grid {tiles} x {B}"
+            parent_call()
+            for who, fn in fns.items():
+                if who == "parent":
+                    continue
+                taps, stap, ef = fn()
+                torch.cuda.synchronize()
+                err = max(_rows_err(torch, a, b)
+                          for a, b in ((taps, ptaps), (stap, pstap[:, :plan.n_stap]), (ef, pef)))
+                exact = _peaks_exact(torch, plan, ops, taps, stap)
+                if not (err <= REGION_ATOL and exact):
+                    raise AssertionError(f"batched region {key} {B}x{S} {who}: max err {err} "
+                                         f"from the parent, scalar taps exact {exact}")
+                log(f"batched region {key} {B}x{S} {who}: max abs err from the parent "
+                    f"{err:.3e}, scalar taps exactly the max of its own taps")
+            res = _turns(torch, fns, "region", rounds, 10)
+            nbytes, flops = region_work(plan, ops, S, B)
+            b_ms, b_by = bound(nbytes, flops)
+            for who, us in res.items():
+                label = forms[who] if who == "parent" else form_name(rc, forms[who], B)
+                log(f"A/B batched region {key} {B}x{S} [{card}] {who} ({label}): device us "
+                    "per launch " + " ".join(f"{u:.1f}" for u in us) + f"; median "
+                    f"{np.median(us):.1f}, share of the bound {b_ms * 1e3 / np.median(us):.3f} "
+                    f"(bound {b_ms * 1e3:.1f} us, {b_by})")
+            del ops, ptaps, scratch
+    return 0
+
+
 def batched_paths(torch, np, dev, card):
     """Phase 16: -> (errors, times, {path: launches}, information)."""
     errs, times = batched_kernels(torch, np, dev, card)
@@ -3432,7 +3891,8 @@ def batched_paths(torch, np, dev, card):
 # ---------------------------------------------------------------------------
 
 REGION_FLEET_TICKS = (16, 48)    # 12,800 samples at 48 kHz (100 chunks), 38,400 (the envelope's gate open)
-REGION_EDGE_S = (8192, 12_800, 38_400, 204_800)  # 204,800: two parts of 102,400
+# 8,320: a last tile of one chunk; 204,800: two parts of 102,400
+REGION_EDGE_S = (8192, 8_320, 12_800, 38_400, 204_800)
 REGION_EDGE_B = (1, 2, 1024, 8192)
 # the edges' batches stop at the fleet's largest block (8,192 rows of 12,800)
 REGION_MAX_SAMPLES = 8192 * 12_800
@@ -3525,17 +3985,19 @@ def _peaks_exact(torch, plan, part, taps, stap):
 
 
 def region_edges(torch, np, dev, card):
-    """(a) the region kernel against its batched twin, both forms (the plan's
-    choice, then the other form forced where it can run), at B = 1, 2, where
-    B x G just fits at L = 4, the largest cooperative grid and one past it,
-    1,024 and 8,192 (B x S at most REGION_MAX_SAMPLES) x S of REGION_EDGE_S
-    (204,800 as the program cuts it: two parts, the exits carried from part to
-    part in each row), 3 carried blocks; the flagship's plan, the same with one
-    operand every row shares (row stride 0), the sink zoo's plan and a PEAK
-    plan with a NaN in one row.  Taps, scalar taps and exits within
-    REGION_ATOL of the twin's; each scalar tap EXACTLY the max over the
-    launch's own tapped values (``_peaks_exact``).  -> (max abs err, timing
-    rows)."""
+    """(a) the region kernel against its batched twin in every form its plan
+    takes (and, where the plan takes the cooperative grid, the rows form
+    forced beside it), at B = 1, 2, where B x G just fits at L = 4, where the
+    plan switches form (past the largest grid; between the look-back and one
+    CTA a row), 1,024 and 8,192 (B x S at most REGION_MAX_SAMPLES) x S of
+    REGION_EDGE_S (8,320: a last tile of one chunk; 204,800 as the program
+    cuts it: two parts, the exits carried from part to part in each row), 3
+    carried blocks; the flagship's plan, the same with one operand every row
+    shares (row stride 0), the sink zoo's plan and a PEAK plan with a NaN in
+    one row.  Taps, scalar taps and exits within REGION_ATOL of the twin's;
+    each scalar tap EXACTLY the max over the launch's own tapped values
+    (``_peaks_exact``); the flagship's plan one launch a call and no memset
+    at every B (``launches_a_call``).  -> (max abs err, timing rows)."""
     from mixlab_tpu_torch.engine import region_cuda as rc
     from mixlab_tpu_torch.engine.region_graph import _partition
 
@@ -3547,23 +4009,27 @@ def region_edges(torch, np, dev, card):
         parts = _partition(S)
         P = parts[0][1]
         fit = resident // -(-P // (rc.CHUNK * rc.RUN))
-        most = resident // -(-P // (rc.CHUNK * 32))
-        edges = sorted({b for b in (*REGION_EDGE_B, fit, fit + 1, most, most + 1)
-                        if 0 < b and b * S <= REGION_MAX_SAMPLES})
-        for name, key, shared, nan, bs in (
-                ("flagship", "flagship", (), False, edges),
+        for name, key, shared, nan, pick in (
+                ("flagship", "flagship", (), False, lambda b, sw: True),
                 ("flagship, operand 0 shared", "flagship", (0,), False,
-                 [b for b in edges if b in (2, most + 1, 1024)]),
-                ("sink zoo", "sink zoo", (), False,
-                 [b for b in edges if b in (1, 2, most, most + 1)]),
-                ("peak with a NaN", "peak", (), True, [b for b in edges if b in (2, most + 1)])):
+                 lambda b, sw: b in (2, 1024, *sw[1::2])),
+                ("sink zoo", "sink zoo", (), False, lambda b, sw: b in (1, 2, *sw)),
+                ("peak with a NaN", "peak", (), True, lambda b, sw: b in (2, *sw[1::2]))):
             plan, row, consts = plans[key]
             consts = consts.to(dev)
-            n_scratch = plan.n_slots - plan.n_operands
+            shape = rc.plan_shape(plan)
+            rows_r = rc.rows_resident(dev.index or 0, shape)
+            # where the plan switches form: past the largest grid, between the
+            # look-back and one CTA a row
+            switch = switch_points(lambda b: rc.batch_plan(P, b, resident, shape, rows_r),
+                                   2 * rows_r)
+            bs = sorted({b for b in (*REGION_EDGE_B, fit, fit + 1, *switch)
+                         if 0 < b and b * S <= REGION_MAX_SAMPLES and pick(b, switch)})
             for B in bs:
-                chosen = rc.batch_plan(P, B, resident, n_scratch)
-                # where the plan picks one CTA a row, no cooperative grid holds the rows
-                forms = [None] if chosen[0] else [None, True]
+                chosen = rc.batch_plan(P, B, resident, shape, rows_r)
+                # where the plan takes the grid, the rows form is forced beside it
+                forms = [None] + ([rc.rows_plan(P, B, shape, rows_r)]
+                                  if chosen.form == rc.FORM_GRID else [])
                 s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
                 sf = {f: s0.clone() for f in ("twin", *forms)}
                 errs, staps = [], True
@@ -3577,16 +4043,25 @@ def region_edges(torch, np, dev, card):
                         sf["twin"] = want[2]
                         for f in forms:
                             got = rc.region_part_batched(plan, part, pf, sf[f], b - a, consts,
-                                                         B, sequential=f)
+                                                         B, form=f)
                             sf[f] = got[2]
                             errs.append(max(_rows_err(torch, g, w) for g, w in zip(got, want)))
                             staps = staps and _peaks_exact(torch, plan, part, got[0], got[1])
                 err = max(errs)
-                names = {None: "the plan's", True: "one CTA a row, forced"}
+                if key == "flagship" and not shared:  # one launch a call, no memset
+                    a, b = parts[-1]
+                    per_call, memsets, kernels_ = launches_a_call(
+                        torch, lambda: rc.region_part_batched(
+                            plan, [v[..., a:b] for v in ops], pf, sf[None], b - a, consts, B))
+                    if per_call != 1 or memsets:
+                        raise AssertionError(f"batched region B={B} S={S}: {per_call} launches "
+                                             f"and {memsets} memsets a call ({kernels_})")
                 log(f"batched region kernel vs twin, {name}, B={B} S={S} ({len(parts)} part(s); "
-                    f"plan: {'one CTA a row' if chosen[0] else f'grid {chosen[2]} x {B}'}, "
-                    f"L={chosen[1]}; forms {[names[f] for f in forms]}), 3 blocks: max abs err "
-                    f"{err:.3e}, scalar taps exact {staps}")
+                    f"plan: {form_name(rc, chosen, B)}; forms "
+                    f"{['the plan' if f is None else form_name(rc, f, B) for f in forms]}), 3 "
+                    f"blocks: max abs err {err:.3e}, scalar taps exact {staps}"
+                    + (", 1 launch a call, no memset" if key == "flagship" and not shared
+                       else ""))
                 if not (err <= REGION_ATOL and staps):
                     raise AssertionError(f"batched region {name} B={B} S={S}: max err {err}, "
                                          f"scalar taps exact {staps}")
@@ -3610,13 +4085,14 @@ def region_edges(torch, np, dev, card):
         device_us = found[0][1] if found else None  # None: the profile recorded no row
         nbytes, flops = region_work(plan, ops, S, B)
         b_ms, b_by = bound(nbytes, flops)
-        seq = rc.batch_plan(S, B, resident, plan.n_slots - plan.n_operands)[0]
+        shape = rc.plan_shape(plan)
+        chosen = rc.batch_plan(S, B, resident, shape, rc.rows_resident(dev.index or 0, shape))
         times[f"{B}x{S}"] = r = {
             "ms": time_ms(torch, call, n=20, warmup=3), "device_us": device_us,
             "plain_ms": time_ms(torch, lambda: rc.region_part_torch_batched(
                 plan, ops, pf, sf, S, consts, B), n=3, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "form": "one CTA a row" if seq else "grid"}
+            "form": form_name(rc, chosen, B)}
         log(f"batched region B={B} S={S} [{card}]: {r['ms']:.4f} ms a call, "
             f"{_us(device_us)} us device a launch ({r['form']}), twin {r['plain_ms']:.3f} ms, "
             f"bound {b_ms * 1e3:.1f} us ({b_by}, {nbytes} B), share of the bound "
@@ -3626,7 +4102,8 @@ def region_edges(torch, np, dev, card):
 
 
 def _fleet_block_profile(torch, fleet, spb, first):
-    """(device seconds a block, top six rows) over 3 blocks from ``first``."""
+    """(device seconds a block, every device row, most time first) over 3
+    blocks from ``first``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3638,7 +4115,7 @@ def _fleet_block_profile(torch, fleet, spb, first):
                   key=lambda e: -e.self_device_time_total)
     if not rows:  # the profile recorded no device row
         return None, []
-    return sum(e.self_device_time_total for e in rows) / 3 / 1e6, rows[:6]
+    return sum(e.self_device_time_total for e in rows) / 3 / 1e6, rows
 
 
 def region_fleet(torch, np, dev, card):
@@ -3738,9 +4215,14 @@ def region_fleet(torch, np, dev, card):
                     f"{r['realtime']:.2f} x realtime, device {device}, peak device memory "
                     f"{r['peak_gib']:.2f} GiB (both fleets resident; {r['block_gib']:.2f} GiB "
                     f"above it during the block)")
-                for e in rows:
+                for e in rows[:6]:
                     log(f"  {e.self_device_time_total / 3e3:9.3f} ms a block {e.count / 3:6.0f}x  "
                         f"{e.key[:90]}")
+                for e in rows:  # the batched kernels' own launches
+                    if "region_" in e.key or "envelope_" in e.key:
+                        log(f"  {k} program N={n} at {ticks} ticks [{card}]: {e.key[:60]} "
+                            f"{e.self_device_time_total / e.count:.1f} us device a launch, "
+                            f"{e.count / 3:.0f} a block")
             del fleets, taps, ref
             torch.cuda.empty_cache()
     return paths, info
@@ -3896,9 +4378,11 @@ def mesh_fleet(torch, np, dev, card, ticks=FLEET_TICKS):
     built = time.perf_counter() - t
     kernel, other = ("region", "eq_cascade") if one.patch._mega else ("eq_cascade", "region")
     same_form = True
-    if one.patch._mega:  # the form each side's rows take
-        plan = lambda rows: region_cuda.batch_plan(spb, rows, region_cuda.resident_tiles(
-            dev.index or 0), 0)[0]
+    if one.patch._mega:  # the form each side's rows take (the flagship's plan)
+        shape = region_cuda.plan_shape(region_plans(torch)["flagship"][0])
+        plan = lambda rows: region_cuda.batch_plan(
+            spb, rows, region_cuda.resident_tiles(dev.index or 0), shape,
+            region_cuda.rows_resident(dev.index or 0, shape))
         same_form = plan(n) == plan(n // MESH_FLEET_SHARDS)
     worst, same = 0.0, True
     for b in range(2):
@@ -4858,7 +5342,8 @@ def edit_path(torch, np, dev, card):
 
 
 def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
-                               "region_seq_kernel", "envelope_kernel", "envelope_seq_kernel")):
+                               "region_rows_kernel", "region_lookback_kernel", "envelope_kernel",
+                               "envelope_rows_kernel", "envelope_lookback_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
     bytes)} from the build log's ``-Xptxas -v`` lines."""
     import re

@@ -38,14 +38,21 @@
 //
 // Over a batch (what jax.vmap(envelope_block_pallas) computes: B blocks of
 // S samples, each with its own state and params, read from [B] arrays), ONE
-// launch in one of two forms (envelope_cuda.batch_plan): the cooperative
+// launch in one of three forms (envelope_cuda.batch_plan): the cooperative
 // grid above with gridDim.y = B where the B x G tiles fit on the card at
-// once, else one CTA a block (envelope_seq_kernel) that walks its block in
-// tiles of 256 * C samples, running phase A, the block scan and phase B on
-// each and carrying the exit state from tile to tile: no grid barrier, any
-// B.  Batched, the kernel moves 8 bytes a sample (x in, out written) and
-// is bandwidth-bound at large B.
-//
+// once; else the rows forms of csrc/rows.cuh, tiles of 256 * C samples (C 16
+// or 32) staged by cp.async a tile ahead, phase A, the block scan and phase B
+// on each: one CTA a block carrying the exit state from tile to tile
+// (envelope_rows_kernel), or, where that leaves most of the card idle (a few
+// long blocks), the decoupled look-back (envelope_lookback_kernel), whose
+// tiles fold the aggregates of the tiles before them onto the nearest
+// inclusive state, concretely (apply_rec), as phase B does lane by lane.
+// Batched, the kernel moves 8 bytes a sample (x in, out written); at the
+// fleet's shapes it reaches about a third of that bound (chip_smoke.py
+// batched_ab): phase A runs two machines a sample, phase B divides two or
+// three times a sample in IEEE f32, and every tile pays two block scans of
+// the 16-word record pair, so the issue slots, not the bytes, hold it.
+
 // Exactness: composition is associative, and every f32 written is computed
 // from concrete int positions by the same expressions (the library is built
 // with -fmad=false), so regrouping the scan by tiles changes no output bit.
@@ -63,6 +70,7 @@
 #include <stdint.h>
 
 #include "on_device.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -71,6 +79,10 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLane = 16;           // samples per thread (tile 4,096)
+// the batched rows forms: samples a thread at most (tile 8,192), and CTAs an
+// SM asked of the compiler (64 registers a thread; chip_smoke.py's sweep)
+constexpr int kMaxRowsLane = 32;
+constexpr int kRowsMinBlocks = 4;
 constexpr int kMaxTiles = kThreads;    // one tile aggregate per thread of the tile scan
 constexpr int kPosFloor = -(1 << 30);
 
@@ -252,9 +264,9 @@ struct Entry {
   float amp;
 };
 
-// the concrete exit state of a lane prefix entered with state E
-__device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, const Params& p) {
-  const Rec s = pick_rec(pre, E.mode);
+// the concrete exit state of a span whose record for E's mode is s, entered
+// with state E
+__device__ __forceinline__ Entry apply_rec(const Rec& s, const Entry& E, const Params& p) {
   Entry o;
   o.mode = s.mode;
   o.on = s.on_sym ? E.on : s.on_pos;
@@ -262,6 +274,11 @@ __device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, co
   o.amp = s.ampk == kConc ? s.ampv
         : (s.ampk == kEntry ? E.amp : amp_on_at(s.ampp, E.on, p));
   return o;
+}
+
+// the concrete exit state of a lane prefix entered with state E
+__device__ __forceinline__ Entry apply_entry(const Pair& pre, const Entry& E, const Params& p) {
+  return apply_rec(pick_rec(pre, E.mode), E, p);
 }
 
 // Phase A over a lane's C staged samples (block positions base..): both
@@ -397,69 +414,249 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int
   }
 }
 
-// One block of the batch a CTA (blockIdx.x), walked in tiles of 256 * C
-// samples with the exit state carried from tile to tile in `carry`.
-__global__ void __launch_bounds__(kThreads)
-envelope_seq_kernel(const float* __restrict__ x, float* __restrict__ out, int S, int C,
-                    const float* __restrict__ attack, const float* __restrict__ decay,
-                    const float* __restrict__ sustain, const float* __restrict__ release,
-                    float msps,
-                    const uint8_t* __restrict__ mode_in, const int* __restrict__ on_in,
-                    const int* __restrict__ off_in, const float* __restrict__ amp_in,
-                    uint8_t* __restrict__ mode_out, int* __restrict__ on_out,
-                    int* __restrict__ off_out, float* __restrict__ amp_out) {
-  extern __shared__ float xs[];
-  __shared__ Pair warp_tot[kWarps];
-  __shared__ Entry exits[kThreads];
-  __shared__ Entry carry;
+// ---- the batched rows forms (csrc/rows.cuh) --------------------------------
+// A tile is 256 * C samples (C = 2^lg); its aggregate is the tile's lane
+// records composed, its carry the concrete state before it.
 
-  const int k = threadIdx.x;
-  const int stride = C | 1;
-  const int T = kThreads * C;
-  const size_t seq = blockIdx.x;
-  x += seq * S, out += seq * S;
-  const Params p{attack[seq], decay[seq], sustain[seq], release[seq], msps};
-  if (k == 0) {
-    carry = Entry{static_cast<int>(mode_in[seq] != 0), on_in[seq], off_in[seq], amp_in[seq]};
-  }
-  float* mine = xs + k * stride;
+struct RowsArgs {
+  const float* x;
+  float* out;
+  int S, lg, tiles, batch;
+  const float *attack, *decay, *sustain, *release;
+  float msps;
+  const uint8_t* mode_in;
+  const int *on_in, *off_in;
+  const float* amp_in;
+  uint8_t* mode_out;
+  int *on_out, *off_out;
+  float* amp_out;
+  unsigned* tickets;  // the look-back form's counters, then its status array
+  unsigned seq;
+};
 
-  for (int tile0 = 0; tile0 < S; tile0 += T) {
-    for (int j = k; j < T; j += kThreads) {
-      const int t = tile0 + j;
-      xs[(j / C) * stride + j % C] = t < S ? __ldg(x + t) : 0.5f;
+// one tile's record in the look-back form's status array
+struct __align__(16) Status {
+  Pair agg;       // the tile's lane records composed (both entry modes)
+  Entry incl;     // the state after the tile (at rows::kInclusive)
+  unsigned flag;  // rows::tag(seq, state)
+  unsigned pad[3];
+};
+static_assert(sizeof(Status) == 96, "envelope_cuda.STATUS_BYTES");
+
+__device__ __forceinline__ Params row_params(const RowsArgs& a, int row) {
+  return Params{a.attack[row], a.decay[row], a.sustain[row], a.release[row], a.msps};
+}
+
+__device__ __forceinline__ Entry row_state(const RowsArgs& a, int row) {
+  return Entry{static_cast<int>(a.mode_in[row] != 0), a.on_in[row], a.off_in[row], a.amp_in[row]};
+}
+
+__device__ __forceinline__ void write_state(const RowsArgs& a, int row, const Entry& ex) {
+  a.mode_out[row] = static_cast<uint8_t>(ex.mode != 0);
+  a.on_out[row] = max(ex.on - a.S, kPosFloor);
+  a.off_out[row] = max(ex.off - a.S, kPosFloor);
+  a.amp_out[row] = ex.amp;
+}
+
+// Copy the tile at tile0 of a row into xs at the lanes' odd stride, one
+// cp.async of 4 bytes a sample (coalesced reads), the pad past S stored
+// directly; one commit group.
+__device__ __forceinline__ void stage_rows(float* xs, const float* x, int tile0, int S, int lg) {
+  const int T = kThreads << lg, mask = (1 << lg) - 1, stride = (1 << lg) | 1;
+  for (int j = threadIdx.x; j < T; j += kThreads) {
+    float* d = xs + (j >> lg) * stride + (j & mask);
+    if (tile0 + j < S) {
+      rows::cp_async4(d, x + tile0 + j);
+    } else {
+      *d = 0.5f;
     }
-    __syncthreads();
-    const int base = tile0 + k * C;
-
-    // phase A: both entry machines, symbolically
-    const Pair rec = phase_a(mine, base, C, p);
-
-    // the lanes' prefixes within the tile, entered with the carried state
-    const Pair pre = block_scan(rec, warp_tot, p);
-    exits[k] = apply_entry(pre, carry, p);
-    __syncthreads();
-    Entry st = k == 0 ? carry : exits[k - 1];
-
-    // phase B: concrete outputs, in place of the lane's inputs
-    phase_b(mine, base, C, S, st, p);
-    __syncthreads();  // every thread has read carry and written its outputs
-    if (k == 0) carry = exits[kThreads - 1];  // lanes past S only read pads
-    for (int j = k; j < T; j += kThreads) {
-      const int t = tile0 + j;
-      if (t < S) out[t] = xs[(j / C) * stride + j % C];
-    }
-    __syncthreads();  // xs, exits and carry are free for the next tile
   }
-  if (k == 0) {
-    mode_out[seq] = static_cast<uint8_t>(carry.mode != 0);
-    on_out[seq] = max(carry.on - S, kPosFloor);
-    off_out[seq] = max(carry.off - S, kPosFloor);
-    amp_out[seq] = carry.amp;
+  rows::cp_async_commit();
+}
+
+// The staged tile's outputs from its entry state (shared: written before a
+// barrier the caller took) and the lanes' prefixes, stored coalesced;
+// exits[kThreads - 1] is then the state after the tile.
+__device__ __forceinline__ void finish_tile(float* xs, const Pair& pre, const Entry& entry,
+                                            Entry* exits, int tile0, int lg, const Params& p,
+                                            int S, float* out) {
+  const int k = threadIdx.x, C = 1 << lg, stride = C | 1;
+  exits[k] = apply_entry(pre, entry, p);
+  __syncthreads();
+  const Entry st = k == 0 ? entry : exits[k - 1];
+  phase_b(xs + k * stride, tile0 + k * C, C, S, st, p);
+  __syncthreads();
+  const int T = kThreads << lg;
+  for (int j = k; j < T; j += kThreads) {
+    if (tile0 + j < S) out[tile0 + j] = xs[(j >> lg) * stride + (j & (C - 1))];
   }
 }
 
+// One CTA a block (blockIdx.x): its tiles in order, the carry in shared
+// memory, the next tile staged while this one runs.
+__global__ void __launch_bounds__(kThreads, kRowsMinBlocks) envelope_rows_kernel(RowsArgs a) {
+  extern __shared__ float xs[];  // two staged tiles
+  __shared__ Pair warp_tot[kWarps];
+  __shared__ Entry exits[kThreads];
+  __shared__ Entry carry[2];  // the state before the tile, by its parity
+
+  const int k = threadIdx.x, S = a.S, lg = a.lg, row = blockIdx.x;
+  const int T = kThreads << lg, buf = kThreads * ((1 << lg) | 1);
+  const float* x = a.x + static_cast<size_t>(row) * S;
+  float* out = a.out + static_cast<size_t>(row) * S;
+  const Params p = row_params(a, row);
+  if (k == 0) carry[0] = row_state(a, row);
+  stage_rows(xs, x, 0, S, lg);
+  for (int t = 0; t < a.tiles; ++t) {
+    float* cur = xs + (t & 1) * buf;
+    if (t + 1 < a.tiles) {
+      stage_rows(xs + ((t + 1) & 1) * buf, x, (t + 1) * T, S, lg);
+    } else {
+      rows::cp_async_commit();
+    }
+    rows::cp_async_wait<1>();
+    __syncthreads();
+    const Pair pre = block_scan(phase_a(cur + k * ((1 << lg) | 1), t * T + (k << lg), 1 << lg, p),
+                                warp_tot, p);
+    finish_tile(cur, pre, carry[t & 1], exits, t * T, lg, p, S, out);
+    if (k == kThreads - 1) {  // lanes past S only read pads
+      carry[(t + 1) & 1] = exits[kThreads - 1];
+      if (t == a.tiles - 1) write_state(a, row, exits[kThreads - 1]);
+    }
+    __syncthreads();  // cur and exits are free again
+  }
+}
+
+// The entry state of tile `tile` of a row (warp 0; every lane returns it):
+// the nearest earlier tile with its inclusive state (before tile 0: the
+// row's state E0), then the aggregates of the tiles after it, in order.
+__device__ __forceinline__ Entry look_back(const Status* srow, int tile, const Entry& E0,
+                                           unsigned seq, const Params& p) {
+  const int lane = threadIdx.x & 31;
+  const int idx = tile - 32 + lane;  // lane 31: the tile before
+  const unsigned fa = rows::tag(seq, rows::kAggregate), fp = rows::tag(seq, rows::kInclusive);
+  int pl = 0;
+  for (;;) {
+    const unsigned f = idx < 0 ? fp : rows::load_relaxed(&srow[idx].flag);
+    const unsigned pm = __ballot_sync(0xffffffffu, f == fp);
+    const unsigned rm = __ballot_sync(0xffffffffu, f == fp || f == fa);
+    if (pm) {
+      pl = 31 - __clz(pm);
+      const unsigned after = pl == 31 ? 0u : 0xffffffffu << (pl + 1);
+      if ((rm & after) == after) break;
+    }
+    __nanosleep(64);
+  }
+  __threadfence();  // the records read below were written before their flags
+  Entry e = E0;
+  if (lane == pl && idx >= 0) {
+    const int4 v = __ldcg(reinterpret_cast<const int4*>(&srow[idx].incl));
+    e = Entry{v.x, v.y, v.z, __int_as_float(v.w)};
+  }
+  e.mode = __shfl_sync(0xffffffffu, e.mode, pl);
+  e.on = __shfl_sync(0xffffffffu, e.on, pl);
+  e.off = __shfl_sync(0xffffffffu, e.off, pl);
+  e.amp = __shfl_sync(0xffffffffu, e.amp, pl);
+  const Pair v = lane > pl ? load_pair_cg(&srow[idx].agg) : identity_pair();
+  for (int j = pl + 1; j < 32; ++j) {
+    const Rec mine = pick_rec(v, e.mode);  // e is the same in every lane
+    Rec r;
+    r.mode = __shfl_sync(0xffffffffu, mine.mode, j);
+    r.on_sym = __shfl_sync(0xffffffffu, mine.on_sym, j);
+    r.on_pos = __shfl_sync(0xffffffffu, mine.on_pos, j);
+    r.off_sym = __shfl_sync(0xffffffffu, mine.off_sym, j);
+    r.off_pos = __shfl_sync(0xffffffffu, mine.off_pos, j);
+    r.ampk = __shfl_sync(0xffffffffu, mine.ampk, j);
+    r.ampv = __shfl_sync(0xffffffffu, mine.ampv, j);
+    r.ampp = __shfl_sync(0xffffffffu, mine.ampp, j);
+    e = apply_rec(r, e, p);
+  }
+  return e;
+}
+
+// The look-back form: as many CTAs as the card holds, each taking tiles by
+// ticket (row-major) and staging its next ticket's tile while it runs this
+// one.
+__global__ void __launch_bounds__(kThreads, kRowsMinBlocks)
+envelope_lookback_kernel(RowsArgs a) {
+  extern __shared__ float xs[];
+  __shared__ Pair warp_tot[kWarps];
+  __shared__ Entry exits[kThreads];
+  __shared__ Entry tile_entry;
+  __shared__ Pair agg;
+  __shared__ unsigned ticket[2];
+
+  const int k = threadIdx.x, S = a.S, lg = a.lg, T = kThreads << lg;
+  const int buf = kThreads * ((1 << lg) | 1);
+  const unsigned total = static_cast<unsigned>(a.batch) * static_cast<unsigned>(a.tiles);
+  Status* status = reinterpret_cast<Status*>(a.tickets + 4);
+  auto stage_ticket = [&](unsigned t, float* dst) {
+    if (t < total) {
+      const int row = static_cast<int>(t / a.tiles), tile = static_cast<int>(t % a.tiles);
+      stage_rows(dst, a.x + static_cast<size_t>(row) * S, tile * T, S, lg);
+    } else {
+      rows::cp_async_commit();
+    }
+  };
+  if (k == 0) ticket[0] = rows::take_ticket(a.tickets, a.seq);
+  __syncthreads();
+  stage_ticket(ticket[0], xs);
+  for (int i = 0;; ++i) {
+    const unsigned t = ticket[i & 1];
+    if (t >= total) break;
+    if (k == 0) ticket[(i + 1) & 1] = rows::take_ticket(a.tickets, a.seq);
+    __syncthreads();
+    stage_ticket(ticket[(i + 1) & 1], xs + ((i + 1) & 1) * buf);
+    rows::cp_async_wait<1>();
+    __syncthreads();
+    const int row = static_cast<int>(t / a.tiles), tile = static_cast<int>(t % a.tiles);
+    const Params p = row_params(a, row);
+    float* cur = xs + (i & 1) * buf;
+    const Pair rec = phase_a(cur + k * ((1 << lg) | 1), tile * T + (k << lg), 1 << lg, p);
+    const Pair pre = block_scan(rec, warp_tot, p);
+    Status* st = status + t;
+    if (k == kThreads - 1) {  // the aggregate first: later tiles need it, not the state
+      agg = pre;
+      st->agg = pre;
+      rows::store_release(&st->flag, rows::tag(a.seq, rows::kAggregate));
+    }
+    __syncthreads();
+    if (k < 32) {
+      const Entry e = look_back(status + static_cast<size_t>(row) * a.tiles, tile,
+                                row_state(a, row), a.seq, p);
+      if (k == 0) {
+        tile_entry = e;
+        st->incl = apply_entry(agg, e, p);
+        rows::store_release(&st->flag, rows::tag(a.seq, rows::kInclusive));
+      }
+    }
+    __syncthreads();
+    finish_tile(cur, pre, tile_entry, exits, tile * T, lg, p, S,
+                a.out + static_cast<size_t>(row) * S);
+    if (tile == a.tiles - 1 && k == kThreads - 1) write_state(a, row, exits[kThreads - 1]);
+    __syncthreads();  // cur, exits, agg and tile_entry are free again
+  }
+}
+
+size_t rows_shared_bytes(int lg) {
+  return 2 * static_cast<size_t>(kThreads) * ((1 << lg) | 1) * sizeof(float);
+}
+
 size_t shared_bytes(int C) { return static_cast<size_t>(kThreads) * (C | 1) * sizeof(float); }
+
+// the rows forms' dynamic shared memory past 48 KB (the longest lane), once
+// a card (the card current in the caller)
+cudaError_t allow_rows(int device) {
+  static bool done[64] = {};
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const int bytes = static_cast<int>(rows_shared_bytes(5));
+  static_assert(kMaxRowsLane == 1 << 5, "rows_shared_bytes of the longest lane");
+  cudaError_t err = cudaFuncSetAttribute(envelope_rows_kernel, attr, bytes);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(envelope_lookback_kernel, attr, bytes);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
 
 }  // namespace
 
@@ -483,36 +680,79 @@ int mixlab_envelope_resident_tiles(int device, int* resident) {
   return static_cast<int>(err);
 }
 
+// CTAs of a batched rows form (form 1: one CTA a block; form 2: the
+// look-back) at lanes of 2^lg samples that one card holds at once, into
+// *resident.
+int mixlab_envelope_rows_resident(int form, int lg, int device, int* resident) {
+  *resident = 0;
+  if (lg < 0 || (1 << lg) > kMaxRowsLane || (form != 1 && form != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OnDevice on(device);
+  cudaError_t err = on.error();
+  if (err == cudaSuccess) err = allow_rows(device);
+  int n_sm = 0, per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, form == 1 ? envelope_rows_kernel : envelope_lookback_kernel, kThreads,
+        rows_shared_bytes(lg));
+  }
+  *resident = per_sm * n_sm;
+  return static_cast<int>(err);
+}
+
 // The envelope over `batch` blocks of S samples (1 <= S): x, out
 // [batch][S]; the params attack..release and the state in and out are
-// [batch] arrays (bool state as one byte).  With seq == 0 a cooperative grid
-// of `tiles` x `batch` CTAs of 256 * C samples (1 <= C <= 16,
-// 1 <= tiles <= 256, the last tile of a block holding sample S-1; the tile
-// scratch holds `tiles` x `batch` records of 64 bytes); with seq == 1 one
-// CTA a block walking tiles of 256 * C samples, `tiles` and the scratch
-// unused.  All pointers are device pointers; the launch goes to card
-// `device`.  Returns the launch's cudaError_t (0 = cudaSuccess); a
-// cooperative grid larger than the card holds at once is refused by the
-// launch.
-int mixlab_envelope_block(const float* x, float* out, int S, int batch, int seq, int C,
-                          int tiles, void* scratch, const float* attack, const float* decay,
-                          const float* sustain, const float* release, float msps,
-                          const uint8_t* mode_in, const int* on_in, const int* off_in,
-                          const float* amp_in, uint8_t* mode_out, int* on_out,
-                          int* off_out, float* amp_out, int device, void* stream) {
-  if (S < 1 || batch < 1 || C < 1 || C > kMaxLane ||
-      (!seq && (tiles < 1 || tiles > kMaxTiles || batch > 65535 ||
-                static_cast<long long>(tiles) * kThreads * C < S ||
-                static_cast<long long>(tiles - 1) * kThreads * C >= S))) {
+// [batch] arrays (bool state as one byte).  `form` 0: a cooperative grid of
+// `tiles` x `batch` CTAs of 256 * C samples (1 <= C <= 16, 1 <= tiles <=
+// 256, the last tile of a block holding sample S-1; `scratch` holds `tiles`
+// x `batch` records of 64 bytes).  Form 1: one CTA a block, `tiles` tiles of
+// 256 * C samples a block (C a power of two up to 32), the next one staged.
+// Form 2: the look-back over `ctas` CTAs, `tiles` tiles of 256 * C samples a
+// block; `scratch` holds two ticket counters (16 bytes) and `batch` x
+// `tiles` status records of 96 bytes, zeroed once when the wrapper made it;
+// `seq` is this launch's number on that scratch (at least 1, one more than
+// the last launch on it).  All pointers are device pointers; the launch
+// goes to card `device`.  Returns the launch's cudaError_t (0 =
+// cudaSuccess); a cooperative grid larger than the card holds at once is
+// refused by the launch.
+int mixlab_envelope_block(const float* x, float* out, int S, int batch, int form, int C,
+                          int tiles, int ctas, void* scratch, unsigned seq, const float* attack,
+                          const float* decay, const float* sustain, const float* release,
+                          float msps, const uint8_t* mode_in, const int* on_in,
+                          const int* off_in, const float* amp_in, uint8_t* mode_out,
+                          int* on_out, int* off_out, float* amp_out, int device, void* stream) {
+  int lg = 0;
+  while ((1 << lg) < C) ++lg;
+  const bool rows_form = form == 1 || form == 2;
+  if (S < 1 || batch < 1 || C < 1 || C > (rows_form ? kMaxRowsLane : kMaxLane) || form < 0 ||
+      form > 2 ||
+      (form == 0 && (tiles < 1 || tiles > kMaxTiles || batch > 65535 ||
+                     static_cast<long long>(tiles) * kThreads * C < S ||
+                     static_cast<long long>(tiles - 1) * kThreads * C >= S)) ||
+      (rows_form && ((1 << lg) != C ||
+                     tiles != (S + (kThreads << lg) - 1) / (kThreads << lg) ||
+                     static_cast<long long>(batch) * tiles > 0x7fffffffLL)) ||
+      (form == 2 && (ctas < 1 || scratch == nullptr || seq == 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OnDevice on(device);
   if (on.error() != cudaSuccess) return static_cast<int>(on.error());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (seq) {
-    envelope_seq_kernel<<<batch, kThreads, shared_bytes(C), st>>>(
-        x, out, S, C, attack, decay, sustain, release, msps, mode_in, on_in, off_in, amp_in,
-        mode_out, on_out, off_out, amp_out);
+  if (rows_form) {
+    const cudaError_t err = allow_rows(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const RowsArgs a{x, out, S, lg, tiles, batch, attack, decay, sustain, release, msps,
+                     mode_in, on_in, off_in, amp_in, mode_out, on_out, off_out, amp_out,
+                     static_cast<unsigned*>(scratch), seq};
+    if (form == 1) {
+      envelope_rows_kernel<<<batch, kThreads, rows_shared_bytes(lg), st>>>(a);
+    } else {
+      envelope_lookback_kernel<<<ctas, kThreads, rows_shared_bytes(lg), st>>>(a);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   Pair* tile_recs = static_cast<Pair*>(scratch);

@@ -248,8 +248,31 @@ struct Entry {
 // the thread's run (xs staged, lg = log2 L), the CTA's scan, the CTA's
 // aggregate to agg[blockIdx.x] (8 floats, 16-byte aligned) unless agg is
 // null (a CTA that carries its own entry state reads no aggregate).
+// The maps scan_up builds from the table, which hold for every tile of a
+// launch: A^(L * lane) and A^(L * threadIdx.x)
+struct Maps {
+  State lane, thread;
+};
+
+__device__ __forceinline__ Maps thread_maps(const float* tab, int lg) {
+  const int i = threadIdx.x, W = blockDim.x >> 5;
+  Maps m;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    m.lane.y[b][0] = 1.0f;
+    m.lane.y[b][1] = m.lane.y[b][2] = m.lane.y[b][3] = 0.0f;
+  }
+  apply_bits(m.lane, i & 31, tab, lg, 5);
+  m.thread = m.lane;
+  apply_bits(m.thread, i >> 5, tab, lg + 5, __ffs(W) - 1);
+  return m;
+}
+
+// With `maps` (thread_maps of the table in sh.tab), scan_up takes them
+// instead of building them (the batched rows forms of csrc/region.cu).
+template <bool kMaps = false>
 __device__ __forceinline__ Entry scan_up(const float* xs, int lg, const Coeffs& c,
-                                         Shared& sh, float* agg) {
+                                         Shared& sh, float* agg, const Maps* maps = nullptr) {
   const int i = threadIdx.x, lane = i & 31, w = i >> 5;
   const int W = blockDim.x >> 5;
   const int L = 1 << lg;
@@ -286,6 +309,11 @@ __device__ __forceinline__ Entry scan_up(const float* xs, int lg, const Coeffs& 
   const State ew = w > 0 ? load_state(sh.warp[w - 1]) : zero_state();
 
   Entry out;
+  if constexpr (kMaps) {
+    out.E = affine(maps->lane, ew, e);
+    out.M = maps->thread;
+    return out;
+  }
   State M;  // A^(L * lane), then A^(L * i)
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
@@ -365,8 +393,9 @@ __device__ __forceinline__ void scan_down(float* xs, const float* xds, int S, in
 }
 
 // Pass 2 of a tile whose entry state s the CTA carried from the tile before
-// (csrc/eq_cascade.cu's one-CTA-a-block form): scan_down's rerun, band mix
-// and poles at sample S-1, from s.
+// (csrc/eq_cascade.cu's one-CTA-a-block form) or was handed (csrc/region.cu's
+// batched forms): scan_down's rerun, band mix and, unless poles_out is null,
+// the poles at sample S-1, from s.
 __device__ __forceinline__ void run_down(float* xs, const float* xds, int S, int tile0, int lg,
                                          const Coeffs& c, const float* gains, State s,
                                          float* poles_out) {
@@ -381,13 +410,21 @@ __device__ __forceinline__ void run_down(float* xs, const float* xds, int S, int
     step(s, mine[j], c);
     const float lo = s.y[0][3], hi = s.y[1][3];
     mine[j] = lo * g0 + (hi - lo) * g1 + (mine_d[j] - hi) * g2;
-    if (t == S - 1) {
+    if (poles_out != nullptr && t == S - 1) {
 #pragma unroll
       for (int b = 0; b < 2; ++b)
 #pragma unroll
         for (int k = 0; k < 4; ++k) poles_out[k * 2 + b] = s.y[b][k];
     }
   }
+}
+
+// poles [4][2] (stage-major) from a state
+__device__ __forceinline__ void store_poles(float* p, const State& s) {
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i * 2 + b] = s.y[b][i];
 }
 
 }  // namespace eq_scan

@@ -13,12 +13,15 @@ source's header note.  ``tile_plan`` sizes the grid.
 
 ``envelope_block_batched`` runs B independent blocks ``[B, S]`` with state
 and params ``[B]`` (what ``jax.vmap(envelope_block_pallas)`` computes) in ONE
-launch: the cooperative grid with ``gridDim.y = B`` where it fits the card,
-else one CTA a block walking its tiles with the state carried from tile to
-tile (``batch_plan``).  Under ``torch.func.vmap`` ``envelope_block_cuda`` is
-the custom op ``mixlab_tpu_torch::envelope_block``, whose batching rule makes
-that call.  Its twin is ``envelope_block_torch_batched``; the single twin is
-it at B = 1.
+launch (``batch_plan``): the cooperative grid with ``gridDim.y = B`` where it
+fits the card, else a rows form (``csrc/rows.cuh``) in tiles of 4,096 or
+8,192 samples (``rows_lane``), each CTA staging its next tile while it runs
+this one: one CTA a block, or, where that leaves most of the card idle (a
+few long blocks), a decoupled look-back over as many CTAs as the card holds,
+the blocks' tiles taken by ticket.  Under ``torch.func.vmap``
+``envelope_block_cuda`` is the custom op ``mixlab_tpu_torch::envelope_block``,
+whose batching rule makes that call.  Its twin is
+``envelope_block_torch_batched``; the single twin is it at B = 1.
 
 ``envelope_block_torch`` is the plain PyTorch twin: the flat formulation of
 ``mixlab_tpu/dsp/envelope.py`` (running maxima over edge positions and a
@@ -34,7 +37,7 @@ int32 sample offsets relative to the block start (clamped at
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -49,7 +52,6 @@ THREADS = 256
 LANE = 2
 TILE = THREADS * LANE
 MAX_LANE = 16
-SEQ_LANE = 16  # the lane in the sequential form (batch_plan): one CTA a block
 MAX_TILES = THREADS
 # longest block one launch takes: 128 co-resident tiles (one CTA on each of
 # 128 SMs; an H100 has 132) of the longest lane.  Longer blocks split into
@@ -57,7 +59,17 @@ MAX_TILES = THREADS
 # does).
 MAX_KERNEL_S = 128 * THREADS * MAX_LANE
 _PAIR_WORDS = 16  # one tile's aggregate record in the scratch (64 bytes)
-
+# the batched launch's forms (mixlab_envelope_block's `form`): the
+# cooperative grid, and the rows forms (csrc/rows.cuh): one CTA a block, the
+# look-back
+FORM_GRID, FORM_ROWS, FORM_LOOKBACK = 0, 1, 2
+# the rows forms' lanes: tiles of 4,096 samples, or of 8,192 where a block's
+# last tile wastes under a tenth of it (chip_smoke.rows_sweep)
+ROWS_LANES = (16, 32)
+# a look-back tile's time against a tile of one CTA a block, at equal waves
+# (chip_smoke.rows_sweep: 1.25-1.27 at 1,024 and 8,192 x 12,000)
+LOOKBACK_COST = 1.25
+STATUS_BYTES = 96  # a look-back status record (csrc/envelope.cu Status)
 _PARAMS = ("attack_ms", "decay_ms", "sustain_amplitude", "release_ms")
 _STATE = ("mode_on", "on_pos", "off_pos", "off_amp")
 _STATE_DTYPES = (torch.bool, torch.int32, torch.int32, torch.float32)
@@ -163,16 +175,52 @@ def tile_plan(S: int, resident: int, lane: int = LANE, batch: int = 1):
     return lane, -(-S // (THREADS * lane))
 
 
-def batch_plan(S: int, batch: int, resident: int):
-    """``(sequential, lane, tiles)`` for ``batch`` blocks of S samples in one
-    launch: the cooperative grid of ``tile_plan`` where it fits the card
-    (``sequential`` False), else one CTA a block walking its ``tiles`` tiles
-    of ``THREADS * SEQ_LANE`` samples in order, the state carried from tile
-    to tile (``sequential`` True: no grid barrier, any ``batch``)."""
+class BatchPlan(NamedTuple):
+    """One batched launch: ``form`` (``FORM_*``), samples a thread
+    (``lane``), tiles a block (``FORM_GRID``: a block's CTAs) and the
+    launch's CTAs."""
+    form: int
+    lane: int
+    tiles: int
+    ctas: int
+
+
+def rows_lane(S: int) -> int:
+    """The rows forms' lane for blocks of S samples: the longest of
+    ``ROWS_LANES`` whose tiles pad a block by under a tenth."""
+    fit = [lane for lane in ROWS_LANES
+           if -(-S // (THREADS * lane)) * THREADS * lane * 10 < 11 * S]
+    return max(fit, default=ROWS_LANES[0])
+
+
+def rows_plan(S: int, batch: int, rows_resident: int, lane=None) -> BatchPlan:
+    """The rows form for ``batch`` blocks of S samples on a card that holds
+    ``rows_resident`` of its CTAs at once (of either form): the look-back
+    over as many CTAs as it holds (at most one a tile) where its waves of
+    tiles, each ``LOOKBACK_COST`` of a tile's time, end before one CTA a
+    block's waves of blocks do, else one CTA a block.  ``lane``: samples a
+    thread (``rows_lane`` by default).  Raises ``ValueError`` past the
+    kernel's limits."""
+    lane = rows_lane(S) if lane is None else lane
+    tiles = -(-S // (THREADS * lane))
+    if not (S >= 1 and batch >= 1 and lane in (1, 2, 4, 8, 16, 32)
+            and batch * tiles < 2**31 and rows_resident >= 1):
+        raise ValueError(f"envelope: no rows form for {batch} x {S} samples at lane {lane}")
+    waves = lambda n: -(-n // rows_resident)
+    if LOOKBACK_COST * waves(batch * tiles) < waves(batch) * tiles:
+        return BatchPlan(FORM_LOOKBACK, lane, tiles, min(rows_resident, batch * tiles))
+    return BatchPlan(FORM_ROWS, lane, tiles, batch)
+
+
+def batch_plan(S: int, batch: int, resident: int, rows_resident: int) -> BatchPlan:
+    """The launch for ``batch`` blocks of S samples: the cooperative grid of
+    ``tile_plan`` where it fits the card (``resident`` of its CTAs at once),
+    else ``rows_plan``."""
     try:
-        return (False, *tile_plan(S, resident, LANE, batch))
+        lane, tiles = tile_plan(S, resident, LANE, batch)
+        return BatchPlan(FORM_GRID, lane, tiles, tiles * batch)
     except ValueError:
-        return True, SEQ_LANE, -(-S // (THREADS * SEQ_LANE))
+        return rows_plan(S, batch, rows_resident)
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,26 +229,37 @@ def resident_tiles(index: int) -> int:
     return kernels.query("mixlab_envelope_resident_tiles", "envelope occupancy query", index)
 
 
-def _launch(x, index, state, params, ms_per_sample, lane=LANE, sequential=None):
+@functools.lru_cache(maxsize=None)
+def rows_resident(index: int, lane: int) -> int:
+    """CTAs of one CTA a block at ``lane`` that card ``index`` holds at once
+    (the look-back's are as many: the plan counts waves by it)."""
+    return kernels.query("mixlab_envelope_rows_resident", "envelope rows occupancy query",
+                         FORM_ROWS, lane.bit_length() - 1, index)
+
+
+def _launch(x, index, state, params, ms_per_sample, lane=LANE, plan=None):
     """One launch over ``x`` [S] (0-d state and params) or ``x`` [B, S]
-    (state and params [B]).  A batch takes ``batch_plan`` unless
-    ``sequential`` forces the form (with ``lane``)."""
+    (state and params [B]).  A batch takes ``batch_plan`` unless ``plan``
+    (a ``BatchPlan``) forces the form."""
     dev = x.device
     B, S = (1, x.shape[0]) if x.dim() == 1 else x.shape
-    if sequential is None and B > 1:
-        sequential, lane, tiles = batch_plan(S, B, resident_tiles(index))
-    elif sequential:
-        tiles = -(-S // (THREADS * lane))
-    else:
-        sequential = False
+    if plan is None and B > 1:
+        plan = batch_plan(S, B, resident_tiles(index), rows_resident(index, rows_lane(S)))
+    elif plan is None:
         lane, tiles = tile_plan(S, resident_tiles(index), lane, B)
-    # the output and, past it at a 16-byte boundary, the tiles' scratch:
-    # one allocation
+        plan = BatchPlan(FORM_GRID, lane, tiles, tiles)
+    form, lane, tiles, ctas = plan
+    # the output and, past it at a 16-byte boundary, the tiles' scratch of
+    # the cooperative grid: one allocation
     n = B * S
     at = -(-n // 4) * 4
-    buf = torch.empty(at + (0 if sequential else B * tiles * _PAIR_WORDS),
+    buf = torch.empty(at + (B * tiles * _PAIR_WORDS if form == FORM_GRID else 0),
                       dtype=torch.float32, device=dev)
     out = buf[:n].view(x.shape)
+    scratch, seq, status = buf.data_ptr() + 4 * at, 0, None
+    if form == FORM_LOOKBACK:
+        status, seq = kernels.status_scratch("envelope", index, 16 + STATUS_BYTES * B * tiles)
+        scratch = status[0].data_ptr()
     shape = x.shape[:-1]
     new_state = {
         "mode_on": torch.empty(shape, dtype=torch.bool, device=dev),
@@ -210,14 +269,15 @@ def _launch(x, index, state, params, ms_per_sample, lane=LANE, sequential=None):
     }
     kernels.launch(
         "mixlab_envelope_block", "envelope kernel launch", index,
-        x.data_ptr(), out.data_ptr(), S, B, int(sequential), lane, tiles,
-        buf.data_ptr() + 4 * at,
+        x.data_ptr(), out.data_ptr(), S, B, form, lane, tiles, ctas, scratch, seq,
         *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
         state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
         state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
         new_state["mode_on"].data_ptr(), new_state["on_pos"].data_ptr(),
         new_state["off_pos"].data_ptr(), new_state["off_amp"].data_ptr(),
     )
+    if status is not None:
+        kernels.status_done(status, seq)
     envelope_block_cuda.launches += 1
     return out, new_state
 

@@ -26,12 +26,16 @@ the TPU kernel computes for the fleet's sessions and the stems: each operand
 instance shares, read with row stride 0, never expanded), ``pf`` ``[B, n_pf]``
 or ``[n_pf]``, ``sf`` ``[B, n_ef]`` or ``[n_ef]``, the plan's constants one
 row -> ``(taps [B, n_taps, S], stap [B, n_stap], ef [B, n_ef])``.  ONE launch
-whatever B, in one of two forms (``batch_plan``): the cooperative grid with
-``gridDim.y = B`` where B x its CTAs fit on the card, else one CTA a row
-walking its tiles.  Under ``torch.func.vmap`` (the batched program of
-``engine.compiler.batched_program``) ``region_part_cuda`` becomes the custom
-op ``mixlab_tpu_torch::region_part``, whose batching rule makes that one
-call.
+whatever B (``batch_plan``): the cooperative grid with ``gridDim.y = B`` where
+B x its CTAs fit on the card, else a rows form (``csrc/rows.cuh``) in tiles
+of ``128 * ROWS_RUN`` samples, whose operands each CTA stages in shared
+memory while it runs the tile before: one CTA a row, or, where that leaves
+most of the card idle (a few long rows), a decoupled look-back over as many
+CTAs as the card holds, the rows' tiles taken by ticket and each EQ op's
+carry passed on through a status array.  Under ``torch.func.vmap`` (the
+batched program of ``engine.compiler.batched_program``) ``region_part_cuda``
+becomes the custom op ``mixlab_tpu_torch::region_part``, whose batching rule
+makes that one call.
 
 ``region_part_torch`` / ``region_part_torch_batched`` are the plain PyTorch
 twins: the same plan, op by op, in the JAX emit's order and rounding, with
@@ -43,7 +47,7 @@ for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -69,11 +73,20 @@ CHUNK = 128  # samples per chunk = threads per CTA of the kernel
 RUN = 4
 # chunks one launch takes; the region program's parts stay below
 MAX_CHUNKS = 4096
-# the one-CTA-a-row form: chunks a tile, and the dynamic shared memory it may
-# ask for (the EQ's staged tile and a tile of each scratch slot; a Hopper CTA
-# may have 227 KB; csrc/region.cu kSeqShared)
-SEQ_RUN = 4
-SEQ_SHARED = 200 * 1024
+# the batched launch's forms (mixlab_region_part's `form`): the cooperative
+# grid, and the rows forms (csrc/rows.cuh): one CTA a row, the look-back
+FORM_GRID, FORM_ROWS, FORM_LOOKBACK = 0, 1, 2
+# the dynamic shared memory the rows forms may ask for (a Hopper CTA may
+# have 227 KB; csrc/region.cu kRowsShared)
+ROWS_SHARED = 200 * 1024
+# the rows forms' chunks a tile, halved while the tiles do not fit
+# (chip_smoke.rows_sweep: 8 beat 4 at 264-8,192 x 12,800)
+ROWS_RUN = 8
+# a look-back tile's time against a tile of one CTA a row, at equal waves
+# (chip_smoke.rows_sweep: 1.57 at 1,024 x 12,800)
+LOOKBACK_COST = 1.6
+RECORD_BYTES = 128  # a look-back status record of an EQ op (csrc/region.cu kRecord)
+MAX_OPERANDS = 32   # the rows forms' i16 mask
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -170,35 +183,87 @@ def resident_tiles(index: int) -> int:
     return kernels.query("mixlab_region_resident_tiles", "region occupancy query", index)
 
 
-def seq_shared_bytes(n_scratch: int, run: int) -> int:
-    """Dynamic shared memory of the one-CTA-a-row form: the EQ's staged
-    tile (x and xd) and a tile of each of ``n_scratch`` scratch slots."""
-    return 4 * (2 * CHUNK * (run + 1) + n_scratch * CHUNK * run)
+class Shape(NamedTuple):
+    """What sizes a plan's rows forms: operand and scratch slots, EQ ops."""
+    n_operands: int
+    n_scratch: int
+    n_eq: int
 
 
-def seq_run(n_scratch: int, run: int = SEQ_RUN) -> int:
-    """The tile's chunks of the one-CTA-a-row form: ``run``, halved while
-    the tiles of the plan's scratch slots would not fit ``SEQ_SHARED``."""
-    while run > 1 and seq_shared_bytes(n_scratch, run) > SEQ_SHARED:
+def plan_shape(plan: RegionPlan) -> Shape:
+    return Shape(plan.n_operands, plan.n_slots - plan.n_operands,
+                 sum(code == OP_EQ for code, _ in plan.ops()))
+
+
+def rows_shared_bytes(shape: Shape, run: int) -> int:
+    """Dynamic shared memory of the rows forms (``csrc/region.cu``
+    ``rows_floats``): two staged buffers of the operands' tiles, the scratch
+    tiles, the EQ's staged tile, two carries of 12 floats an EQ op and an
+    entry."""
+    return 4 * ((2 * shape.n_operands + shape.n_scratch) * CHUNK * run
+                + 2 * CHUNK * (run + 1) + (2 * shape.n_eq + 1) * 12)
+
+
+def rows_run(shape: Shape, run: int = ROWS_RUN) -> int:
+    """The rows forms' chunks a tile: ``run``, halved while the tiles do not
+    fit ``ROWS_SHARED``.  Raises ``ValueError`` where even one chunk does not,
+    or past ``MAX_OPERANDS``."""
+    while run > 1 and rows_shared_bytes(shape, run) > ROWS_SHARED:
         run //= 2
-    if seq_shared_bytes(n_scratch, run) > SEQ_SHARED:
-        raise ValueError(f"region_part: {n_scratch} scratch slots do not fit a CTA's shared "
-                         "memory")
+    if rows_shared_bytes(shape, run) > ROWS_SHARED or shape.n_operands > MAX_OPERANDS:
+        raise ValueError(f"region_part: {shape.n_operands} operands and {shape.n_scratch} "
+                         "scratch slots do not fit a CTA's shared memory")
     return run
 
 
-def batch_plan(S: int, batch: int, resident: int, n_scratch: int):
-    """``(sequential, run, tiles)`` for ``batch`` rows of one part of S
-    samples in one launch: the cooperative grid of ``scan_plan`` (``tiles``
-    x ``batch`` CTAs of ``run`` chunks) where it fits the card
-    (``sequential`` False), else one CTA a row walking its ``tiles`` tiles
-    of ``run`` chunks (``seq_run``) in order (``sequential`` True: no grid
-    barrier, any ``batch``)."""
+class BatchPlan(NamedTuple):
+    """One batched launch: ``form`` (``FORM_*``), chunks a CTA's tile
+    (``run``), tiles a row (``FORM_GRID``: a row's CTAs) and the launch's
+    CTAs."""
+    form: int
+    run: int
+    tiles: int
+    ctas: int
+
+
+def rows_plan(S: int, batch: int, shape: Shape, rows_resident: int,
+              run: int = ROWS_RUN) -> BatchPlan:
+    """The rows form for ``batch`` rows of one part of S samples on a card
+    that holds ``rows_resident`` of its CTAs at once (of either form): the
+    look-back over as many CTAs as it holds (at most one a tile) where its
+    waves of tiles, each ``LOOKBACK_COST`` of a tile's time, end before one
+    CTA a row's waves of rows do, else one CTA a row."""
+    run = rows_run(shape, run)
+    tiles = -(-(S // CHUNK) // run)
+    if batch * tiles >= 2**31 or rows_resident < 1:
+        raise ValueError(f"region_part: {batch} rows of {tiles} tiles are past the launch's "
+                         "limits")
+    waves = lambda n: -(-n // rows_resident)
+    if LOOKBACK_COST * waves(batch * tiles) < waves(batch) * tiles:
+        return BatchPlan(FORM_LOOKBACK, run, tiles, min(rows_resident, batch * tiles))
+    return BatchPlan(FORM_ROWS, run, tiles, batch)
+
+
+def batch_plan(S: int, batch: int, resident: int, shape: Shape,
+               rows_resident: int) -> BatchPlan:
+    """The launch for ``batch`` rows of one part of S samples: the
+    cooperative grid of ``scan_plan`` (``tiles`` x ``batch`` CTAs of
+    ``run`` chunks) where it fits the card (``resident`` of its CTAs at
+    once), else ``rows_plan``."""
     try:
-        return (False, *scan_plan(S, resident, CHUNK, RUN, batch))
+        run, tiles = scan_plan(S, resident, CHUNK, RUN, batch)
+        return BatchPlan(FORM_GRID, run, tiles, tiles * batch)
     except ValueError:
-        run = seq_run(n_scratch)
-        return True, run, -(-S // (CHUNK * run))
+        return rows_plan(S, batch, shape, rows_resident)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_resident(index: int, shape: Shape) -> int:
+    """CTAs of one CTA a row for plans of ``shape`` (at ``rows_run``) that
+    card ``index`` holds at once (the look-back's are as many: the plan
+    counts waves by it)."""
+    return kernels.query("mixlab_region_rows_resident", "region rows occupancy query",
+                         FORM_ROWS, rows_run(shape), *shape, index)
 
 
 @functools.lru_cache(maxsize=64)
@@ -221,52 +286,65 @@ def _check_tensor(t, what, dtype, n, batch, index) -> int:
         f"{getattr(t, 'device', None)}")
 
 
-def _launch(plan, operands, pf, sf, S, consts, batch, index, run=RUN, sequential=None) -> Result:
+def _launch(plan, operands, pf, sf, S, consts, batch, index, run=RUN, form=None) -> Result:
     """One launch over ``batch`` rows (shapes as ``region_part_batched``'s):
-    ``batch_plan``'s form unless ``sequential`` forces one (with ``run``)."""
+    ``batch_plan``'s form unless ``form`` forces one: ``FORM_GRID`` with at
+    least ``run`` chunks a CTA, or a ``BatchPlan``."""
     if not (S > 0 and S % CHUNK == 0 and S // CHUNK <= MAX_CHUNKS):
         raise ValueError(f"region_part: S = {S} must be a positive multiple of {CHUNK} of at "
                          f"most {MAX_CHUNKS} chunks")
     if len(operands) != plan.n_operands:
         raise ValueError(f"region_part: {len(operands)} operands for a plan of "
                          f"{plan.n_operands}")
+    dtypes = operand_dtypes(plan)
     strides = [_check_tensor(v, f"operand {i}", dt, S, batch, index)
-               for i, (v, dt) in enumerate(zip(operands, operand_dtypes(plan)))]
+               for i, (v, dt) in enumerate(zip(operands, dtypes))]
     pf_stride = _check_tensor(pf, "pf", torch.float32, plan.n_pf, batch, index)
     sf_stride = _check_tensor(sf, "sf", torch.float32, plan.n_ef, batch, index)
     if not (isinstance(consts, torch.Tensor) and consts.dim() == 1):
         raise ValueError("region_part: consts: the plan's constants are one 1-D row")
     _check_tensor(consts, "consts", torch.float32, plan.n_consts, batch, index)
 
-    n_scratch = plan.n_slots - plan.n_operands
-    if sequential is None:
-        sequential, run, tiles = batch_plan(S, batch, resident_tiles(index), n_scratch)
-    elif sequential:
-        run = seq_run(n_scratch, run)
-        tiles = -(-S // (CHUNK * run))
-    else:
+    shape = plan_shape(plan)
+    if form is None:
+        bp = batch_plan(S, batch, resident_tiles(index), shape, rows_resident(index, shape))
+    elif form == FORM_GRID:
         run, tiles = scan_plan(S, resident_tiles(index), CHUNK, run, batch)
+        bp = BatchPlan(FORM_GRID, run, tiles, tiles * batch)
+    else:
+        bp = form
     dev = pf.device
     ops = _device_ops(tuple(plan.words), dev)
     table = [(v.data_ptr(), s) for v, s in zip(operands, strides)]
-    if sequential:  # the scratch slots are tiles in shared memory
-        table += [(0, 0)] * n_scratch
-    else:
-        scratch = torch.empty((batch, n_scratch, S), dtype=torch.float32, device=dev)
-        table += [(scratch[0, i].data_ptr(), 4 * n_scratch * S) for i in range(n_scratch)]
+    if bp.form == FORM_GRID:
+        scratch = torch.empty((batch, shape.n_scratch, S), dtype=torch.float32, device=dev)
+        table += [(scratch[0, i].data_ptr(), 4 * shape.n_scratch * S)
+                  for i in range(shape.n_scratch)]
+    else:  # the scratch slots are tiles in shared memory
+        table += [(0, 0)] * shape.n_scratch
     # pinned, so the upload does not wait for the work already queued
     slots = torch.tensor(table, dtype=torch.int64).reshape(-1, 2).pin_memory().to(
         dev, non_blocking=True)
     taps = torch.empty((batch, plan.n_taps, S), dtype=torch.float32, device=dev)
     stap = torch.empty((batch, plan.n_stap), dtype=torch.float32, device=dev)
     ef = torch.empty((batch, plan.n_ef), dtype=torch.float32, device=dev)
+    i16 = sum(1 << i for i, dt in enumerate(dtypes) if dt == torch.int16)
+    status, seq, at = None, 0, 0
+    if bp.form == FORM_LOOKBACK:
+        status, seq = kernels.status_scratch(
+            "region", index, 16 + 4 * -(-batch // 4) * 4
+            + RECORD_BYTES * batch * bp.tiles * shape.n_eq)
+        at = status[0].data_ptr()
     kernels.launch(
         "mixlab_region_part", "region kernel launch", index,
         ops.data_ptr(), ops.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
         pf.data_ptr(), pf_stride // 4, plan.n_pf, consts.data_ptr(), sf.data_ptr(),
         sf_stride // 4, taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap,
-        ef.data_ptr(), plan.n_ef, S, batch, int(sequential), run, tiles,
+        ef.data_ptr(), plan.n_ef, S, batch, bp.form, bp.run, bp.tiles, bp.ctas, shape.n_eq,
+        i16, at, seq,
     )
+    if status is not None:
+        kernels.status_done(status, seq)
     region_part_cuda.launches += 1
     return taps, stap, ef
 
@@ -290,7 +368,7 @@ def region_part_cuda(plan: RegionPlan, operands: Sequence[torch.Tensor],
     if consts is not None:  # one row: the kernel reads the constants after the params
         pf = torch.cat([pf, consts])
     pf, consts = _split(plan, pf, None)
-    taps, stap, ef = _launch(plan, operands, pf, sf, S, consts, 1, index, run, False)
+    taps, stap, ef = _launch(plan, operands, pf, sf, S, consts, 1, index, run, FORM_GRID)
     return taps[0], stap[0], ef[0]
 
 
@@ -299,15 +377,15 @@ region_part_cuda.launches = 0
 
 def region_part_batched(plan: RegionPlan, operands: Sequence[torch.Tensor],
                         pf: torch.Tensor, sf: torch.Tensor, S: int, consts: torch.Tensor,
-                        batch: int, run: int = RUN, sequential: Optional[bool] = None) -> Result:
+                        batch: int, run: int = RUN, form=None) -> Result:
     """One part of the region over ``batch`` rows, what ``jax.vmap`` of the
     TPU kernel computes: ONE kernel launch for CUDA tensors, whatever the
-    batch (``batch_plan``, or the form ``sequential`` forces, with
-    ``run``); the batched twin for CPU tensors."""
+    batch (``batch_plan``, or the form ``form`` forces, with ``run``); the
+    batched twin for CPU tensors."""
     if pf.is_cpu:
         return region_part_torch_batched(plan, operands, pf, sf, S, consts, batch)
     index = kernels.cuda_index(pf, "region_part")
-    return _launch(plan, operands, pf, sf, S, consts, batch, index, run, sequential)
+    return _launch(plan, operands, pf, sf, S, consts, batch, index, run, form)
 
 
 @torch.library.custom_op("mixlab_tpu_torch::region_part", mutates_args=())

@@ -57,14 +57,16 @@ _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_llong = ctypes.c_longlong
 _c_float = ctypes.c_float
+_c_uint = ctypes.c_uint
 
 # C entry points: name -> argtypes (every function returns a cudaError_t int);
 # each ends with the card's index and the stream, which ``launch`` appends
 _SIGNATURES = {
     "mixlab_envelope_block": [
         _c_ptr, _c_ptr, _c_int,                  # x, out, S
-        _c_int, _c_int,                          # batch, sequential
-        _c_int, _c_int, _c_ptr,                  # lane, tiles, tile scratch
+        _c_int, _c_int,                          # batch, form
+        _c_int, _c_int, _c_int,                  # lane, tiles, CTAs (look-back)
+        _c_ptr, _c_uint,                         # scratch, seq
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_float,  # attack..release, msps
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state in
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state out
@@ -84,7 +86,9 @@ _SIGNATURES = {
         _c_ptr, _c_llong,                        # sf, sf_stride
         _c_ptr, _c_int, _c_ptr, _c_int,          # taps, n_taps, stap, n_stap
         _c_ptr, _c_int,                          # ef, n_ef
-        _c_int, _c_int, _c_int, _c_int, _c_int,  # S, batch, sequential, run, tiles
+        _c_int, _c_int, _c_int, _c_int, _c_int,  # S, batch, form, run, tiles
+        _c_int, _c_int, _c_uint,                 # CTAs (look-back), n_eq, i16 mask
+        _c_ptr, _c_uint,                         # scratch, seq
         _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_crossfade": [
@@ -105,6 +109,10 @@ _QUERIES = {
     "mixlab_envelope_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
     "mixlab_eq_resident_tiles": [_c_int, _c_int, _c_ptr],  # threads, device, int* resident
     "mixlab_region_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
+    # form, lg, device, int* resident
+    "mixlab_envelope_rows_resident": [_c_int, _c_int, _c_int, _c_ptr],
+    # form, run, n_operands, n_scratch, n_eq, device, int* resident
+    "mixlab_region_rows_resident": [_c_int] * 6 + [_c_ptr],
 }
 
 
@@ -260,3 +268,26 @@ def launch(name: str, what: str, index: int, *args) -> None:
     rc = fn(*args, index, _raw_stream(index))
     if rc:
         check(load(), rc, what)
+
+
+_status: dict = {}  # (kernel, card, stream handle) -> [zeroed scratch, last launch's seq]
+
+
+def status_scratch(kernel: str, index: int, nbytes: int):
+    """``(scratch, seq)`` for one look-back launch of ``kernel`` on card
+    ``index`` (``csrc/rows.cuh``): a scratch of at least ``nbytes`` kept for
+    the kernel, card and current stream (zeroed once when made, so no launch
+    clears it), and the launch's sequence number on it.  Call
+    ``status_done`` once the launch went out, so that a refused launch does
+    not leave the next one a counter it never cleared."""
+    key = (kernel, index, torch._C._cuda_getCurrentRawStream(index))
+    ent = _status.get(key)
+    if ent is None or ent[0].numel() < nbytes:
+        size = 1 << max(nbytes - 1, 1).bit_length()
+        ent = _status[key] = [torch.zeros(size, dtype=torch.uint8,
+                                          device=torch.device("cuda", index)), 0]
+    return ent, ent[1] + 1
+
+
+def status_done(ent, seq: int) -> None:
+    ent[1] = seq

@@ -215,8 +215,8 @@ def test_region_wrapper_rejects_bad_tensors_and_counts_launches(dev):
 def test_batched_region_kernel_matches_twin_in_both_forms(dev):
     """The flagship's region plan over 3 rows of 12,800 samples cut into two
     parts of 6,400, 2 carried blocks, operand 0 one row every row reads
-    (row stride 0): the cooperative grid and one CTA a row each within 2e-5
-    of the batched twin, one launch a call."""
+    (row stride 0): the cooperative grid and the rows form (one CTA a row)
+    each within 2e-5 of the batched twin, one launch a call."""
     import chip_smoke
     from mixlab_tpu_torch.engine import region_cuda as rc
 
@@ -225,17 +225,19 @@ def test_batched_region_kernel_matches_twin_in_both_forms(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     B, half = 3, 6_400
     s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
-    sf = {f: s0.clone() for f in ("twin", False, True)}
+    one_a_row = rc.rows_plan(half, B, rc.plan_shape(plan), 1)
+    forms = (rc.FORM_GRID, one_a_row)
+    sf = {f: s0.clone() for f in ("twin", *forms)}
     for _ in range(2):
         ops, pf = chip_smoke._region_inputs(torch, g, plan, row, B, 2 * half, dev, shared=(0,))
         for a in (0, half):
             part = [v[..., a:a + half] for v in ops]
             want = rc.region_part_torch_batched(plan, part, pf, sf["twin"], half, consts, B)
             sf["twin"] = want[2]
-            for form in (False, True):
+            for form in forms:
                 n = rc.region_part_cuda.launches
                 got = rc.region_part_batched(plan, part, pf, sf[form], half, consts, B,
-                                             sequential=form)
+                                             form=form)
                 torch.cuda.synchronize()
                 assert rc.region_part_cuda.launches == n + 1
                 sf[form] = got[2]
@@ -567,7 +569,7 @@ def test_batched_eq_kernel_matches_twin(dev, S):
 
 
 @pytest.mark.parametrize("S", [1, envc.TILE - 1, envc.TILE + 1,
-                               envc.THREADS * envc.SEQ_LANE + 1, 32_768])
+                               envc.THREADS * envc.ROWS_LANES[0] + 1, 32_768])
 def test_batched_envelope_kernel_matches_twin(dev, S):
     rng = np.random.default_rng(S)
     for B in _batch_sizes()[1]:
@@ -586,6 +588,79 @@ def test_batched_envelope_kernel_matches_twin(dev, S):
                 assert torch.equal(sk[k], stw[k]), k
             np.testing.assert_allclose(sk["off_amp"].cpu().numpy(),
                                        stw["off_amp"].cpu().numpy(), atol=ENV_ATOL)
+
+
+# the rows forms: one CTA a row; the look-back over 1, 3 and 64 CTAs (a CTA
+# that walks a row's tiles by ticket, CTAs that take turns, more CTAs than
+# tiles)
+ROWS_SPLITS = [(1, 0), (2, 1), (2, 3), (2, 64)]
+
+
+@pytest.mark.parametrize("form,ctas", ROWS_SPLITS)
+@pytest.mark.parametrize("lane,S", [(16, 5 * 4096 + 17), (32, 3 * 8192 + 1), (1, 3000),
+                                    (2, 512)])
+def test_batched_envelope_rows_forms_equal_the_twin(dev, form, ctas, lane, S):
+    """The rows forms at small B x S with every split forced: outputs and
+    state bit-equal to the batched twin over 3 carried blocks (gates with
+    edges at T-1, T, T+1 of every tile boundary, the first and last sample),
+    one launch a call."""
+    import chip_smoke
+
+    B, T = 3, envc.THREADS * lane
+    tiles = -(-S // T)
+    plan = envc.BatchPlan(form, lane, tiles, ctas or B)
+    rng = np.random.default_rng(S + ctas)
+    x = torch.from_numpy(np.stack([chip_smoke.tile_edge_gates(np, "tile_edges", S, T, 3, rng)
+                                   .reshape(3, S) for _ in range(B)], 1)).to(dev)
+    params = {k: v.expand(B).contiguous() for k, v in _env_params(dev).items()}
+    params["attack_ms"] = torch.tensor([25.0, 0.0, 3.0], device=dev)
+    sk = {k: v.expand(B).contiguous() for k, v in _env_state(dev).items()}
+    stw = dict(sk)
+    for blk in range(3):
+        n = envc.envelope_block_cuda.launches
+        got, sk = envc._launch(x[blk].contiguous(), 0, sk, params, 1000 / 48_000, plan=plan)
+        assert envc.envelope_block_cuda.launches == n + 1
+        want, stw = envc.envelope_block_torch_batched(x[blk], stw, params, 1000 / 48_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0)), (blk, form, ctas)
+        for k in envc._STATE:
+            assert torch.equal(sk[k].nan_to_num(-1.0), stw[k].nan_to_num(-1.0)), k
+
+
+@pytest.mark.parametrize("form,ctas", ROWS_SPLITS)
+@pytest.mark.parametrize("key", ["flagship", "sink zoo", "peak"])
+def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):
+    """The region's rows forms with every split forced: the flagship's plan
+    (operand 0 shared, row stride 0), the sink zoo's (i16 operands, a PEAK)
+    and a PEAK plan with a NaN in one row, over 3 rows of 12,800 samples in
+    tiles of 1,024 (13 a row, the last of 512) and 8,320 (8 and a last tile
+    of one chunk), 2 carried blocks: taps and exits within 2e-5 of the
+    batched twin, scalar taps the exact max of the launch's own taps, one
+    launch a call."""
+    import chip_smoke
+    from mixlab_tpu_torch.engine import region_cuda as rc
+
+    plan, row, consts = chip_smoke.region_plans(torch)[key]
+    consts = consts.to(dev)
+    g = torch.Generator(device=dev).manual_seed(ctas)
+    B = 3
+    for S in (12_800, 8_320):
+        bp = rc.BatchPlan(form, 8, -(-S // 1024), ctas or B)
+        s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
+        sf = {"twin": s0.clone(), "kernel": s0.clone()}
+        for blk in range(2):
+            ops, pf = chip_smoke._region_inputs(torch, g, plan, row, B, S, dev,
+                                                (0,) if key == "flagship" else (),
+                                                key == "peak" and blk == 1)
+            want = rc.region_part_torch_batched(plan, ops, pf, sf["twin"], S, consts, B)
+            n = rc.region_part_cuda.launches
+            got = rc.region_part_batched(plan, ops, pf, sf["kernel"], S, consts, B, form=bp)
+            torch.cuda.synchronize()
+            assert rc.region_part_cuda.launches == n + 1
+            sf = {"twin": want[2], "kernel": got[2]}
+            for x, y in zip(got, want):
+                assert chip_smoke._rows_err(torch, x, y) <= chip_smoke.REGION_ATOL, (S, blk)
+            assert chip_smoke._peaks_exact(torch, plan, ops, got[0], got[1])
 
 
 def test_media_player_uploads_complete_pictures_to_the_card(dev):

@@ -168,22 +168,28 @@ def test_vmap_makes_one_batched_call_and_keeps_a_shared_operand_at_stride_0(plan
 
 
 def test_batch_plan_takes_the_grid_where_it_fits_else_one_cta_a_row():
-    S, n_scratch = 12_800, 8  # 100 chunks: 25 CTAs a row at L = 4, 4 at L = 32
-    assert region_cuda.batch_plan(S, 1, 792, n_scratch) == (False, 4, 25)
-    assert region_cuda.batch_plan(S, 31, 792, n_scratch) == (False, 4, 25)  # 775 CTAs
-    assert region_cuda.batch_plan(S, 32, 792, n_scratch) == (False, 8, 13)
-    assert region_cuda.batch_plan(S, 198, 792, n_scratch) == (False, 32, 4)
-    assert region_cuda.batch_plan(S, 199, 792, n_scratch) == (True, 4, 25)
-    assert region_cuda.batch_plan(S, 8192, 792, n_scratch) == (True, 4, 25)
-    # the tile of every scratch slot must fit a CTA's shared memory
-    assert region_cuda.seq_shared_bytes(8, 4) == 4 * (2 * 128 * 5 + 8 * 512)
-    assert [region_cuda.seq_run(n) for n in (8, 97, 98, 197, 198)] == [4, 4, 2, 2, 1]
+    S = 12_800  # 100 chunks: 25 CTAs a row at L = 4, 4 at L = 32
+    shape = region_cuda.Shape(n_operands=6, n_scratch=8, n_eq=1)
+    plan = lambda B: region_cuda.batch_plan(S, B, 792, shape, 264)
+    G, R = region_cuda.FORM_GRID, region_cuda.FORM_ROWS
+    assert plan(1) == (G, 4, 25, 25)
+    assert plan(31) == (G, 4, 25, 775)
+    assert plan(32) == (G, 8, 13, 416)
+    assert plan(198) == (G, 32, 4, 792)
+    # past the grid, one CTA a row in tiles of 1,024 samples
+    assert plan(199) == (R, 8, 13, 199)
+    assert plan(8192) == (R, 8, 13, 8192)
+    # the tiles of every slot must fit a CTA's shared memory
+    assert region_cuda.rows_shared_bytes(shape, 8) == 4 * (20 * 1024 + 2 * 128 * 9 + 3 * 12)
+    wide = lambda n: region_cuda.Shape(n_operands=8, n_scratch=n, n_eq=1)
+    assert [region_cuda.rows_run(wide(n)) for n in (8, 31, 32, 81, 82, 180, 181)] == [
+        8, 8, 4, 4, 2, 2, 1]
     with pytest.raises(ValueError, match="shared memory"):
-        region_cuda.seq_run(500)
+        region_cuda.rows_run(wide(500))
     # the wrapper's limits are the kernel's
     src = (ROOT / "mixlab_tpu_torch" / "csrc" / "region.cu").read_text()
-    assert re.search(r"kSeqShared = (\d+) \* 1024", src).group(1) == str(
-        region_cuda.SEQ_SHARED // 1024)
+    assert re.search(r"kRowsShared = (\d+) \* 1024", src).group(1) == str(
+        region_cuda.ROWS_SHARED // 1024)
     assert re.search(r"kMaxChunks = (\d+);", src).group(1) == str(region_cuda.MAX_CHUNKS)
 
 
