@@ -125,8 +125,10 @@ imports no jax.  Phases, any failure of which exits non-zero:
      op, SIGTERM -> exit 0 within 15 s with the op persisted.  Any
      exception in a server, codec or engine thread fails the phase;
  16. the batched paths, each with the launch counts set to 0 just before and
-     read just after: (a) the batched eq kernel (B = 1, 2, 32, 133, 1,024 x
-     S = 8,192, 12,000, 44,100, 96,000) and the batched envelope kernel
+     read just after: (a) the batched eq kernel (B = 1, 2, 32, 133, 1,024
+     and the B either side of each switch of the plan's form x S = 8,192,
+     12,000, 44,100, 96,000: the cooperative grid, one CTA a row) and the
+     batched envelope kernel
      (B = 1, 2, 32, 1,024 and the B either side of each switch of the
      plan's form x S = 4,097 (a last tile of one sample), 12,000, 32,768,
      48,000, 96,000; dense and sparse gates; every form the plan takes: the
@@ -260,11 +262,24 @@ imports no jax.  Phases, any failure of which exits non-zero:
      the ticks, with the warm a no-op and with every edit adopted at once,
      in turns).
 
-Not in ``main``: ``batched_ab`` (the parent's batched envelope and region
-launches against this checkout's, in turns, outputs compared),
-``rows_sweep`` (the rows forms' lanes, runs, forms and launch bounds, in
-turns), ``single_ab`` and ``region_ab`` (the single-block launches against
-the parent's), and the attribution helpers named below.
+ 22. the look-back's launch number on the device (``csrc/rows.cuh``), after
+     phase 20: for the envelope and region kernels, a batched launch at a
+     shape whose plan takes the look-back (envelope 32 x 96,000, region 64 x
+     102,400), after two calls on a side stream, captured on that stream
+     into a CUDA graph and replayed 4 times with new inputs copied into its
+     static tensors and an eager look-back call between replays, every
+     replay and call against the twin on its inputs (the envelope bit for
+     bit, the region within 2e-5), and the scratch's count of ended
+     launches equal to the launches made on it; then two host threads of
+     200 look-back calls each on one stream, every call against the twin.
+
+Not in ``main``: ``batched_ab`` (the parent's batched eq, envelope and
+region launches against this checkout's, in turns, outputs compared),
+``rows_sweep`` (the rows forms' tiles, lanes, runs, forms and launch
+bounds, in turns), ``single_ab`` and ``region_ab`` (the single-block
+launches against the parent's), ``fleet_ab`` (the 15-tick fleet with the
+parent's eq kernel and this checkout's, in turns), ``lookback_phase``
+(phase 22 alone), and the attribution helpers named below.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -1918,8 +1933,8 @@ def envelope_call_pieces(torch, envc, card, x, st, prm):
     outs = {k: torch.empty_like(v) for k, v in st.items()}
     fn = kernels.load().mixlab_envelope_block
     args = (x.data_ptr(), buf.data_ptr(), S, 1, envc.FORM_GRID, lane, tiles, tiles,
-            buf.data_ptr() + 4 * (S + 4), 0,
-            *(prm[k].data_ptr() for k in envc._PARAMS), MS_PER_SAMPLE,
+            buf.data_ptr() + 4 * (S + 4), *(prm[k].data_ptr() for k in envc._PARAMS),
+            MS_PER_SAMPLE,
             *(st[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")),
             *(outs[k].data_ptr() for k in ("mode_on", "on_pos", "off_pos", "off_amp")), index)
     raw = torch._C._cuda_getCurrentRawStream
@@ -2862,9 +2877,11 @@ def batched_kernels(torch, np, dev, card):
         shape, generator=g, device=dev) * (hi - lo) + lo
     worst = {"eq_cascade": 0.0, "envelope": 0.0}
     eq_r, env_r = eqc.resident_tiles(dev.index or 0), envc.resident_tiles(dev.index or 0)
-    for B in BATCH_EQ[0]:
-        for S in BATCH_EQ[1]:
-            seq, run, tiles = eqc.batch_plan(S, B, eq_r)
+    eq_rows = eqc.rows_resident(dev.index or 0)
+    for S in BATCH_EQ[1]:
+        eq_plan = lambda b: eqc.batch_plan(S, b, eq_r, eq_rows)
+        for B in sorted({*BATCH_EQ[0], *switch_points(eq_plan, 2 * eq_rows)}):
+            chosen = eq_plan(B)
             gains = rand(B, 3, lo=0.5, hi=2.0)
             pk = rand(B, 4, 2, lo=-0.1, hi=0.1)
             pt = pk.clone()
@@ -2886,9 +2903,8 @@ def batched_kernels(torch, np, dev, card):
                     raise AssertionError(f"batched eq B={B} S={S}: {per_call} device launches "
                                          "a call")
                 launch = f", 1 device launch a call ({name})"
-            log(f"batched eq kernel vs twin B={B} S={S} "
-                f"({'one CTA a block' if seq else f'grid {tiles} x {B}'}, L={run}): ok "
-                f"(3 blocks){launch}")
+            log(f"batched eq kernel vs twin B={B} S={S} ({form_name(eqc, chosen, B)}, "
+                f"L={chosen.run}): ok (3 blocks){launch}")
     for S in BATCH_ENV[1]:
         env_rows = envc.rows_resident(dev.index or 0, envc.rows_lane(S))
         plan = lambda b: envc.batch_plan(S, b, env_r, env_rows)
@@ -2939,7 +2955,7 @@ def batched_kernels(torch, np, dev, card):
             "plain_ms": time_ms(torch, lambda: eqc.eq_cascade_torch_batched(
                 x, xd, poles, gains, *f), n=3, warmup=1),
             "bound_ms": eq_bound[0], "bound_by": eq_bound[1],
-            "form": "one CTA a block" if eqc.batch_plan(S, B, eq_r)[0] else "grid"}
+            "form": form_name(eqc, eqc.batch_plan(S, B, eq_r, eq_rows), B)}
         log(f"batched eq B={B} S={S} [{card}]: {row['ms']:.4f} ms a call, {_us(eq_dev)} us "
             f"device a launch ({row['form']}), twin {row['plain_ms']:.3f} ms, bound "
             f"{eq_bound[0] * 1e3:.1f} us ({eq_bound[1]}), share of the bound "
@@ -3272,38 +3288,6 @@ def stems_path(torch, np, dev, card):
     return launches, {"x_realtime": 2.0 / per_block}
 
 
-def batched_sweep() -> int:
-    """Not in ``main``: the batched eq's one-CTA-a-block run (CTA sizes
-    64-256) at the fleet's and config 3's shapes, each held to its batched
-    twin, device time per launch by the profiler (it chose
-    ``eq_cuda.SEQ_RUN``).
-    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.batched_sweep())'``"""
-    import torch
-
-    from mixlab_tpu_torch.dsp import eq_cuda as eqc
-    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card, dev = card_line(), torch.device("cuda")
-    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
-    g = torch.Generator(device=dev).manual_seed(1)
-    for B, S in BATCH_TIMED:
-        x, xd = (torch.rand((B, S), generator=g, device=dev) * 2 - 1 for _ in range(2))
-        poles = torch.rand((B, 4, 2), generator=g, device=dev) * 0.2 - 0.1
-        gains = torch.rand((B, 3), generator=g, device=dev) + 0.5
-        want = eqc.eq_cascade_torch_batched(x, xd, poles, gains, *f)
-        for T in (64, 128, 256):
-            for L in (2, 4, 8, 16, 32):
-                fn = lambda: eqc._launch(x, xd, poles, gains, *f, 0, T, L, sequential=True)
-                ok = all(_close(torch, a, b, EQ_TOL)[0] for a, b in zip(fn(), want))
-                _, us, _ = kernel_launches(torch, fn, n=5)
-                log(f"sweep eq one CTA a block B={B} S={S} T={T} L={L} [{card}]: {us:.1f} us "
-                    f"device a launch, twin ok {ok}")
-                if not ok:
-                    return 1
-    return 0
-
-
 # the rows sweep: the kernels' CTAs an SM asked of the compiler (min blocks
 # of __launch_bounds__) by variant, built from this checkout's sources
 ROWS_VARIANTS = {
@@ -3348,15 +3332,125 @@ def variant_libraries(variants):
     return libs
 
 
-def rows_sweep() -> int:
+# the eq's sweep: shapes (the aim's, where a row splits, either side of the
+# plan's switch) and one CTA a row's tiles (threads, run): the built one and
+# the others as patched copies of eq_cascade.cu (``eq_variants``)
+EQ_SWEEP_SHAPES = ((1024, 12_000), (8192, 12_000), (32, 96_000), (256, 12_000), (8, 96_000),
+                   (64, 96_000), (528, 12_000), (660, 12_000))
+EQ_SWEEP_TILES = ((64, 16), (64, 32), *((t, r) for t in (128, 256) for r in (8, 16, 32)))
+EQ_TILE_LINES = ("constexpr int kRowsThreads = {};", "constexpr int kRowsLg = {};")
+# one CTA a row at the built tile with 5 CTAs an SM asked of the compiler
+EQ_MIN5 = ("__launch_bounds__(kRowsThreads) eq_rows_kernel",
+           "__launch_bounds__(kRowsThreads, 5) eq_rows_kernel")
+
+
+def eq_variants():
+    """{tag: (source name, text)}: ``eq_cascade.cu`` with one CTA a row's
+    tile patched to each of ``EQ_SWEEP_TILES`` but the built one, and the
+    built tile with ``EQ_MIN5``."""
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+
+    text = (kernels.CSRC / "eq_cascade.cu").read_text()
+    built = tuple(line.format(v) for line, v in
+                  zip(EQ_TILE_LINES, (eqc.ROWS_THREADS, eqc.ROWS_RUN.bit_length() - 1)))
+    out = {"eq_min5": ("eq_cascade.cu", text.replace(*EQ_MIN5))}
+    for T, L in EQ_SWEEP_TILES:
+        if (T, L) == (eqc.ROWS_THREADS, eqc.ROWS_RUN):
+            continue
+        patched = text
+        for old, line, v in zip(built, EQ_TILE_LINES, (T, L.bit_length() - 1)):
+            patched = patched.replace(old, line.format(v))
+        out[f"eq_{T}x{L}"] = ("eq_cascade.cu", patched)
+    for tag, (_, t) in out.items():
+        if t == text:
+            raise AssertionError(f"{tag}: the patch found nothing to replace")
+    return out
+
+
+def eq_sweep(torch, np, card, g, libs):
+    """The batched eq's forms in turns at ``EQ_SWEEP_SHAPES``: the
+    cooperative grid where it fits and one CTA a row at the built tile, and
+    one CTA a row through each library of ``libs`` ({tag: library} built
+    from ``eq_variants``: the other tiles of ``EQ_SWEEP_TILES``, the built
+    tile at 5 CTAs an SM), each held to the batched twin within 2e-5;
+    device us a launch by the profiler with its share of the bound."""
+    import ctypes
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+
+    dev = torch.device("cuda", 0)
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    eq_r, rows_r = eqc.resident_tiles(0), eqc.rows_resident(0)
+    tiles_of = {"rows": (eqc.ROWS_THREADS, eqc.ROWS_RUN), "eq_min5": (eqc.ROWS_THREADS,
+                                                                      eqc.ROWS_RUN)}
+    res = {"rows": (rows_r, {})}
+    for tag, lib in libs.items():
+        n = ctypes.c_int(0)
+        if lib.mixlab_eq_rows_resident(0, ctypes.byref(n)):
+            raise RuntimeError(f"{tag}: occupancy query failed")
+        res[tag] = (n.value, {"mixlab_eq_cascade": lib.mixlab_eq_cascade})
+        if tag not in tiles_of:  # eq_<threads>x<run>
+            tiles_of[tag] = tuple(map(int, tag[3:].split("x")))
+    log(f"eq sweep [{card}]: grid CTAs resident {eq_r}; one CTA a row's resident by variant "
+        + str({f"{tag} {tiles_of[tag][0]}x{tiles_of[tag][1]}": r for tag, (r, _) in res.items()}))
+    for B, S in EQ_SWEEP_SHAPES:
+        x, xd = (torch.rand((B, S), generator=g, device=dev) * 2 - 1 for _ in range(2))
+        poles = torch.rand((B, 4, 2), generator=g, device=dev) * 0.2 - 0.1
+        gains = torch.rand((B, 3), generator=g, device=dev) + 0.5
+        want = eqc.eq_cascade_torch_batched(x, xd, poles, gains, *f)
+        plans, entries = {}, {}
+        try:
+            run, tiles = eqc.scan_plan(S, eq_r, eqc.THREADS, eqc.RUN, B)
+            plans["grid"] = eqc.BatchPlan(eqc.FORM_GRID, run, tiles, tiles * B, eqc.THREADS)
+            entries["grid"] = {}
+        except ValueError:
+            pass
+        for tag, (r, entry) in res.items():
+            T, L = tiles_of[tag]
+            key = f"{tag} {T}x{L}"
+            plans[key] = eqc.BatchPlan(eqc.FORM_ROWS, L, -(-S // (T * L)), min(r, B), T)
+            entries[key] = entry
+        fns = {k: lambda p=p: eqc._launch(x, xd, poles, gains, *f, 0, plan=p)
+               for k, p in plans.items()}
+        for k, fn in fns.items():
+            kernels._entries.update(entries[k])
+            got = fn()
+            torch.cuda.synchronize()
+            kernels._entries.pop("mixlab_eq_cascade", None)
+            for a, b in zip(got, want):
+                ok, err = _close(torch, a, b, EQ_TOL)
+                if not ok:
+                    raise AssertionError(f"eq sweep {B}x{S} {k}: max err {err} from the twin")
+        us = {}
+        for k in list(fns) + list(fns)[::-1]:  # in turns, forwards then backwards
+            kernels._entries.update(entries[k])
+            us.setdefault(k, []).append(_device_us(torch, fns[k], "eq_", n=5)[0][1])
+            kernels._entries.pop("mixlab_eq_cascade", None)
+        us = {k: float(np.median(v)) for k, v in us.items()}
+        b_ms = bound(12.0 * B * S, eq_flops(S) * B)[0]
+        chosen = eqc.batch_plan(S, B, eq_r, rows_r)
+        for k, t in sorted(us.items(), key=lambda kv: kv[1]):
+            mine = plans[k] == chosen and not entries[k]
+            log(f"eq sweep {B}x{S} [{card}] {k} ({form_name(eqc, plans[k], B)}): {t:.1f} us "
+                f"device a launch, share of the bound {b_ms * 1e3 / t:.3f}"
+                + ("  <- the plan's" if mine else ""))
+        del x, xd, want
+
+
+def rows_sweep(kinds=("eq", "region", "envelope")) -> int:
     """Not in ``main``: the batched rows forms' choices in turns, each held
-    to its batched twin (the envelope bit for bit, the region within 2e-5),
-    device time per launch by the profiler: the envelope's lane (16, 32) and
-    the region's run (4, 8), one CTA a row against the look-back, at the
-    fleet's and config 3's shapes and B where the plans switch form, with
-    the kernels built as they stand and with another count of CTAs an SM
+    to its batched twin (the envelope bit for bit, the eq and the region
+    within 2e-5), device time per launch by the profiler: the eq's forms and
+    tiles (``eq_sweep``), the envelope's lane (16, 32) and the region's run
+    (4, 8), one CTA a row against the look-back, at the fleet's and config
+    3's shapes and B where the plans switch form, with the envelope and
+    region kernels built as they stand and with another count of CTAs an SM
     asked of the compiler (``ROWS_VARIANTS``).  It chose ``ROWS_LANES``,
-    ``ROWS_RUN``, ``LOOKBACK_COST`` and the kernels' launch bounds.
+    ``ROWS_RUN``, ``ROWS_THREADS``, ``LOOKBACK_COST`` and the kernels' launch
+    bounds.  ``kinds``: which kernels' sweeps run.
     ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.rows_sweep())'``"""
     import ctypes
 
@@ -3372,6 +3466,14 @@ def rows_sweep() -> int:
     log(card)
     kernels.load()
     kernels._raw_stream = torch._C._cuda_getCurrentRawStream
+    g = torch.Generator(device=dev).manual_seed(3)
+    if "eq" in kinds:
+        eq_libs = variant_libraries(eq_variants())
+        for tag, (_, regs) in eq_libs.items():
+            log(f"rows sweep {tag}: registers {regs}")
+        eq_sweep(torch, np, card, g, {tag: lib for tag, (lib, _) in eq_libs.items()})
+    if "region" not in kinds and "envelope" not in kinds:
+        return 0
     variants = {}
     for name, (line, counts) in ROWS_VARIANTS.items():
         text = (kernels.CSRC / name).read_text()
@@ -3404,10 +3506,9 @@ def rows_sweep() -> int:
         kernels._entries.clear()
         return {k: float(np.median(v)) for k, v in res.items()}
 
-    g = torch.Generator(device=dev).manual_seed(3)
     plan, row, consts = region_plans(torch)["flagship"]
     consts, shape, S = consts.to(dev), rc.plan_shape(plan), 12_800
-    for B in (264, 512, 1024, 8192):
+    for B in (264, 512, 1024, 8192) if "region" in kinds else ():
         ops, pf = _region_inputs(torch, g, plan, row, B, S, dev)
         sf = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
         want = rc.region_part_torch_batched(plan, ops, pf, sf, S, consts, B) if B <= 1024 else None
@@ -3448,7 +3549,7 @@ def rows_sweep() -> int:
                 + "; ".join(f"{k} {us:.1f}" for k, us in turns(pieces, "region").items()))
         del ops, want
     for B, S in ((200, 12_000), (390, 12_000), (1024, 12_000), (8192, 12_000), (1024, 38_400),
-                 (32, 96_000)):
+                 (32, 96_000)) if "envelope" in kinds else ():
         gate, st, prm = _env_batch(torch, dev, B, S, g)
         want, _ = envc.envelope_block_torch_batched(gate, st, prm, 1000 / 48_000)
         fns = {}
@@ -3485,14 +3586,15 @@ def parent_library(parent: str, names):
     a checkout's root, e.g. unpacked by ``git archive`` into a listed
     directory) built with this checkout's flags into one library, one nvcc
     a source started together, loaded with ``ctypes.CDLL``; the parent's C
-    signatures (before the rows forms) are declared: ``mixlab_eq_cascade``
-    (x, xd, S, batch, sequential, poles0, gains, tables, f_lo, f_hi, vsa,
-    run, threads, tiles, scratch, out, poles_out, device, stream),
-    ``mixlab_envelope_block`` (x, out, S, batch, sequential, C, tiles,
-    scratch, attack..release, msps, state in, state out, device, stream),
-    ``mixlab_region_part`` (ops, n_words, slots, n_operands, n_slots, pf,
-    pf_stride, n_pf, consts, sf, sf_stride, taps, n_taps, stap, n_stap, ef,
-    n_ef, S, batch, sequential, run, tiles, device, stream)."""
+    signatures (before the look-back's number moved to the device) are
+    declared: ``mixlab_eq_cascade`` (x, xd, S, batch, sequential, poles0,
+    gains, tables, f_lo, f_hi, vsa, run, threads, tiles, scratch, out,
+    poles_out, device, stream), ``mixlab_envelope_block`` (x, out, S, batch,
+    form, lane, tiles, ctas, scratch, seq, attack..release, msps, state in,
+    state out, device, stream), ``mixlab_region_part`` (ops, n_words, slots,
+    n_operands, n_slots, pf, pf_stride, n_pf, consts, sf, sf_stride, taps,
+    n_taps, stap, n_stap, ef, n_ef, S, batch, form, run, tiles, ctas, n_eq,
+    i16 mask, scratch, seq, device, stream)."""
     import ctypes
     import os
 
@@ -3514,11 +3616,13 @@ def parent_library(parent: str, names):
     subprocess.run([nvcc, *kernels._ARCH, "-shared", "-o", str(lib_path), *objs], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(os.path.abspath(lib_path))
-    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    P, I, F, LL, U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong,
+                      ctypes.c_uint)
     sigs = {"mixlab_eq_cascade": [P, P, I, I, I, P, P, P, F, F, F, I, I, I, P, P, P, I, P],
-            "mixlab_envelope_block": [P, P, I, I, I, I, I, P, P, P, P, P, F, *[P] * 8, I, P],
+            "mixlab_envelope_block": [P, P, I, I, I, I, I, I, P, U, P, P, P, P, F, *[P] * 8,
+                                      I, P],
             "mixlab_region_part": [P, I, P, I, I, P, LL, I, P, P, LL, P, I, P, I, P, I,
-                                   I, I, I, I, I, I, P]}
+                                   I, I, I, I, I, I, I, U, P, U, I, P]}
     for name, argtypes in sigs.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
@@ -3566,8 +3670,8 @@ def single_ab(parent: str) -> int:
     ebuf = torch.empty(at + 16 * etiles, device=dev)
     outs = {k: torch.empty_like(v) for k, v in st.items()}
     parent_env = lambda: lib.mixlab_envelope_block(
-        gate.data_ptr(), ebuf.data_ptr(), S, 1, 0, lane, etiles, ebuf.data_ptr() + 4 * at,
-        *(prm[k].data_ptr() for k in envc._PARAMS), 1000 / 44_100,
+        gate.data_ptr(), ebuf.data_ptr(), S, 1, 0, lane, etiles, etiles,
+        ebuf.data_ptr() + 4 * at, 0, *(prm[k].data_ptr() for k in envc._PARAMS), 1000 / 44_100,
         *(st[k].data_ptr() for k in envc._STATE), *(outs[k].data_ptr() for k in envc._STATE),
         0, raw(0))
     change_env = lambda: envc._launch(gate, 0, st, prm, 1000 / 44_100)
@@ -3633,7 +3737,7 @@ def region_ab(parent: str) -> int:
             words.data_ptr(), words.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
             pf.data_ptr(), 0, plan.n_pf, pf.data_ptr() + 4 * plan.n_pf, sf.data_ptr(), 0,
             taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap, ef.data_ptr(),
-            plan.n_ef, S, 1, 0, run, tiles, 0, raw(0))
+            plan.n_ef, S, 1, 0, run, tiles, tiles, 0, 0, None, 0, 0, raw(0))
         if rc_:
             raise RuntimeError(f"parent region launch: CUDA error {rc_}")
 
@@ -3656,13 +3760,14 @@ def region_ab(parent: str) -> int:
 
 
 # the batched A/B's shapes (B, S): the aim's, then where a rows form splits
-# a row or the cooperative grid still holds the batch
+# a row or the cooperative grid still holds the batch; the envelope's and
+# the region's where their look-back runs (the parent held its number on
+# the host), the rows forms and the grid beside them
 BATCHED_AB = {
-    "envelope": ((1024, 12_000), (8192, 12_000), (1024, 38_400), (32, 96_000),
-                 (200, 12_000), (8, 32_768), (2, 96_000)),
-    "region": ((1024, 12_800), (8192, 12_800), (256, 12_800), (32, 12_800), (8, 102_400)),
+    "eq_cascade": ((1024, 12_000), (8192, 12_000), (32, 96_000), (256, 12_000), (8, 96_000)),
+    "envelope": ((1024, 12_000), (32, 96_000), (200, 12_000), (8, 32_768)),
+    "region": ((1024, 12_800), (8, 102_400), (64, 102_400)),
 }
-BATCHED_AIM = {"envelope": 4, "region": 2}  # the first shapes of each list: the aim's
 
 
 def _env_batch(torch, dev, B, S, g):
@@ -3679,15 +3784,18 @@ def _env_batch(torch, dev, B, S, g):
 
 
 def form_name(mod, plan, B) -> str:
-    """What a batched plan of ``mod`` (``envelope_cuda`` or ``region_cuda``,
-    whose ``FORM_*`` agree) launches for B rows."""
-    form, size, tiles, ctas = plan
+    """What a batched plan of ``mod`` (``envelope_cuda``, ``eq_cuda`` or
+    ``region_cuda``, whose ``FORM_*`` agree; the eq has no look-back)
+    launches for B rows."""
+    form, size, tiles, ctas = plan[:4]
     if form == mod.FORM_GRID:
         return f"grid {tiles} x {B}"
-    tile = size * (mod.CHUNK if hasattr(mod, "CHUNK") else mod.THREADS)  # samples
-    if form == mod.FORM_LOOKBACK:
+    # samples a tile: the eq's plan names its threads
+    tile = size * (plan.threads if hasattr(plan, "threads")
+                   else mod.CHUNK if hasattr(mod, "CHUNK") else mod.THREADS)
+    if form == getattr(mod, "FORM_LOOKBACK", None):
         return f"look-back over {ctas} CTAs, {tiles} tiles of {tile} a row"
-    return f"one CTA a row, {tiles} tiles of {tile}"
+    return f"one CTA a row, {tiles} tiles of {tile}" + (f", {ctas} CTAs" if ctas < B else "")
 
 
 def switch_points(plan, most):
@@ -3725,130 +3833,192 @@ def _turns(torch, fns, name, rounds, n):
     return res
 
 
-def batched_ab(parent: str, rounds: int = 2) -> int:
-    """Not in ``main``: the batched envelope and region launches of the
-    parent (``parent``: a checkout's root; its forms as its plans took them:
-    the cooperative grid where it fits, else one CTA a row) and of this
-    checkout (its plan's form, and the other forms it has at the shape: its
-    rows form where the plan takes the grid, the other rows form), in turns
-    (forwards then backwards, ``rounds`` times), at ``BATCHED_AB``'s shapes;
-    the envelope's outputs and state bit-equal to the parent's, the region's
+def _ab_log(np, card, kind, B, S, res, labels, b_ms, b_by, note):
+    for who, us in res.items():
+        log(f"A/B batched {kind} {B}x{S} [{card}] {who} ({labels[who]}): device us per launch "
+            + " ".join(f"{u:.1f}" for u in us) + f"; median {np.median(us):.1f}, share of the "
+            f"bound {b_ms * 1e3 / np.median(us):.3f} (bound {b_ms * 1e3:.1f} us, {b_by}); {note}")
+
+
+def _other_rows(mod, rows, rows_res, B):
+    """The rows form that ``rows`` (a rows plan of ``mod``) is not."""
+    if rows.form == mod.FORM_LOOKBACK:
+        return rows._replace(form=mod.FORM_ROWS, ctas=B)
+    return rows._replace(form=mod.FORM_LOOKBACK, ctas=min(rows_res, B * rows.tiles))
+
+
+def batched_ab(parent: str, rounds: int = 2, kinds=tuple(BATCHED_AB)) -> int:
+    """Not in ``main``: the batched eq, envelope and region launches of the
+    parent (``parent``: a checkout's root; its plans: the eq's cooperative
+    grid where it fits, else one CTA a block in tiles of 2,048; the envelope's
+    and region's as this checkout's, their look-back numbered on the host)
+    and of this checkout (its plan's form, and the other forms it has at the
+    shape: its rows form where the plan takes the grid; the envelope's and
+    the region's other rows form), in turns (forwards then backwards, ``rounds`` times), at
+    ``BATCHED_AB``'s shapes (``kinds`` of them): the eq's output and poles
+    within 2e-5 of the parent's (largest difference printed), the
+    envelope's outputs and state bit-equal to the parent's, the region's
     taps, scalar taps and exits within 2e-5 of the parent's, each scalar tap
-    exactly the max of the launch's own taps (the flagship's plan, and the
-    sink zoo's with a PEAK at 1,024 x 12,800);
-    device us per launch by the profiler, each with its share of the bound.
+    exactly the max of the launch's own taps; device us per launch by the
+    profiler, each with its share of the bound.
     ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.batched_ab("<dir>"))'``"""
     import numpy as np
     import torch
 
     from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
     from mixlab_tpu_torch.engine import region_cuda as rc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card, dev = card_line(), torch.device("cuda")
     log(card)
-    lib = parent_library(parent, ("envelope.cu", "region.cu"))
+    lib = parent_library(parent, ("eq_cascade.cu", "envelope.cu", "region.cu"))
     raw = torch._C._cuda_getCurrentRawStream
     g = torch.Generator(device=dev).manual_seed(15)
     msps = 1000 / 48_000
-    env_r = envc.resident_tiles(0)
-    for B, S in BATCHED_AB["envelope"]:
-        gate, st, prm = _env_batch(torch, dev, B, S, g)
+
+    def parent_status(nbytes):
+        """A zeroed status scratch and the parent's host-side number on it."""
+        scratch, seq = torch.zeros(nbytes, dtype=torch.uint8, device=dev), [0]
+
+        def take():
+            seq[0] += 1
+            return seq[0]
+        return scratch, take
+
+    def check(rc_, what):
+        if rc_:
+            raise RuntimeError(f"parent {what} launch: CUDA error {rc_}")
+
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    eq_r, eq_rows = eqc.resident_tiles(0), eqc.rows_resident(0)
+    for B, S in BATCHED_AB["eq_cascade"] if "eq_cascade" in kinds else ():
+        x, xd = (torch.rand((B, S), generator=g, device=dev) * 2 - 1 for _ in range(2))
+        poles = torch.rand((B, 4, 2), generator=g, device=dev) * 0.2 - 0.1
+        gains = torch.rand((B, 3), generator=g, device=dev) + 0.5
         try:  # the parent's plan: its grid where it fits, else one CTA a block
-            lane, tiles = envc.tile_plan(S, env_r, envc.LANE, B)
+            run, tiles = eqc.scan_plan(S, eq_r, eqc.THREADS, eqc.RUN, B)
             seq = 0
         except ValueError:
-            lane, tiles, seq = 16, -(-S // (envc.THREADS * 16)), 1
+            run, tiles, seq = 16, -(-S // (eqc.THREADS * 16)), 1
+        tables = eqc._device_tables(f[0], f[1], dev)
         at = -(-B * S // 4) * 4
-        pbuf = torch.empty(at + (0 if seq else B * tiles * 16), device=dev)
-        pout = {k: torch.empty_like(v) for k, v in st.items()}
+        pbuf = torch.empty(at + 8 * B + 8 * B * (1 if seq else tiles), device=dev)
+        parent_call = lambda: check(lib.mixlab_eq_cascade(
+            x.data_ptr(), xd.data_ptr(), S, B, seq, poles.data_ptr(), gains.data_ptr(),
+            tables.data_ptr(), *f, run, eqc.THREADS, tiles, pbuf.data_ptr() + 4 * (at + 8 * B),
+            pbuf.data_ptr(), pbuf.data_ptr() + 4 * at, 0, raw(0)), "eq")
+        chosen = eqc.batch_plan(S, B, eq_r, eq_rows)
+        forms = {"change": chosen, **_variants(chosen, {"rows": eqc.rows_plan(S, B, eq_rows)})}
+        fns = {"parent": parent_call, **{
+            who: (lambda p=p: eqc._launch(x, xd, poles, gains, *f, 0, plan=p))
+            for who, p in forms.items()}}
+        labels = {"parent": f"one CTA a block, {tiles} tiles of 2048" if seq
+                  else f"grid {tiles} x {B}",
+                  **{who: form_name(eqc, p, B) for who, p in forms.items()}}
+        parent_call()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for who, fn in fns.items():
+            if who == "parent":
+                continue
+            out, pk = fn()
+            torch.cuda.synchronize()
+            for a, b in ((out.reshape(-1), pbuf[:B * S]), (pk.reshape(-1), pbuf[at:at + 8 * B])):
+                ok, err = _close(torch, a, b, EQ_TOL)
+                if not ok:
+                    raise AssertionError(f"batched eq {B}x{S} {who}: max err {err} from the "
+                                         "parent")
+                worst = max(worst, err)
+        res = _turns(torch, fns, "eq_", rounds, 10)
+        b_ms, b_by = bound(12.0 * B * S, eq_flops(S) * B)
+        _ab_log(np, card, "eq", B, S, res, labels, b_ms, b_by,
+                f"output and poles within {worst:.3e} of the parent's")
+        del x, xd, pbuf
 
-        def parent_call():
-            rc_ = lib.mixlab_envelope_block(
-                gate.data_ptr(), pbuf.data_ptr(), S, B, seq, lane, tiles,
-                pbuf.data_ptr() + 4 * at, *(prm[k].data_ptr() for k in envc._PARAMS), msps,
-                *(st[k].data_ptr() for k in envc._STATE),
-                *(pout[k].data_ptr() for k in envc._STATE), 0, raw(0))
-            if rc_:
-                raise RuntimeError(f"parent envelope launch: CUDA error {rc_}")
-
+    env_r = envc.resident_tiles(0)
+    for B, S in BATCHED_AB["envelope"] if "envelope" in kinds else ():
+        gate, st, prm = _env_batch(torch, dev, B, S, g)
         env_rows = envc.rows_resident(0, envc.rows_lane(S))
         chosen = envc.batch_plan(S, B, env_r, env_rows)
+        form, lane, tiles, ctas = chosen  # the parent's plan is this checkout's
+        at = -(-B * S // 4) * 4
+        pbuf = torch.empty(at + (B * tiles * 16 if form == envc.FORM_GRID else 0), device=dev)
+        pscr, take = parent_status(16 + envc.STATUS_BYTES * B * tiles)
+        pout = {k: torch.empty_like(v) for k, v in st.items()}
+        look = form == envc.FORM_LOOKBACK
+        parent_call = lambda: check(lib.mixlab_envelope_block(
+            gate.data_ptr(), pbuf.data_ptr(), S, B, form, lane, tiles, ctas,
+            pscr.data_ptr() if look else pbuf.data_ptr() + 4 * at, take() if look else 0,
+            *(prm[k].data_ptr() for k in envc._PARAMS), msps,
+            *(st[k].data_ptr() for k in envc._STATE),
+            *(pout[k].data_ptr() for k in envc._STATE), 0, raw(0)), "envelope")
         rows = envc.rows_plan(S, B, env_rows)
         forms = {"change": chosen, **_variants(chosen, {
-            "rows": rows, "other rows form": rows._replace(
-                form=envc.FORM_ROWS if rows.form == envc.FORM_LOOKBACK else envc.FORM_LOOKBACK,
-                ctas=B if rows.form == envc.FORM_LOOKBACK else min(env_rows, B * rows.tiles))})}
+            "rows": rows, "other rows form": _other_rows(envc, rows, env_rows, B)})}
         fns = {"parent": parent_call, **{
-            who: (lambda f=f: envc._launch(gate, 0, st, prm, msps, plan=f))
-            for who, f in forms.items()}}
-        forms["parent"] = "one CTA a block" if seq else f"grid {tiles} x {B}"
+            who: (lambda p=p: envc._launch(gate, 0, st, prm, msps, plan=p))
+            for who, p in forms.items()}}
+        labels = {"parent": form_name(envc, chosen, B),
+                  **{who: form_name(envc, p, B) for who, p in forms.items()}}
         parent_call()
         for who, fn in fns.items():
             if who == "parent":
                 continue
             out, new = fn()
             torch.cuda.synchronize()
-            same = torch.equal(out.reshape(-1), pbuf[:B * S]) and all(
-                torch.equal(new[k], pout[k]) for k in envc._STATE)
-            if not same:
+            if not (torch.equal(out.reshape(-1), pbuf[:B * S])
+                    and all(torch.equal(new[k], pout[k]) for k in envc._STATE)):
                 raise AssertionError(f"batched envelope {B}x{S} {who}: differs from the parent")
         res = _turns(torch, fns, "envelope", rounds, 10)
-        b_ms = bound(8.0 * B * S, 0.0)[0]
-        for who, us in res.items():
-            label = forms[who] if who == "parent" else form_name(envc, forms[who], B)
-            log(f"A/B batched envelope {B}x{S} [{card}] {who} ({label}): device us per "
-                "launch " + " ".join(f"{u:.1f}" for u in us) + f"; median {np.median(us):.1f}, "
-                f"share of the bound {b_ms * 1e3 / np.median(us):.3f} (bound "
-                f"{b_ms * 1e3:.1f} us, bytes); outputs bit-equal to the parent's")
+        _ab_log(np, card, "envelope", B, S, res, labels, *bound(8.0 * B * S, 0.0),
+                "outputs bit-equal to the parent's")
         del gate, pbuf
+
     plans = region_plans(torch)
     resident = rc.resident_tiles(0)
-    for B, S in BATCHED_AB["region"]:
+    for B, S in BATCHED_AB["region"] if "region" in kinds else ():
         for key in ("flagship", "sink zoo") if (B, S) == BATCHED_AB["region"][0] else ("flagship",):
             plan, row, consts = plans[key]
             consts = consts.to(dev)
             shape = rc.plan_shape(plan)
             ops, pf = _region_inputs(torch, g, plan, row, B, S, dev)
             sf = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
-            try:  # the parent's plan: its grid where it fits, else one CTA a row
-                run, tiles = rc.scan_plan(S, resident, rc.CHUNK, rc.RUN, B)
-                seq = 0
-            except ValueError:  # its tiles of 512 samples (at most 97 scratch slots)
-                run, tiles, seq = 4, 0, 1
-            scratch = torch.empty((B, max(shape.n_scratch, 1), S) if not seq else (1,),
-                                  device=dev)
+            rows_res = rc.rows_resident(0, shape)
+            chosen = rc.batch_plan(S, B, resident, shape, rows_res)
+            grid = chosen.form == rc.FORM_GRID
+            scratch = torch.empty((B, max(shape.n_scratch, 1), S) if grid else (1,), device=dev)
             table = [(v.data_ptr(), v.stride(0) * v.element_size() if v.dim() == 2 else 0)
                      for v in ops]
             table += ([(scratch[0, i].data_ptr(), 4 * shape.n_scratch * S)
-                       for i in range(shape.n_scratch)] if not seq else [(0, 0)] * shape.n_scratch)
+                       for i in range(shape.n_scratch)] if grid else [(0, 0)] * shape.n_scratch)
             slots = torch.tensor(table, dtype=torch.int64, device=dev)
             words = torch.tensor(plan.words, dtype=torch.int32, device=dev)
             ptaps = torch.empty((B, plan.n_taps, S), device=dev)
             pstap = torch.empty((B, max(plan.n_stap, 1)), device=dev)
             pef = torch.empty((B, plan.n_ef), device=dev)
-
-            def parent_call():
-                rc_ = lib.mixlab_region_part(
-                    words.data_ptr(), words.numel(), slots.data_ptr(), plan.n_operands,
-                    plan.n_slots, pf.data_ptr(), plan.n_pf, plan.n_pf, consts.data_ptr(),
-                    sf.data_ptr(), plan.n_ef, ptaps.data_ptr(), plan.n_taps, pstap.data_ptr(),
-                    plan.n_stap, pef.data_ptr(), plan.n_ef, S, B, seq, run, tiles, 0, raw(0))
-                if rc_:
-                    raise RuntimeError(f"parent region launch: CUDA error {rc_}")
-
-            rows_res = rc.rows_resident(0, shape)
-            chosen = rc.batch_plan(S, B, resident, shape, rows_res)
+            pscr, take = parent_status(16 + 4 * -(-B // 4) * 4
+                                       + rc.RECORD_BYTES * B * chosen.tiles * shape.n_eq)
+            look = chosen.form == rc.FORM_LOOKBACK
+            i16 = sum(1 << i for i, dt in enumerate(rc.operand_dtypes(plan))
+                      if dt == torch.int16)
+            parent_call = lambda: check(lib.mixlab_region_part(
+                words.data_ptr(), words.numel(), slots.data_ptr(), plan.n_operands,
+                plan.n_slots, pf.data_ptr(), plan.n_pf, plan.n_pf, consts.data_ptr(),
+                sf.data_ptr(), plan.n_ef, ptaps.data_ptr(), plan.n_taps, pstap.data_ptr(),
+                plan.n_stap, pef.data_ptr(), plan.n_ef, S, B, *chosen, shape.n_eq, i16,
+                pscr.data_ptr() if look else 0, take() if look else 0, 0, raw(0)), "region")
             rows = rc.rows_plan(S, B, shape, rows_res)
             forms = {"change": chosen, **_variants(chosen, {
-                "rows": rows, "other rows form": rows._replace(
-                    form=rc.FORM_ROWS if rows.form == rc.FORM_LOOKBACK else rc.FORM_LOOKBACK,
-                    ctas=B if rows.form == rc.FORM_LOOKBACK else min(rows_res, B * rows.tiles))})}
+                "rows": rows, "other rows form": _other_rows(rc, rows, rows_res, B)})}
             fns = {"parent": parent_call, **{
-                who: (lambda f=f: rc.region_part_batched(plan, ops, pf, sf, S, consts, B, form=f))
-                for who, f in forms.items()}}
-            forms["parent"] = "one CTA a row" if seq else f"grid {tiles} x {B}"
+                who: (lambda p=p: rc.region_part_batched(plan, ops, pf, sf, S, consts, B, form=p))
+                for who, p in forms.items()}}
+            labels = {"parent": form_name(rc, chosen, B),
+                      **{who: form_name(rc, p, B) for who, p in forms.items()}}
             parent_call()
+            worst = 0.0
             for who, fn in fns.items():
                 if who == "parent":
                     continue
@@ -3860,18 +4030,93 @@ def batched_ab(parent: str, rounds: int = 2) -> int:
                 if not (err <= REGION_ATOL and exact):
                     raise AssertionError(f"batched region {key} {B}x{S} {who}: max err {err} "
                                          f"from the parent, scalar taps exact {exact}")
-                log(f"batched region {key} {B}x{S} {who}: max abs err from the parent "
-                    f"{err:.3e}, scalar taps exactly the max of its own taps")
+                worst = max(worst, err)
             res = _turns(torch, fns, "region", rounds, 10)
-            nbytes, flops = region_work(plan, ops, S, B)
-            b_ms, b_by = bound(nbytes, flops)
-            for who, us in res.items():
-                label = forms[who] if who == "parent" else form_name(rc, forms[who], B)
-                log(f"A/B batched region {key} {B}x{S} [{card}] {who} ({label}): device us "
-                    "per launch " + " ".join(f"{u:.1f}" for u in us) + f"; median "
-                    f"{np.median(us):.1f}, share of the bound {b_ms * 1e3 / np.median(us):.3f} "
-                    f"(bound {b_ms * 1e3:.1f} us, {b_by})")
+            _ab_log(np, card, f"region {key}", B, S, res, labels, *bound(*region_work(
+                plan, ops, S, B)), f"taps and exits within {worst:.3e} of the parent's, scalar "
+                "taps exactly the max of their own taps")
             del ops, ptaps, scratch
+    return 0
+
+
+def fleet_ab(parent: str, rounds: int = 2) -> int:
+    """Not in ``main``: the 15-tick fleet (phase 16 b: the flagship at 48 kHz,
+    N = 1,024 and 8,192 sessions with their own params, one eq launch a
+    block) with the parent's eq kernel (``parent``: a checkout's root; its
+    plan: one CTA a block in tiles of 2,048 where the grid does not fit) and
+    this checkout's, in turns (parent, change, change, parent, ``rounds``
+    times): the wall a block (median of 6), the device time a block and the
+    eq kernel's device time a launch (a profile of 3 blocks).  The parent's
+    launch replaces ``mixlab_eq_cascade`` behind the wrapper and takes the
+    wrapper's arguments through its own C signature (``parent_library``).
+    For information: the wall is the host's.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.fleet_ab("<dir>"))'``"""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mixlab_tpu_torch import kernels
+    from mixlab_tpu_torch.dsp import eq_cuda as eqc
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.parallel.fleet import Fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda", 0)
+    log(card)
+    lib = parent_library(parent, ("eq_cascade.cu",))
+    kernels.load()
+    kernels._raw_stream = torch._C._cuda_getCurrentRawStream
+
+    def parent_eq(x, xd, S, B, form, p0, gains, tables, f_lo, f_hi, vsa, run, threads, tiles,
+                  ctas, scratch, out, poles_out, device, stream):
+        seq = int(form != eqc.FORM_GRID)
+        if seq:  # its one CTA a block: tiles of 128 x 16, 8 floats a block of scratch
+            run, threads, tiles = 16, eqc.THREADS, -(-S // (eqc.THREADS * 16))
+            scratch = torch.empty(8 * B, device=dev).data_ptr()
+        return lib.mixlab_eq_cascade(x, xd, S, B, seq, p0, gains, tables, f_lo, f_hi, vsa, run,
+                                     threads, tiles, scratch, out, poles_out, device, stream)
+
+    cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(FLEET_TICKS)
+    spb = block.n_samples(cfg)
+    for n in FLEET_N:
+        wss = fleet_workspaces(n)
+        fleet = Fleet.build(wss[0], n, cfg, block, per_instance_params=wss, device=str(dev))
+        res = {"parent": [], "change": []}
+        b = 0
+        for _ in range(rounds):
+            for who in ("parent", "change", "change", "parent"):
+                kernels._entries.pop("mixlab_eq_cascade", None)
+                if who == "parent":
+                    kernels._entries["mixlab_eq_cascade"] = parent_eq
+                fleet.run_block(b * spb)
+                torch.cuda.synchronize()
+                walls = []
+                for b in range(b + 1, b + 7):
+                    t = time.perf_counter()
+                    fleet.run_block(b * spb)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for b in range(b + 1, b + 4):
+                        fleet.run_block(b * spb)
+                    torch.cuda.synchronize()
+                rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                eq = [e.self_device_time_total / e.count for e in rows if e.count and any(
+                    k in e.key for k in ("eq_cascade", "eq_rows"))]
+                res[who].append((float(np.median(walls)) * 1e3,
+                                 sum(e.self_device_time_total for e in rows) / 3e3,
+                                 eq[0] if eq else None))
+        kernels._entries.pop("mixlab_eq_cascade", None)
+        for who, runs in res.items():
+            log(f"A/B fleet N={n} x {FLEET_TICKS} ticks [{card}] {who}: wall ms a block "
+                + " ".join(f"{w:.3f}" for w, _, _ in runs)
+                + f" (median {np.median([w for w, _, _ in runs]):.3f}); device ms a block "
+                + " ".join(f"{d:.3f}" for _, d, _ in runs)
+                + f" (median {np.median([d for _, d, _ in runs]):.3f}); eq kernel us a launch "
+                + " ".join(_us(e) for _, _, e in runs))
+        del fleet
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -4255,6 +4500,234 @@ def region_phase() -> int:
     log(card)
     kernels.load()
     batched_region(torch, np, dev, card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the look-back's launch number on the device (csrc/rows.cuh)
+# ---------------------------------------------------------------------------
+
+# look-back shapes of the wrappers' own plans: the region's 102,400-sample
+# parts, the envelope's config 3
+LOOKBACK_SHAPES = {"envelope": (32, 96_000), "region": (64, 102_400)}
+LOOKBACK_REPLAYS = 4
+LOOKBACK_THREAD_CALLS = 200
+
+
+def lookback_cases(torch, dev, forced=False):
+    """{kernel: (make(seed) -> [tensor], call([tensor]) -> outputs, twin(...)
+    -> outputs, check(got, want) -> max error or None where they differ,
+    plan)} for the look-back kernels: at ``LOOKBACK_SHAPES`` through each
+    wrapper's batched entry (its plan must take the look-back), or
+    (``forced``) small blocks with the look-back forced over 8 CTAs."""
+    from mixlab_tpu_torch.dsp import envelope_cuda as envc
+    from mixlab_tpu_torch.engine import region_cuda as rc
+
+    index, msps = dev.index or 0, 1000 / 48_000
+    cases = {}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(1000 + seed)
+
+    def rand(g, *shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    # the envelope (bit-equal to its twin)
+    B, S = (4, 20_000) if forced else LOOKBACK_SHAPES["envelope"]
+    lane = envc.rows_lane(S)
+    tiles = -(-S // (envc.THREADS * lane))
+    plan = (envc.BatchPlan(envc.FORM_LOOKBACK, lane, tiles, 8) if forced
+            else envc.batch_plan(S, B, envc.resident_tiles(index), envc.rows_resident(index, lane)))
+
+    def env_make(seed, B=B, S=S):
+        g = gen(seed)
+        u = torch.rand((B, S), generator=g, device=dev)
+        gate = torch.where(u < 3e-4, 0.0, torch.where(u < 6e-4, 1.0, 0.5))
+        return [gate, (rand(g, B) > 0).contiguous(),
+                (rand(g, B, lo=-40_000, hi=0)).to(torch.int32),
+                (rand(g, B, lo=-40_000, hi=0)).to(torch.int32), rand(g, B, lo=0.0, hi=1.0),
+                rand(g, B, lo=0.0, hi=30.0), rand(g, B, lo=1.0, hi=500.0),
+                rand(g, B, lo=0.0, hi=1.0), rand(g, B, lo=1.0, hi=300.0)]
+
+    def env_args(ts):
+        return (ts[0], dict(zip(envc._STATE, ts[1:5])), dict(zip(envc._PARAMS, ts[5:9])))
+
+    def env_flat(res):
+        return [res[0], *(res[1][k] for k in envc._STATE)]
+
+    def env_check(got, want):
+        same = all(_same_bits(torch, a, b) if a.is_floating_point() else torch.equal(a, b)
+                   for a, b in zip(got, want))
+        return 0.0 if same else None
+
+    cases["envelope"] = (
+        env_make, (lambda ts, plan=plan: env_flat(envc._launch(
+            ts[0], index, *env_args(ts)[1:], msps, plan=plan))) if forced
+        else (lambda ts: env_flat(envc.envelope_block_batched(*env_args(ts), msps))),
+        lambda ts: env_flat(envc.envelope_block_torch_batched(*env_args(ts), msps)), env_check,
+        plan)
+
+    # the region (the flagship's plan)
+    rplan, row, consts = region_plans(torch)["flagship"]
+    consts = consts.to(dev)
+    shape = rc.plan_shape(rplan)
+    B, S = (3, 12_800) if forced else LOOKBACK_SHAPES["region"]
+    plan = (rc.BatchPlan(rc.FORM_LOOKBACK, 8, -(-S // 1024), 8) if forced
+            else rc.batch_plan(S, B, rc.resident_tiles(index), shape, rc.rows_resident(index, shape)))
+    n_ops = rplan.n_operands
+
+    def region_make(seed, B=B, S=S):
+        g = gen(seed)
+        ops, pf = _region_inputs(torch, g, rplan, row, B, S, dev)
+        return [*ops, pf, rand(g, B, rplan.n_ef, lo=-0.1, hi=0.1)]
+
+    def region_check(got, want):
+        err = max(_rows_err(torch, a, b) for a, b in zip(got, want))
+        return err if err <= REGION_ATOL else None
+
+    cases["region"] = (
+        region_make, lambda ts, plan=plan, B=B, S=S: rc.region_part_batched(
+            rplan, ts[:n_ops], ts[n_ops], ts[n_ops + 1], S, consts, B, form=plan if forced else None),
+        lambda ts, B=B, S=S: rc.region_part_torch_batched(
+            rplan, ts[:n_ops], ts[n_ops], ts[n_ops + 1], S, consts, B), region_check, plan)
+    return cases
+
+
+def _ended(torch, kernel, index, stream) -> int:
+    """The launches that ended on ``kernel``'s status scratch for card
+    ``index`` and ``stream`` (word 0 of its header, ``csrc/rows.cuh``)."""
+    from mixlab_tpu_torch import kernels
+
+    scratch = kernels._status[(kernel, index, stream.cuda_stream)]
+    return int(scratch[:16].view(torch.int32)[0].item())
+
+
+def lookback_replays(torch, dev, kernel, replays=LOOKBACK_REPLAYS) -> float:
+    """``kernel``'s look-back launch at its ``LOOKBACK_SHAPES`` (its plan
+    must take the look-back): two calls on a side stream, then the launch
+    captured on that stream into a CUDA graph (its status scratch, made by
+    the calls, exists before the capture) and replayed ``replays`` times on
+    it with new inputs copied into the graph's static tensors, an eager call
+    on other inputs after each replay.  Every replay and every eager call
+    must match the twin on its inputs (the envelope bit for bit, the region
+    within 2e-5), and the scratch's header must count every launch made on
+    it, so each replay ran under a number of its own.  Returns the largest
+    error."""
+    make, call, twin, check, plan = lookback_cases(torch, dev)[kernel]
+    if plan.form != 2:
+        raise AssertionError(f"{kernel} {LOOKBACK_SHAPES[kernel]}: the plan takes {plan}, not "
+                             "the look-back")
+    worst = 0.0
+
+    def held(got, ts, what):
+        nonlocal worst
+        err = check(got, twin(ts))
+        if err is None:
+            raise AssertionError(f"{kernel}: {what} differs from the twin")
+        worst = max(worst, err)
+
+    static = make(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            call(static)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outs = call(static)
+        made = 2
+        for r in range(1, replays + 1):
+            new = make(r)
+            for t, v in zip(static, new):
+                t.copy_(v)
+            graph.replay()
+            held(outs, new, f"captured look-back launch, replay {r},")
+            eager = make(100 + r)
+            held(call(eager), eager, f"the eager call after replay {r}")
+            made += 2
+        side.synchronize()
+        ended = _ended(torch, kernel, dev.index or 0, side)
+    if ended != made:
+        raise AssertionError(f"{kernel}: the status scratch counts {ended} launches ended, "
+                             f"{made} were made")
+    del graph
+    return worst
+
+
+def lookback_threads(torch, dev, kernel, calls=LOOKBACK_THREAD_CALLS) -> float:
+    """Two host threads, each ``calls`` look-back launches of ``kernel`` (the
+    form forced over 8 CTAs, small blocks) on one stream, each thread its
+    own inputs: every call must match the twin, and the scratch's header
+    must count every launch.  Returns the largest error."""
+    make, call, twin, check, _ = lookback_cases(torch, dev, forced=True)[kernel]
+    ins = [make(k) for k in range(2)]
+    wants = [twin(ts) for ts in ins]
+    stream = torch.cuda.current_stream()
+    call(ins[0])  # the scratch at this size, made before the threads
+    torch.cuda.synchronize()
+    before = _ended(torch, kernel, dev.index or 0, stream)
+    outs, faults = [[], []], []
+
+    def work(k):
+        try:
+            for _ in range(calls):
+                outs[k].append(call(ins[k]))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            faults.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    if faults:
+        raise faults[0]
+    ended = _ended(torch, kernel, dev.index or 0, stream) - before
+    if ended != 2 * calls:
+        raise AssertionError(f"{kernel}: the status scratch counts {ended} launches ended of "
+                             f"{2 * calls}")
+    worst = 0.0
+    for k in range(2):
+        for i, got in enumerate(outs[k]):
+            err = check(got, wants[k])
+            if err is None:
+                raise AssertionError(f"{kernel}: thread {k} call {i} differs from the twin")
+            worst = max(worst, err)
+    return worst
+
+
+def lookback_numbers(torch, np, dev, card) -> dict:
+    """Phase 22: for each look-back kernel, the captured launch replayed
+    (``lookback_replays``) and two threads on one stream
+    (``lookback_threads``).  -> {kernel: max error}."""
+    t, errs = time.perf_counter(), {}
+    for kernel in LOOKBACK_SHAPES:
+        e_graph = lookback_replays(torch, dev, kernel)
+        e_threads = lookback_threads(torch, dev, kernel)
+        errs[kernel] = max(e_graph, e_threads)
+        log(f"look-back {kernel} [{card}]: a captured launch at {LOOKBACK_SHAPES[kernel]} "
+            f"replayed {LOOKBACK_REPLAYS} times with new inputs, an eager call after each: each "
+            f"the twin's (max err {e_graph:.3e}), every launch counted on the device; 2 threads "
+            f"x {LOOKBACK_THREAD_CALLS} calls on one stream: each the twin's (max err "
+            f"{e_threads:.3e}), every launch counted")
+    log(f"phase 22 (the look-back's launch number) took {time.perf_counter() - t:.1f} s")
+    return errs
+
+
+def lookback_phase() -> int:
+    """Not in ``main`` alone: phase 22 by itself, after the build.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.lookback_phase())'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda", 0)
+    log(card)
+    kernels.load()
+    lookback_numbers(torch, np, dev, card)
     return 0
 
 
@@ -5341,7 +5814,7 @@ def edit_path(torch, np, dev, card):
     return paths
 
 
-def ptxas_summary(text, names=("eq_cascade_kernel", "eq_cascade_seq_kernel", "region_kernel",
+def ptxas_summary(text, names=("eq_cascade_kernel", "eq_rows_kernel", "region_kernel",
                                "region_rows_kernel", "region_lookback_kernel", "envelope_kernel",
                                "envelope_rows_kernel", "envelope_lookback_kernel")):
     """{kernel: (registers, stack bytes, spill store bytes, spill load
@@ -6750,6 +7223,8 @@ def main() -> int:
         err, batched_times["region"], region_launches, _ = batched_region(torch, np, dev, card)
         errs["region"] = max(errs["region"], err)
         paths.update(region_launches)
+        for key, err in lookback_numbers(torch, np, dev, card).items():
+            errs[key] = max(errs[key], err)
         paths.update(scale_out(torch, np, dev, card, tmp))
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)

@@ -430,15 +430,14 @@ struct RowsArgs {
   uint8_t* mode_out;
   int *on_out, *off_out;
   float* amp_out;
-  unsigned* tickets;  // the look-back form's counters, then its status array
-  unsigned seq;
+  unsigned* tickets;  // the look-back form's header (rows::kHeader), then its status array
 };
 
 // one tile's record in the look-back form's status array
 struct __align__(16) Status {
   Pair agg;       // the tile's lane records composed (both entry modes)
   Entry incl;     // the state after the tile (at rows::kInclusive)
-  unsigned flag;  // rows::tag(seq, state)
+  unsigned flag;  // rows::tag(launch number, state)
   unsigned pad[3];
 };
 static_assert(sizeof(Status) == 96, "envelope_cuda.STATUS_BYTES");
@@ -584,12 +583,12 @@ envelope_lookback_kernel(RowsArgs a) {
   __shared__ Entry exits[kThreads];
   __shared__ Entry tile_entry;
   __shared__ Pair agg;
-  __shared__ unsigned ticket[2];
+  __shared__ unsigned ticket[2], launch;
 
   const int k = threadIdx.x, S = a.S, lg = a.lg, T = kThreads << lg;
   const int buf = kThreads * ((1 << lg) | 1);
   const unsigned total = static_cast<unsigned>(a.batch) * static_cast<unsigned>(a.tiles);
-  Status* status = reinterpret_cast<Status*>(a.tickets + 4);
+  Status* status = reinterpret_cast<Status*>(a.tickets + rows::kHeader);
   auto stage_ticket = [&](unsigned t, float* dst) {
     if (t < total) {
       const int row = static_cast<int>(t / a.tiles), tile = static_cast<int>(t % a.tiles);
@@ -598,13 +597,17 @@ envelope_lookback_kernel(RowsArgs a) {
       rows::cp_async_commit();
     }
   };
-  if (k == 0) ticket[0] = rows::take_ticket(a.tickets, a.seq);
+  if (k == 0) {
+    launch = rows::launch_number(a.tickets);
+    ticket[0] = rows::take_ticket(a.tickets);
+  }
   __syncthreads();
+  const unsigned seq = launch;
   stage_ticket(ticket[0], xs);
   for (int i = 0;; ++i) {
     const unsigned t = ticket[i & 1];
     if (t >= total) break;
-    if (k == 0) ticket[(i + 1) & 1] = rows::take_ticket(a.tickets, a.seq);
+    if (k == 0) ticket[(i + 1) & 1] = rows::take_ticket(a.tickets);
     __syncthreads();
     stage_ticket(ticket[(i + 1) & 1], xs + ((i + 1) & 1) * buf);
     rows::cp_async_wait<1>();
@@ -618,16 +621,16 @@ envelope_lookback_kernel(RowsArgs a) {
     if (k == kThreads - 1) {  // the aggregate first: later tiles need it, not the state
       agg = pre;
       st->agg = pre;
-      rows::store_release(&st->flag, rows::tag(a.seq, rows::kAggregate));
+      rows::store_release(&st->flag, rows::tag(seq, rows::kAggregate));
     }
     __syncthreads();
     if (k < 32) {
       const Entry e = look_back(status + static_cast<size_t>(row) * a.tiles, tile,
-                                row_state(a, row), a.seq, p);
+                                row_state(a, row), seq, p);
       if (k == 0) {
         tile_entry = e;
         st->incl = apply_entry(agg, e, p);
-        rows::store_release(&st->flag, rows::tag(a.seq, rows::kInclusive));
+        rows::store_release(&st->flag, rows::tag(seq, rows::kInclusive));
       }
     }
     __syncthreads();
@@ -636,6 +639,7 @@ envelope_lookback_kernel(RowsArgs a) {
     if (tile == a.tiles - 1 && k == kThreads - 1) write_state(a, row, exits[kThreads - 1]);
     __syncthreads();  // cur, exits, agg and tile_entry are free again
   }
+  if (k == 0) rows::leave(a.tickets, seq);
 }
 
 size_t rows_shared_bytes(int lg) {
@@ -712,15 +716,15 @@ int mixlab_envelope_rows_resident(int form, int lg, int device, int* resident) {
 // x `batch` records of 64 bytes).  Form 1: one CTA a block, `tiles` tiles of
 // 256 * C samples a block (C a power of two up to 32), the next one staged.
 // Form 2: the look-back over `ctas` CTAs, `tiles` tiles of 256 * C samples a
-// block; `scratch` holds two ticket counters (16 bytes) and `batch` x
-// `tiles` status records of 96 bytes, zeroed once when the wrapper made it;
-// `seq` is this launch's number on that scratch (at least 1, one more than
-// the last launch on it).  All pointers are device pointers; the launch
+// block; `scratch` holds the header of csrc/rows.cuh (16 bytes, the
+// launch's number among them) and `batch` x `tiles` status records of 96
+// bytes, zeroed once when the wrapper made it and never by a launch.  All
+// pointers are device pointers; the launch
 // goes to card `device`.  Returns the launch's cudaError_t (0 =
 // cudaSuccess); a cooperative grid larger than the card holds at once is
 // refused by the launch.
 int mixlab_envelope_block(const float* x, float* out, int S, int batch, int form, int C,
-                          int tiles, int ctas, void* scratch, unsigned seq, const float* attack,
+                          int tiles, int ctas, void* scratch, const float* attack,
                           const float* decay, const float* sustain, const float* release,
                           float msps, const uint8_t* mode_in, const int* on_in,
                           const int* off_in, const float* amp_in, uint8_t* mode_out,
@@ -736,7 +740,7 @@ int mixlab_envelope_block(const float* x, float* out, int S, int batch, int form
       (rows_form && ((1 << lg) != C ||
                      tiles != (S + (kThreads << lg) - 1) / (kThreads << lg) ||
                      static_cast<long long>(batch) * tiles > 0x7fffffffLL)) ||
-      (form == 2 && (ctas < 1 || scratch == nullptr || seq == 0))) {
+      (form == 2 && (ctas < 1 || scratch == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OnDevice on(device);
@@ -747,7 +751,7 @@ int mixlab_envelope_block(const float* x, float* out, int S, int batch, int form
     if (err != cudaSuccess) return static_cast<int>(err);
     const RowsArgs a{x, out, S, lg, tiles, batch, attack, decay, sustain, release, msps,
                      mode_in, on_in, off_in, amp_in, mode_out, on_out, off_out, amp_out,
-                     static_cast<unsigned*>(scratch), seq};
+                     static_cast<unsigned*>(scratch)};
     if (form == 1) {
       envelope_rows_kernel<<<batch, kThreads, rows_shared_bytes(lg), st>>>(a);
     } else {

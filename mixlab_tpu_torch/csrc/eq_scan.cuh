@@ -392,8 +392,7 @@ __device__ __forceinline__ void scan_down(float* xs, const float* xds, int S, in
   }
 }
 
-// Pass 2 of a tile whose entry state s the CTA carried from the tile before
-// (csrc/eq_cascade.cu's one-CTA-a-block form) or was handed (csrc/region.cu's
+// Pass 2 of a tile whose entry state s the CTA was handed (csrc/region.cu's
 // batched forms): scan_down's rerun, band mix and, unless poles_out is null,
 // the poles at sample S-1, from s.
 __device__ __forceinline__ void run_down(float* xs, const float* xds, int S, int tile0, int lg,

@@ -446,8 +446,8 @@ struct RowsExtra {
   int n_eq;       // EQ ops in the plan
   int n_scratch;  // the plan's scratch slots (past its operands)
   unsigned i16;   // operand slots read as i16 (bit s)
-  unsigned* tickets;  // look-back: 2 counters (16 bytes), a flag a row, the records
-  unsigned seq;
+  unsigned* tickets;  // look-back: the header (rows::kHeader), a flag a row, the records
+  unsigned seq;       // look-back: the launch's number, read on the device
 };
 
 // What a CTA of a batched rows form sees of its row's tile: operand slots
@@ -565,7 +565,8 @@ __device__ __forceinline__ void eq_op_rows(const TileRow& r, const int* a, int q
   if (!kLookback) {
     if (k < kCarry) w.entry[k] = w.carry[(q * e.n_eq + qi) * kCarry + k];
   } else {
-    float* status = reinterpret_cast<float*>(e.tickets + 4 + ((e.batch + 3) & ~3));
+    float* status =
+        reinterpret_cast<float*>(e.tickets + rows::kHeader + ((e.batch + 3) & ~3));
     const long long row0 = r.b * e.tiles;  // the row's first record index
     auto rec = [&](int tile) { return status + ((row0 + tile) * e.n_eq + qi) * kRecord; };
     float* mine = rec(t);
@@ -762,13 +763,13 @@ __global__ void __launch_bounds__(kChunk) region_lookback_kernel(Part p, RowsExt
   extern __shared__ float4 smem4[];
   __shared__ eq_scan::Shared sh;
   __shared__ const float* tab_in_sh;
-  __shared__ unsigned ticket[2];
+  __shared__ unsigned ticket[2], launch;
   eq_scan::Maps maps;
   const int n = kChunk << p.lg, k = threadIdx.x;
   const RowsSmem m = rows_smem(reinterpret_cast<float*>(smem4), p, e);
   const EqRows w{sh, tab_in_sh, maps, m.tile, m.carry, m.entry};
   const unsigned total = static_cast<unsigned>(e.batch) * static_cast<unsigned>(e.tiles);
-  unsigned* rowflag = e.tickets + 4;
+  unsigned* rowflag = e.tickets + rows::kHeader;
   const int buf = p.n_operands * n;
   auto stage = [&](unsigned t, float* dst) {
     if (t < total) {
@@ -780,14 +781,16 @@ __global__ void __launch_bounds__(kChunk) region_lookback_kernel(Part p, RowsExt
   };
   if (k == 0) {
     tab_in_sh = nullptr;
-    ticket[0] = rows::take_ticket(e.tickets, e.seq);
+    launch = rows::launch_number(e.tickets);
+    ticket[0] = rows::take_ticket(e.tickets);
   }
   __syncthreads();
+  e.seq = launch;
   stage(ticket[0], m.stage);
   for (int i = 0;; ++i) {
     const unsigned t = ticket[i & 1];
     if (t >= total) break;
-    if (k == 0) ticket[(i + 1) & 1] = rows::take_ticket(e.tickets, e.seq);
+    if (k == 0) ticket[(i + 1) & 1] = rows::take_ticket(e.tickets);
     __syncthreads();
     stage(ticket[(i + 1) & 1], m.stage + ((i + 1) & 1) * buf);
     rows::cp_async_wait<1>();
@@ -807,6 +810,7 @@ __global__ void __launch_bounds__(kChunk) region_lookback_kernel(Part p, RowsExt
     run_plan<true>(p, e, tr, w, 0, tile);
     __syncthreads();  // the tiles are free again
   }
+  if (k == 0) rows::leave(e.tickets, e.seq);
 }
 
 size_t shared_bytes(int run) { return eq_scan::tile_floats(kChunk, run) * sizeof(float); }
@@ -900,10 +904,10 @@ int mixlab_region_rows_resident(int form, int run, int n_operands, int n_scratch
 // of a row but the last full, the last holding the last chunk).  Form 1:
 // one CTA a row, `tiles` tiles of `run` chunks a row, the next one staged.
 // Form 2: the look-back over `ctas` CTAs, `tiles` tiles of `run` chunks a
-// row; `scratch` holds two ticket counters (16 bytes), a flag a row
-// (rounded up to 4), then batch x tiles x n_eq records of 128 bytes, zeroed
-// once when the wrapper made it, and `seq` is this launch's number on it
-// (at least 1, one more than the last launch on it).  Forms 1 and 2 read
+// row; `scratch` holds the header of csrc/rows.cuh (16 bytes, the launch's
+// number among them), a flag a row (rounded up to 4), then batch x tiles x
+// n_eq records of 128 bytes, zeroed once when the wrapper made it and never
+// by a launch.  Forms 1 and 2 read
 // operand slot s as i16 where bit s of i16_mask is set (the plan's I16
 // sources; at most 32 operands) and the plan has n_eq EQ ops.  The launch
 // goes to card `device`.  Returns the launch's cudaError_t (0 =
@@ -914,7 +918,7 @@ int mixlab_region_part(const int* ops, int n_words, const long long* slots, int 
                        const float* consts, const float* sf, long long sf_stride, float* taps,
                        int n_taps, float* stap, int n_stap, float* ef, int n_ef, int S, int batch,
                        int form, int run, int tiles, int ctas, int n_eq, unsigned i16_mask,
-                       void* scratch, unsigned seq, int device, void* stream_ptr) {
+                       void* scratch, int device, void* stream_ptr) {
   const int K = S / kChunk;
   const bool rows_form = form == 1 || form == 2;
   bool bad = S <= 0 || S % kChunk != 0 || K > kMaxChunks || run < 1 ||
@@ -926,7 +930,7 @@ int mixlab_region_part(const int* ops, int n_words, const long long* slots, int 
     bad = bad || tiles != (K + run - 1) / run || n_eq < 0 || n_operands > 32 ||
           rows_floats(run, n_operands, n_slots - n_operands, n_eq) * sizeof(float) > kRowsShared ||
           static_cast<long long>(batch) * tiles > 0x7fffffffLL ||
-          (form == 2 && (ctas < 1 || scratch == nullptr || seq == 0));
+          (form == 2 && (ctas < 1 || scratch == nullptr));
   }
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   OnDevice on(device);
@@ -940,7 +944,7 @@ int mixlab_region_part(const int* ops, int n_words, const long long* slots, int 
   const cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   if (rows_form) {
     const RowsExtra e{tiles, batch, n_eq, n_slots - n_operands, i16_mask,
-                      static_cast<unsigned*>(scratch), seq};
+                      static_cast<unsigned*>(scratch), 0u};
     const size_t smem = rows_floats(run, n_operands, n_slots - n_operands, n_eq) * sizeof(float);
     if (form == 1) {
       region_rows_kernel<<<batch, kChunk, smem, st>>>(p, e);

@@ -36,6 +36,7 @@ int32 sample offsets relative to the block start (clamped at
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, NamedTuple, Tuple
 
@@ -256,10 +257,6 @@ def _launch(x, index, state, params, ms_per_sample, lane=LANE, plan=None):
     buf = torch.empty(at + (B * tiles * _PAIR_WORDS if form == FORM_GRID else 0),
                       dtype=torch.float32, device=dev)
     out = buf[:n].view(x.shape)
-    scratch, seq, status = buf.data_ptr() + 4 * at, 0, None
-    if form == FORM_LOOKBACK:
-        status, seq = kernels.status_scratch("envelope", index, 16 + STATUS_BYTES * B * tiles)
-        scratch = status[0].data_ptr()
     shape = x.shape[:-1]
     new_state = {
         "mode_on": torch.empty(shape, dtype=torch.bool, device=dev),
@@ -267,17 +264,21 @@ def _launch(x, index, state, params, ms_per_sample, lane=LANE, plan=None):
         "off_pos": torch.empty(shape, dtype=torch.int32, device=dev),
         "off_amp": torch.empty(shape, dtype=torch.float32, device=dev),
     }
-    kernels.launch(
-        "mixlab_envelope_block", "envelope kernel launch", index,
-        x.data_ptr(), out.data_ptr(), S, B, form, lane, tiles, ctas, scratch, seq,
-        *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
-        state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
-        state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
-        new_state["mode_on"].data_ptr(), new_state["on_pos"].data_ptr(),
-        new_state["off_pos"].data_ptr(), new_state["off_amp"].data_ptr(),
-    )
-    if status is not None:
-        kernels.status_done(status, seq)
+    # only a look-back launch reads the status scratch, under its lock
+    with kernels.status_lock if form == FORM_LOOKBACK else contextlib.nullcontext():
+        scratch = buf.data_ptr() + 4 * at
+        if form == FORM_LOOKBACK:
+            scratch = kernels.status_scratch(
+                "envelope", index, 16 + STATUS_BYTES * B * tiles).data_ptr()
+        kernels.launch(
+            "mixlab_envelope_block", "envelope kernel launch", index,
+            x.data_ptr(), out.data_ptr(), S, B, form, lane, tiles, ctas, scratch,
+            *(params[k].data_ptr() for k in _PARAMS), float(ms_per_sample),
+            state["mode_on"].data_ptr(), state["on_pos"].data_ptr(),
+            state["off_pos"].data_ptr(), state["off_amp"].data_ptr(),
+            new_state["mode_on"].data_ptr(), new_state["on_pos"].data_ptr(),
+            new_state["off_pos"].data_ptr(), new_state["off_amp"].data_ptr(),
+        )
     envelope_block_cuda.launches += 1
     return out, new_state
 

@@ -16,9 +16,10 @@ it.
 ``eq_cascade_batched`` is the same block over B independent sequences
 (``[B, S]``, each with its own poles and gains), what
 ``jax.vmap(eq_cascade_pallas)`` computes for the fleet's sessions and the
-stems: ONE launch whatever B, the cooperative grid with ``gridDim.y = B``
-where B x CTAs fit on the card, else one CTA a sequence walking its tiles
-with the carry in shared memory (``batch_plan``).  Under ``torch.func.vmap``
+stems: ONE launch whatever B (``batch_plan``), the cooperative grid with
+``gridDim.y = B`` where B x CTAs fit on the card, else one CTA a sequence
+(``csrc/rows.cuh``) in tiles of ``ROWS_THREADS * ROWS_RUN`` samples, each
+CTA staging its next tile while it runs this one.  Under ``torch.func.vmap``
 ``eq_cascade_cuda`` becomes the custom op ``mixlab_tpu_torch::eq_cascade``,
 whose batching rule makes that one call.  Its twin is
 ``eq_cascade_torch_batched``; the single twin is it at B = 1.
@@ -41,7 +42,7 @@ float64, stored as float32.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +59,13 @@ _CHUNK = 128  # the twin's chunk length (eq_pallas's C)
 THREADS = 128
 RUN = 4
 MAX_RUN = 32
-# the run a thread in the sequential form (batch_plan): one CTA a block
-SEQ_RUN = 16
+# the batched launch's forms (mixlab_eq_cascade's `form`): the cooperative
+# grid, and one CTA a block (csrc/rows.cuh)
+FORM_GRID, FORM_ROWS = 0, 1
+# one CTA a block's tile, fixed in the kernel (eq_cascade.cu kRowsThreads,
+# kRowsLg; chip_smoke.rows_sweep): ROWS_THREADS threads of ROWS_RUN samples
+ROWS_THREADS = 128
+ROWS_RUN = 16
 # longest block one launch takes; longer blocks split into sequential
 # launches carrying the poles exactly
 MAX_KERNEL_S = 384 * 1024
@@ -157,16 +163,41 @@ def scan_plan(S: int, resident: int, threads: int = THREADS, run: int = RUN, bat
     return run, -(-S // (threads * run))
 
 
-def batch_plan(S: int, batch: int, resident: int, threads: int = THREADS):
-    """``(sequential, run, tiles)`` for ``batch`` blocks of S samples in one
-    launch: the cooperative grid of ``scan_plan`` where it fits the card
-    (``sequential`` False), else one CTA a block walking its ``tiles`` tiles
-    of ``threads * SEQ_RUN`` samples in order with the carry in shared
-    memory (``sequential`` True: no grid barrier, any ``batch``)."""
+class BatchPlan(NamedTuple):
+    """One batched launch: ``form`` (``FORM_*``), samples a thread (``run``),
+    tiles a block (``FORM_GRID``: a block's CTAs), the launch's CTAs and
+    threads a CTA."""
+    form: int
+    run: int
+    tiles: int
+    ctas: int
+    threads: int
+
+
+def rows_plan(S: int, batch: int, rows_resident: int) -> BatchPlan:
+    """One CTA a block for ``batch`` blocks of S samples on a card that holds
+    ``rows_resident`` of its CTAs at once: as many CTAs as the card holds, at
+    most one a block, each walking its blocks in turn in tiles of
+    ``ROWS_THREADS`` x ``ROWS_RUN``.  Raises ``ValueError`` past the
+    kernel's limits."""
+    if not (S >= 1 and batch >= 1 and rows_resident >= 1):
+        raise ValueError(f"eq_cascade: no rows form for {batch} x {S} samples")
+    tiles = -(-S // (ROWS_THREADS * ROWS_RUN))
+    if batch * tiles >= 2**31:
+        raise ValueError(f"eq_cascade: {batch} blocks of {tiles} tiles are past the launch's "
+                         "limits")
+    return BatchPlan(FORM_ROWS, ROWS_RUN, tiles, min(batch, rows_resident), ROWS_THREADS)
+
+
+def batch_plan(S: int, batch: int, resident: int, rows_resident: int) -> BatchPlan:
+    """The launch for ``batch`` blocks of S samples: the cooperative grid of
+    ``scan_plan`` where it fits the card (``resident`` of its CTAs at once),
+    else ``rows_plan``."""
     try:
-        return (False, *scan_plan(S, resident, threads, RUN, batch))
+        run, tiles = scan_plan(S, resident, THREADS, RUN, batch)
+        return BatchPlan(FORM_GRID, run, tiles, tiles * batch, THREADS)
     except ValueError:
-        return True, SEQ_RUN, -(-S // (threads * SEQ_RUN))
+        return rows_plan(S, batch, rows_resident)
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,6 +205,12 @@ def resident_tiles(index: int, threads: int = THREADS) -> int:
     """CTAs of the eq kernel of ``threads`` threads that card ``index`` holds
     at once at the longest run."""
     return kernels.query("mixlab_eq_resident_tiles", "eq occupancy query", threads, index)
+
+
+@functools.lru_cache(maxsize=None)
+def rows_resident(index: int) -> int:
+    """CTAs of one CTA a block that card ``index`` holds at once."""
+    return kernels.query("mixlab_eq_rows_resident", "eq rows occupancy query", index)
 
 
 def eq_cascade_torch_batched(x, xd, poles0, gains, f_lo: float, f_hi: float, vsa: float):
@@ -249,33 +286,33 @@ def _check(t, shape, name, index):
 
 
 def _launch(x, xd, poles0, gains, f_lo, f_hi, vsa, index, threads=THREADS, run=RUN,
-            sequential=None):
+            plan=None):
     """One launch over ``x`` [S] (``poles0`` [4, 2], ``gains`` [3]) or over
     ``x`` [B, S] (``poles0`` [B, 4, 2], ``gains`` [B, 3]).  A batch takes
-    ``batch_plan`` unless ``sequential`` forces the form (with ``run``)."""
+    ``batch_plan`` unless ``plan`` (a ``BatchPlan``) forces the form; one
+    block takes the grid of ``scan_plan`` at ``threads`` x at least ``run``."""
     dev = x.device
     B, S = (1, x.shape[0]) if x.dim() == 1 else x.shape
-    if sequential is None and B > 1:
-        sequential, run, tiles = batch_plan(S, B, resident_tiles(index, threads), threads)
-    elif sequential:
-        tiles = -(-S // (threads * run))
-    else:
-        sequential = False
+    if plan is None and B > 1:
+        plan = batch_plan(S, B, resident_tiles(index), rows_resident(index))
+    elif plan is None:
         run, tiles = scan_plan(S, resident_tiles(index, threads), threads, run, B)
+        plan = BatchPlan(FORM_GRID, run, tiles, tiles * B, threads)
+    form, run, tiles, ctas, threads = plan
     tables = _device_tables(f_lo, f_hi, dev)
-    # the output, the poles and the CTAs' aggregates in one allocation, the
-    # poles and the aggregates at 16-byte boundaries
+    # the output, the poles and (the grid) the CTAs' aggregates in one
+    # allocation, the poles and the aggregates at 16-byte boundaries
     n = B * S
     at = -(-n // 4) * 4
-    scratch = B * (1 if sequential else tiles) * _AGG_WORDS
+    scratch = B * tiles * _AGG_WORDS if form == FORM_GRID else 0
     buf = torch.empty(at + 8 * B + scratch, dtype=torch.float32, device=dev)
     out = buf[:n].view(x.shape)
     poles_out = buf[at:at + 8 * B].view(poles0.shape)
     kernels.launch(
         "mixlab_eq_cascade", "eq_cascade kernel launch", index,
-        x.data_ptr(), xd.data_ptr(), S, B, int(sequential), poles0.data_ptr(),
-        gains.data_ptr(), tables.data_ptr(), float(f_lo), float(f_hi), float(vsa), run,
-        threads, tiles, buf.data_ptr() + 4 * (at + 8 * B), out.data_ptr(), poles_out.data_ptr(),
+        x.data_ptr(), xd.data_ptr(), S, B, form, poles0.data_ptr(), gains.data_ptr(),
+        tables.data_ptr(), float(f_lo), float(f_hi), float(vsa), run, threads, tiles, ctas,
+        buf.data_ptr() + 4 * (at + 8 * B), out.data_ptr(), poles_out.data_ptr(),
     )
     eq_cascade_cuda.launches += 1
     return out, poles_out

@@ -46,6 +46,8 @@ for CUDA tensors they launch the kernel or raise.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -266,6 +268,36 @@ def rows_resident(index: int, shape: Shape) -> int:
                          FORM_ROWS, rows_run(shape), *shape, index)
 
 
+_SLOTS_KEPT = 16
+_recent_slots: "collections.OrderedDict" = collections.OrderedDict()
+_captured_slots: list = []
+
+
+def _slot_table(table: tuple, dev: torch.device) -> torch.Tensor:
+    """The launch's slot table on the card: uploaded from pinned memory (the
+    upload does not wait for the work already queued), the last
+    ``_SLOTS_KEPT`` kept by content.  While the stream is capturing a CUDA
+    graph the table must be one of those (a graph's static tensors, called
+    once before the capture, as a capture's warm-up does): a copy captured
+    from a temporary pinned buffer would read freed memory at every
+    replay."""
+    key = (table, dev)
+    if torch.cuda.is_current_stream_capturing():
+        slots = _recent_slots.get(key)
+        if slots is None:
+            raise ValueError("region_part: a launch captured into a CUDA graph needs one call "
+                             "with the same tensors before the capture")
+        _captured_slots.append(slots)  # the graph may replay until the process ends
+        return slots
+    slots = torch.tensor(table, dtype=torch.int64).reshape(-1, 2).pin_memory().to(
+        dev, non_blocking=True)
+    _recent_slots[key] = slots
+    _recent_slots.move_to_end(key)
+    if len(_recent_slots) > _SLOTS_KEPT:
+        _recent_slots.popitem(last=False)
+    return slots
+
+
 @functools.lru_cache(maxsize=64)
 def _device_ops(words: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int32).to(device)
@@ -322,29 +354,26 @@ def _launch(plan, operands, pf, sf, S, consts, batch, index, run=RUN, form=None)
                   for i in range(shape.n_scratch)]
     else:  # the scratch slots are tiles in shared memory
         table += [(0, 0)] * shape.n_scratch
-    # pinned, so the upload does not wait for the work already queued
-    slots = torch.tensor(table, dtype=torch.int64).reshape(-1, 2).pin_memory().to(
-        dev, non_blocking=True)
+    slots = _slot_table(tuple(table), dev)
     taps = torch.empty((batch, plan.n_taps, S), dtype=torch.float32, device=dev)
     stap = torch.empty((batch, plan.n_stap), dtype=torch.float32, device=dev)
     ef = torch.empty((batch, plan.n_ef), dtype=torch.float32, device=dev)
     i16 = sum(1 << i for i, dt in enumerate(dtypes) if dt == torch.int16)
-    status, seq, at = None, 0, 0
-    if bp.form == FORM_LOOKBACK:
-        status, seq = kernels.status_scratch(
-            "region", index, 16 + 4 * -(-batch // 4) * 4
-            + RECORD_BYTES * batch * bp.tiles * shape.n_eq)
-        at = status[0].data_ptr()
-    kernels.launch(
-        "mixlab_region_part", "region kernel launch", index,
-        ops.data_ptr(), ops.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
-        pf.data_ptr(), pf_stride // 4, plan.n_pf, consts.data_ptr(), sf.data_ptr(),
-        sf_stride // 4, taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap,
-        ef.data_ptr(), plan.n_ef, S, batch, bp.form, bp.run, bp.tiles, bp.ctas, shape.n_eq,
-        i16, at, seq,
-    )
-    if status is not None:
-        kernels.status_done(status, seq)
+    # only a look-back launch reads the status scratch, under its lock
+    with kernels.status_lock if bp.form == FORM_LOOKBACK else contextlib.nullcontext():
+        at = 0
+        if bp.form == FORM_LOOKBACK:
+            at = kernels.status_scratch(
+                "region", index, 16 + 4 * -(-batch // 4) * 4
+                + RECORD_BYTES * batch * bp.tiles * shape.n_eq).data_ptr()
+        kernels.launch(
+            "mixlab_region_part", "region kernel launch", index,
+            ops.data_ptr(), ops.numel(), slots.data_ptr(), plan.n_operands, plan.n_slots,
+            pf.data_ptr(), pf_stride // 4, plan.n_pf, consts.data_ptr(), sf.data_ptr(),
+            sf_stride // 4, taps.data_ptr(), plan.n_taps, stap.data_ptr(), plan.n_stap,
+            ef.data_ptr(), plan.n_ef, S, batch, bp.form, bp.run, bp.tiles, bp.ctas, shape.n_eq,
+            i16, at,
+        )
     region_part_cuda.launches += 1
     return taps, stap, ef
 

@@ -66,17 +66,17 @@ _SIGNATURES = {
         _c_ptr, _c_ptr, _c_int,                  # x, out, S
         _c_int, _c_int,                          # batch, form
         _c_int, _c_int, _c_int,                  # lane, tiles, CTAs (look-back)
-        _c_ptr, _c_uint,                         # scratch, seq
+        _c_ptr,                                  # scratch
         _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_float,  # attack..release, msps
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state in
         _c_ptr, _c_ptr, _c_ptr, _c_ptr,          # state out
         _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_eq_cascade": [
-        _c_ptr, _c_ptr, _c_int, _c_int, _c_int,          # x, xd, S, batch, sequential
+        _c_ptr, _c_ptr, _c_int, _c_int, _c_int,          # x, xd, S, batch, form
         _c_ptr, _c_ptr, _c_ptr,                          # poles0, gains, tables
         _c_float, _c_float, _c_float,                    # f_lo, f_hi, vsa
-        _c_int, _c_int, _c_int,                          # run, threads, tiles
+        _c_int, _c_int, _c_int, _c_int,                  # run, threads, tiles, CTAs
         _c_ptr, _c_ptr, _c_ptr,                          # scratch, out, poles_out
         _c_int, _c_ptr,                                  # device, stream
     ],
@@ -88,7 +88,7 @@ _SIGNATURES = {
         _c_ptr, _c_int,                          # ef, n_ef
         _c_int, _c_int, _c_int, _c_int, _c_int,  # S, batch, form, run, tiles
         _c_int, _c_int, _c_uint,                 # CTAs (look-back), n_eq, i16 mask
-        _c_ptr, _c_uint,                         # scratch, seq
+        _c_ptr,                                  # scratch
         _c_int, _c_ptr,                          # device, stream
     ],
     "mixlab_crossfade": [
@@ -108,6 +108,7 @@ _SIGNATURES = {
 _QUERIES = {
     "mixlab_envelope_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
     "mixlab_eq_resident_tiles": [_c_int, _c_int, _c_ptr],  # threads, device, int* resident
+    "mixlab_eq_rows_resident": [_c_int, _c_ptr],  # device, int* resident
     "mixlab_region_resident_tiles": [_c_int, _c_ptr],  # device, int* resident
     # form, lg, device, int* resident
     "mixlab_envelope_rows_resident": [_c_int, _c_int, _c_int, _c_ptr],
@@ -270,24 +271,48 @@ def launch(name: str, what: str, index: int, *args) -> None:
         check(load(), rc, what)
 
 
-_status: dict = {}  # (kernel, card, stream handle) -> [zeroed scratch, last launch's seq]
+# the look-back forms' status scratch (csrc/rows.cuh): (kernel, card, stream
+# handle) -> a zeroed scratch; the launch's number lives in its header on the
+# device.  ``status_lock`` guards the table and a wrapper's path from the
+# scratch to its launch.  A scratch that a captured CUDA graph launches on
+# stays in ``_captured_status`` (by address) until the process ends.
+_status: dict = {}
+_captured_status: dict = {}
+status_lock = threading.Lock()
 
 
-def status_scratch(kernel: str, index: int, nbytes: int):
-    """``(scratch, seq)`` for one look-back launch of ``kernel`` on card
-    ``index`` (``csrc/rows.cuh``): a scratch of at least ``nbytes`` kept for
-    the kernel, card and current stream (zeroed once when made, so no launch
-    clears it), and the launch's sequence number on it.  Call
-    ``status_done`` once the launch went out, so that a refused launch does
-    not leave the next one a counter it never cleared."""
+def status_scratch(kernel: str, index: int, nbytes: int) -> torch.Tensor:
+    """A status scratch of at least ``nbytes`` for a look-back launch of
+    ``kernel`` on card ``index`` (``csrc/rows.cuh``), kept for the kernel,
+    card and current stream and zeroed once when made (grown to a power of
+    two, zeroed anew), so no launch clears it.  The launch reads its number
+    from the scratch's header and the launch that ends advances it, so
+    nothing here counts launches: a launch captured into a CUDA graph counts
+    on at every replay, and a refused launch advances nothing.
+
+    While the stream captures a CUDA graph the scratch must already exist at
+    its size (a call on the capturing stream before the capture, as a
+    capture's warm-up makes): a scratch made in the capture would be zeroed
+    only when the graph replays.  The graph keeps the scratch's address, so
+    the scratch is kept alive after a regrow.  The graph's launches and the
+    stream's eager ones share the header, so graphs captured on one stream
+    must replay in that stream's order with its other look-back launches
+    (on that stream, or on one that waits for it).  Call it, and launch,
+    under ``status_lock``."""
     key = (kernel, index, torch._C._cuda_getCurrentRawStream(index))
-    ent = _status.get(key)
-    if ent is None or ent[0].numel() < nbytes:
-        size = 1 << max(nbytes - 1, 1).bit_length()
-        ent = _status[key] = [torch.zeros(size, dtype=torch.uint8,
-                                          device=torch.device("cuda", index)), 0]
-    return ent, ent[1] + 1
+    scratch = _status.get(key)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if scratch is None or scratch.numel() < nbytes:
+        if capturing:
+            raise RuntimeError(
+                f"{kernel}: a look-back launch captured into a CUDA graph needs its status "
+                f"scratch of {nbytes} bytes from a call on the capturing stream before the "
+                "capture")
+        scratch = _status[key] = _zeros(1 << max(nbytes - 1, 1).bit_length(), index)
+    if capturing:
+        _captured_status[scratch.data_ptr()] = scratch
+    return scratch
 
 
-def status_done(ent, seq: int) -> None:
-    ent[1] = seq
+def _zeros(nbytes: int, index: int) -> torch.Tensor:
+    return torch.zeros(nbytes, dtype=torch.uint8, device=torch.device("cuda", index))

@@ -551,7 +551,7 @@ def _batch_sizes():
 
 
 @pytest.mark.parametrize("S", [1, eqc.RUN + 1, eqc.THREADS * eqc.RUN - 1,
-                               eqc.THREADS * eqc.RUN, eqc.THREADS * eqc.SEQ_RUN + 1, 12_000])
+                               eqc.THREADS * eqc.RUN, eqc.ROWS_THREADS * eqc.ROWS_RUN + 1, 12_000])
 def test_batched_eq_kernel_matches_twin(dev, S):
     f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
     for B in _batch_sizes()[0]:
@@ -661,6 +661,80 @@ def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):
             for x, y in zip(got, want):
                 assert chip_smoke._rows_err(torch, x, y) <= chip_smoke.REGION_ATOL, (S, blk)
             assert chip_smoke._peaks_exact(torch, plan, ops, got[0], got[1])
+
+
+@pytest.mark.parametrize("ctas", [None, 1, 2])  # one CTA a row, one CTA, 2 CTAs walking 3 rows
+def test_batched_eq_rows_form_matches_the_twin(dev, ctas):
+    """The eq's one CTA a row with every split forced, 3 rows with their own
+    poles and gains over 3 carried blocks, S cut so the last tile holds one
+    sample, one chunk of 128 or most of a tile, and odd S whose rows are not
+    16-byte aligned: output and poles within 2e-5 of the batched twin, one
+    launch a call."""
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    T = eqc.ROWS_THREADS * eqc.ROWS_RUN
+    for S in (3 * T + 1, 2 * T + 128, 5 * T - 7, 12_001):
+        B = 3
+        x, xd, poles, gains = _eq_batch(dev, B, S, S + (ctas or 0))
+        plan = eqc.BatchPlan(eqc.FORM_ROWS, eqc.ROWS_RUN, -(-S // T), ctas or B,
+                             eqc.ROWS_THREADS)
+        pk, pt = poles, poles
+        for blk in range(3):
+            n = eqc.eq_cascade_cuda.launches
+            got, pk = eqc._launch(x[blk], xd[blk], pk, gains, *f, 0, plan=plan)
+            assert eqc.eq_cascade_cuda.launches == n + 1
+            want, pt = eqc.eq_cascade_torch_batched(x[blk], xd[blk], pt, gains, *f)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **EQ_TOL,
+                                       err_msg=f"S={S} block {blk}")
+            np.testing.assert_allclose(pk.cpu().numpy(), pt.cpu().numpy(), **EQ_TOL)
+
+
+def test_batched_eq_refuses_another_tile(dev):
+    """The kernel's tile is fixed: a plan naming another is refused by the C
+    entry point, not run."""
+    f = (_filter_coeff(FREQ_LO, 48_000), _filter_coeff(FREQ_HI, 48_000), VSA)
+    x, xd, poles, gains = _eq_batch(dev, 2, 12_000, 0)
+    for threads, run in ((256, 16), (128, 8)):
+        plan = eqc.BatchPlan(eqc.FORM_ROWS, run, -(-12_000 // (threads * run)), 2, threads)
+        with pytest.raises(RuntimeError, match="eq_cascade kernel launch"):
+            eqc._launch(x[0], xd[0], poles, gains, *f, 0, plan=plan)
+
+
+@pytest.mark.parametrize("kernel", ["envelope", "region"])
+def test_captured_lookback_launch_matches_the_twin_on_every_replay(dev, kernel):
+    """A look-back launch at a shape whose plan takes it, captured into a
+    CUDA graph and replayed with new inputs, an eager call after each
+    replay: every replay and call the twin's, every launch counted in the
+    scratch's header (the launch's number lives on the device,
+    csrc/rows.cuh)."""
+    import chip_smoke
+
+    chip_smoke.lookback_replays(torch, dev, kernel)
+
+
+@pytest.mark.parametrize("kernel", ["envelope", "region"])
+def test_two_threads_of_lookback_launches_on_one_stream_match_the_twin(dev, kernel):
+    import chip_smoke
+
+    chip_smoke.lookback_threads(torch, dev, kernel)
+
+
+@pytest.mark.parametrize("kernel", ["envelope", "region"])
+def test_capture_refuses_a_status_scratch_made_in_it(dev, kernel):
+    """A look-back launch captured on a stream that has no status scratch
+    yet is refused: a scratch made in the capture would be zeroed only when
+    the graph replays."""
+    import chip_smoke
+
+    make, call, _, _, _ = chip_smoke.lookback_cases(torch, dev)[kernel]
+    static = make(0)
+    call(static)  # a call on another stream: its scratch is that stream's
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="status scratch"):
+        with torch.cuda.graph(graph, stream=side):
+            call(static)
 
 
 def test_media_player_uploads_complete_pictures_to_the_card(dev):

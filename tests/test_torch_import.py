@@ -267,6 +267,7 @@ def test_kernel_library_name_tracks_sources():
         "mixlab_crossfade", "mixlab_resize_picture", "mixlab_passthrough"}
     assert set(kernels._QUERIES) == {"mixlab_envelope_resident_tiles",
                                      "mixlab_eq_resident_tiles",
+                                     "mixlab_eq_rows_resident",
                                      "mixlab_region_resident_tiles",
                                      "mixlab_envelope_rows_resident",
                                      "mixlab_region_rows_resident"}
