@@ -272,6 +272,24 @@ imports no jax.  Phases, any failure of which exits non-zero:
      bit, the region within 2e-5), and the scratch's count of ended
      launches equal to the launches made on it; then two host threads of
      200 look-back calls each on one stream, every call against the twin.
+ 23. the last surface, after phase 18 and before phase 15 (b), each path with
+     the launch counts set to 0 just before and read just after: (a)
+     ``examples/torch_synth_patch.py`` for 5 s at 48 and 44.1 kHz on the
+     card (its ``main``; the launches of each kernel printed, none assumed,
+     some kernel must launch), then on the CPU: the int16 PCM within 4 LSB
+     (phase 6's 1e-4 on the WAV), rms over 0.01; (b) phase 15 (a)'s served
+     session with ``MIXLAB_PURE_AUDIO=flac`` (lossless FLAC encoded on the
+     codec thread), then with AAC, in turns, 5 s each: the init packet's
+     mime names ``flac`` and holds ``fLaC`` and ``dfLa``, every audio sample
+     of every segment the client read decodes by ``av/flacdec.py`` to
+     exactly the int16 PCM fed to the encoder, one crossfade launch a video
+     tick; segments/s, the encoder's ms per second of audio, the served tick
+     p50/p99 and dropped ticks of both; then the FLAC encoder alone, its ms
+     per second of audio and its share of the interpreter lock beside a
+     Python thread; (c) ``examples/torch_fleet_demo.py``
+     as a subprocess on the card (600 s timeout): exit 0, the migrated
+     workspace's runtime state restored, no process of its session left,
+     its seconds.
 
 Not in ``main``: ``batched_ab`` (the parent's batched eq, envelope and
 region launches against this checkout's, in turns, outputs compared),
@@ -279,7 +297,8 @@ region launches against this checkout's, in turns, outputs compared),
 bounds, in turns), ``single_ab`` and ``region_ab`` (the single-block
 launches against the parent's), ``fleet_ab`` (the 15-tick fleet with the
 parent's eq kernel and this checkout's, in turns), ``lookback_phase``
-(phase 22 alone), and the attribution helpers named below.
+(phase 22 alone), ``last_surface_phase`` (phase 23 alone), and the
+attribution helpers named below.
 
 TF32 is switched off for matrix products and cuDNN (the eq twin's Toeplitz
 products must be IEEE f32, as the JAX package's Precision.HIGHEST).
@@ -2064,23 +2083,28 @@ TICK_BUDGET_MS = 1000.0 / 60
 
 
 class _PureTier:
-    """``MIXLAB_CODEC_TIER=pure`` while the block runs: the zero-dependency
-    tier (AAC-LC + CAVLC H.264) that the parity tests hold to the JAX
-    package's, whatever CLI encoders the host has."""
+    """``MIXLAB_CODEC_TIER=pure`` and ``MIXLAB_PURE_AUDIO=<audio>`` while the
+    block runs: the zero-dependency tier (AAC-LC, or lossless FLAC, + CAVLC
+    H.264) that the parity tests hold to the JAX package's, whatever CLI
+    encoders the host has."""
+
+    def __init__(self, audio: str = "aac"):
+        self.env = {"MIXLAB_CODEC_TIER": "pure", "MIXLAB_PURE_AUDIO": audio}
 
     def __enter__(self):
         import os
 
-        self.old = os.environ.get("MIXLAB_CODEC_TIER")
-        os.environ["MIXLAB_CODEC_TIER"] = "pure"
+        self.old = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
 
     def __exit__(self, *exc):
         import os
 
-        if self.old is None:
-            os.environ.pop("MIXLAB_CODEC_TIER", None)
-        else:
-            os.environ["MIXLAB_CODEC_TIER"] = self.old
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def mp4_path(torch, proj: Path, tmp: Path):
@@ -2215,16 +2239,21 @@ class ThreadFaults:
             raise AssertionError(f"{what}: {len(self.faults)} faults: {self.faults[:5]}")
 
 
-async def monitor_segments(port: int, socket_id: str, seconds: float, on_subscribed):
+async def monitor_segments(port: int, socket_id: str, seconds: float, on_subscribed,
+                           keep=None):
     """Subscribe to ``/_monitor/<socket_id>``: the init packet must be an
     fMP4 ``ftyp`` + ``moov``; then ``on_subscribed()``, and count the
     segments for ``seconds``, each of which must walk as ``moof``/``mdat``.
+    A ``keep`` dict gets the init packet's header and segment (``"head"``,
+    ``"init"``) and every segment after it (``"segments"``).
     -> (segments, elapsed seconds)."""
     reader, writer = await ws_open(port, f"/_monitor/{socket_id}")
     header, _, init = (await ws_read(reader)).partition(b"\n")
     head = json.loads(header)
     if head.get("mode") != "fmp4" or [k for k, _, _ in fmp4_boxes(init)] != ["ftyp", "moov"]:
         raise AssertionError(f"monitor init packet {head}")
+    if keep is not None:
+        keep.update(head=head, init=init, segments=[])
     on_subscribed()
     t0 = time.monotonic()
     segments = 0
@@ -2234,6 +2263,8 @@ async def monitor_segments(port: int, socket_id: str, seconds: float, on_subscri
             continue
         if [k for k, _, _ in fmp4_boxes(seg)] != ["moof", "mdat"]:
             raise AssertionError("a monitor segment is not moof/mdat")
+        if keep is not None:
+            keep["segments"].append(seg)
         segments += 1
     elapsed = time.monotonic() - t0
     writer.close()
@@ -2292,7 +2323,7 @@ class _InProcessAac(_NoAac):
 
 
 def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
-                   client: str = "thread") -> dict:
+                   client: str = "thread", pure_audio: str = "aac") -> dict:
     """Phase 15 (a): a ``ProjectHandle`` on the card and ``run_server`` on an
     ephemeral port in this process.  A client of the script's own builds
     ``flagship.realtime_video_ops`` over the session socket, a feeder thread
@@ -2306,7 +2337,12 @@ def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
     ``aac="inprocess"`` for ``_InProcessAac`` (the encoder on the codec
     thread, as before its codec process), and
     ``client="process"`` reads the monitor from a process of its own
-    (``monitor_client``): ``served_attribution`` runs those.  -> the
+    (``monitor_client``): ``served_attribution`` runs those.
+    ``pure_audio="flac"`` muxes lossless FLAC (``MIXLAB_PURE_AUDIO=flac``),
+    encoded on the codec thread: the init packet must name ``flac`` and hold
+    ``fLaC`` and ``dfLa``, and every audio sample of every segment the client
+    read must decode by the port's ``av/flacdec.py`` to exactly the int16
+    PCM the codec thread fed its encoder (``_RecordedFlac``).  -> the
     window's figures, its kernel launches under ``"launches"``."""
     import asyncio
 
@@ -2325,7 +2361,8 @@ def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
     # at their push, and the pictures the codec thread fed its encoder
     check = {"left": 0, "host": {}, "fed": {}}
     walls = []
-    with _PureTier(), ThreadFaults() as faults:
+    fed, kept = [], {} if pure_audio == "flac" else None
+    with _PureTier(pure_audio), _RecordedFlac(fed), ThreadFaults() as faults:
         proj = open_or_create(tmp / "served.mixlab", EngineConfig(sample_rate=RT_RATE),
                               block_ticks=1, device=str(dev))
         eng = proj.engine
@@ -2415,7 +2452,7 @@ def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
 
             if client == "thread":
                 segments, elapsed = asyncio.run_coroutine_threadsafe(monitor_segments(
-                    port, socket_id, SERVED_SECONDS, arm), loop).result(SERVED_SECONDS + 60)
+                    port, socket_id, SERVED_SECONDS, arm, kept), loop).result(SERVED_SECONDS + 60)
             else:
                 proc = subprocess.Popen(
                     [sys.executable, "-c", "import chip_smoke as cs; cs.monitor_client("
@@ -2482,6 +2519,8 @@ def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
     before = ("; the AAC encoder in its codec process (with it on the codec thread, earlier "
               "runs on an NVIDIA H100 80GB HBM3 at 700 W: 2 / 8 dropped, 15.64 / 54.20% "
               "over)") if aac == "process" else ""
+    if pure_audio == "flac":
+        variant, before = ", FLAC audio encoded on the codec thread", ""
     log(f"served session{variant} [{card}]: codec tier {codec_tier()} (auto: "
         f"{_auto_codec_tier()}), CAVLC tier {cavlc}; {segments} segments in {elapsed:.3f} s "
         f"({segments / elapsed:.2f}/s); {window['items']} ticks in the window, "
@@ -2498,9 +2537,74 @@ def served_session(torch, np, dev, card, tmp: Path, aac: str = "process",
                              f"{launches['crossfade']} times in {window['video']} video ticks")
     if segments < (5 if aac == "noop" else 10) * SERVED_SECONDS:
         raise AssertionError(f"only {segments} monitor segments in {elapsed:.1f} s")
+    if pure_audio == "flac":
+        flac_segments(np, kept, fed, segments)
     return {"launches": launches, "segments_per_s": segments / elapsed,
             "ticks": window["items"], "dropped": dropped, "p50": p50, "p99": p99,
             "over": over, "ms_frame": ms_frame, "ms_audio_s": ms_audio_s}
+
+
+class _RecordedFlac:
+    """While the block runs, every ``PureFlacStream`` the Monitor builds
+    keeps a copy of the int16 PCM its codec thread feeds it in ``fed``."""
+
+    def __init__(self, fed: list):
+        self.fed = fed
+
+    def __enter__(self):
+        import numpy as np
+
+        from mixlab_tpu_torch.av import flacenc
+
+        fed, self.cls = self.fed, flacenc.PureFlacStream
+
+        class Recorded(self.cls):
+            def feed(self, pcm_i16):
+                fed.append(np.array(pcm_i16, dtype=np.int16))
+                super().feed(pcm_i16)
+
+        flacenc.PureFlacStream = Recorded
+
+    def __exit__(self, *exc):
+        from mixlab_tpu_torch.av import flacenc
+
+        flacenc.PureFlacStream = self.cls
+
+
+def flac_segments(np, kept: dict, fed: list, segments: int) -> None:
+    """The FLAC served session's stream as its client read it: the init
+    packet names ``flac`` and holds ``fLaC`` and ``dfLa``; every audio
+    sample of every segment decodes by the port's ``av/flacdec.py`` to
+    exactly the int16 PCM fed at its place (its ``tfdt``)."""
+    from mixlab_tpu_torch.av.flacdec import FlacDecoder
+    from mixlab_tpu_torch.av.mp4read import Mp4Reader
+
+    mime = kept["head"].get("mime", "")
+    if not mime.endswith(', flac"') or b"fLaC" not in kept["init"] or b"dfLa" not in kept["init"]:
+        raise AssertionError(f"the FLAC monitor's init packet: mime {mime!r}, fLaC "
+                             f"{b'fLaC' in kept['init']}, dfLa {b'dfLa' in kept['init']}")
+    if len(kept["segments"]) != segments:
+        raise AssertionError(f"kept {len(kept['segments'])} of {segments} segments")
+    reader = Mp4Reader(kept["init"] + b"".join(kept["segments"]))
+    track = reader.audio_track()
+    pcm = np.concatenate([a.reshape(-1, 2) for a in fed])
+    dec, checked = FlacDecoder(track.streaminfo), 0
+    for sample in track.samples:
+        data = reader.sample_data(sample)
+        got, used = dec.decode_frame(data)
+        want = pcm[sample.dts:sample.dts + len(got)]
+        if used != len(data) or len(got) != 1024 or not np.array_equal(got, want):
+            raise AssertionError(f"the FLAC frame at sample {sample.dts} ({used} of {len(data)} "
+                                 f"bytes, {len(got)} samples) is not the PCM fed there")
+        checked += len(got)
+    video = reader.video_track()
+    if track.codec != "flac" or len(track.samples) + len(video.samples) != segments or \
+            len(track.samples) < 10 * SERVED_SECONDS:
+        raise AssertionError(f"the FLAC monitor's {segments} segments hold {len(track.samples)} "
+                             f"{track.codec} and {len(video.samples)} video samples")
+    log(f"served FLAC: {len(track.samples)} audio segments of {segments}, {checked} samples "
+        f"a channel decoded by av/flacdec.py, all exactly the int16 PCM fed "
+        f"({len(pcm)} samples a channel fed in all)")
 
 
 def served_attribution() -> int:
@@ -7158,6 +7262,167 @@ def ingest_session(torch, np, dev, card, tmp: Path, units, dcr, pictures, raws) 
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the last surface (the synth example, FLAC monitor audio, the
+# fleet demo)
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SECONDS = 5
+EXAMPLE_LSB = 4          # CPU_RENDER_ATOL (1e-4) on the int16 WAV: 3.3 LSB, rounded up
+FLEET_DEMO_TIMEOUT = 600
+
+
+def synth_example(torch, np, card, tmp: Path, sr: int) -> dict:
+    """``examples/torch_synth_patch.py`` for 5 s at ``sr`` on the card, with
+    the launch counts set to 0 just before and read just after, then on the
+    CPU: the int16 PCM within ``EXAMPLE_LSB``, rms over 0.01, some kernel
+    launched.  -> the launches."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_synth_patch", ROOT / "examples" / "torch_synth_patch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    args = ["--seconds", str(EXAMPLE_SECONDS), "--sample-rate", str(sr)]
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t = time.perf_counter()
+    pcm = example.main([str(tmp / f"synth_{sr}.wav"), *args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in counters.items()}
+    cpu = example.main([str(tmp / f"synth_cpu_{sr}.wav"), *args, "--device", "cpu"])
+    err = int(np.abs(pcm.astype(np.int32) - cpu.astype(np.int32)).max())
+    rms = float(np.sqrt(((pcm.astype(np.float64) / 32767.0) ** 2).mean()))
+    log(f"synth example {sr} Hz [{card}]: {EXAMPLE_SECONDS} s on cuda in {wall:.3f} s, "
+        f"launches {launches}; cuda vs cpu int16 PCM max abs err {err} LSB (tolerance "
+        f"{EXAMPLE_LSB} LSB, phase 6's {CPU_RENDER_ATOL} on the int16 WAV), rms {rms:.4f}")
+    if pcm.shape != (EXAMPLE_SECONDS * sr, 2) or cpu.shape != pcm.shape:
+        raise AssertionError(f"the synth example gave {pcm.shape} on cuda, {cpu.shape} on cpu")
+    if err > EXAMPLE_LSB:
+        raise AssertionError(f"the synth example at {sr} Hz: cuda and cpu {err} LSB apart")
+    if not rms > 0.01:
+        raise AssertionError(f"the synth example at {sr} Hz rendered silence: rms {rms}")
+    if not any(launches.values()):
+        raise AssertionError(f"the synth example at {sr} Hz launched no kernel")
+    return launches
+
+
+def fleet_demo(card) -> None:
+    """``examples/torch_fleet_demo.py`` as a subprocess (its workers on the
+    card), in a session of its own: exit 0 within ``FLEET_DEMO_TIMEOUT``,
+    the migrated line says the runtime state was restored, and no process
+    of its session is left; prints its seconds."""
+    import os
+    import signal
+
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "examples" / "torch_fleet_demo.py")],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=FLEET_DEMO_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t
+    try:
+        os.killpg(proc.pid, 0)
+        left = True
+    except ProcessLookupError:
+        left = False
+    if left:
+        os.killpg(proc.pid, signal.SIGKILL)
+    lines = out.splitlines()
+    migrated = [line for line in lines if line.startswith("migrated: ")]
+    placed = [line for line in lines if line.startswith("placed ")]
+    log(f"fleet demo [{card}]: exit {proc.returncode} in {seconds:.2f} s; "
+        f"{len(placed)} placed; {migrated[0] if migrated else 'no migrated line'}; "
+        f"processes left in its session: {left}")
+    if proc.returncode != 0 or left:
+        raise AssertionError(f"the fleet demo exited {proc.returncode}, processes left "
+                             f"{left}:\n{out[-2000:]}\n{err[-2000:]}")
+    if len(placed) != 3 or len(migrated) != 1 or \
+            not migrated[0].endswith("(runtime state restored: True)"):
+        raise AssertionError(f"the fleet demo did not restore the migrated state:\n{out[-2000:]}")
+
+
+def flac_lock(np, card, seconds: int = 2) -> None:
+    """For information: the Monitor's FLAC encoder (``PureFlacStream``, fed
+    a tick of 44.1 kHz stereo at a time, as the codec thread feeds it)
+    alone on this thread, in ms per second of audio, then on a thread of
+    its own beside a pure-Python counter: its share of the interpreter
+    lock (``_gil_share``)."""
+    from mixlab_tpu_torch.av.flacenc import PureFlacStream
+
+    rng = np.random.default_rng(23)
+    n = seconds * RT_RATE
+    tone = 9000 * np.sin(2 * np.pi * 440.0 * np.arange(n) / RT_RATE)
+    pcm = np.clip(np.stack([tone, -tone], 1) + rng.normal(0, 3000, (n, 2)),
+                  -32768, 32767).astype(np.int16)
+    stream = PureFlacStream(RT_RATE, 2, 1024)
+    t = time.perf_counter()
+    for i in range(0, n, RT_SPT):
+        stream.feed(pcm[i:i + RT_SPT].reshape(-1))
+        stream.poll_frames()
+    ms = 1e3 * (time.perf_counter() - t) / seconds
+    tick = pcm[:RT_SPT].reshape(-1)
+
+    def work():
+        stream.feed(tick)
+        stream.poll_frames()
+
+    share, rate = _gil_share(work)
+    log(f"FLAC encoder [{card}]: {ms:.3f} ms per second of audio alone on one thread "
+        f"({seconds} s in ticks of {RT_SPT}); on a thread of its own beside a pure-Python "
+        f"counter it held {share:.3f} of the interpreter lock ({rate:.1f} ticks a second)")
+
+
+def last_surface(torch, np, dev, card, tmp: Path) -> dict:
+    """Phase 23: (a) the synth example at 48 and 44.1 kHz; (b) the served
+    realtime workspace's Monitor with ``MIXLAB_PURE_AUDIO=flac``, then with
+    AAC, in turns, and the FLAC encoder's share of the interpreter lock;
+    (c) the fleet demo.  -> the launches of (a)'s paths and
+    of the FLAC session's window."""
+    t = time.perf_counter()
+    paths = {f"example_{sr}": synth_example(torch, np, card, tmp, sr) for sr in (48_000, 44_100)}
+    served = {}
+    for audio in ("flac", "aac"):
+        (tmp / audio).mkdir()
+        served[audio] = served_session(torch, np, dev, card, tmp / audio, pure_audio=audio)
+    log(f"served FLAC vs AAC in turns [{card}]: " + "; ".join(
+        f"{audio}: {r['segments_per_s']:.2f} segments/s, encoder {r['ms_audio_s']:.3f} ms per "
+        f"second of audio, tick p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms, over "
+        f"{100 * r['over']:.2f}%, dropped {r['dropped']} of {r['ticks']} ticks, crossfade "
+        f"launches {r['launches']['crossfade']}" for audio, r in served.items()))
+    paths["served_flac"] = served["flac"]["launches"]
+    flac_lock(np, card)
+    fleet_demo(card)
+    log(f"phase 23 (the last surface) took {time.perf_counter() - t:.1f} s")
+    return paths
+
+
+def last_surface_phase() -> int:
+    """Not in ``main`` alone: phase 23 by itself, after the build.
+    ``python3 -c 'import chip_smoke as cs, sys; sys.exit(cs.last_surface_phase())'``"""
+    import numpy as np
+    import torch
+
+    from mixlab_tpu_torch import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, dev = card_line(), torch.device("cuda", 0)
+    log(card)
+    kernels.load()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        paths = last_surface(torch, np, dev, card, Path(tmp))
+    log(json.dumps(paths))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7229,6 +7494,7 @@ def main() -> int:
         paths["served"] = served_session(torch, np, dev, card, tmp)["launches"]
         codec_timing(torch, np, dev, card)
         paths.update(media_paths(torch, np, dev, card, tmp))
+        paths.update(last_surface(torch, np, dev, card, tmp))
         served_subprocess(tmp)
 
     # each kernel's launches on the main path that carries it

@@ -1,5 +1,6 @@
-"""Pure-Python FLAC encoder (the port's copy of ``mixlab_tpu/av/flacenc.py``,
-used by ``render_cli`` for ``.flac`` output).
+"""Pure-Python FLAC encoder (the port's copy of ``mixlab_tpu/av/flacenc.py``),
+used by ``render_cli`` for ``.flac`` output and, as ``PureFlacStream``, by the
+Monitor's pure tier for lossless fMP4 audio (``MIXLAB_PURE_AUDIO=flac``).
 
 Encoder scope (always-compliant subset of the FLAC format):
   * 16-bit PCM, mono/stereo, any sample rate expressible in STREAMINFO
@@ -338,3 +339,41 @@ class FlacEncoder:
         frame = body + struct.pack(">H", crc16(body))
         self.frame_number += 1
         return frame
+
+
+class PureFlacStream:
+    """Codec-backend stream interface (the duck type of the AAC streams):
+    ``feed(pcm_i16)`` buffers interleaved samples; ``poll_frames()`` yields
+    whole FLAC frames of exactly ``block_size`` samples per channel, one
+    fMP4 sample each, like the AAC granule (``encode_stream.py``), and
+    keeps the remainder."""
+
+    codec = "flac"
+
+    def __init__(self, sample_rate: int = 44100, channels: int = 2,
+                 block_size: int = 1024):
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.block_size = block_size
+        self._enc = FlacEncoder(sample_rate, channels, block_size)
+        self._buf = np.zeros((0, channels), dtype=np.int16)
+
+    def feed(self, pcm_i16: np.ndarray):
+        pcm = np.asarray(pcm_i16, dtype=np.int16).reshape(-1, self.channels)
+        self._buf = np.concatenate([self._buf, pcm]) if len(self._buf) else pcm
+
+    def poll_frames(self) -> List[bytes]:
+        out = []
+        while len(self._buf) >= self.block_size:
+            out.append(self._enc.encode_frame(self._buf[: self.block_size]))
+            self._buf = self._buf[self.block_size:]
+        return out
+
+    def configuration_data(self) -> bytes:
+        return self._enc.streaminfo()
+
+    def streaminfo_block(self) -> bytes:
+        return self._enc.streaminfo_block()
+
+    def close(self):
+        pass

@@ -1,7 +1,8 @@
 """Per-block offline renderer (port of ``mixlab_tpu/engine/render.py``).
 
 Renders a workspace graph for N ticks block by block, carrying DSP state
-and collecting taps (monitor audio) on the host as numpy.
+and collecting taps (monitor audio) on the host as numpy; host feeds
+(StreamInput / MediaSource PCM) come from ``ext_feeds_fn`` a block.
 """
 
 from __future__ import annotations
@@ -43,12 +44,17 @@ def render(
     cfg: EngineConfig = EngineConfig(),
     block_ticks: int = 60,
     t0: int = 0,
+    ext_feeds_fn=None,
     collect: bool = True,
     device: Optional[torch.device] = None,
 ) -> RenderResult:
     """Render ``n_ticks`` ticks offline on ``device`` (the card unless the
     CPU is asked for by name); a short tail block renders with its own block
-    size."""
+    size.
+
+    ``ext_feeds_fn(t0, block) -> ext_feeds`` optionally supplies host audio
+    (numpy, keyed by module id key, then feed name) for StreamInput /
+    MediaSource modules per block; ``CompiledPatch.run`` uploads it."""
     device = resolve_device("cuda") if device is None else device
     block = BlockSpec(min(block_ticks, n_ticks))
     patch = compile_patch(ws, cfg, block, device)
@@ -63,7 +69,8 @@ def render(
         if todo != block.n_ticks:
             block = BlockSpec(todo)
             patch = compile_patch(ws, cfg, block, device)
-        state, taps = patch.run(aux, patch.host_aux(t), state)
+        ext = ext_feeds_fn(t, block) if ext_feeds_fn else None
+        state, taps = patch.run(aux, patch.host_aux(t, ext), state)
         if collect:
             for k, tp in taps.items():
                 dest = collected.setdefault(k, {})

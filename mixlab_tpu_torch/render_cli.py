@@ -12,7 +12,8 @@ asked for).  The output format follows the extension, as in the JAX CLI:
     unthrottled in direct drive, ``--block-ticks`` ticks a block, with
     back-pressure against the Monitor's codec thread (no drop-on-lag), and
     the fMP4 stream (the live monitor's tiers: the ffmpeg CLI when present,
-    else the pure AAC-LC + CAVLC H.264) is written as a playable file;
+    else the pure AAC-LC + CAVLC H.264, FLAC in place of AAC under
+    ``MIXLAB_PURE_AUDIO=flac``) is written as a playable file;
   * any other extension (``.wav``, ``.pcm``, ...) — a 16-bit PCM WAV file.
 
 ``--sample-rate 48000`` renders 60-tick blocks of 48,000 samples, a whole

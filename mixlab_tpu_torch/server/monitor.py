@@ -11,10 +11,11 @@ The codec thread always muxes fMP4: audio + AVC into the fragmented-MP4
 mux for MSE (reference parity).  Backends (av/codecs.py codec_tier): the
 in-process libavcodec shim (libx264 + AAC) where its libraries exist, else
 the ffmpeg CLI when present, else the pure zero-dependency tier (CAVLC
-intra H.264 + AAC-LC), so the stream is always available.  The JAX
-package's FLAC monitor audio (``MIXLAB_PURE_AUDIO``) and its ``pcm+png``
-preview mode are left out: every tier muxes AAC into fMP4, so no caller
-would reach them.
+intra H.264 + AAC-LC), so the stream is always available.  On the pure
+tier ``MIXLAB_PURE_AUDIO=flac`` muxes lossless FLAC (``av/flacenc.py``,
+``codecs="avc1.…, flac"``) in place of AAC, as in the JAX package; the FLAC
+encoder runs on this thread.  The JAX package's ``pcm+png`` preview mode is
+left out: every tier muxes fMP4, so no caller would reach it.
 
 Transport packet framing (binary WS message): one JSON header line + b"\\n"
 + raw payload.  The reference's ``MonitorTransportPacket`` bincode enum
@@ -41,6 +42,7 @@ Differences from the JAX package, each deliberate:
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -178,12 +180,19 @@ class MonitorPipeline(threading.Thread):
             self._aac = FfmpegAacStream(self.cfg.sample_rate, bitrate=None)
             self._h264 = FfmpegH264Stream(MONITOR_PICTURE, fps=fps, profile="monitor")
         else:
-            from mixlab_tpu_torch.av.codecs import PureAacStream
             from mixlab_tpu_torch.av.h264enc import PureH264Stream
 
-            # real AAC-LC: the reference's monitor codec and what MSE
-            # expects everywhere
-            self._aac = PureAacStream(self.cfg.sample_rate, self.cfg.channels)
+            # real AAC-LC by default: the reference's monitor codec and what
+            # MSE expects everywhere; lossless FLAC one variable away
+            if os.environ.get("MIXLAB_PURE_AUDIO", "aac") == "flac":
+                from mixlab_tpu_torch.av.flacenc import PureFlacStream
+
+                self._aac = PureFlacStream(self.cfg.sample_rate, self.cfg.channels,
+                                           SAMPLES_PER_CHANNEL_PER_FRAGMENT)
+            else:
+                from mixlab_tpu_torch.av.codecs import PureAacStream
+
+                self._aac = PureAacStream(self.cfg.sample_rate, self.cfg.channels)
             self._h264 = PureH264Stream(MONITOR_PICTURE, fps=fps, profile="monitor")
         self._mux = None
         self._granule = SAMPLES_PER_CHANNEL_PER_FRAGMENT
@@ -200,6 +209,7 @@ class MonitorPipeline(threading.Thread):
             return True
         if getattr(self._h264, "dcr", None) is None:
             return False
+        audio_is_flac = getattr(self._aac, "codec", "aac") == "flac"
         params = mp4.Mp4Params(
             timescale=self.cfg.sample_rate,
             width=MONITOR_PICTURE.width,
@@ -207,15 +217,18 @@ class MonitorPipeline(threading.Thread):
             dcr=self._h264.dcr,
             sample_rate=self.cfg.sample_rate,
             channels=self.cfg.channels,
+            audio_codec="flac" if audio_is_flac else "aac",
+            flac_streaminfo_block=self._aac.streaminfo_block() if audio_is_flac else b"",
         )
         self._mux, init_seg = mp4.Mp4Mux.create(params)
         # avc1.PPCCLL from the DCR's profile/compat/level bytes
         avc1 = "avc1.%02x%02x%02x" % (
             self._h264.dcr[1], self._h264.dcr[2], self._h264.dcr[3]
         )
+        audio_codec = "flac" if audio_is_flac else "mp4a.40.2"
         self.broadcast.init_packet = frame_packet(
             {"t": "init", "mode": "fmp4",
-             "mime": f'video/mp4; codecs="{avc1}, mp4a.40.2"'},
+             "mime": f'video/mp4; codecs="{avc1}, {audio_codec}"'},
             init_seg,
         )
         self.broadcast.send(self.broadcast.init_packet)
@@ -278,9 +291,10 @@ class MonitorPipeline(threading.Thread):
         t = time.perf_counter()
         frames = self._aac.poll_frames()
         self.stats["audio_s"] += time.perf_counter() - t
+        track = mp4.FlacFrame if self._mux.params.audio_codec == "flac" else mp4.AdtsFrame
         for frame in frames:
             dur = MediaDuration.new(self._granule, self.cfg.sample_rate)
-            seg = self._mux.write_track(dur, mp4.AdtsFrame(frame))
+            seg = self._mux.write_track(dur, track(frame))
             self.broadcast.send(frame_packet({"t": "segment"}, seg))
         for is_key, payload in units:
             dur = MediaDuration.new(

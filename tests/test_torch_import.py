@@ -40,6 +40,15 @@ names = [m.name for m in pkgutil.walk_packages(mixlab_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # the chip script imports neither
+import importlib.util
+examples = {}
+for example in ("torch_synth_patch", "torch_fleet_demo"):  # nor do the port's examples
+    spec = importlib.util.spec_from_file_location(example, f"examples/{example}.py")
+    examples[example] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(examples[example])
+    names.append(f"examples.{example}")
+ws, _ = examples["torch_synth_patch"].build_patch()
+assert len(ws.modules) == 11
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("\n".join(names))
 """
@@ -99,6 +108,8 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     # C++ and the libavcodec shim
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "engine.engine", "engine.compiler", "kernels", "native", "native.avshim")} <= names
+    # the entry examples, beside the JAX package's
+    assert {"examples.torch_synth_patch", "examples.torch_fleet_demo"} <= names
 
 
 _CONCURRENT_BUILD = r"""
