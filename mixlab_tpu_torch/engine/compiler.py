@@ -41,6 +41,7 @@ from mixlab_tpu_torch.dsp.registry import get_def
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import ModuleEntry, Workspace
 from mixlab_tpu_torch.protocol import InputId, LineType, ModuleId, OutputId
+from mixlab_tpu_torch.spans import span
 
 
 def _mid_key(mid: ModuleId) -> str:
@@ -100,15 +101,16 @@ class CompiledPatch:
         carries host-originated audio (StreamInput / MediaSource PCM) keyed
         by module id key; missing feeds are zero-filled."""
         out = {}
-        for mid, e in self.entries.items():
-            k = _mid_key(mid)
-            h = get_def(e.params.kind).host_prepare(
-                e.params.params, t0, self.block, self.cfg) or {}
-            feeds = (ext_feeds or {}).get(k, {})
-            for name, (shape, dtype) in self._ext_specs.get(k, {}).items():
-                arr = feeds.get(name)
-                h = {**h, name: np.zeros(shape, dtype) if arr is None else arr}
-            out[k] = h or None
+        with span("patch.host_aux"):
+            for mid, e in self.entries.items():
+                k = _mid_key(mid)
+                h = get_def(e.params.kind).host_prepare(
+                    e.params.params, t0, self.block, self.cfg) or {}
+                feeds = (ext_feeds or {}).get(k, {})
+                for name, (shape, dtype) in self._ext_specs.get(k, {}).items():
+                    arr = feeds.get(name)
+                    h = {**h, name: np.zeros(shape, dtype) if arr is None else arr}
+                out[k] = h or None
         return out
 
     def serves(self, ws: Workspace) -> bool:
@@ -131,7 +133,10 @@ class CompiledPatch:
     def run(self, aux, host_aux, state):
         """Render one block: ``(aux, host_aux (numpy), state) -> (state',
         taps)``; taps map module id key -> tap name -> tensor(s)."""
-        return self._fn(aux, upload_all(host_aux, self.device), state)
+        with span("patch.upload"):
+            dev_aux = upload_all(host_aux, self.device)
+        with span("patch.dispatch"):
+            return self._fn(aux, dev_aux, state)
 
 
 def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, device):
@@ -152,8 +157,9 @@ def run_modules(mids, entries, connections, aux, dev_aux, state, cfg, block, dev
                 continue
             out_id = connections.get(InputId(mid, i))
             ins.append(buffers.get(out_id) if out_id is not None else None)
-        st, outs, tp = get_def(entry.params.kind).run_block(
-            entry.params.params, aux[k], dev_aux[k], state[k], ins, cfg, block, device)
+        with span("module.", entry.params.kind):
+            st, outs, tp = get_def(entry.params.kind).run_block(
+                entry.params.params, aux[k], dev_aux[k], state[k], ins, cfg, block, device)
         new_state[k] = st
         if tp:
             taps[k] = tp

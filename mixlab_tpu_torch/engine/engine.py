@@ -797,7 +797,7 @@ class Engine:
             # a warm that runs longer than a tick period is not waited out
             locked = self._tick_lock.acquire(timeout=1.0 / tps)
             try:
-                self._stat.record_tick(scheduled_end, lambda ts: self.tick_once(ts))
+                self._stat.record_tick(scheduled_end, self.tick_once)
             finally:
                 if locked:
                     self._tick_lock.release()
@@ -955,7 +955,6 @@ class Engine:
                 for input_id in deleted:
                     self._log_op(p.SUDeleteConnection(input_id))
                 self._log_op(p.SUDeleteModule(op.module_id))
-                self._stat.remove_module(op.module_id)
                 self._persist()
         elif isinstance(op, p.CreateConnection):
             try:
@@ -989,7 +988,7 @@ class Engine:
 
     # -- tick execution -----------------------------------------------------
 
-    def tick_once(self, tick_stat=None) -> Dict[ModuleId, Indication]:
+    def tick_once(self) -> Dict[ModuleId, Indication]:
         """Run one block of ticks; returns indication changes."""
         cfg = self.cfg
         self._maybe_swap_patch()

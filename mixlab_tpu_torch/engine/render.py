@@ -18,6 +18,7 @@ from mixlab_tpu_torch.dsp.base import interleave_tap
 from mixlab_tpu_torch.engine.compiler import compile_patch
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
+from mixlab_tpu_torch.spans import span
 
 
 @dataclass
@@ -57,9 +58,11 @@ def render(
     MediaSource modules per block; ``CompiledPatch.run`` uploads it."""
     device = resolve_device("cuda") if device is None else device
     block = BlockSpec(min(block_ticks, n_ticks))
-    patch = compile_patch(ws, cfg, block, device)
-    aux = patch.prepare_aux(ws)
-    state = patch.init_state(ws)
+    with span("render.compile"):
+        patch = compile_patch(ws, cfg, block, device)
+    with span("render.prepare"):
+        aux = patch.prepare_aux(ws)
+        state = patch.init_state(ws)
 
     collected: Dict[str, Dict[str, List[np.ndarray]]] = {}
     done = 0
@@ -68,26 +71,29 @@ def render(
         todo = min(block.n_ticks, n_ticks - done)
         if todo != block.n_ticks:
             block = BlockSpec(todo)
-            patch = compile_patch(ws, cfg, block, device)
+            with span("render.compile"):
+                patch = compile_patch(ws, cfg, block, device)
         ext = ext_feeds_fn(t, block) if ext_feeds_fn else None
         state, taps = patch.run(aux, patch.host_aux(t, ext), state)
         if collect:
-            for k, tp in taps.items():
-                dest = collected.setdefault(k, {})
-                for name, arr in tp.items():
-                    if isinstance(arr, tuple):  # channel-major stereo pair
-                        arr = interleave_tap(arr)
-                    else:
-                        arr = arr.cpu().numpy()
-                    dest.setdefault(name, []).append(arr)
+            with span("render.collect"):  # the host waits for the block here
+                for k, tp in taps.items():
+                    dest = collected.setdefault(k, {})
+                    for name, arr in tp.items():
+                        if isinstance(arr, tuple):  # channel-major stereo pair
+                            arr = interleave_tap(arr)
+                        else:
+                            arr = arr.cpu().numpy()
+                        dest.setdefault(name, []).append(arr)
         done += todo
         t += todo * cfg.samples_per_tick
 
     result = RenderResult(ticks=n_ticks)
-    for k, tp in collected.items():
-        result.taps[k] = {
-            name: np.concatenate(chunks, axis=0) if chunks[0].ndim > 0
-            else np.stack(chunks)
-            for name, chunks in tp.items()
-        }
+    with span("render.concat"):
+        for k, tp in collected.items():
+            result.taps[k] = {
+                name: np.concatenate(chunks, axis=0) if chunks[0].ndim > 0
+                else np.stack(chunks)
+                for name, chunks in tp.items()
+            }
     return result

@@ -46,6 +46,7 @@ from mixlab_tpu_torch.engine.compiler import CompiledPatch, compile_patch, uploa
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.parallel import as_mesh, gather_rows, shard_programs
+from mixlab_tpu_torch.spans import span
 
 _CPU = torch.device("cpu")
 
@@ -257,14 +258,16 @@ class Fleet:
         out: Dict[str, Any] = {}
         for mid in self.patch.order:
             k = _key(mid)
-            d = get_def(self.patch.entries[mid].params.kind)
+            kind = self.patch.entries[mid].params.kind
+            d = get_def(kind)
             hb = getattr(d, "host_prepare_batched", None)
-            if type(d).host_prepare is ModuleDef.host_prepare:  # no host arrays
-                h = {}
-            else:
-                h = self._batched_host(d, hb, [p[k] for p in self._params], t0)
-            for name, (shape, dtype) in (self.patch._ext_specs.get(k) or {}).items():
-                h[name] = np.zeros((self.n,) + tuple(shape), dtype)
+            with span("fleet.host.", kind):
+                if type(d).host_prepare is ModuleDef.host_prepare:  # no host arrays
+                    h = {}
+                else:
+                    h = self._batched_host(d, hb, [p[k] for p in self._params], t0)
+                for name, (shape, dtype) in (self.patch._ext_specs.get(k) or {}).items():
+                    h[name] = np.zeros((self.n,) + tuple(shape), dtype)
             out[k] = h or None
         return out
 
@@ -294,12 +297,16 @@ class Fleet:
         instance order on the first shard's device."""
         new_state, taps = [], []
         for s, (sh, st) in enumerate(zip(self.shards, state)):
-            st, tp = sh.fn(self.device_aux(s), upload_all(_rows(host_aux, sh), sh.device), st)
-            if self.tap_transform is not None:
-                tp = self.tap_transform(tp)
+            with span("fleet.upload"):
+                args = self.device_aux(s), upload_all(_rows(host_aux, sh), sh.device)
+            with span("fleet.dispatch"):
+                st, tp = sh.fn(*args, st)
             new_state.append(st)
             taps.append(tp)
-        return new_state, tree_map(lambda *xs: gather_rows(xs, self.device), *taps)
+        with span("fleet.gather"):
+            if self.tap_transform is not None:
+                taps = [self.tap_transform(tp) for tp in taps]
+            return new_state, tree_map(lambda *xs: gather_rows(xs, self.device), *taps)
 
     def run_block(self, t0: int, ext_feeds_per_instance=None):
         """One batched block for the whole fleet; returns the stacked taps."""

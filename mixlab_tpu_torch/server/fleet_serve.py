@@ -52,6 +52,7 @@ from mixlab_tpu_torch.protocol import wire
 from mixlab_tpu_torch.server import ws as ws_mod
 from mixlab_tpu_torch.server.http import Request, read_request, response
 from mixlab_tpu_torch.server.monitor import frame_packet
+from mixlab_tpu_torch.spans import span
 
 log = logging.getLogger(__name__)
 
@@ -121,7 +122,8 @@ def _start_fetch(taps):
 def _finish_fetch(fetch):
     host, event = fetch
     if event is not None:
-        event.synchronize()
+        with span("fleet.fetch_wait"):
+            event.synchronize()
     return to_numpy(host)
 
 
@@ -169,7 +171,8 @@ class FleetEngine:
     def _step(self, host_aux, state, reset_mask):
         """One block: the slots of ``reset_mask`` back to their initial state
         (in place), then the batched program; taps as i16."""
-        self.fleet.reset_rows(state, self._init, np.flatnonzero(reset_mask).tolist())
+        with span("fleet.reset"):
+            self.fleet.reset_rows(state, self._init, np.flatnonzero(reset_mask).tolist())
         return self.fleet.step(host_aux, state)
 
     def _warm(self):
@@ -258,7 +261,7 @@ class FleetEngine:
                 # re-anchor rather than burst (Engine._run discipline)
                 start += behind
                 scheduled_end += behind
-            self._stat.record_tick(scheduled_end, lambda ts: self._block_once())
+            self._stat.record_tick(scheduled_end, self._block_once)
             # drain commands, then sleep to the absolute deadline
             while True:
                 try:
@@ -277,10 +280,13 @@ class FleetEngine:
         mask = self._reset_mask.copy()  # resets consumed by THIS block
         self.fleet.state, taps = self._step(self.fleet.host_aux(t0), self.fleet.state, mask)
         self._reset_mask &= ~mask  # later joins' bits survive
-        self._inflight.append((t0, _start_fetch(taps)))
+        with span("fleet.fetch_start"):
+            self._inflight.append((t0, _start_fetch(taps)))
         if len(self._inflight) > 1:  # the pipeline is full: the previous block's taps
             t0_prev, fetch = self._inflight.pop(0)
-            self._fan_out(t0_prev, _finish_fetch(fetch))
+            host = _finish_fetch(fetch)
+            with span("fleet.fan_out"):
+                self._fan_out(t0_prev, host)
         self.tick += self.block.n_ticks
 
     def _fan_out(self, t0: int, taps):
