@@ -13,7 +13,9 @@ Device math is f32, in the same operation order as the JAX package.  The
 oscillators keep its precision scheme: the host computes the phase at each
 tick start in float64 (numpy, ``host_prepare``) and the device only adds the
 small in-tick ramp ``i * delta``, so precision does not degrade with
-absolute time.
+absolute time.  A fleet computes the same bases for all its instances at
+once from per-instance frequency columns (``host_columns``,
+``host_prepare_columns``).
 
 Amplifier, Mixer, StereoPanner, StereoSplitter and Trigger also run inside
 the region program (``mega_spec``, ``mixlab_tpu/dsp/audio.py:223-370``);
@@ -48,6 +50,34 @@ from mixlab_tpu_torch.dsp.base import (
 )
 
 _TWO_PI = 2.0 * np.pi
+
+
+def _frac(x: np.ndarray) -> np.ndarray:
+    """The fractional part of float64 phases, in [0, 1].  For finite ``x`` it
+    is ``np.mod(x, 1.0)`` bit for bit (both round the one exact value once),
+    without the cost of ``fmod``, which grows with the quotient."""
+    return x - np.floor(x)
+
+
+# instances a pass of ``_bases``: its float64 temporaries (128 KiB at 16
+# ticks) are reused from the heap and stay in cache, where arrays of a whole
+# fleet are mapped and faulted in anew each block
+_ROWS = 1024
+
+
+def _bases(row: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """``_frac(row * scale[:, None])`` cast to float32, [N, T], from the
+    tick starts ``row`` [1, T] and the instances' ``scale`` [N], ``_ROWS``
+    instances at a time."""
+    out = np.empty((len(scale), row.shape[-1]), np.float32)
+    for i in range(0, len(scale), _ROWS):
+        out[i:i + _ROWS] = _frac(row * scale[i:i + _ROWS, None])
+    return out
+
+
+def _fm_mid(params: FmSineParams) -> float:
+    """The FmSine's carrier frequency, the middle of its range."""
+    return params.freq_lo + (params.freq_hi - params.freq_lo) / 2.0
 
 
 def _f32(value, device) -> torch.Tensor:
@@ -108,17 +138,17 @@ class OscillatorDef(ModuleDef):
         # (oscillator.rs:73-77); the device adds i*delta for i < spt
         spt = cfg.samples_per_tick
         ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
-        base = np.mod(ticks * spt * (params.freq / cfg.sample_rate), 1.0)
+        base = _frac(ticks * spt * (params.freq / cfg.sample_rate))
         return {"base": base.astype(np.float32)}
 
-    def host_prepare_batched(self, params_list, t0: int, block: BlockSpec, cfg):
-        """The fleet's fast path (``parallel/fleet.py``): the phase bases of
-        N instances in one vectorized pass, [N, T]."""
+    def host_columns(self, params_list):
+        return {"freq": np.array([p.freq for p in params_list], dtype=np.float64)}
+
+    def host_prepare_columns(self, columns, t0: int, block: BlockSpec, cfg):
+        """``host_prepare`` of N instances at once, [N, T]."""
         spt = cfg.samples_per_tick
         ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
-        freqs = np.array([p.freq for p in params_list], dtype=np.float64)
-        base = np.mod(ticks[None, :] * spt * (freqs[:, None] / cfg.sample_rate), 1.0)
-        return {"base": base.astype(np.float32)}
+        return {"base": _bases(ticks[None, :] * spt, columns["freq"] / cfg.sample_rate)}
 
     def structural_key(self, params: OscillatorParams):
         return params.waveform
@@ -150,11 +180,9 @@ class FmSineDef(ModuleDef):
         return [LineType.MONO.unlabeled()], [LineType.STEREO.unlabeled()]
 
     def prepare(self, params: FmSineParams, cfg: EngineConfig, device):
-        freq_amp = (params.freq_hi - params.freq_lo) / 2.0
-        freq_mid = params.freq_lo + freq_amp
         return {
-            "freq_amp": _f32(freq_amp, device),
-            "mid_delta": _f32(freq_mid / cfg.sample_rate, device),
+            "freq_amp": _f32((params.freq_hi - params.freq_lo) / 2.0, device),
+            "mid_delta": _f32(_fm_mid(params) / cfg.sample_rate, device),
         }
 
     def host_prepare(self, params: FmSineParams, t0: int, block: BlockSpec, cfg):
@@ -162,28 +190,27 @@ class FmSineDef(ModuleDef):
         # is an exact f64 per-tick base; the modulation term f_amp*x*t is
         # f32 on the device (the JAX package's documented precision limit)
         spt = cfg.samples_per_tick
-        freq_amp = (params.freq_hi - params.freq_lo) / 2.0
-        freq_mid = params.freq_lo + freq_amp
         ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
         tsamp = ticks * spt
-        base_mid = np.mod(tsamp * (freq_mid / cfg.sample_rate), 1.0)
+        base_mid = _frac(tsamp * (_fm_mid(params) / cfg.sample_rate))
         tsec = tsamp / cfg.sample_rate
         return {
             "base_mid": base_mid.astype(np.float32),
             "tsec": tsec.astype(np.float32),
         }
 
-    def host_prepare_batched(self, params_list, t0: int, block: BlockSpec, cfg):
-        """The fleet's fast path (see ``OscillatorDef.host_prepare_batched``)."""
+    def host_columns(self, params_list):
+        return {"freq_mid": np.array([_fm_mid(p) for p in params_list], dtype=np.float64)}
+
+    def host_prepare_columns(self, columns, t0: int, block: BlockSpec, cfg):
+        """``host_prepare`` of N instances at once, [N, T]."""
         spt = cfg.samples_per_tick
         ticks = t0 // spt + np.arange(block.n_ticks, dtype=np.float64)
         tsamp = ticks * spt
-        amps = np.array([(p.freq_hi - p.freq_lo) / 2.0 for p in params_list])
-        mids = np.array([p.freq_lo for p in params_list]) + amps
-        base_mid = np.mod(tsamp[None, :] * (mids[:, None] / cfg.sample_rate), 1.0)
-        tsec = np.broadcast_to(tsamp / cfg.sample_rate, (len(params_list), block.n_ticks))
+        mids = columns["freq_mid"]
+        tsec = np.broadcast_to(tsamp / cfg.sample_rate, (len(mids), block.n_ticks))
         return {
-            "base_mid": base_mid.astype(np.float32),
+            "base_mid": _bases(tsamp[None, :], mids / cfg.sample_rate),
             "tsec": tsec.astype(np.float32),
         }
 

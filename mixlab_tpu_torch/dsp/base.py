@@ -281,6 +281,19 @@ class ModuleDef:
         bases.  ``t0`` is the absolute sample index of the block start."""
         return None
 
+    def host_columns(self, params_list) -> Optional[Dict[str, np.ndarray]]:
+        """The per-instance numbers ``host_prepare`` reads, as float64
+        columns [N] of N instances' params, or None.  A fleet keeps them and
+        writes a row on an edit."""
+        return None
+
+    def host_prepare_columns(
+        self, columns: Dict[str, np.ndarray], t0: int, block: BlockSpec, cfg: EngineConfig
+    ) -> Dict[str, np.ndarray]:
+        """``host_prepare`` of every instance of ``columns`` at once, each
+        array stacked [N, ...]; defined where ``host_columns`` is."""
+        raise NotImplementedError
+
     # -- compute -----------------------------------------------------------
     def run_block(
         self,

@@ -21,8 +21,10 @@ kept in host memory as numpy (as the JAX package keeps it) and shipped to
 the instance's own shard once a leaf at the next block after an edit;
 nothing is rebuilt.  The host arrays of a block (oscillator phase bases)
 are computed for all instances in one vectorized pass where the module
-defines ``host_prepare_batched``, broadcast where every instance has the
-same params, and looped otherwise.
+defines ``host_columns``: the fleet keeps those per-instance columns (the
+oscillators' frequencies), built once and written a row an edit.  Other
+modules' arrays are broadcast where every instance has the same params, and
+looped otherwise.
 
 ``build`` takes ``mesh=`` (a ``Mesh`` or a sequence of devices) or, as a
 one-entry mesh, ``device=``.  A fleet's sessions stay in one process
@@ -126,6 +128,13 @@ class Fleet:
     _params: List[Dict[str, Any]] = field(default_factory=list)  # per instance
     tap_transform: Optional[Callable] = None
     _dev_aux: List[Any] = field(default_factory=list)  # a shard's aux, None after an edit
+    # module key -> its host columns (``ModuleDef.host_columns``), [n] each
+    _columns: Dict[str, Dict[str, np.ndarray]] = field(default_factory=dict)
+    _column_stats: Dict[str, int] = field(
+        default_factory=lambda: {"builds": 0, "row_writes": 0})
+
+    def __post_init__(self):
+        self._build_columns()
 
     @property
     def device(self) -> torch.device:
@@ -205,6 +214,10 @@ class Fleet:
 
         tree_map(put, self.aux, row)
         self._params[index] = params
+        for k, d in self._column_modules():
+            for name, v in d.host_columns([params[k]]).items():
+                self._columns[k][name][index] = v[0]
+        self._column_stats["row_writes"] += 1
         self._dev_aux[self.shard_of(index)] = None
 
     def aux_changed(self):
@@ -231,6 +244,26 @@ class Fleet:
         sh = self.shards[s]
         reset_rows(self.state[s], sh.patch.init_state(ws), [index - sh.lo])
 
+    # -- host columns ----------------------------------------------------------
+
+    def _column_modules(self):
+        """``(key, def)`` of each module that has host columns."""
+        for mid in self.patch.order:
+            d = get_def(self.patch.entries[mid].params.kind)
+            if type(d).host_columns is not ModuleDef.host_columns:
+                yield _key(mid), d
+
+    def _build_columns(self):
+        """Every module's host columns from all instances' params."""
+        with span("fleet.columns"):
+            self._columns = {k: d.host_columns([p[k] for p in self._params])
+                             for k, d in self._column_modules()}
+        self._column_stats["builds"] += 1
+
+    def host_column_stats(self) -> Dict[str, int]:
+        """How often the host columns were built whole and written a row."""
+        return dict(self._column_stats)
+
     # -- execution -----------------------------------------------------------
 
     def _module_host(self, mid, params, t0, feeds=None):
@@ -246,9 +279,9 @@ class Fleet:
 
     def host_aux(self, t0: int, ext_feeds_per_instance=None):
         """The block's host arrays, stacked [n, ...] in host memory.  Per
-        module: ``host_prepare_batched`` where the module defines it, one
-        compute broadcast where all instances share their params, else a
-        loop over the instances."""
+        module: ``host_prepare_columns`` of its host columns where it has
+        them, one compute broadcast where all instances share their params,
+        else a loop over the instances."""
         if ext_feeds_per_instance:
             return stack([
                 {_key(mid): self._module_host(mid, self._params[i], t0,
@@ -260,22 +293,21 @@ class Fleet:
             k = _key(mid)
             kind = self.patch.entries[mid].params.kind
             d = get_def(kind)
-            hb = getattr(d, "host_prepare_batched", None)
             with span("fleet.host.", kind):
-                if type(d).host_prepare is ModuleDef.host_prepare:  # no host arrays
+                if k in self._columns:
+                    h = d.host_prepare_columns(self._columns[k], t0, self.block, self.cfg)
+                elif type(d).host_prepare is ModuleDef.host_prepare:  # no host arrays
                     h = {}
                 else:
-                    h = self._batched_host(d, hb, [p[k] for p in self._params], t0)
+                    h = self._batched_host(d, [p[k] for p in self._params], t0)
                 for name, (shape, dtype) in (self.patch._ext_specs.get(k) or {}).items():
                     h[name] = np.zeros((self.n,) + tuple(shape), dtype)
             out[k] = h or None
         return out
 
-    def _batched_host(self, d, hb, plist, t0):
-        """One module's host arrays for all instances (``host_aux``)."""
-        if hb is not None:
-            return {name: np.asarray(v)
-                    for name, v in (hb(plist, t0, self.block, self.cfg) or {}).items()}
+    def _batched_host(self, d, plist, t0):
+        """One module's host arrays for all instances without host columns
+        (``host_aux``)."""
         if all(p is plist[0] for p in plist[1:]):
             h1 = d.host_prepare(plist[0], t0, self.block, self.cfg) or {}
             return {name: np.broadcast_to(np.asarray(v), (self.n,) + np.shape(v))

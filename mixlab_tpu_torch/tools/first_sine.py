@@ -24,7 +24,7 @@ def _child(path: str) -> None:
     from mixlab_tpu_torch.dsp import audio
 
     sr, spt, freq = 44_100, 735, 110.0
-    base = np.mod(np.arange(60.0) * spt * (freq / sr), 1.0).astype(np.float32)
+    base = audio._frac(np.arange(60.0) * spt * (freq / sr)).astype(np.float32)
     i = torch.arange(spt, dtype=torch.float32)
     n = (torch.from_numpy(base)[:, None] + i[None, :] * np.float32(freq / sr)).reshape(-1)
     x = n * audio._TWO_PI

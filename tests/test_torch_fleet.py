@@ -20,7 +20,14 @@ from mixlab_tpu.engine.config import BlockSpec as JaxBlockSpec
 from mixlab_tpu.engine.config import EngineConfig as JaxEngineConfig
 from mixlab_tpu.parallel.fleet import Fleet as JaxFleet
 from mixlab_tpu_torch import protocol as p
-from mixlab_tpu_torch.convert import fleet_from_jax, fleet_to_numpy, to_numpy, tree_leaves
+from mixlab_tpu_torch.convert import (
+    fleet_from_jax,
+    fleet_to_numpy,
+    to_numpy,
+    tree_leaves,
+    tree_map,
+)
+from mixlab_tpu_torch.dsp.audio import _frac
 from mixlab_tpu_torch.dsp.base import interleave_tap
 from mixlab_tpu_torch.dsp.envelope_cuda import (
     envelope_block_torch,
@@ -32,7 +39,7 @@ from mixlab_tpu_torch.engine.compiler import compile_patch
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from mixlab_tpu_torch.parallel import make_mesh
-from mixlab_tpu_torch.parallel.fleet import Fleet
+from mixlab_tpu_torch.parallel.fleet import Fleet, instance_params
 from mixlab_tpu_torch.protocol import InputId, OutputId
 
 CPU = torch.device("cpu")
@@ -156,25 +163,117 @@ def test_fleet_refuses_several_devices(where):
 # -- against the JAX fleet -----------------------------------------------------
 
 
+def _assert_host_aux_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert (got[k] is None) == (want[k] is None), k
+        for name, w in (want[k] or {}).items():
+            g = got[k][name]
+            assert g.dtype == np.asarray(w).dtype and np.array_equal(g, np.asarray(w)), \
+                (k, name)
+
+
+_DAY = 86_400 * 48_000  # samples at 48 kHz
+
+
+@pytest.mark.parametrize("blocks", [0, 7, "day"])
+@pytest.mark.parametrize("ticks", [15, 16])
 @pytest.mark.parametrize("per_instance", [False, True])
-def test_host_aux_equals_jax(per_instance):
-    """The stacked host arrays of a block, exactly (host_prepare_batched for
-    the oscillators, a broadcast or a loop for the rest)."""
+def test_host_aux_equals_jax(per_instance, ticks, blocks):
+    """The stacked host arrays of a block, exactly (the oscillators' and the
+    FmSine's phase bases from the fleet's host columns, a broadcast or a
+    loop for the rest), at the session's start, 7 blocks in and a day in
+    (rounded to a block), in both of the fleet's block sizes."""
     n = 3
+    spb = ticks * CFG48.samples_per_tick
+    t0 = _DAY // spb * spb if blocks == "day" else blocks * spb
     ws_j = jax_instances(n)
     kw_j = {"per_instance_params": ws_j} if per_instance else {}
     kw = {"per_instance_params": [_port(w) for w in ws_j]} if per_instance else {}
-    fj = JaxFleet.build(ws_j[0], n, CFG48_J, JaxBlockSpec(15), **kw_j)
-    fp = Fleet.build(_port(ws_j[0]), n, CFG48, BlockSpec(15), device="cpu", **kw)
-    for t0 in (0, 12_000 * 7):
-        got, want = fp.host_aux(t0), fj.host_aux(t0)
-        assert sorted(got) == sorted(want)
-        for k in want:
-            assert (got[k] is None) == (want[k] is None), k
-            for name, w in (want[k] or {}).items():
-                g = got[k][name]
-                assert g.dtype == np.asarray(w).dtype and np.array_equal(g, np.asarray(w)), \
-                    (k, name)
+    fj = JaxFleet.build(ws_j[0], n, CFG48_J, JaxBlockSpec(ticks), **kw_j)
+    fp = Fleet.build(_port(ws_j[0]), n, CFG48, BlockSpec(ticks), device="cpu", **kw)
+    _assert_host_aux_equal(fp.host_aux(t0), fj.host_aux(t0))
+
+
+_FRAC_CASES = {
+    "seeded_1e9": np.random.default_rng(21).uniform(-1e9, 1e9, 100_000),
+    "tiny_negative": -np.array([5e-324, 1e-300, 1e-20, 2.0 ** -60, 1e-17, 2.0 ** -53]),
+    "zeros": np.array([0.0, -0.0]),
+    "2_52_half": np.array([2.0 ** 52 + 0.5, 2.0 ** 52 - 0.5, -(2.0 ** 52 + 0.5),
+                           -(2.0 ** 52 - 0.5)]),
+    "1e300": np.array([1e300, -1e300]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FRAC_CASES))
+def test_frac_equals_mod(case):
+    """The phase bases' fractional part, ``x - floor(x)``, is
+    ``np.mod(x, 1.0)`` bit for bit, in float64 and after the float32 cast."""
+    x = _FRAC_CASES[case]
+    got, want = _frac(x), np.mod(x, 1.0)
+    assert np.array_equal(got.view(np.uint64), want.view(np.uint64))
+    assert np.array_equal(got.astype(np.float32).view(np.uint32),
+                          want.astype(np.float32).view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", ["Oscillator", "FmSine"])
+def test_host_prepare_columns_equals_single_instance(kind):
+    """The fleet's form of the phase bases, over more instances than one pass
+    of ``_bases`` takes and a day into the session, equals each instance's
+    own ``host_prepare`` (the engine's and the render's form) bit for bit."""
+    from mixlab_tpu_torch.dsp import audio
+
+    n = 2 * audio._ROWS + 5
+    rng = np.random.default_rng(7)
+    if kind == "Oscillator":
+        d = audio.OscillatorDef()
+        plist = [p.OscillatorParams(float(f), p.Waveform.SINE) for f in rng.uniform(20, 2e4, n)]
+    else:
+        d = audio.FmSineDef()
+        plist = [p.FmSineParams(float(lo), float(lo + w))
+                 for lo, w in zip(rng.uniform(20, 2e3, n), rng.uniform(0, 2e3, n))]
+    block = BlockSpec(16)
+    spb = block.n_samples(CFG48)
+    t0 = _DAY // spb * spb
+    got = d.host_prepare_columns(d.host_columns(plist), t0, block, CFG48)
+    for name, g in got.items():
+        want = np.stack([d.host_prepare(q, t0, block, CFG48)[name] for q in plist])
+        assert g.dtype == want.dtype and np.array_equal(g, want), name
+
+
+def test_host_columns_follow_every_edit():
+    """The fleet's host columns follow each row written: three sessions'
+    params (``update_instance_aux``) and one slot back to the template
+    (``set_instance_row``, as ``FleetEngine``'s leave path).  After 3 blocks
+    the host arrays equal those of a fleet built from the same params, and
+    the JAX fleet's; the columns were built once, never a block."""
+    n = 4
+    ws_j = jax_instances(n)
+    ws_t = [_port(w) for w in ws_j]
+    block = BlockSpec(15)
+    fleet = Fleet.build(ws_t[0], n, CFG48, block, device="cpu")
+    assert fleet.host_column_stats() == {"builds": 1, "row_writes": 0}
+    template_row = tree_map(lambda x: x[0].copy(), fleet.aux)
+    template_params = instance_params(fleet.patch)
+    for i in (1, 2, 3):
+        fleet.update_instance_aux(i, ws_t[i])
+    fleet.set_instance_row(2, template_row, template_params)
+    spb = block.n_samples(CFG48)
+    for b in range(3):
+        fleet.run_block(b * spb)
+    assert fleet.host_column_stats() == {"builds": 1, "row_writes": 4}
+    now = [ws_t[0], ws_t[1], ws_t[0], ws_t[3]]
+    fresh = Fleet.build(ws_t[0], n, CFG48, block, per_instance_params=now, device="cpu")
+    fj = JaxFleet.build(ws_j[0], n, CFG48_J, JaxBlockSpec(15),
+                        per_instance_params=[ws_j[0], ws_j[1], ws_j[0], ws_j[3]])
+    t0 = 3 * spb
+    got = fleet.host_aux(t0)
+    _assert_host_aux_equal(got, fresh.host_aux(t0))
+    _assert_host_aux_equal(got, fj.host_aux(t0))
+    assert not np.array_equal(got["3"]["base"][1], got["3"]["base"][2])  # an edit shows
+    for g, w in zip(tree_leaves(fleet.aux), tree_leaves(fresh.aux)):
+        assert np.array_equal(g, w)
+    assert fleet.host_column_stats() == {"builds": 1, "row_writes": 4}
 
 
 @pytest.fixture(scope="module")
