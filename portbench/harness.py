@@ -5,7 +5,8 @@ Everything a cell needs is found by name: ``workloads/<cell>.json`` names
 its configuration (``configs/<config>.json``) and its driver
 (``drivers/<driver>.py``); ``BENCHMARK.json`` names the metrics each cell
 reports, and a per-layer metric is read by ``metrics/<metric>.py``.  A
-driver is a module with ``setup(cell, config, seed, device, tracer)``,
+driver is a module with ``setup(cell, config, seed, device, tracer)``
+(``cell["cards"]`` lists the devices of the cell's cards),
 ``window(ctx, seconds, tracer)``, ``release(ctx)`` and
 ``check(ctx, control)``; a metric is a module with ``LAYER``, ``UNIT``,
 ``BETTER``, ``SOURCE`` and ``read(records)``, with ``MOVES`` where one
@@ -91,13 +92,15 @@ def cell_metrics(bench: dict, cell: str):
     return e2e, layer
 
 
-def require_cards(n: int) -> None:
+def require_cards(n: int) -> List[str]:
+    """The devices of the cell's ``n`` cards, ``cuda:0`` up."""
     import torch
 
     if not torch.cuda.is_available():
         raise Refused("no CUDA device: this benchmark measures the card")
     if torch.cuda.device_count() < n:
         raise Refused(f"the cell needs {n} cards, {torch.cuda.device_count()} present")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def device_info(device: str, n: int) -> dict:
@@ -131,8 +134,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device: str = "c
         wl = {**wl, "params": {**wl["params"], **sizes}}
     cfg = {**config(wl["config"]), **(config_sizes or {})}
     driver = load("drivers", wl["driver"])
-    if device != "cpu":
-        require_cards(entry["chips"])
+    cards = ["cpu"] * entry["chips"] if device == "cpu" else require_cards(entry["chips"])
+    wl = {**wl, "cards": cards}
     e2e, layer = cell_metrics(bench, cell)
     readers = {m["name"]: metric(m["name"]) for m in layer} if trace else {}
 
@@ -153,6 +156,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device: str = "c
             break
         records = got[0]
         records.units, records.facts = out["units"], {**out.get("facts", {}), **counted}
+        records.cards = entry["chips"]
         if records.kernels or records.copies:
             break
         print(f"portbench: the profile of window {attempt + 1} holds no device record",
@@ -178,6 +182,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device: str = "c
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
         dev["busy_s"] = records.busy_s()
         dev["window_s"] = records.window_s
+        if entry["chips"] > 1:
+            dev["busy_s_by_card"] = records.card_busy_s()
         if dev["busy_s"] <= 0:
             raise RuntimeError("the traced window recorded no device time")
     else:

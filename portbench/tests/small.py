@@ -5,7 +5,6 @@ from portbench import harness
 SIZES = {
     "fleet-48k-8192x16": ({"sessions": 8, "sample_sessions": 4, "warm_blocks": 1}, None),
     "fleet-48k-8192x15": ({"sessions": 8, "sample_sessions": 4, "warm_blocks": 1}, None),
-    "offline-48k": ({"project_ticks": 240}, None),
 }
 
 

@@ -26,43 +26,6 @@ def test_cell_is_correct_and_its_control_is_not(cell):
     assert list(r)[-1] == "checks"
 
 
-def _state_unchanged(monkeypatch, patch_of):
-    def wrap(patch):
-        run = patch.run
-
-        def run_unchanged(aux, host_aux, state):
-            return state, run(aux, host_aux, state)[1]
-
-        patch.run = run_unchanged
-        return patch
-
-    patch_of(monkeypatch, wrap)
-
-
-def _taps_altered(monkeypatch, patch_of):
-    def wrap(patch):
-        run = patch.run
-
-        def run_altered(aux, host_aux, state):
-            state, taps = run(aux, host_aux, state)
-            l, r = taps["16"]["audio"]
-            l = l.clone()
-            l.view(-1)[7] += 0.25
-            return state, {**taps, "16": {**taps["16"], "audio": (l, r)}}
-
-        patch.run = run_altered
-        return patch
-
-    patch_of(monkeypatch, wrap)
-
-
-def _render_patches(monkeypatch, wrap):
-    from mixlab_tpu_torch.engine import render
-
-    inner = render.compile_patch
-    monkeypatch.setattr(render, "compile_patch", lambda *a, **k: wrap(inner(*a, **k)))
-
-
 def _fleet_step(monkeypatch, broken):
     from mixlab_tpu_torch.parallel.fleet import Fleet
 
@@ -73,14 +36,12 @@ def _fleet_step(monkeypatch, broken):
 FAULTS = {
     "state unchanged": {
         "fleet": lambda mp: _fleet_step(mp, lambda out, s: (s, out[1])),
-        "render": lambda mp: _state_unchanged(mp, _render_patches),
     },
     "half the batch left out": {
         "fleet": lambda mp: _fleet_step(mp, lambda out, s: (out[0], _half(out[1]))),
     },
     "an answer altered": {
         "fleet": lambda mp: _fleet_step(mp, lambda out, s: (out[0], _altered(out[1]))),
-        "render": lambda mp: _taps_altered(mp, _render_patches),
     },
 }
 

@@ -22,7 +22,7 @@ def _modules_after(code: str):
 def test_a_run_loads_no_jax_and_no_jax_package():
     tops = _modules_after(
         "from portbench.tests.small import run_small\n"
-        "for cell in ('fleet-48k-8192x16', 'offline-48k'):\n"
+        "for cell in ('fleet-48k-8192x16', 'fleet-48k-8192x15'):\n"
         "    assert run_small(cell, seconds=1.0)['correct']\n"
         "import portbench.control, portbench.run\n"
         "from portbench import harness\n"
@@ -48,7 +48,7 @@ def test_forbidden_names_are_whole_top_level_names():
 
 def test_no_card_no_result():
     """Without a card the command exits non-zero and prints no result."""
-    out = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "offline-48k",
+    out = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "fleet-48k-8192x15",
                           "--seed", "1", "--seconds", "1", "--trace", "0"],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert out.returncode != 0 and out.stdout.strip() == ""

@@ -20,6 +20,13 @@ BENCH = harness.benchmark()
 ROOT = harness.ROOT
 
 
+def chips_keep_the_contract(workloads) -> bool:
+    """Every cell asks for 1 or 4 chips, and at most ``max(1, cells // 4)``
+    of them for 4."""
+    return (all(w["chips"] in (1, 4) for w in workloads)
+            and sum(w["chips"] == 4 for w in workloads) <= max(1, len(workloads) // 4))
+
+
 def test_every_named_file_is_found():
     for c in BENCH["configs"]:
         assert (ROOT / c["file"]).is_file()
@@ -48,7 +55,7 @@ def test_the_contract_shapes():
                           "end_to_end", "per_layer"}
     assert all(set(c) == {"name", "source", "file", "reduced", "why"} for c in BENCH["configs"])
     assert all(set(w) == {"name", "config", "traffic", "chips", "why"} for w in BENCH["workloads"])
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
+    assert chips_keep_the_contract(BENCH["workloads"])
     assert all(0.01 <= m["bound"] <= 0.25 for m in BENCH["end_to_end"])
     for m in BENCH["per_layer"]:
         if m["name"].endswith("_roofline"):
@@ -57,37 +64,144 @@ def test_the_contract_shapes():
 
 
 def test_a_new_cell_is_a_json_file(tmp_path):
-    """A copy of the benchmark with one more cell of the render driver: its
-    workload file and its BENCHMARK.json entry, nothing else, and it runs."""
+    """A copy of the benchmark with one more cell of the fleet driver: its
+    workload file and its BENCHMARK.json entries, nothing else, and it runs."""
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "offline-48k-short", "config": "flagship-48k",
-                               "traffic": "render-4s", "chips": 1, "why": "a test's cell"})
+    bench["workloads"].append({"name": "fleet-48k-8x16", "config": "flagship-48k",
+                               "traffic": "closed-8x16", "chips": 1, "why": "a test's cell"})
     for m in bench["end_to_end"] + bench["per_layer"]:
-        if "offline-48k" in m.get("workloads", []):
-            m["workloads"].append("offline-48k-short")
+        if "fleet-48k-8192x16" in m.get("workloads", []):
+            m["workloads"].append("fleet-48k-8x16")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    wl = json.loads((ROOT / "portbench/workloads/offline-48k.json").read_text())
-    wl.update(name="offline-48k-short", traffic="render-4s", why="a test's cell",
-              params={"projects": 2, "project_ticks": 240, "block_ticks": 60})
-    (tmp_path / "portbench/workloads/offline-48k-short.json").write_text(json.dumps(wl))
+    wl = json.loads((ROOT / "portbench/workloads/fleet-48k-8192x16.json").read_text())
+    wl.update(name="fleet-48k-8x16", traffic="closed-8x16", why="a test's cell",
+              params={**wl["params"], "sessions": 8, "sample_sessions": 4, "warm_blocks": 1})
+    (tmp_path / "portbench/workloads/fleet-48k-8x16.json").write_text(json.dumps(wl))
     code = ("import json; from portbench import harness; "
-            "r = harness.run_cell('offline-48k-short', 5, 1.0, False, device='cpu'); "
+            "r = harness.run_cell('fleet-48k-8x16', 5, 1.0, False, device='cpu'); "
             "print(json.dumps(r))")
     env = {**os.environ, "PYTHONPATH": f"{tmp_path}{os.pathsep}{ROOT}"}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     r = json.loads(out.stdout.strip().splitlines()[-1])
-    assert r["correct"] and "render_x_realtime" in r["metrics"]
+    assert r["correct"] and "fleet_x_realtime" in r["metrics"]
+
+
+TOY_DRIVER = '''"""A toy driver of several cards: each of the cell's cards sums its row of
+a seeded integer matrix, the cards in turn, each waited for before the next."""
+
+import json
+import sys
+import time
+
+import numpy as np
+
+from portbench import judge
+
+
+def setup(cell, config, seed, device, tracer):
+    import torch
+
+    print("toy cards " + json.dumps(cell["cards"]), file=sys.stderr)
+    rows = np.random.default_rng(seed).integers(-1000, 1000, (len(cell["cards"]),
+                                                              int(cell["params"]["n"])))
+    parts = [torch.as_tensor(r).to(c) for r, c in zip(rows, cell["cards"])]
+    return {"rows": rows, "parts": parts, "sums": [int(p.sum()) for p in parts]}
+
+
+def window(ctx, seconds, tracer):
+    t_open, units = time.perf_counter(), 0
+    while not units or time.perf_counter() - t_open < seconds:
+        with tracer.span("toy.block"):
+            ctx["sums"] = [int(p.sum()) for p in ctx["parts"]]
+        units += 1
+    rate = units / (time.perf_counter() - t_open)
+    return {"end_to_end": {"fleet_x_realtime": rate}, "attempted": units, "failed": 0,
+            "units": units}
+
+
+def release(ctx):
+    pass
+
+
+def check(ctx, control=None):
+    return {"sum_gap": {"value": judge.gap(ctx["sums"], ctx["rows"].sum(axis=1)), "limit": 0}}
+'''
+
+
+def _four_chip_copy(tmp_path, n=1 << 16):
+    """A copy of the benchmark with one more cell, ``toy-4chip`` on four
+    chips: its driver file, its workload file and its BENCHMARK.json entries,
+    nothing else.  Returns the copy's BENCHMARK.json as a dict."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": "toy-4chip", "config": "flagship-48k",
+                               "traffic": "toy-sums", "chips": 4, "why": "a test's cell"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("fleet_x_realtime", "device_idle_pct.fleet"):
+            m["workloads"].append("toy-4chip")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (tmp_path / "portbench/drivers/toy.py").write_text(TOY_DRIVER)
+    (tmp_path / "portbench/workloads/toy-4chip.json").write_text(json.dumps(
+        {"name": "toy-4chip", "config": "flagship-48k", "traffic": "toy-sums", "driver": "toy",
+         "params": {"n": n}, "why": "a test's cell"}))
+    return bench
+
+
+def _run_toy(tmp_path, device, trace):
+    code = ("import json; from portbench import harness; "
+            f"r = harness.run_cell('toy-4chip', 2**31 + 5, 1.0, {trace}, device={device!r}); "
+            "print(json.dumps(r))")
+    env = {**os.environ, "PYTHONPATH": f"{tmp_path}{os.pathsep}{ROOT}"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    cards = next(json.loads(line[len("toy cards "):]) for line in out.stderr.splitlines()
+                 if line.startswith("toy cards "))
+    return json.loads(out.stdout.strip().splitlines()[-1]), cards
+
+
+def test_a_four_chip_cell_is_new_files_and_entries(tmp_path):
+    """A four-chip cell added as files and entries alone runs under the
+    harness on the CPU, its driver handed four cards, and keeps the
+    contract's rule; a second four-chip cell among three breaks it."""
+    bench = _four_chip_copy(tmp_path)
+    assert chips_keep_the_contract(bench["workloads"]) and len(bench["workloads"]) == 3
+    r, cards = _run_toy(tmp_path, "cpu", False)
+    assert cards == ["cpu"] * 4
+    assert r["correct"] and r["checks"]["sum_gap"]["value"] == 0, r["checks"]
+    assert set(r["metrics"]) == {"fleet_x_realtime", "setup_s"} and r["device"]["count"] == 4
+    bench["workloads"][0]["chips"] = 4
+    assert not chips_keep_the_contract(bench["workloads"])
+
+
+@pytest.mark.cuda
+def test_a_four_chip_cell_on_four_cards(card, tmp_path):
+    """The toy four-chip cell traced on four cards: each card's busy time
+    read from its own timeline, by the trace's device index, and the busy
+    time and idle share their mean."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"{torch.cuda.device_count()} cards: the cell needs 4")
+    _four_chip_copy(tmp_path, n=1 << 24)
+    r, cards = _run_toy(tmp_path, "cuda", True)
+    assert cards == [f"cuda:{i}" for i in range(4)] and r["correct"], r["checks"]
+    by_card = r["device"]["busy_s_by_card"]
+    assert len(by_card) == 4 and all(b > 0 for b in by_card), by_card
+    assert r["device"]["busy_s"] == pytest.approx(sum(by_card) / 4)
+    idle = 100 * (1 - r["device"]["busy_s"] / r["device"]["window_s"])
+    assert r["metrics"]["device_idle_pct.fleet"]["value"] == pytest.approx(idle)
+    print(json.dumps(r["device"]), json.dumps(r["breakdown"]["idle_gaps"][:4]))
 
 
 def test_a_new_metric_is_a_file(tmp_path, monkeypatch):
     (tmp_path / "metrics").mkdir()
     (tmp_path / "metrics" / "kernels.count.py").write_text(
         'LAYER, UNIT, BETTER, SOURCE, MOVES = "kernels", "launches", "lower", '
-        '"device_trace", "render_x_realtime"\n\n\ndef read(rec):\n'
+        '"device_trace", "fleet_x_realtime"\n\n\ndef read(rec):\n'
         '    return rec.kernel_count() or None\n')
     monkeypatch.setattr(harness, "HERE", tmp_path)
     rec = Records(kernels=[("k", 0, 5), ("k", 10, 5)], window=(0, 20), units=1)
@@ -138,11 +252,9 @@ def test_records_read_as_the_metrics_expect():
     assert rec.busy_s() == pytest.approx(180e-9)
     read = lambda name: harness.metric(name).read(rec)  # noqa: E731
     assert read("device_idle_pct.fleet") == pytest.approx(82.0)
-    assert read("device_idle_pct.render") == pytest.approx(82.0)
     assert read("fleet.host_aux_ms") == pytest.approx(1e3 * 100e-9 / 2)
     assert read("region_roofline") == pytest.approx(100 * (3.35e3 / 3.35e12) / 50e-9)
     assert read("fleet_block_roofline") == pytest.approx(100 * (2 * 4 / 3.35e12) / 110e-9)
-    assert read("render.launches") is None  # no blocks recorded: nothing to read
     b = rec.breakdown()
     assert b["device_ops"][0] == ["Memcpy HtoD (Pageable -> Device)", 100e-9]
     assert b["idle_gaps"][0] == ["fleet.block", 600e-9]

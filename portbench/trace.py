@@ -5,6 +5,10 @@ per-layer metrics read from them.
 
 A profile whose trace holds no device record is taken once more over a
 second window, then the run fails: it is never read as 0.
+
+Each device record keeps its card, by the trace's device index.  The busy
+and idle readings are each card's own and then their mean over the cell's
+cards; a card that recorded nothing in the window is idle all of it.
 """
 
 from __future__ import annotations
@@ -102,6 +106,17 @@ class Tracer:
         out.append(Records.from_kineto(prof.profiler.kineto_results.events()))
 
 
+def _union(iv: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The union of intervals ``(start, end)``, sorted."""
+    out: List[List[int]] = []
+    for s, e in sorted(iv):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
 def _tensors(x):
     """The tensors in ``x``, through tuples, lists and dicts."""
     import torch
@@ -120,10 +135,17 @@ def _tensors(x):
 class Records:
     """What one traced window recorded, in nanoseconds on the profile's
     clock: device kernels and copies, the benchmark's spans, the window,
-    the driver's shapes and the launches counted at the program's wrappers."""
+    the driver's shapes and the launches counted at the program's wrappers.
+
+    ``kernel_cards`` and ``copy_cards`` hold the trace's device index of
+    each kernel and copy, in their order; left empty, every record is on
+    one card.  ``cards`` is the number of cards the cell asked for."""
 
     kernels: List[Tuple[str, int, int]] = field(default_factory=list)  # name, start, dur
     copies: List[Tuple[str, int, int]] = field(default_factory=list)  # memcpy and memset
+    kernel_cards: List[int] = field(default_factory=list)
+    copy_cards: List[int] = field(default_factory=list)
+    cards: int = 1
     spans: Dict[str, List[Tuple[int, int]]] = field(default_factory=lambda: defaultdict(list))
     window: Tuple[int, int] = (0, 0)
     units: int = 0  # blocks, ticks or renders the window completed
@@ -143,8 +165,10 @@ class Records:
                     continue
                 if name.startswith(("Memcpy", "Memset")):
                     rec.copies.append((name, start, dur))
+                    rec.copy_cards.append(e.device_index())
                 else:
                     rec.kernels.append((name, start, dur))
+                    rec.kernel_cards.append(e.device_index())
             elif e.is_user_annotation() and name.startswith(SPAN_PREFIX):
                 if name == WINDOW:
                     rec.window = (start, start + dur)
@@ -158,21 +182,33 @@ class Records:
     def window_s(self) -> float:
         return (self.window[1] - self.window[0]) / 1e9
 
-    def device_intervals(self) -> List[Tuple[int, int]]:
-        """The union of kernel and copy intervals inside the window, sorted."""
+    def card_intervals(self) -> List[List[Tuple[int, int]]]:
+        """Each card's union of kernel and copy intervals inside the window,
+        sorted: the cards that recorded, in the order of the trace's device
+        index, then an empty list for each other card of the cell."""
         lo, hi = self.window
-        iv = sorted((max(s, lo), min(s + d, hi)) for _, s, d in self.kernels + self.copies
-                    if s + d > lo and s < hi)
-        out: List[List[int]] = []
-        for s, e in iv:
-            if out and s <= out[-1][1]:
-                out[-1][1] = max(out[-1][1], e)
-            else:
-                out.append([s, e])
-        return [(s, e) for s, e in out]
+        by_card: Dict[int, List[Tuple[int, int]]] = defaultdict(list)
+        for recs, cards in ((self.kernels, self.kernel_cards), (self.copies, self.copy_cards)):
+            if cards and len(cards) != len(recs):
+                raise ValueError(f"{len(recs)} device records and {len(cards)} cards")
+            for (_, s, d), c in zip(recs, cards or [0] * len(recs)):
+                if s + d > lo and s < hi:
+                    by_card[c].append((max(s, lo), min(s + d, hi)))
+        out = [_union(by_card[c]) for c in sorted(by_card)]
+        return out + [[] for _ in range(self.cards - len(out))]
+
+    def device_intervals(self, card: int = 0) -> List[Tuple[int, int]]:
+        """The ``card``-th card's union of intervals (``card_intervals``)."""
+        return self.card_intervals()[card]
+
+    def card_busy_s(self) -> List[float]:
+        """Each card's busy seconds in the window, one entry a card."""
+        return [sum(e - s for s, e in iv) / 1e9 for iv in self.card_intervals()]
 
     def busy_s(self) -> float:
-        return sum(e - s for s, e in self.device_intervals()) / 1e9
+        """The busy seconds of the cell's cards, their mean."""
+        busy = self.card_busy_s()
+        return sum(busy) / len(busy)
 
     def kernel_s(self, match: Optional[Tuple[str, ...]] = None) -> float:
         """Seconds of device kernels (those whose name holds one of
@@ -191,17 +227,18 @@ class Records:
         return None if not got else sum(d for _, d in got) / 1e9
 
     def breakdown(self, n: int = 10) -> Dict[str, List[List]]:
-        """The ``n`` device operations that took most time, and the ``n``
-        longest idle gaps, each named by the innermost span open on the
-        host at its middle."""
+        """The ``n`` device operations that took most time, summed over the
+        cards, and the ``n`` longest idle gaps of any card, each named by
+        the innermost span open on the host at its middle."""
         by_name: Dict[str, int] = defaultdict(int)
         for name, _, d in self.kernels + self.copies:
             by_name[name] += d
         ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
-        iv = self.device_intervals()
-        edges = [self.window[0]] + [x for s, e in iv for x in (s, e)] + [self.window[1]]
-        gaps = [(edges[i], edges[i + 1]) for i in range(0, len(edges) - 1, 2)
-                if edges[i + 1] > edges[i]]
+        gaps = []
+        for iv in self.card_intervals():
+            edges = [self.window[0]] + [x for s, e in iv for x in (s, e)] + [self.window[1]]
+            gaps += [(edges[i], edges[i + 1]) for i in range(0, len(edges) - 1, 2)
+                     if edges[i + 1] > edges[i]]
         gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:n]
         spans = [(s, s + d, name) for name, v in self.spans.items() for s, d in v]
 
