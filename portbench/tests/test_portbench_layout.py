@@ -27,66 +27,120 @@ def chips_keep_the_contract(workloads) -> bool:
             and sum(w["chips"] == 4 for w in workloads) <= max(1, len(workloads) // 4))
 
 
-def test_every_named_file_is_found():
-    for c in BENCH["configs"]:
-        assert (ROOT / c["file"]).is_file()
+# The contract's checks, each a function of a benchmark dict that reads its
+# files through the harness (``harness.ROOT``): they hold for the accepted
+# BENCHMARK.json and for any copy that adds cells as files and entries.
+
+def named_files_are_found(bench):
+    for c in bench["configs"]:
+        assert (harness.ROOT / c["file"]).is_file()
         assert harness.config(c["name"])["name"] == c["name"]
-    for w in BENCH["workloads"]:
+    for w in bench["workloads"]:
         wl = harness.workload(w["name"])
         assert (wl["config"], wl["traffic"], wl["why"]) == (w["config"], w["traffic"], w["why"])
         assert callable(harness.load("drivers", wl["driver"]).setup)
-    for m in BENCH["per_layer"]:
+    for m in bench["per_layer"]:
         mod = harness.metric(m["name"])
         assert (mod.LAYER, mod.UNIT, mod.BETTER, mod.SOURCE) == (
             m["layer"], m["unit"], m["better"], m["source"])
         assert getattr(mod, "MOVES", m["moves"]) == m["moves"]
 
 
-def test_every_cell_reports_setup_another_end_to_end_and_a_layer_metric():
-    for w in BENCH["workloads"]:
-        e2e, layer = harness.cell_metrics(BENCH, w["name"])
+def cells_report_setup_another_end_to_end_and_a_layer_metric(bench):
+    for w in bench["workloads"]:
+        e2e, layer = harness.cell_metrics(bench, w["name"])
         names = {m["name"] for m in e2e}
         assert "setup_s" in names and len(names) >= 2
         assert layer and all(m["moves"] in names for m in layer)
 
 
-def test_the_contract_shapes():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+def contract_shapes(bench):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
                           "end_to_end", "per_layer"}
-    assert all(set(c) == {"name", "source", "file", "reduced", "why"} for c in BENCH["configs"])
-    assert all(set(w) == {"name", "config", "traffic", "chips", "why"} for w in BENCH["workloads"])
-    assert chips_keep_the_contract(BENCH["workloads"])
-    assert all(0.01 <= m["bound"] <= 0.25 for m in BENCH["end_to_end"])
-    for m in BENCH["per_layer"]:
+    assert all(set(c) == {"name", "source", "file", "reduced", "why"} for c in bench["configs"])
+    assert all(set(w) == {"name", "config", "traffic", "chips", "why"} for w in bench["workloads"])
+    assert chips_keep_the_contract(bench["workloads"])
+    cells = {w["name"] for w in bench["workloads"]}
+    assert {c["name"] for c in bench["configs"]} == {w["config"] for w in bench["workloads"]}
+    assert all(m["workloads"] and set(m["workloads"]) <= cells
+               for m in bench["end_to_end"] + bench["per_layer"] if "workloads" in m)
+    assert all(0.01 <= m["bound"] <= 0.25 for m in bench["end_to_end"])
+    for m in bench["per_layer"]:
         if m["name"].endswith("_roofline"):
             assert m["unit"] == "%"
+    assert len(json.dumps(bench, indent=2).encode()) < 64 * 1024
+
+
+CONTRACT = (named_files_are_found, cells_report_setup_another_end_to_end_and_a_layer_metric,
+            contract_shapes)
+
+
+def test_every_named_file_is_found():
+    named_files_are_found(BENCH)
+
+
+def test_every_cell_reports_setup_another_end_to_end_and_a_layer_metric():
+    cells_report_setup_another_end_to_end_and_a_layer_metric(BENCH)
+
+
+def test_the_contract_shapes():
+    contract_shapes(BENCH)
     assert len((ROOT / "BENCHMARK.json").read_bytes()) < 64 * 1024
 
 
-def test_a_new_cell_is_a_json_file(tmp_path):
-    """A copy of the benchmark with one more cell of the fleet driver: its
-    workload file and its BENCHMARK.json entries, nothing else, and it runs."""
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+def _copy(src, dst) -> dict:
+    """``src``'s ``portbench/`` copied to ``dst``; returns ``src``'s
+    BENCHMARK.json as a dict (written to ``dst`` by ``_write``)."""
+    shutil.copytree(src / "portbench", dst / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench["workloads"].append({"name": "fleet-48k-8x16", "config": "flagship-48k",
-                               "traffic": "closed-8x16", "chips": 1, "why": "a test's cell"})
-    for m in bench["end_to_end"] + bench["per_layer"]:
-        if "fleet-48k-8192x16" in m.get("workloads", []):
-            m["workloads"].append("fleet-48k-8x16")
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    wl = json.loads((ROOT / "portbench/workloads/fleet-48k-8192x16.json").read_text())
-    wl.update(name="fleet-48k-8x16", traffic="closed-8x16", why="a test's cell",
-              params={**wl["params"], "sessions": 8, "sample_sessions": 4, "warm_blocks": 1})
-    (tmp_path / "portbench/workloads/fleet-48k-8x16.json").write_text(json.dumps(wl))
+    return json.loads((src / "BENCHMARK.json").read_text())
+
+
+def _write(dst, bench) -> dict:
+    (dst / "BENCHMARK.json").write_text(json.dumps(bench, indent=2))
+    return bench
+
+
+def _run_in_copy(tmp_path, cell, seed, trace, device):
+    """``harness.run_cell`` of ``cell`` in a process of its own, with the
+    copy at ``tmp_path`` first on the path; returns the result and the
+    process's standard error."""
     code = ("import json; from portbench import harness; "
-            "r = harness.run_cell('fleet-48k-8x16', 5, 1.0, False, device='cpu'); "
+            f"r = harness.run_cell({cell!r}, {seed}, 1.0, {trace}, device={device!r}); "
             "print(json.dumps(r))")
     env = {**os.environ, "PYTHONPATH": f"{tmp_path}{os.pathsep}{ROOT}"}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    r = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
+
+
+def _add_small_fleet_cell(root, bench, name, config, traffic, chips, why):
+    """One more cell of the fleet driver in the copy at ``root``: the
+    16-tick fleet cell's workload file at 8 sessions under ``name``, its
+    BENCHMARK.json entry, and its name in every metric list that holds the
+    16-tick cell."""
+    wl = json.loads((root / "portbench/workloads/fleet-48k-8192x16.json").read_text())
+    wl.update(name=name, config=config, traffic=traffic, why=why,
+              params={**wl["params"], "sessions": 8, "sample_sessions": 4, "warm_blocks": 1})
+    (root / f"portbench/workloads/{name}.json").write_text(json.dumps(wl))
+    bench["workloads"].append({"name": name, "config": config, "traffic": traffic,
+                               "chips": chips, "why": why})
+    listed = [m for m in bench["end_to_end"] + bench["per_layer"]
+              if "fleet-48k-8192x16" in m.get("workloads", [])]
+    assert listed
+    for m in listed:
+        m["workloads"].append(name)
+
+
+def test_a_new_cell_is_a_json_file(tmp_path):
+    """A copy of the benchmark with one more cell of the fleet driver: its
+    workload file and its BENCHMARK.json entries, nothing else, and it runs."""
+    bench = _copy(ROOT, tmp_path)
+    _add_small_fleet_cell(tmp_path, bench, "fleet-48k-8x16", "flagship-48k", "closed-8x16", 1,
+                          "a test's cell")
+    _write(tmp_path, bench)
+    r, _ = _run_in_copy(tmp_path, "fleet-48k-8x16", 5, False, "cpu")
     assert r["correct"] and "fleet_x_realtime" in r["metrics"]
 
 
@@ -132,51 +186,128 @@ def check(ctx, control=None):
 '''
 
 
-def _four_chip_copy(tmp_path, n=1 << 16):
-    """A copy of the benchmark with one more cell, ``toy-4chip`` on four
-    chips: its driver file, its workload file and its BENCHMARK.json entries,
+def _without_four_chip_cells(bench) -> dict:
+    """``bench`` with its four-chip cells taken out: their entries, their
+    names in every metric's list, a metric whose list they alone made up,
+    and a configuration that no cell uses any more."""
+    gone = {w["name"] for w in bench["workloads"] if w["chips"] == 4}
+    bench["workloads"] = [w for w in bench["workloads"] if w["name"] not in gone]
+    for kind in ("end_to_end", "per_layer"):
+        for m in bench[kind]:
+            if "workloads" in m:
+                m["workloads"] = [c for c in m["workloads"] if c not in gone]
+        bench[kind] = [m for m in bench[kind] if m.get("workloads", True)]
+    used = {w["config"] for w in bench["workloads"]}
+    bench["configs"] = [c for c in bench["configs"] if c["name"] in used]
+    return bench
+
+
+def _four_chip_copy(tmp_path, n=1 << 16, src=ROOT):
+    """A copy of the benchmark at ``src`` whose one four-chip cell is
+    ``toy-4chip``: the copy's own four-chip cells taken out, then the toy's
+    driver file, its workload file and its BENCHMARK.json entries added,
     nothing else.  Returns the copy's BENCHMARK.json as a dict."""
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench = _without_four_chip_cells(_copy(src, tmp_path))
     bench["workloads"].append({"name": "toy-4chip", "config": "flagship-48k",
                                "traffic": "toy-sums", "chips": 4, "why": "a test's cell"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if m["name"] in ("fleet_x_realtime", "device_idle_pct.fleet"):
             m["workloads"].append("toy-4chip")
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     (tmp_path / "portbench/drivers/toy.py").write_text(TOY_DRIVER)
     (tmp_path / "portbench/workloads/toy-4chip.json").write_text(json.dumps(
         {"name": "toy-4chip", "config": "flagship-48k", "traffic": "toy-sums", "driver": "toy",
          "params": {"n": n}, "why": "a test's cell"}))
-    return bench
+    return _write(tmp_path, bench)
 
 
 def _run_toy(tmp_path, device, trace):
-    code = ("import json; from portbench import harness; "
-            f"r = harness.run_cell('toy-4chip', 2**31 + 5, 1.0, {trace}, device={device!r}); "
-            "print(json.dumps(r))")
-    env = {**os.environ, "PYTHONPATH": f"{tmp_path}{os.pathsep}{ROOT}"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert out.returncode == 0, out.stderr[-3000:]
-    cards = next(json.loads(line[len("toy cards "):]) for line in out.stderr.splitlines()
+    r, err = _run_in_copy(tmp_path, "toy-4chip", 2**31 + 5, trace, device)
+    cards = next(json.loads(line[len("toy cards "):]) for line in err.splitlines()
                  if line.startswith("toy cards "))
-    return json.loads(out.stdout.strip().splitlines()[-1]), cards
+    return r, cards
 
 
-def test_a_four_chip_cell_is_new_files_and_entries(tmp_path):
-    """A four-chip cell added as files and entries alone runs under the
-    harness on the CPU, its driver handed four cards, and keeps the
-    contract's rule; a second four-chip cell among three breaks it."""
-    bench = _four_chip_copy(tmp_path)
-    assert chips_keep_the_contract(bench["workloads"]) and len(bench["workloads"]) == 3
+def _holds_the_contract(monkeypatch, root, bench):
+    """Every contract check on the copy at ``root``, read through the
+    harness as a run there reads it."""
+    with monkeypatch.context() as mp:
+        mp.setattr(harness, "ROOT", root)
+        mp.setattr(harness, "HERE", root / "portbench")
+        for check in CONTRACT:
+            check(bench)
+
+
+def _toy_cell_keeps_the_contract_and_runs(monkeypatch, tmp_path, bench):
+    """The toy four-chip copy keeps the contract, runs under the harness on
+    the CPU with its driver handed four cards, and one four-chip cell more
+    than the contract allows breaks it."""
+    cells = bench["workloads"]
+    assert [w["name"] for w in cells if w["chips"] == 4] == ["toy-4chip"]
+    assert chips_keep_the_contract(cells)
+    _holds_the_contract(monkeypatch, tmp_path, bench)
     r, cards = _run_toy(tmp_path, "cpu", False)
     assert cards == ["cpu"] * 4
     assert r["correct"] and r["checks"]["sum_gap"]["value"] == 0, r["checks"]
-    assert set(r["metrics"]) == {"fleet_x_realtime", "setup_s"} and r["device"]["count"] == 4
-    bench["workloads"][0]["chips"] = 4
-    assert not chips_keep_the_contract(bench["workloads"])
+    e2e, _ = harness.cell_metrics(bench, "toy-4chip")
+    assert set(r["metrics"]) == {m["name"] for m in e2e} and r["device"]["count"] == 4
+    one_chip = [w for w in cells if w["chips"] == 1]
+    allowed = max(1, len(cells) // 4)
+    assert len(one_chip) >= allowed
+    for w in one_chip[:allowed]:
+        w["chips"] = 4
+    assert not chips_keep_the_contract(cells)
+
+
+def test_a_four_chip_cell_is_new_files_and_entries(monkeypatch, tmp_path):
+    """A four-chip cell added as files and entries alone, to whatever
+    benchmark is accepted, runs under the harness on the CPU, its driver
+    handed four cards, and keeps the contract's rule; one four-chip cell
+    more than the rule allows breaks it."""
+    _toy_cell_keeps_the_contract_and_runs(monkeypatch, tmp_path, _four_chip_copy(tmp_path))
+
+
+STAND_IN_CONFIG, STAND_IN_CELL = "flagship-48k-4card-test", "fleet-48k-4card-test"
+
+
+def _four_card_fleet_copy(tmp_path, src=ROOT):
+    """A copy of the benchmark at ``src`` with one four-chip cell of the
+    fleet driver added as files and entries alone, shaped like the
+    four-card fleet deployment: the flagship graph with 32,768 fleet slots
+    (a configuration file and entry, nothing reduced) and a cell on four
+    chips at a small size.  The copy's own four-chip cells are taken out
+    first, so that the added cell is its one four-chip cell.  Returns the
+    copy's BENCHMARK.json as a dict."""
+    bench = _without_four_chip_cells(_copy(src, tmp_path))
+    flagship = next(c for c in bench["configs"] if c["name"] == "flagship-48k")
+    cfg = json.loads((src / flagship["file"]).read_text())
+    cfg.update(name=STAND_IN_CONFIG, fleet_slots=32768,
+               assumed={**cfg["assumed"], "fleet_slots": "8,192 sessions on each of four cards"})
+    cfg_file = f"portbench/configs/{STAND_IN_CONFIG}.json"
+    (tmp_path / cfg_file).write_text(json.dumps(cfg, indent=2))
+    bench["configs"].append({**flagship, "name": STAND_IN_CONFIG, "file": cfg_file,
+                             "reduced": [], "why": "a test's configuration: 32,768 fleet slots"})
+    _add_small_fleet_cell(tmp_path, bench, STAND_IN_CELL, STAND_IN_CONFIG, "closed-8x16-4card", 4,
+                          "a test's cell: the fleet on four cards, small")
+    return _write(tmp_path, bench)
+
+
+def test_a_four_card_fleet_cell_is_new_files_and_entries(monkeypatch, tmp_path):
+    """A four-chip cell of the fleet driver, added to whatever benchmark is
+    accepted as a configuration file, a workload file and BENCHMARK.json
+    entries alone: the copy keeps every contract check, the toy four-chip
+    copy made from it still holds, and the cell runs under the harness on
+    the CPU (four ``cpu`` cards, which the fleet driver runs as one device)
+    and reads correct."""
+    bench = _four_card_fleet_copy(tmp_path / "fleet")
+    assert [w["name"] for w in bench["workloads"] if w["chips"] == 4] == [STAND_IN_CELL]
+    _holds_the_contract(monkeypatch, tmp_path / "fleet", bench)
+    _toy_cell_keeps_the_contract_and_runs(
+        monkeypatch, tmp_path / "toy", _four_chip_copy(tmp_path / "toy", src=tmp_path / "fleet"))
+    r, _ = _run_in_copy(tmp_path / "fleet", STAND_IN_CELL, 2**31 + 11, False, "cpu")
+    assert r["correct"], r["checks"]
+    e2e, _ = harness.cell_metrics(bench, STAND_IN_CELL)
+    assert set(r["metrics"]) == {m["name"] for m in e2e} and r["device"]["count"] == 4
+    assert all(v["value"] > 0 for v in r["metrics"].values())
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ import random
 import pytest
 
 from portbench import harness
+from portbench.program_spans import PREFIX
 from portbench.trace import Records
 
 BENCH = harness.benchmark()
@@ -99,6 +100,64 @@ def test_a_card_that_recorded_nothing_is_idle_all_the_window():
     assert rec.busy_s() == pytest.approx(75e-9)
     assert harness.metric("device_idle_pct.fleet").read(rec) == pytest.approx(92.5)
     assert rec.breakdown()["idle_gaps"][0] == ["outside every span", 1000e-9]
+
+
+# the facts that count the fleet's work, which n identical cards do n times
+PER_CARD_FACTS = ("sessions", "state_bytes", "param_bytes")
+# the fleet cells' readers, each of which finds something in these records
+FLEET_READERS = {"fleet.host_aux_ms", "fleet.device_ms", "fleet_block_roofline", "region_roofline",
+                 "eq_roofline", "device_idle_pct.fleet", "fleet.host_arrays_ms", "fleet.upload_ms",
+                 "fleet.dispatch_ms", "fleet.fetch_wait_ms"}
+
+
+def _on_identical_cards(rec, n):
+    """``rec``'s twin on ``n`` identical cards: every kernel and copy
+    repeated on trace indices 0 to n-1, and the facts that count work
+    (``PER_CARD_FACTS``, each ``<family>.launches`` and ``<family>.bytes``)
+    times n; the spans, the window and the units as they are."""
+    facts = {k: v * n if k in PER_CARD_FACTS or k.endswith((".launches", ".bytes")) else v
+             for k, v in rec.facts.items()}
+    twin = Records(kernels=rec.kernels * n, copies=rec.copies * n,
+                   kernel_cards=[c for c in range(n) for _ in rec.kernels],
+                   copy_cards=[c for c in range(n) for _ in rec.copies], cards=n,
+                   window=rec.window, units=rec.units, facts=facts)
+    twin.spans.update(rec.spans)
+    return twin
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_n_identical_cards_read_as_one(n):
+    """Every per-layer reader that BENCHMARK.json names reads the same on
+    n identical cards as on one (nothing where it finds nothing on one):
+    each reading is per card, so a card's work repeated on others moves
+    none of them."""
+    one = _records()
+    for name, spans in {"fleet.host.Oscillator": [(0, 30)], "fleet.host.FmSine": [(30, 20)],
+                        "fleet.upload": [(60, 40)], "fleet.dispatch": [(100, 80)],
+                        "fleet.fetch_wait": [(420, 5)]}.items():
+        one.spans[PREFIX + name] = spans
+    twin = _on_identical_cards(one, n)
+    assert twin.card_busy_s() == [one.busy_s()] * n
+    read = set()
+    for m in BENCH["per_layer"]:
+        reader = harness.metric(m["name"])
+        got = reader.read(one)
+        want = None if got is None else pytest.approx(got, rel=1e-12, abs=0)
+        assert reader.read(twin) == want, m["name"]
+        if got is not None:
+            read.add(m["name"])
+    assert FLEET_READERS <= read
+
+
+def test_device_time_a_block_counts_a_silent_card_as_nothing():
+    """The device time a block is the mean card's: kernels on one card of
+    four read a quarter of what they read on one card alone."""
+    alone = Records(kernels=[("k", 0, 400)], kernel_cards=[2], window=(0, 1000), units=2)
+    of_four = Records(kernels=[("k", 0, 400)], kernel_cards=[2], window=(0, 1000), units=2,
+                      cards=4)
+    reader = harness.metric("fleet.device_ms")
+    assert reader.read(alone) == 1e3 * 400e-9 / 2
+    assert reader.read(of_four) == pytest.approx(reader.read(alone) / 4, rel=1e-15, abs=0)
 
 
 def test_card_lists_of_another_length_than_the_records_are_refused():
