@@ -138,7 +138,7 @@ imports no jax.  Phases, any failure of which exits non-zero:
      device time, bound and twin time at B = 1,024 and 8,192 x 12,000 and
      32 x 96,000 (the envelope also 1,024 x 38,400); (b) the fleet: the flagship at 48 kHz
      in 15-tick blocks, N = 1,024 sessions with their own params, one eq
-     launch and no envelope launch a block, four slots against single-patch
+     launch and one envelope launch a block, four slots against single-patch
      renders on the card (EQ_TOL); for information N = 1,024 and 8,192: wall
      per block, realtime multiple, device busy share and peak memory; (c)
      fleet serving: a ``FleetEngine`` of 1,024 slots on the card behind a
@@ -194,7 +194,7 @@ imports no jax.  Phases, any failure of which exits non-zero:
      mesh's, at 16 ticks the batched region kernel once a shard a block
      and no eq launch (the block qualifies for the region program, as the
      JAX stems take it), at 41 the batched eq kernel once a shard a block,
-     the batched envelope kernel once a shard where its gate opens; (b) the
+     the batched envelope kernel once a shard at any length; (b) the
      fleet at N = 8,192 over a 4-entry mesh: every session's taps equal to the
      one-device fleet's bit for bit, one eq launch a shard, the wall a
      block of each for information; (c) ``row_sharded_blend`` over 4
@@ -228,8 +228,8 @@ imports no jax.  Phases, any failure of which exits non-zero:
      flagship's plan); its time a call and device time a launch at 1,024
      and 8,192 x 12,800 beside its bound and its twin; (b) the fleet at 48 kHz with
      per-instance params on the region program, 16 ticks (N = 1,024 and
-     8,192) and 48 ticks (N = 1,024): region 1, eq 0, envelope 0 (48 ticks:
-     1) a block; taps and state within 2e-5 of the same fleet on the
+     8,192) and 48 ticks (N = 1,024): region 1, eq 0, envelope 1 a block;
+     taps and state within 2e-5 of the same fleet on the
      regular program and four slots of single-patch region renders; then,
      in turns, the wall, device time with its top kernels (and the batched
      region and envelope kernels' device time a launch), busy share and
@@ -3112,7 +3112,7 @@ def fleet_workspaces(n):
 def fleet_path(torch, np, dev, card):
     """(b) the fleet: the flagship at 48 kHz in 15-tick blocks, N = 1,024
     sessions with their own params, counts set to 0 just before a block and
-    read just after (one eq launch, no envelope launch); four slots against
+    read just after (one eq launch, one envelope launch); four slots against
     single-patch renders on the card; then, for information, N = 1,024 and
     8,192: wall per block, realtime multiple, device busy share and peak
     device memory."""
@@ -3142,10 +3142,10 @@ def fleet_path(torch, np, dev, card):
             torch.cuda.synchronize()
             launches = {name: fn.launches for name, fn in counters.items()}
             log(f"fleet N={n}: one block launched {launches}")
-            if launches["eq_cascade"] != 1 or launches["envelope"] != 0:
+            if launches["eq_cascade"] != 1 or launches["envelope"] != 1:
                 raise AssertionError(f"fleet block launched the eq kernel {launches['eq_cascade']} "
                                      f"and the envelope kernel {launches['envelope']} times "
-                                     "(want 1 and 0)")
+                                     "(want 1 and 1)")
             for i in (0, 1, n // 2, n - 1):
                 patch = compile_patch(wss[i], cfg, block, dev)
                 aux, st = patch.prepare_aux(wss[i]), patch.init_state(wss[i])
@@ -4239,7 +4239,7 @@ def batched_paths(torch, np, dev, card):
 # fleet serving and the mesh on the whole-graph region program under vmap)
 # ---------------------------------------------------------------------------
 
-REGION_FLEET_TICKS = (16, 48)    # 12,800 samples at 48 kHz (100 chunks), 38,400 (the envelope's gate open)
+REGION_FLEET_TICKS = (16, 48)    # 12,800 samples at 48 kHz (100 chunks), 38,400
 # 8,320: a last tile of one chunk; 204,800: two parts of 102,400
 REGION_EDGE_S = (8192, 8_320, 12_800, 38_400, 204_800)
 REGION_EDGE_B = (1, 2, 1024, 8192)
@@ -4472,13 +4472,12 @@ def region_fleet(torch, np, dev, card):
     (16 ticks: N = 1,024 and 8,192; 48 ticks: N = 1,024) beside the same
     fleet on the regular batched program (``mega=False``): one block's
     launches with the counts set to 0 just before and read just after
-    (region 1, eq 0, envelope 1 where its gate opens), taps and state
+    (region 1, eq 0, envelope 1: a batch takes it at any length), taps and state
     within REGION_ATOL of the regular fleet's over 2 blocks, four slots
     within REGION_ATOL of single-patch region renders; then, in turns, the
     wall a block (median of 6), device ms a block with the top six kernels,
     busy share and peak device memory of each.  -> ({path: launches}, info)."""
     from mixlab_tpu_torch.convert import tree_leaves
-    from mixlab_tpu_torch.dsp.envelope import PALLAS_THRESHOLD as ENV_GATE
     from mixlab_tpu_torch.engine.compiler import compile_patch
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.engine.region_graph import _partition
@@ -4508,11 +4507,10 @@ def region_fleet(torch, np, dev, card):
             taps = fleets["region"].run_block(spb)
             torch.cuda.synchronize()
             launches = _read(counters)
-            env = 1 if spb >= ENV_GATE else 0
             log(f"region fleet N={n} at {ticks} ticks: one block launched {launches}")
-            if (launches["region"], launches["eq_cascade"], launches["envelope"]) != (parts, 0, env):
+            if (launches["region"], launches["eq_cascade"], launches["envelope"]) != (parts, 0, 1):
                 raise AssertionError(f"region fleet block launched {launches} (want region "
-                                     f"{parts}, eq_cascade 0, envelope {env})")
+                                     f"{parts}, eq_cascade 0, envelope 1)")
             paths[f"fleet_region_{ticks}_{n}"] = launches
             ref = fleets["regular"].run_block(spb)
             err = max((a - b).abs().max().item()
@@ -4870,10 +4868,8 @@ def mesh_stems(torch, np, dev, card):
     same inputs (the kernels' plain twins, so each kernel is held to its
     twin at the shard shapes of this path: B of 2-8 rows at 12,800 and
     32,800 samples) and of the one-entry card mesh's, the batched eq kernel
-    once a shard a block, the batched envelope kernel once a shard where
-    its gate opens (counts set to 0 just before the step, read just
-    after)."""
-    from mixlab_tpu_torch.dsp.envelope import PALLAS_THRESHOLD as ENV_GATE
+    once a shard a block, the batched envelope kernel once a shard at any
+    length (counts set to 0 just before the step, read just after)."""
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.flagship import build_16_module_graph
     from mixlab_tpu_torch.parallel import make_mesh
@@ -4889,7 +4885,6 @@ def mesh_stems(torch, np, dev, card):
     paths = {}
     for ticks in MESH_TICKS:
         block = BlockSpec(ticks)
-        env_on = block.n_samples(cfg) >= ENV_GATE
         for n_stems in MESH_STEMS:
             fn, make_args, patch = stem_parallel_step(ws, cfg, block, str(mon.value),
                                                       n_stems=n_stems, device="cpu")
@@ -4922,7 +4917,7 @@ def mesh_stems(torch, np, dev, card):
                 if not (err <= MIX_ATOL and err_twin <= MIX_ATOL
                         and bool(torch.isfinite(master).all())
                         and launches[kernel] == len(mesh) and launches[other] == 0
-                        and launches["envelope"] == (len(mesh) if env_on else 0)):
+                        and launches["envelope"] == len(mesh)):
                     raise AssertionError(f"mesh stems over {name}: err {err}, vs the twins "
                                          f"{err_twin}, launches "
                                          f"{launches} (want {len(mesh)} a kernel)")
@@ -4972,9 +4967,10 @@ def mesh_fleet(torch, np, dev, card, ticks=FLEET_TICKS):
         for g, w in zip(got["16"]["audio"], want["16"]["audio"]):
             same = same and torch.equal(g, w)
             worst = max(worst, (g - w).abs().max().item())
-        if (launches[kernel], launches[other], launches["envelope"]) != (MESH_FLEET_SHARDS, 0, 0):
+        if (launches[kernel], launches[other], launches["envelope"]) != (
+                MESH_FLEET_SHARDS, 0, MESH_FLEET_SHARDS):
             raise AssertionError(f"mesh fleet block {b} launched {launches} (want {kernel} "
-                                 f"{MESH_FLEET_SHARDS})")
+                                 f"and envelope {MESH_FLEET_SHARDS})")
     walls = {}
     for name, fleet in (("one device", one), (f"{MESH_FLEET_SHARDS} x {dev}", four)):
         w = []

@@ -5,16 +5,21 @@ Reference: ``src/module/envelope.rs`` — a per-sample gate state machine
 comparisons ``input == 1.0`` / ``input == 0.0``, with piecewise-linear
 attack/decay/sustain/release.
 
-Blocks of at least ``PALLAS_THRESHOLD`` samples (the JAX package's gate,
-``envelope.py:51,93``) go through ``envelope_block_cuda`` — the hand-written
-kernel on a CUDA tensor, its plain twin on a CPU tensor.  Smaller
-(realtime-sized) blocks run the plain flat formulation directly.
+A batch (the block under ``torch.func.vmap``: a fleet's or the stems'
+sessions) goes through ``envelope_block_cuda`` at any length, whose batching
+rule makes one ``envelope_block_batched`` launch for every block of the
+batch.  An unbatched block does from ``PALLAS_THRESHOLD`` samples on (the
+JAX package's gate for one block, ``envelope.py:51,93``); a smaller
+(realtime-sized) one runs the plain flat formulation directly.  On a CPU
+tensor both routes run the plain twin.  The spans ``envelope.kernel`` and
+``envelope.twin`` say which route a block took.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mixlab_tpu_torch import kernels
 from mixlab_tpu_torch.engine.config import EngineConfig
 from mixlab_tpu_torch.protocol import EnvelopeParams, LineType
 from mixlab_tpu_torch.dsp.base import ModuleDef, expect_mono
@@ -23,8 +28,10 @@ from mixlab_tpu_torch.dsp.envelope_cuda import (
     envelope_block_cuda,
     envelope_block_torch,
 )
+from mixlab_tpu_torch.spans import span
 
-# same gate as the JAX package: offline-sized blocks take the kernel
+# an unbatched block's gate, the JAX package's: offline-sized blocks take the
+# kernel (a batch always does)
 PALLAS_THRESHOLD = 32_768
 
 
@@ -52,9 +59,11 @@ class EnvelopeDef(ModuleDef):
         S = block.n_samples(cfg)
         x = expect_mono(inputs[0], S, device)
         ms_per_sample = 1000.0 / cfg.sample_rate
-        if S >= PALLAS_THRESHOLD:
-            out, new_state = envelope_block_cuda(
-                x.contiguous(), state, aux, ms_per_sample)
+        if S >= PALLAS_THRESHOLD or kernels.is_batched(x, *state.values(), *aux.values()):
+            with span("envelope.kernel"):
+                out, new_state = envelope_block_cuda(
+                    x.contiguous(), state, aux, ms_per_sample)
         else:
-            out, new_state = envelope_block_torch(x, state, aux, ms_per_sample)
+            with span("envelope.twin"):
+                out, new_state = envelope_block_torch(x, state, aux, ms_per_sample)
         return new_state, [out], {}

@@ -627,6 +627,43 @@ def test_batched_envelope_rows_forms_equal_the_twin(dev, form, ctas, lane, S):
             assert torch.equal(sk[k].nan_to_num(-1.0), stw[k].nan_to_num(-1.0)), k
 
 
+@pytest.mark.parametrize("S", [12_000, 12_800])
+def test_batched_envelope_module_takes_the_kernel_at_the_fleets_shapes(dev, S):
+    """``EnvelopeDef.run_block`` under ``torch.func.vmap`` at the fleet's
+    own B x S (8,192 sessions in 15- and 16-tick blocks at 48 kHz, under the
+    single block's gate): one kernel launch a block over 3 carried blocks,
+    against the batched twin, with gates and params drawn from the seed."""
+    from mixlab_tpu_torch.dsp.envelope import PALLAS_THRESHOLD, EnvelopeDef
+    from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
+    from mixlab_tpu_torch.protocol import EnvelopeParams
+
+    B, cfg = 8192, EngineConfig(sample_rate=48_000)
+    block = BlockSpec(S // cfg.samples_per_tick)
+    assert block.n_samples(cfg) == S < PALLAS_THRESHOLD
+    g = torch.Generator(device=dev).manual_seed(S)
+    u = torch.rand((3, B, S), generator=g, device=dev)
+    x = torch.where(u < 1e-3, 1.0, torch.where(u < 2e-3, 0.0, 0.5))
+    del u
+    params = {k: lo + (hi - lo) * torch.rand(B, generator=g, device=dev) for k, lo, hi in (
+        ("attack_ms", 1.0, 50.0), ("decay_ms", 1.0, 500.0), ("sustain_amplitude", 0.0, 1.0),
+        ("release_ms", 1.0, 300.0))}
+    sk = {k: v.expand(B).contiguous() for k, v in _env_state(dev).items()}
+    stw = dict(sk)
+    td = EnvelopeDef()
+    run = torch.func.vmap(lambda x, st, aux: td.run_block(
+        EnvelopeParams(), aux, None, st, [x], cfg, block, dev)[:2])
+    for blk in range(3):
+        n = envc.envelope_block_cuda.launches
+        sk, (got,) = run(x[blk], sk, params)
+        assert envc.envelope_block_cuda.launches == n + 1
+        want, stw = envc.envelope_block_torch_batched(x[blk], stw, params, 1000 / 48_000)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= ENV_ATOL, blk
+        for k in ("mode_on", "on_pos", "off_pos"):
+            assert torch.equal(sk[k], stw[k]), k
+        assert (sk["off_amp"] - stw["off_amp"]).abs().max().item() <= ENV_ATOL
+
+
 @pytest.mark.parametrize("form,ctas", ROWS_SPLITS)
 @pytest.mark.parametrize("key", ["flagship", "sink zoo", "peak"])
 def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):

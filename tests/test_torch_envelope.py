@@ -133,6 +133,46 @@ def test_module_below_gate_matches_flat_scans(kind):
         _check_state(st_j, st_t)
 
 
+@pytest.mark.parametrize("ticks,batch,route", [
+    (16, 0, "twin"),  # one fleet-sized block (12,800 samples), under the gate
+    (41, 0, "kernel"),  # 32,800 samples: the single block's gate opens
+    (16, 3, "kernel"),  # a batch takes the kernel at any length
+])
+def test_module_route_by_gate_and_batch(ticks, batch, route):
+    """``run_block`` at 48 kHz, its spans on: an unbatched block under
+    ``PALLAS_THRESHOLD`` takes the twin, one over it and a batch under vmap
+    the kernel's wrapper (on a CPU tensor the twin, bit for bit)."""
+    from mixlab_tpu_torch import spans
+
+    cfg, block = tc.EngineConfig(sample_rate=48_000), tc.BlockSpec(ticks)
+    S = block.n_samples(cfg)
+    params = tp.EnvelopeParams(attack_ms=3.0, decay_ms=10.0, sustain_amplitude=0.6,
+                               release_ms=25.0)
+    td = EnvelopeDef()
+    aux, st = td.prepare(params, cfg, CPU), td.init_state(params, cfg, CPU)
+    x = torch.from_numpy(gates("sparse", S, 3, seed=ticks).reshape(3, S)[:batch or 1])
+    run = lambda x, st, aux: td.run_block(params, aux, None, st, [x], cfg, block, CPU)[:2]
+    spans.enable("t:")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            if batch:
+                st = {k: v.expand(batch).clone() for k, v in st.items()}
+                got_st, (got,) = torch.func.vmap(run, in_dims=(0, 0, None))(x, st, aux)
+            else:
+                got_st, (got,) = run(x[0], st, aux)
+    finally:
+        spans.disable()
+    names = [e.name for e in prof.events()]
+    assert (names.count("t:envelope.kernel"), names.count("t:envelope.twin")) == (
+        (1, 0) if route == "kernel" else (0, 1))
+    want, want_st = envc.envelope_block_torch_batched(
+        x, {k: v.reshape(-1).expand(len(x)) for k, v in st.items()},
+        {k: v.reshape(1).expand(len(x)) for k, v in aux.items()}, 1000.0 / 48_000)
+    assert torch.equal(got.reshape(want.shape), want)
+    for k in want_st:
+        assert torch.equal(got_st[k].reshape(-1), want_st[k]), k
+
+
 # (S, resident CTAs) -> (lane, tiles): LANE samples a thread while the tiles
 # fit, else the shortest lane that fits in min(resident, MAX_TILES) tiles
 TILE_PLANS = [

@@ -407,10 +407,18 @@ def test_batched_envelope_twin_equals_single(B, S):
             assert torch.equal(st[k][i], s1[k]), k
 
 
-def test_offline_sized_fleet_block_goes_through_both_batched_wrappers(monkeypatch):
-    """At 41 ticks (32,800 samples: the envelope's and the eq's kernel gates
-    open) the batched program reaches both wrappers' custom ops, each once a
-    block for all sessions, and every slot still equals its single render."""
+@pytest.mark.parametrize("ticks,want_calls", [
+    (41, {"eq": 1, "envelope": 1}),
+    (15, {"eq": 1, "envelope": 1}),
+    (16, {"eq": 0, "envelope": 1}),  # the region program folds the eq
+])
+def test_offline_sized_fleet_block_goes_through_both_batched_wrappers(monkeypatch, ticks,
+                                                                    want_calls):
+    """The batched program reaches the wrappers' custom ops, each once a
+    block for all sessions, at any length: at 41 ticks (32,800 samples, over
+    the single block's gates) and at the fleet server's 15 and 16 ticks (a
+    batch takes the envelope's kernel below its single-block gate); every
+    slot still equals its single render on the program the fleet chose."""
     from mixlab_tpu_torch.dsp import envelope_cuda, eq_cuda
 
     calls = {"eq": 0, "envelope": 0}
@@ -424,12 +432,12 @@ def test_offline_sized_fleet_block_goes_through_both_batched_wrappers(monkeypatc
 
         monkeypatch.setattr(mod, name, counted)
     ws_t = [_port(w) for w in jax_instances(2)]
-    block = BlockSpec(41)
+    block = BlockSpec(ticks)
     fleet = Fleet.build(ws_t[0], 2, CFG48, block, per_instance_params=ws_t, device="cpu")
     taps = to_numpy(fleet.run_block(0))
-    assert calls == {"eq": 1, "envelope": 1}
+    assert calls == want_calls
     for i, ws in enumerate(ws_t):
-        patch = compile_patch(ws, CFG48, block, CPU, mega=False)
+        patch = compile_patch(ws, CFG48, block, CPU)
         _, want = patch.run(patch.prepare_aux(ws), patch.host_aux(0), patch.init_state(ws))
         for g, w in zip(taps["16"]["audio"], to_numpy(want)["16"]["audio"]):
             assert np.array_equal(g[i], w)

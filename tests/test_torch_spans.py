@@ -148,6 +148,9 @@ def test_fleet_spans_once_a_block_nested_and_bit_identical(on, ticks):
     assert {k: len(v) for k, v in modules.items()} == {
         k: n * BLOCKS for k, n in (PRELUDE if ticks == 16 else KINDS).items()}
     assert all(inside(v, got["fleet.dispatch"]) for v in modules.values())
+    # a batch takes the envelope's kernel route at any length
+    assert len(got["envelope.kernel"]) == BLOCKS and "envelope.twin" not in got
+    assert inside(got["envelope.kernel"], modules["Envelope"])
 
     assert [t0 for t0, _ in taps] == [t0 for t0, _ in off_taps]
     for (_, a), (_, b) in zip(taps, off_taps):
@@ -186,8 +189,10 @@ def test_render_spans_a_block_and_bit_identical(on, n_ticks, compiles):
     audio, got = recorded(go)
     assert {k: len(v) for k, v in got.items() if not k.startswith("module.")} == {
         "render.compile": compiles, "render.prepare": 1, "patch.host_aux": 2,
-        "patch.upload": 2, "patch.dispatch": 2, "render.collect": 2, "render.concat": 1}
+        "patch.upload": 2, "patch.dispatch": 2, "render.collect": 2, "render.concat": 1,
+        "envelope.twin": 2}  # one unbatched block under the envelope's kernel gate
     modules = [v for k, v in got.items() if k.startswith("module.")]
     assert modules and all(inside(v, got["patch.dispatch"]) for v in modules)
+    assert inside(got["envelope.twin"], got["module.Envelope"])
     spans.disable()
     np.testing.assert_array_equal(audio, go())
