@@ -48,8 +48,8 @@
 // tiles fold the aggregates of the tiles before them onto the nearest
 // inclusive state, concretely (apply_rec), as phase B does lane by lane.
 // Batched, the kernel moves 8 bytes a sample (x in, out written); at the
-// fleet's shapes it reaches about a third of that bound (chip_smoke.py
-// batched_ab): phase A runs two machines a sample, phase B divides two or
+// fleet's shapes it reaches about a third of that bound (PERF.md §6,
+// the bring-up table): phase A runs two machines a sample, phase B divides two or
 // three times a sample in IEEE f32, and every tile pays two block scans of
 // the 16-word record pair, so the issue slots, not the bytes, hold it.
 
@@ -80,7 +80,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLane = 16;           // samples per thread (tile 4,096)
 // the batched rows forms: samples a thread at most (tile 8,192), and CTAs an
-// SM asked of the compiler (64 registers a thread; chip_smoke.py's sweep)
+// SM asked of the compiler (64 registers a thread; the rows sweep in
+// PERF.md §6)
 constexpr int kMaxRowsLane = 32;
 constexpr int kRowsMinBlocks = 4;
 constexpr int kMaxTiles = kThreads;    // one tile aggregate per thread of the tile scan

@@ -13,7 +13,7 @@
 // the chunk ends in every CTA, 36.4 us).  Now the four stages are one
 // linear system with a 4-value state per band, so one carry serves them all
 // (csrc/eq_scan.cuh): G CTAs of T threads, each thread a run of L samples
-// (T = 128 and L = 4 by the sweep in chip_smoke.py phase 7: G = 87 at
+// (T = 128 and L = 4 by the eq scan's sweep in PERF.md §6: G = 87 at
 // S = 44,100; a longer run when the CTAs would not fit on the card at once,
 // eq_cuda.scan_plan), both inputs staged once with 16-byte loads, pass 1 in
 // registers, a block scan, the CTAs' aggregates to a scratch [G][8], one
@@ -29,7 +29,8 @@
 //     the card at once (config 3: 32 blocks of 96,000 samples);
 //   * otherwise one CTA a row (eq_rows_kernel, csrc/rows.cuh): as many CTAs
 //     as the card holds, each walking its rows in turn in tiles of 128 x 16
-//     samples (chip_smoke.rows_sweep), copying its next tile's x and xd into
+//     samples (the eq's rows sweeps in PERF.md §6), copying its next
+//     tile's x and xd into
 //     shared memory with 16-byte cp.async while it computes on this one; the
 //     table and thread maps loaded once a CTA; the carry in registers,
 //     carry' = A^n carry + the tile's aggregate, folded by every thread
@@ -40,7 +41,7 @@
 // Batched, the work is bandwidth-bound: 12 bytes a sample (x, xd in, out
 // written) against ~20 FLOP a sample, e.g. 147.5 MB at B = 1,024 x 12,000,
 // 44 us at 3.35 TB/s.  One CTA a row reaches 0.59-0.62 / 0.69-0.71 of that
-// at 1,024 / 8,192 x 12,000 (chip_smoke.batched_ab, PERF.md); the grid 0.45
+// at 1,024 / 8,192 x 12,000 (in turns with the grid, PERF.md §6); the grid 0.45
 // at 32 x 96,000.  A decoupled look-back over the card's CTAs (a few long
 // rows' tiles taken by ticket) was built and measured slower than the grid
 // at the stems' shapes (PERF.md §6); no path sends long rows past the grid,
@@ -91,8 +92,8 @@ eq_cascade_kernel(const float* __restrict__ x, const float* __restrict__ xd, int
 
 // ---- the batched rows form (csrc/rows.cuh) ---------------------------------
 // A tile is kRowsThreads threads of L = 2^kRowsLg samples (128 x 16, by
-// chip_smoke.rows_sweep, which builds the other tiles as patched copies of
-// these two lines); x and xd are staged at a stride of L + 4 floats a run,
+// the eq's rows sweeps in PERF.md §6, which built the other tiles by
+// changing these two lines); x and xd are staged at a stride of L + 4 floats a run,
 // so each run starts 16-byte aligned (cp.async of 16 bytes, float4 reads)
 // and a quarter-warp's float4 reads hit distinct banks for L >= 8.
 
@@ -100,7 +101,7 @@ constexpr int kRowsThreads = 128;
 constexpr int kRowsLg = 4;
 
 // floats of the two staged buffers of x and xd (this tile and the next; a
-// third lost, chip_smoke.rows_sweep)
+// third lost in the eq's rows sweeps, PERF.md §6)
 __host__ __device__ constexpr int log2i(int v) { return v > 1 ? 1 + log2i(v / 2) : 0; }
 
 constexpr size_t kRowsFloats = 4 * static_cast<size_t>(kRowsThreads) * ((1 << kRowsLg) + 4);

@@ -47,7 +47,8 @@
 // passes of L dependent samples and its scans.  Before, the EQ solved each
 // stage as 128-sample Toeplitz products with a grid barrier and a redundant
 // scan of every chunk end in every CTA after each of its four stages
-// (51.4 us per launch on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py);
+// (51.4 us per launch on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6,
+// the bring-up table);
 // the scan form needs one carry for all four stages.
 //
 // Over a batch (what jax.vmap of the TPU kernel computes: the fleet's
@@ -76,7 +77,7 @@
 // without the row offsets (Block), as before the batch axis.  Batched, the
 // function moves ~32 B a sample (six operands in, a stereo tap out), 3.36
 // GB at 8,192 rows of 12,800 (1.0 ms at 3.35 TB/s); the rows forms reach
-// about a quarter of that (chip_smoke.py batched_ab): the plan's
+// about a quarter of that (PERF.md §6, the bring-up table): the plan's
 // interpreter (its words and params read an op at a time, the EQ's two
 // passes and scans between barriers) at two CTAs of 128 threads an SM,
 // not the bytes, holds them.

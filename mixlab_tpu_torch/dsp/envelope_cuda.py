@@ -65,10 +65,10 @@ _PAIR_WORDS = 16  # one tile's aggregate record in the scratch (64 bytes)
 # look-back
 FORM_GRID, FORM_ROWS, FORM_LOOKBACK = 0, 1, 2
 # the rows forms' lanes: tiles of 4,096 samples, or of 8,192 where a block's
-# last tile wastes under a tenth of it (chip_smoke.rows_sweep)
+# last tile wastes under a tenth of it (the rows sweep in PERF.md §6)
 ROWS_LANES = (16, 32)
 # a look-back tile's time against a tile of one CTA a block, at equal waves
-# (chip_smoke.rows_sweep: 1.25-1.27 at 1,024 and 8,192 x 12,000)
+# (1.25-1.27 at 1,024 and 8,192 x 12,000: the rows sweep in PERF.md §6)
 LOOKBACK_COST = 1.25
 STATUS_BYTES = 96  # a look-back status record (csrc/envelope.cu Status)
 _PARAMS = ("attack_ms", "decay_ms", "sustain_amplitude", "release_ms")

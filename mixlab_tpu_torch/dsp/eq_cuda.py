@@ -63,7 +63,8 @@ MAX_RUN = 32
 # grid, and one CTA a block (csrc/rows.cuh)
 FORM_GRID, FORM_ROWS = 0, 1
 # one CTA a block's tile, fixed in the kernel (eq_cascade.cu kRowsThreads,
-# kRowsLg; chip_smoke.rows_sweep): ROWS_THREADS threads of ROWS_RUN samples
+# kRowsLg; the eq's rows sweeps in PERF.md §6): ROWS_THREADS threads of
+# ROWS_RUN samples
 ROWS_THREADS = 128
 ROWS_RUN = 16
 # longest block one launch takes; longer blocks split into sequential

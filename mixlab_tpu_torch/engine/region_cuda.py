@@ -71,7 +71,7 @@ from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
 
 CHUNK = 128  # samples per chunk = threads per CTA of the kernel
 # chunks a CTA owns (the EQ's run: samples a thread) while the CTAs fit on
-# the card at once (chip_smoke.py phase 7 sweeps it)
+# the card at once (the eq scan's sweep in PERF.md §6)
 RUN = 4
 # chunks one launch takes; the region program's parts stay below
 MAX_CHUNKS = 4096
@@ -82,10 +82,10 @@ FORM_GRID, FORM_ROWS, FORM_LOOKBACK = 0, 1, 2
 # have 227 KB; csrc/region.cu kRowsShared)
 ROWS_SHARED = 200 * 1024
 # the rows forms' chunks a tile, halved while the tiles do not fit
-# (chip_smoke.rows_sweep: 8 beat 4 at 264-8,192 x 12,800)
+# (8 beat 4 at 264-8,192 x 12,800: the rows sweep in PERF.md §6)
 ROWS_RUN = 8
 # a look-back tile's time against a tile of one CTA a row, at equal waves
-# (chip_smoke.rows_sweep: 1.57 at 1,024 x 12,800)
+# (1.55-1.61 at 1,024 x 12,800: the rows sweep in PERF.md §6)
 LOOKBACK_COST = 1.6
 RECORD_BYTES = 128  # a look-back status record of an EQ op (csrc/region.cu kRecord)
 MAX_OPERANDS = 32   # the rows forms' i16 mask

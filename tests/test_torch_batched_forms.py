@@ -22,8 +22,8 @@ aggregates of the tiles before it onto the nearest inclusive state.  Here:
 
 Tile edges fall on, before and after gate edges, and the last tile holds
 one sample (the envelope) or one chunk of 128 (the EQ).  The kernels
-themselves run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
-phases 16 and 20).
+themselves run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s
+batched paths and batched region).
 """
 
 import re
@@ -35,7 +35,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import tile_edge_gates
 from mixlab_tpu.dsp import eq_pallas as jax_eq_pallas
 from mixlab_tpu.dsp.envelope_pallas import envelope_block_pallas
 from mixlab_tpu_torch.dsp import envelope_cuda as envc
@@ -44,6 +43,7 @@ from mixlab_tpu_torch.dsp.eq_three import VSA
 from mixlab_tpu_torch.engine import region_cuda as rc
 from tests.test_torch_eq_scan import (F32, GAINS, _absorb, _apply_bits, _coeffs, _mv, _shift,
                                       _step, _warp_scan)
+from torch_support import tile_edge_gates
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "mixlab_tpu_torch" / "csrc"

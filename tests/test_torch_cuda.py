@@ -11,6 +11,9 @@ import torch
 from mixlab_tpu_torch.dsp import envelope_cuda as envc
 from mixlab_tpu_torch.dsp import eq_cuda as eqc
 from mixlab_tpu_torch.dsp.eq_three import FREQ_HI, FREQ_LO, VSA, _filter_coeff
+from torch_support import (REGION_ATOL, HoldRegion, fleet_workspaces, launch_tiles, peaks_exact,
+                           region_inputs, region_plans, rows_err, run_blocks, sink_zoo,
+                           tile_edge_gates, tree_err)
 
 pytestmark = pytest.mark.cuda
 
@@ -43,14 +46,12 @@ def _env_params(dev, attack=25.0):
 def _gates(kind, S, seed):
     """Three blocks of S samples: random {0, 1, 0.5}, or edges at the
     kernel's tile boundaries (T-1, T, T+1, the first and last sample) or one
-    in every tile (chip_smoke phase 3)."""
-    import chip_smoke
-
+    in every tile (as ``chip_smoke.check_envelope``)."""
     rng = np.random.default_rng(seed)
     if kind == "dense":
         return rng.choice([0.0, 1.0, 0.5], size=3 * S).astype(np.float32)
-    _, T = chip_smoke.launch_tiles(envc, S)
-    return chip_smoke.tile_edge_gates(np, kind, S, T, 3, rng)
+    _, T = launch_tiles(envc, S)
+    return tile_edge_gates(np, kind, S, T, 3, rng)
 
 
 ENV_SIZES = [735, envc.TILE - 1, envc.TILE + 1, 44_100, 48_000, envc.MAX_KERNEL_S,
@@ -76,7 +77,7 @@ def test_envelope_kernel_matches_twin(dev, S, attack, kind):
 
 
 # the kernel's edges: a run (RUN samples a thread) and a CTA's tile cut by S
-# (chip_smoke phase 4), both rates' blocks, the split bound
+# (as ``chip_smoke.check_eq``), both rates' blocks, the split bound
 EQ_SIZES = [1, eqc.RUN - 1, eqc.RUN + 1, eqc.THREADS * eqc.RUN - 1, eqc.THREADS * eqc.RUN,
             eqc.THREADS * eqc.RUN + 1, 8192, 44_100, 48_000, eqc.MAX_KERNEL_S,
             eqc.MAX_KERNEL_S + 1]
@@ -156,9 +157,8 @@ REGION_CASES = [("flagship", 60, 1), ("flagship", 300, 2), ("flagship", 152, 1),
                          ids=[f"{g}-{t}" for g, t, _ in REGION_CASES])
 def test_region_kernel_matches_twin(dev, graph, ticks, parts):
     """Every launch of the region program, 3 carried blocks at 48 kHz, held
-    against the twin on the same inputs (chip_smoke.HoldRegion raises past
+    against the twin on the same inputs (``HoldRegion`` raises past
     2e-5); then the whole program against the regular one."""
-    import chip_smoke
     from mixlab_tpu_torch.engine.compiler import compile_patch
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.flagship import build_16_module_graph
@@ -168,20 +168,20 @@ def test_region_kernel_matches_twin(dev, graph, ticks, parts):
     if graph == "flagship":
         ws = build_16_module_graph()[0]
     else:
-        ws, si = chip_smoke.sink_zoo()
+        ws, si = sink_zoo()
         rng = np.random.default_rng(7)
         feeds = {i: {str(si.value): {"pcm": rng.integers(
             -32768, 32767, (2, ticks * 800)).astype(np.int16)}} for i in range(3)}
     pm = compile_patch(ws, cfg, BlockSpec(ticks), dev)
     assert pm._mega
-    with chip_smoke.HoldRegion(torch) as hold:
-        sm, tm = chip_smoke._run_blocks(pm, ws, 3, feeds)
-    assert hold.launches == 3 * parts and hold.worst <= chip_smoke.REGION_ATOL
-    sr, tr = chip_smoke._run_blocks(compile_patch(ws, cfg, BlockSpec(ticks), dev, mega=False),
-                                    ws, 3, feeds)
-    assert chip_smoke._tree_err(sm, sr, "state") <= chip_smoke.REGION_ATOL
+    with HoldRegion(torch) as hold:
+        sm, tm = run_blocks(pm, ws, 3, feeds)
+    assert hold.launches == 3 * parts and hold.worst <= REGION_ATOL
+    sr, tr = run_blocks(compile_patch(ws, cfg, BlockSpec(ticks), dev, mega=False),
+                        ws, 3, feeds)
+    assert tree_err(sm, sr, "state") <= REGION_ATOL
     for a, b in zip(tm, tr):
-        assert chip_smoke._tree_err(a, b, "taps") <= chip_smoke.REGION_ATOL
+        assert tree_err(a, b, "taps") <= REGION_ATOL
 
 
 def _region_case(dev):
@@ -217,10 +217,9 @@ def test_batched_region_kernel_matches_twin_in_both_forms(dev):
     parts of 6,400, 2 carried blocks, operand 0 one row every row reads
     (row stride 0): the cooperative grid and the rows form (one CTA a row)
     each within 2e-5 of the batched twin, one launch a call."""
-    import chip_smoke
     from mixlab_tpu_torch.engine import region_cuda as rc
 
-    plan, row, consts = chip_smoke.region_plans(torch)["flagship"]
+    plan, row, consts = region_plans(torch)["flagship"]
     consts = consts.to(dev)
     g = torch.Generator(device=dev).manual_seed(3)
     B, half = 3, 6_400
@@ -229,7 +228,7 @@ def test_batched_region_kernel_matches_twin_in_both_forms(dev):
     forms = (rc.FORM_GRID, one_a_row)
     sf = {f: s0.clone() for f in ("twin", *forms)}
     for _ in range(2):
-        ops, pf = chip_smoke._region_inputs(torch, g, plan, row, B, 2 * half, dev, shared=(0,))
+        ops, pf = region_inputs(torch, g, plan, row, B, 2 * half, dev, shared=(0,))
         for a in (0, half):
             part = [v[..., a:a + half] for v in ops]
             want = rc.region_part_torch_batched(plan, part, pf, sf["twin"], half, consts, B)
@@ -242,7 +241,7 @@ def test_batched_region_kernel_matches_twin_in_both_forms(dev):
                 assert rc.region_part_cuda.launches == n + 1
                 sf[form] = got[2]
                 for x, y in zip(got, want):  # the flagship has no scalar tap: stap is empty
-                    assert chip_smoke._rows_err(torch, x, y) <= chip_smoke.REGION_ATOL
+                    assert rows_err(torch, x, y) <= REGION_ATOL
 
 
 def test_batched_region_wrapper_rejects_bad_tensors(dev):
@@ -268,13 +267,12 @@ def test_fleet_region_block_launches_the_region_kernel_once(dev):
     """4 sessions of the flagship at 48 kHz in 16-tick blocks on the card:
     one region launch a block and no eq launch, taps within 2e-5 of the
     same fleet on the CPU (the batched twin)."""
-    import chip_smoke
     from mixlab_tpu_torch.engine import region_cuda
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.parallel.fleet import Fleet
 
     cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(16)
-    wss = chip_smoke.fleet_workspaces(4)
+    wss = fleet_workspaces(4)
     fleets = [Fleet.build(wss[0], 4, cfg, block, per_instance_params=wss, device=d)
               for d in ("cuda", "cpu")]
     assert fleets[0].patch._mega
@@ -286,10 +284,10 @@ def test_fleet_region_block_launches_the_region_kernel_once(dev):
         assert eqc.eq_cascade_cuda.launches == e
         want = fleets[1].run_block(b * 12_800)
         for x, y in zip(got["16"]["audio"], want["16"]["audio"]):
-            assert (x.cpu() - y).abs().max().item() <= chip_smoke.REGION_ATOL
+            assert (x.cpu() - y).abs().max().item() <= REGION_ATOL
 
 # n % 16 of 0, 1, 11 and 15; 1025x16 and 540x960 leave the last CTA of the
-# vector range ragged (chip_smoke phase 8)
+# vector range ragged (as ``chip_smoke.check_crossfade``)
 CROSSFADE_SHAPES = [(1080, 1920), (540, 960), (36, 100), (1, 1), (7, 13), (17, 31), (5, 13),
                     (1025, 16)]
 
@@ -378,7 +376,7 @@ def test_cuda_served_session_streams_the_monitor(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(chip_smoke.cam_frames, "__defaults__", (sizes,))
     monkeypatch.setattr(chip_smoke.Cameras.__init__, "__defaults__", (sizes,))
     monkeypatch.setattr(chip_smoke, "SERVED_SECONDS", 3.0)
-    launches = chip_smoke.served_session(torch, np, dev, "card", tmp_path)["launches"]
+    launches = chip_smoke.served_session(torch, np, dev, tmp_path)["launches"]
     assert launches["crossfade"] >= 60
 
 RESIZE_CASES = [
@@ -604,13 +602,11 @@ def test_batched_envelope_rows_forms_equal_the_twin(dev, form, ctas, lane, S):
     state bit-equal to the batched twin over 3 carried blocks (gates with
     edges at T-1, T, T+1 of every tile boundary, the first and last sample),
     one launch a call."""
-    import chip_smoke
-
     B, T = 3, envc.THREADS * lane
     tiles = -(-S // T)
     plan = envc.BatchPlan(form, lane, tiles, ctas or B)
     rng = np.random.default_rng(S + ctas)
-    x = torch.from_numpy(np.stack([chip_smoke.tile_edge_gates(np, "tile_edges", S, T, 3, rng)
+    x = torch.from_numpy(np.stack([tile_edge_gates(np, "tile_edges", S, T, 3, rng)
                                    .reshape(3, S) for _ in range(B)], 1)).to(dev)
     params = {k: v.expand(B).contiguous() for k, v in _env_params(dev).items()}
     params["attack_ms"] = torch.tensor([25.0, 0.0, 3.0], device=dev)
@@ -674,10 +670,9 @@ def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):
     of one chunk), 2 carried blocks: taps and exits within 2e-5 of the
     batched twin, scalar taps the exact max of the launch's own taps, one
     launch a call."""
-    import chip_smoke
     from mixlab_tpu_torch.engine import region_cuda as rc
 
-    plan, row, consts = chip_smoke.region_plans(torch)[key]
+    plan, row, consts = region_plans(torch)[key]
     consts = consts.to(dev)
     g = torch.Generator(device=dev).manual_seed(ctas)
     B = 3
@@ -686,9 +681,9 @@ def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):
         s0 = torch.rand((B, plan.n_ef), generator=g, device=dev) * 0.2 - 0.1
         sf = {"twin": s0.clone(), "kernel": s0.clone()}
         for blk in range(2):
-            ops, pf = chip_smoke._region_inputs(torch, g, plan, row, B, S, dev,
-                                                (0,) if key == "flagship" else (),
-                                                key == "peak" and blk == 1)
+            ops, pf = region_inputs(torch, g, plan, row, B, S, dev,
+                                    (0,) if key == "flagship" else (),
+                                    key == "peak" and blk == 1)
             want = rc.region_part_torch_batched(plan, ops, pf, sf["twin"], S, consts, B)
             n = rc.region_part_cuda.launches
             got = rc.region_part_batched(plan, ops, pf, sf["kernel"], S, consts, B, form=bp)
@@ -696,8 +691,8 @@ def test_batched_region_rows_forms_match_the_twin(dev, form, ctas, key):
             assert rc.region_part_cuda.launches == n + 1
             sf = {"twin": want[2], "kernel": got[2]}
             for x, y in zip(got, want):
-                assert chip_smoke._rows_err(torch, x, y) <= chip_smoke.REGION_ATOL, (S, blk)
-            assert chip_smoke._peaks_exact(torch, plan, ops, got[0], got[1])
+                assert rows_err(torch, x, y) <= REGION_ATOL, (S, blk)
+            assert peaks_exact(torch, plan, ops, got[0], got[1])
 
 
 @pytest.mark.parametrize("ctas", [None, 1, 2])  # one CTA a row, one CTA, 2 CTAs walking 3 rows
@@ -911,13 +906,12 @@ def test_fleet_over_two_shards_of_the_card_matches_one_device(dev):
     """8 flagship sessions with their own params over [cuda:0] x 2, 15-tick
     blocks: every session's taps equal the one-device fleet's bit for bit,
     over two carried blocks."""
-    import chip_smoke
     from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
     from mixlab_tpu_torch.parallel import make_mesh
     from mixlab_tpu_torch.parallel.fleet import Fleet
 
     cfg, block = EngineConfig(sample_rate=48_000), BlockSpec(15)
-    wss = chip_smoke.fleet_workspaces(8)
+    wss = fleet_workspaces(8)
     one = Fleet.build(wss[0], 8, cfg, block, per_instance_params=wss, device="cuda")
     two = Fleet.build(wss[0], 8, cfg, block, per_instance_params=wss,
                       mesh=make_mesh(2, devices=["cuda:0"]))

@@ -18,7 +18,7 @@ from mixlab_tpu_torch.dsp.envelope import EnvelopeDef
 from mixlab_tpu_torch.dsp import envelope_cuda as envc
 from mixlab_tpu_torch.dsp.envelope_cuda import envelope_block_cuda
 from mixlab_tpu_torch.engine import config as tc
-from chip_smoke import tile_edge_gates
+from torch_support import tile_edge_gates
 
 CPU = torch.device("cpu")
 CFG = EngineConfig(sample_rate=44_100)

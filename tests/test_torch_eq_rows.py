@@ -11,8 +11,7 @@ the nearest published inclusive state.  Here:
 
   * ``eq_cuda.batch_plan`` / ``rows_plan`` at their edges: which form each
     B x S takes, the tiles a row, the CTAs against the card and the
-    refusals past the limits; the tile against the kernel's source and the
-    sweep's patched copies of it;
+    refusals past the limits; the tile against the kernel's source;
   * the kernels' arithmetic in their order, in numpy (f32, a separate
     multiply and add): each tile's scan (pass 1, the warp scan, every warp's
     own scan of the warp totals), the carry folded by one CTA or by the
@@ -30,7 +29,7 @@ the nearest published inclusive state.  Here:
     captures.
 
 The kernels themselves run on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phases 16 and 22).
+``chip_smoke.py``'s batched paths and look-back phase).
 """
 
 import re
@@ -44,7 +43,6 @@ import pytest
 import torch
 
 from mixlab_tpu.dsp import eq_pallas as jax_eq_pallas
-import chip_smoke
 from mixlab_tpu_torch import kernels
 from mixlab_tpu_torch.dsp import envelope_cuda, eq_cuda
 from mixlab_tpu_torch.dsp.eq_three import VSA
@@ -54,9 +52,10 @@ from tests.test_torch_eq_scan import (F32, _absorb, _apply_bits, _coeffs, _mv, _
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "mixlab_tpu_torch" / "csrc"
 EQ_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_eq_pallas.py:110
-# what an H100 holds at once (132 SMs; chip_smoke.rows_sweep's occupancy
-# queries): the cooperative grid's CTAs and one CTA a row's at 128 x 16 (the
-# model needs only numbers; the kernels ask the occupancy query)
+# what an H100 holds at once (132 SMs; the occupancy queries of the rows
+# sweeps in PERF.md §6): the cooperative grid's CTAs and one CTA a row's at
+# 128 x 16 (the model needs only numbers; the kernels ask the
+# occupancy query)
 N_SM = 132
 EQ_GRID, EQ_ROWS = 6 * N_SM, 4 * N_SM
 GRID, ROWS = eq_cuda.FORM_GRID, eq_cuda.FORM_ROWS
@@ -134,27 +133,8 @@ def test_eq_rows_sizes_are_the_kernels():
     assert "eq_lookback_kernel" not in src
     rows = (CSRC / "rows.cuh").read_text()
     assert re.search(r"kHeader = (\d+);", rows).group(1) == "4"
-    # two buffers of x and xd at the sweep's largest tile, 256 x 32, fit a CTA
-    assert 2 * 2 * 256 * (32 + 4) * 4 <= 227 * 1024
-
-
-@pytest.mark.parametrize("T,L", chip_smoke.EQ_SWEEP_TILES)
-def test_eq_sweep_variants_patch_the_tile(T, L):
-    """``chip_smoke.rows_sweep`` builds each other tile as a copy of
-    ``eq_cascade.cu`` with its two tile lines patched, and nothing else."""
-    src = (CSRC / "eq_cascade.cu").read_text()
-    variants = chip_smoke.eq_variants()
-    lines = [line.format(v) for line, v in
-             zip(chip_smoke.EQ_TILE_LINES, (T, L.bit_length() - 1))]
-    if (T, L) == (T0, L0):
-        assert f"eq_{T}x{L}" not in variants
-        assert all(line in src for line in lines)
-        assert variants["eq_min5"][1] == src.replace(*chip_smoke.EQ_MIN5) != src
-        return
-    name, text = variants[f"eq_{T}x{L}"]
-    assert name == "eq_cascade.cu" and all(line in text for line in lines)
-    differ = [(a, b) for a, b in zip(src.splitlines(), text.splitlines()) if a != b]
-    assert len(differ) == sum(line not in src for line in lines)
+    # two buffers of x and xd at the kernel's tile fit a CTA's shared memory
+    assert 2 * 2 * T0 * (L0 + 4) * 4 <= 227 * 1024
 
 
 # --- the kernels' arithmetic, in their order --------------------------------
@@ -312,9 +292,9 @@ def test_eq_rows_model_matches_the_twin_and_the_pallas_kernel(S, form):
 @pytest.mark.parametrize("T,L", [(64, 16), (128, 8), (128, 32), (256, 8), (256, 16),
                                  (256, 32)])
 def test_eq_rows_model_at_every_swept_tile(T, L):
-    """The CTA sizes and runs the sweep tries, at the fleet's 12,000: one
-    CTA a row within 2e-5 of the twin, and the look-back's fold the same
-    bits."""
+    """Other CTA sizes and runs of the kernel's tile (the rows sweep's,
+    recorded in PERF.md), at the fleet's 12,000: one CTA a row within 2e-5
+    of the twin, and the look-back's fold the same bits."""
     f_lo, f_hi = _coeffs(48_000)
     x, xd, poles, gains = _rows_batch(1, 12_000, T + L)
     want, pwant = _twin(x, xd, poles, gains, f_lo, f_hi)

@@ -20,8 +20,8 @@ It is held against the twin (``eq_cuda.eq_cascade_torch``) and against the
 JAX package's ``eq_cascade_pallas`` in interpret mode within EQ_TOL, at the
 sizes the kernel meets and at runs and CTAs cut by S; the kernel's tables
 against a float64 recurrence on unit states, and ``scan_plan`` at its edges.
-The kernel itself runs on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phases 4, 5 and 6).
+The kernel itself runs on the card (``tests/test_torch_cuda.py``, and
+``chip_smoke.py``'s eq and region checks and main paths).
 """
 
 import jax

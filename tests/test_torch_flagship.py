@@ -28,6 +28,7 @@ from mixlab_tpu_torch.engine.render import render
 from mixlab_tpu_torch.engine.scan_render import render_scanned, scan_blocks
 from mixlab_tpu_torch.flagship import build_16_module_graph
 from test_whole_graph_oracle import oracle_16_module
+from torch_support import parse_fmp4
 
 CPU = torch.device("cpu")
 CFG44 = EngineConfig(sample_rate=44_100)
@@ -198,7 +199,6 @@ def test_render_cli_writes_mp4(tmp_path, monkeypatch):
     ``moof``/``mdat`` pairs, with 1 s's samples (43 AAC frames of 1,024,
     10 video frames at 60 / 6 fps), read back by the JAX package's demuxer;
     the AAC frames are those of the port's WAV render of the same second."""
-    import chip_smoke
     from mixlab_tpu.av.mp4read import Mp4Reader
     from mixlab_tpu_torch.av.codecs import PureAacStream
     from mixlab_tpu_torch.av.encode_stream import f32_to_i16
@@ -211,7 +211,7 @@ def test_render_cli_writes_mp4(tmp_path, monkeypatch):
     out = tmp_path / "out.mp4"
     assert render_cli.main([str(proj), str(out), "--seconds", "1", "--device", "cpu"]) is None
     data = out.read_bytes()
-    walk = chip_smoke.parse_fmp4(data)
+    walk = parse_fmp4(data)
     assert sorted(walk["codecs"].values()) == ["avc1", "mp4a"]
     assert walk["samples"] == {"mp4a": 44_100 // 1024, "avc1": 10}
     reader = Mp4Reader(data)
@@ -232,7 +232,6 @@ def test_render_cli_writes_mp4_through_the_shim(tmp_path, monkeypatch):
     """The same export on the libavcodec shim tier (x264 and libavcodec's
     AAC): ``avc1`` at 560x350, 10 key frames, and ``mp4a`` whose samples
     are the shim's AAC of the offline render of the same second."""
-    import chip_smoke
     from mixlab_tpu.av.mp4read import Mp4Reader
     from mixlab_tpu_torch.av.codecs import ShimAacStream
     from mixlab_tpu_torch.av.encode_stream import f32_to_i16
@@ -248,7 +247,7 @@ def test_render_cli_writes_mp4_through_the_shim(tmp_path, monkeypatch):
     out = tmp_path / "out.mp4"
     assert render_cli.main([str(proj), str(out), "--seconds", "1", "--device", "cpu"]) is None
     data = out.read_bytes()
-    assert sorted(chip_smoke.parse_fmp4(data)["codecs"].values()) == ["avc1", "mp4a"]
+    assert sorted(parse_fmp4(data)["codecs"].values()) == ["avc1", "mp4a"]
     reader = Mp4Reader(data)
     video, audio = reader.video_track(), reader.audio_track()
     assert (video.codec, video.width, video.height) == ("h264", 560, 350)

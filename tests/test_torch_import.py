@@ -39,7 +39,10 @@ names = [m.name for m in pkgutil.walk_packages(mixlab_tpu_torch.__path__,
                                                "mixlab_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke  # the chip script imports neither
+sys.path.append("tests")
+import torch_support  # the helpers the port's tests share import neither
+names.append("tests.torch_support")
+import chip_smoke  # nor does the chip script
 import importlib.util
 examples = {}
 for example in ("torch_synth_patch", "torch_fleet_demo"):  # nor do the port's examples
@@ -62,6 +65,7 @@ def test_port_imports_with_jax_and_the_jax_package_blocked():
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert len(names) >= 50  # every module of the four slices
+    assert "tests.torch_support" in names
     # the port's own copies of the host code it once took from mixlab_tpu
     assert {f"mixlab_tpu_torch.{m}" for m in (
         "protocol", "protocol.wire", "engine.config", "io_host.wav", "av.flacenc",

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 import bench
-import chip_smoke
 from mixlab_tpu.engine import pallas_graph
 from mixlab_tpu.engine.compiler import compile_patch as jax_compile_patch
 from mixlab_tpu.engine.config import BlockSpec as JaxBlockSpec
@@ -28,6 +27,7 @@ from mixlab_tpu_torch.engine.compiler import compile_patch
 from mixlab_tpu_torch.engine.config import BlockSpec, EngineConfig
 from mixlab_tpu_torch.engine.graph import Workspace
 from test_pallas_graph import _sink_zoo
+from torch_support import sink_zoo
 
 CPU = torch.device("cpu")
 CFG = EngineConfig(sample_rate=48_000)
@@ -51,7 +51,7 @@ def _graph(name):
         # built in each package: its OutputDevice has no params, which no
         # project file can hold
         ws_j, si = _sink_zoo()
-        ws_t, si_t = chip_smoke.sink_zoo()
+        ws_t, si_t = sink_zoo()
         assert si_t.value == si.value
         rng = np.random.default_rng(7)
         spb = JaxBlockSpec(TICKS).n_samples(CFG_J)

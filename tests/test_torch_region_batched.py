@@ -22,7 +22,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from bench import build_16_module_graph as jax_flagship
 from mixlab_tpu.engine.config import BlockSpec as JaxBlockSpec
 from mixlab_tpu.engine.config import EngineConfig as JaxEngineConfig
@@ -41,6 +40,7 @@ from mixlab_tpu_torch.parallel import make_mesh
 from mixlab_tpu_torch.parallel.fleet import Fleet
 from mixlab_tpu_torch.parallel.stems import stem_parallel_step
 from mixlab_tpu_torch.server.fleet_serve import FleetEngine
+from torch_support import fleet_workspaces, region_plans, same_bits
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -77,11 +77,11 @@ def _jax_instances(n):
 
 @pytest.fixture(scope="module")
 def plans():
-    return chip_smoke.region_plans(torch)
+    return region_plans(torch)
 
 
 def _inputs(rng, plan, row, B, S, shared=(), nan=False):
-    """numpy-seeded inputs for B rows (chip_smoke._region_inputs on the CPU)."""
+    """numpy-seeded inputs for B rows (``torch_support.region_inputs`` on the CPU)."""
     ops = []
     for i, dt in enumerate(region_cuda.operand_dtypes(plan)):
         shape = (S,) if i in shared else (B, S)
@@ -126,7 +126,7 @@ def test_batched_twin_equals_single_twin_row_by_row(plans, key, shared):
                 t1, s1, e1 = region_cuda.region_part_torch(
                     plan, mine, torch.cat([pf[i], consts]), sf_rows[i], half)
                 for g, w in ((taps[i], t1), (stap[i], s1), (ef[i], e1)):
-                    assert chip_smoke._same_bits(torch, g, w)
+                    assert same_bits(torch, g, w)
                 sf_rows[i] = e1
             sf = ef
     if key == "peak":  # the NaN won in its row only, 1e30 in the first
@@ -281,16 +281,12 @@ def test_stems_match_jax_stems_over_a_cpu_mesh():
     np.testing.assert_allclose(master.numpy(), 3 * one.numpy(), rtol=0, atol=MIX_ATOL)
 
 
-def _flagship_instances(n):
-    return chip_smoke.fleet_workspaces(n)
-
-
 def test_fleet_edits_and_resets_on_the_region_program_match_the_regular():
     """A param edit of one instance, a reset of another and of a row range
     between blocks: the region fleet's taps and state within REGION_ATOL of
     the same fleet on the regular program, its checkpoint of the same
     structure and dtypes."""
-    wss = _flagship_instances(4)
+    wss = fleet_workspaces(4)
     block, spb = BlockSpec(16), 16 * CFG.samples_per_tick
     fleets = [Fleet.build(wss[0], 4, CFG, block, per_instance_params=wss, device="cpu",
                           mega=mega) for mega in (None, False)]
@@ -324,7 +320,7 @@ def test_region_fleet_over_four_cpu_entries_equals_one(monkeypatch):
     """8 sessions at 16 ticks over a 4-entry CPU mesh: every tap and state
     leaf equal to the one-entry fleet's bit for bit (each shard's rows run
     the same twin ops), the batched twin once a shard a block."""
-    wss = _flagship_instances(8)
+    wss = fleet_workspaces(8)
     block, spb = BlockSpec(16), 16 * CFG.samples_per_tick
     one = Fleet.build(wss[0], 8, CFG, block, per_instance_params=wss, device="cpu")
     four = Fleet.build(wss[0], 8, CFG, block, per_instance_params=wss,
